@@ -1,0 +1,69 @@
+"""MX GEMM: the wrapper of the Hopper kernel ``csrc/mx_gemm.cu`` and
+its plain PyTorch version.
+
+``acc = (Qx · 2^sexp) @ Qw`` in f32, unscaled: the caller
+(``kernels.dispatch.mx_matmul``) applies ``s_x · s_w``.  Replaces the
+TPU kernel ``repro.kernels.mx_gemm.mx_gemm_pallas``; the plain version
+follows ``repro.kernels.ref.mx_gemm_ref``.
+
+A CPU tensor takes the plain version.  A CUDA tensor launches the
+kernel, or raises: there is no fallback.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.formats import is_fp8
+from repro_torch.core.quant import mx_operand
+from repro_torch.core.runtime_flags import mm
+
+from ._build import LaunchCounter, check, library
+
+MICRO = 32
+
+counter = LaunchCounter("mx_gemm")
+
+
+def mx_gemm_plain(qx: torch.Tensor, sexp: torch.Tensor,
+                  qw: torch.Tensor) -> torch.Tensor:
+    """(M, K) fp8, (M, K/32) int8, (K, N) fp8 -> (M, N) f32."""
+    return mm(mx_operand(qx, sexp), qw, out_dtype=torch.float32)
+
+
+def _check(qx, sexp, qw):
+    m, k = qx.shape
+    if not (is_fp8(qx) and is_fp8(qw) and sexp.dtype == torch.int8):
+        raise TypeError(f"mx_gemm: dtypes {qx.dtype}, {sexp.dtype}, "
+                        f"{qw.dtype}: expected fp8, int8, fp8")
+    if k % MICRO or sexp.shape != (m, k // MICRO) or qw.shape[0] != k:
+        raise ValueError(f"mx_gemm: shapes {tuple(qx.shape)}, "
+                         f"{tuple(sexp.shape)}, {tuple(qw.shape)}")
+
+
+def mx_gemm(qx: torch.Tensor, sexp: torch.Tensor,
+            qw: torch.Tensor) -> torch.Tensor:
+    """Unscaled MX GEMM accumulation (M, N) f32."""
+    _check(qx, sexp, qw)
+    if qx.device.type == "cpu":
+        return mx_gemm_plain(qx, sexp, qw)
+    dev = qx.device
+    if dev.type != "cuda" or sexp.device != dev or qw.device != dev:
+        raise ValueError(f"mx_gemm: devices {qx.device}, {sexp.device}, "
+                         f"{qw.device}")
+    if not (qx.is_contiguous() and sexp.is_contiguous()
+            and qw.is_contiguous()):
+        raise ValueError("mx_gemm: operands must be contiguous")
+    m, k = qx.shape
+    n = qw.shape[1]
+    out = torch.empty((m, n), dtype=torch.float32, device=dev)
+    vec = int(n % 4 == 0 and qw.data_ptr() % 4 == 0)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = library().mx_gemm_launch(
+            qx.data_ptr(), sexp.data_ptr(), qw.data_ptr(), out.data_ptr(),
+            m, n, k, int(qx.dtype == torch.float8_e5m2),
+            int(qw.dtype == torch.float8_e5m2), vec, stream)
+    check(code, "mx_gemm")
+    counter.hit()
+    return out

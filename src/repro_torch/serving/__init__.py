@@ -1,0 +1,23 @@
+"""Paged-KV continuous-batching serving over the floating page pool:
+``paged_cache`` (page allocator and pool), ``scheduler`` (FIFO
+admission, retirement, TTFT/TPOT, SLO policy) and ``engine``."""
+
+from .engine import Engine, greedy_sample, prepare_weights
+from .paged_cache import (
+    PAGE_SIZE,
+    BlockTable,
+    FloatingPageCache,
+    PageAllocator,
+    PagedCacheError,
+    PageExhausted,
+    SlotCapacityExceeded,
+    page_keys,
+)
+from .scheduler import Request, RequestState, Scheduler, SLOTargets
+
+__all__ = [
+    "Engine", "greedy_sample", "prepare_weights", "PAGE_SIZE",
+    "BlockTable", "FloatingPageCache", "PageAllocator", "PagedCacheError",
+    "PageExhausted", "SlotCapacityExceeded", "page_keys", "Request",
+    "RequestState", "Scheduler", "SLOTargets",
+]

@@ -1,0 +1,347 @@
+"""Continuous-batching serving engine over the floating page pool
+(counterpart of ``repro.serving.engine``, Scheduler v2 on floating
+pages -- the reference's default serving path).
+
+One engine ``step()`` is
+
+  1. retire finished requests (release their pages, shrink them out of
+     the decode batch);
+  2. up to ``Scheduler.chunk_budget()`` chunked-prefill steps: the
+     staging request's next ``chunk_tokens`` prompt tokens run as one
+     (1, chunk) decode-mode step, written at the request's own depth
+     into its own pages; the final chunk's last real logit is the first
+     output token, and the request joins the decode batch;
+  3. one batched (B, 1) decode over the resident rows, every row at its
+     own depth.
+
+Weights are pre-quantized to fp8 at build and the activation scales are
+calibrated at build (one forward over a fixed prompt), as in the
+reference.  Admission is usage-based (a request reserves its prompt plus
+one page); when growth finds the pool dry the reference preempts to
+host, which this slice does not have yet: size the pool fully backed
+(the default) and it never happens.  Not yet
+ported, each raising ``NotImplementedError`` when reached: preemption
+swap-to-host and prefix-cache hits with copy-on-write (ROADMAP queue 1
+item 8), identity placement with the v1 whole-prompt prefill and the
+legacy ``Server`` (next slice), speculative decode (queue 1 item 9),
+quant-health telemetry (queue 1 item 12).
+
+The engine runs on ``device="cuda"`` unless the caller asks for the CPU;
+there it runs the kernels' plain versions.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from collections import deque
+
+import numpy as np
+import torch
+
+from repro_torch.core.actscale import calibrate_act_scales
+from repro_torch.core.runtime_flags import check_serving_env
+from repro_torch.models.transformer import paged_decode_supported
+from repro_torch.train.steps import make_decode_step, prequantize_params
+
+from .paged_cache import (
+    PAGE_SIZE,
+    FloatingPageCache,
+    PageExhausted,
+    SlotCapacityExceeded,
+)
+from .scheduler import Request, Scheduler, SLOTargets
+
+CHUNK_TOKENS = 32
+
+
+def resolve_device(device) -> torch.device:
+    """The engine's device: CUDA unless the caller asks for the CPU.
+    Asking for CUDA on a machine without it raises; nothing falls back
+    to the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("device 'cuda' requested but torch.cuda is not "
+                           "available; pass device='cpu' to run the plain "
+                           "versions on the CPU")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"device {device!r}: expected cuda or cpu")
+    return dev
+
+
+def to_device(tree, device):
+    if isinstance(tree, dict):
+        return {k: to_device(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+def prepare_weights(cfg, params):
+    """Build-time weight preparation: fp8 payloads and per-layer scales
+    (the raw tree and None in bf16 mode).  Returns (tree, scales)."""
+    prequant = prequantize_params(cfg, params)
+    if prequant is None:
+        return params, None
+    return prequant.qweights, prequant.scales
+
+
+def greedy_sample(logits: torch.Tensor) -> torch.Tensor:
+    """(B, S, V) logits -> (B,) argmax of the last position (first
+    index on ties, as ``jnp.argmax``)."""
+    return torch.argmax(logits[:, -1], dim=-1)
+
+
+@dataclasses.dataclass
+class _Staging:
+    """The one request currently chunk-prefilling: its pages are
+    admitted but it has no decode-batch row until the last chunk."""
+    req: Request
+    pos: int                  # next prompt position to chunk-prefill
+
+
+class Engine:
+    """Paged-KV continuous-batching engine (see module docstring)."""
+
+    def __init__(self, cfg, params, num_slots: int, max_len: int, *,
+                 page_size: int = PAGE_SIZE,
+                 num_pages: int | None = None,
+                 chunk_tokens: int = CHUNK_TOKENS,
+                 eos_id: int | None = None,
+                 prefix_cache: bool = False,
+                 slo: SLOTargets | None = None,
+                 device="cuda"):
+        check_serving_env()
+        self.device = resolve_device(device)
+        if cfg.input_mode != "tokens":
+            raise ValueError(f"serving engine drives token models; "
+                             f"{cfg.name} has input_mode="
+                             f"{cfg.input_mode!r}")
+        if prefix_cache:
+            raise NotImplementedError(
+                "prefix-cache hits with copy-on-write: ROADMAP queue 1 "
+                "item 8")
+        if not paged_decode_supported(cfg, max_len, page_size):
+            raise NotImplementedError(
+                f"{cfg.name} max_len={max_len} page_size={page_size}: "
+                "identity placement and the v1 prefill are the next slice "
+                "(floating pages need max_len a whole number of pages)")
+        self.cfg = cfg
+        self.max_len = max_len
+        self.num_slots = num_slots
+        self.eos_id = eos_id
+        with torch.inference_mode():
+            params = to_device(params, self.device)
+            self.params, self.scales = prepare_weights(cfg, params)
+            self.act_scales = calibrate_act_scales(cfg, self.params,
+                                                   self.scales)
+        self.decode = make_decode_step(cfg, scales=self.scales,
+                                       act_scales=self.act_scales)
+        self.kv = FloatingPageCache(cfg, max_len, num_slots,
+                                    page_size=page_size,
+                                    num_pages=num_pages, usage_mode=True,
+                                    device=self.device)
+        self.chunk_tokens = max(1, min(chunk_tokens, self.kv.slot_tokens))
+        self._staging: _Staging | None = None
+        self.chunk_prefill_steps = 0
+        self.chunked_requests = 0
+        self.decode_steps = 0
+        self.decode_seconds = 0.0
+        self.sched = Scheduler(slo=slo)
+        self.requests: dict[int, Request] = {}
+
+    # -- admission -----------------------------------------------------
+    def _total_tokens(self, req: Request) -> int:
+        # worst-case resident K/V: prompt + every decode-step write
+        return req.prompt_len + req.max_new - 1
+
+    def _admit_tokens(self, req: Request) -> int:
+        # usage-based admission: the prompt plus one page of headroom;
+        # growth past it extends page by page
+        return min(self._total_tokens(req),
+                   req.prompt_len + self.kv.page_size)
+
+    def submit(self, requests: list[Request]) -> None:
+        for req in requests:
+            if req.eos_id is None:
+                req.eos_id = self.eos_id
+            total = self._total_tokens(req)
+            if total > self.kv.slot_tokens:
+                raise SlotCapacityExceeded(
+                    f"request {req.rid}: prompt {req.prompt_len} + "
+                    f"max_new {req.max_new} needs {total} cache "
+                    f"positions > slot capacity {self.kv.slot_tokens}")
+            al = self.kv.allocator
+            need = al.pages_needed(self.kv._resident(total))
+            if need > al.num_pages:
+                raise PageExhausted(
+                    f"request {req.rid}: worst-case reservation of "
+                    f"{need} pages exceeds the whole pool "
+                    f"({al.num_pages} pages)")
+            self.requests[req.rid] = req
+        self.sched.submit(requests)
+
+    # -- the engine step -----------------------------------------------
+    @torch.inference_mode()
+    def step(self) -> None:
+        self._retire()
+        self._chunk_phase()
+        self._retire()          # an attached request may finish at once
+        self._decode_once()
+
+    def _retire(self):
+        row = 0
+        while row < len(self.kv.rows):
+            if self.requests[self.kv.rows[row]].done:
+                self.kv.release(row)
+                self.kv.shrink(row)   # swapped-in last row re-checked
+            else:
+                row += 1
+
+    # -- preemption (swap-to-host raises until it is ported) -----------
+    def _preempt_one(self) -> bool:
+        cands = [self.requests[rid] for rid in self.kv.rows
+                 if rid is not None]
+        victim = self.sched.pick_victim(cands)
+        if victim is None:
+            return False
+        self.kv.swap_out(self.kv.rows.index(victim.rid))
+        return True
+
+    def _grow_or_preempt(self, grow) -> None:
+        while True:
+            try:
+                grow()
+                return
+            except PageExhausted:
+                if not self._preempt_one():
+                    raise
+
+    # -- chunked prefill -----------------------------------------------
+    def _begin_staging(self) -> bool:
+        """Pop the queue head into the staging slot when it fits under
+        the actual free-page accounting."""
+        head = self.sched.peek()
+        if head is None or len(self.kv.rows) >= self.num_slots:
+            return False
+        admit = self._admit_tokens(head)
+        if not self.kv.can_admit(admit):
+            return False          # stays queued (backpressure)
+        req = self.sched.pop()
+        self.kv.stage_admit(req.rid, admit)
+        self._staging = _Staging(req=req, pos=0)
+        self.chunked_requests += 1
+        return True
+
+    def _chunk_step(self) -> None:
+        """One (1, chunk_tokens) prefill chunk of the staging request;
+        the final chunk emits the first output token and attaches the
+        request to the decode batch."""
+        st = self._staging
+        req, plen = st.req, st.req.prompt_len
+        chunk = self.chunk_tokens
+        n_real = min(chunk, plen - st.pos)
+        toks = np.zeros((1, chunk), np.int32)
+        toks[0, :n_real] = req.prompt[st.pos:st.pos + n_real]
+        self._grow_or_preempt(
+            lambda: self.kv.stage_ensure(req.rid, st.pos, st.pos + n_real))
+        self.kv.stage_stamp(req.rid, st.pos)
+        logits, self.kv.caches = self.decode(
+            self.params, self.kv.caches,
+            torch.from_numpy(toks).to(self.device))
+        self.chunk_prefill_steps += 1
+        st.pos += n_real
+        if st.pos < plen:
+            return
+        first = int(torch.argmax(logits[0, n_real - 1]))
+        self.kv.stage_attach(req.rid, plen)
+        self._staging = None
+        self.sched.on_token(req, first)
+
+    def _chunk_phase(self):
+        budget = self.sched.chunk_budget()
+        while budget > 0:
+            if self._staging is None and not self._begin_staging():
+                return
+            self._chunk_step()
+            budget -= 1
+
+    # -- decode --------------------------------------------------------
+    def _decode_once(self):
+        self._grow_or_preempt(
+            lambda: self.kv.prepare_decode() if self.kv.rows else None)
+        rows = self.kv.rows
+        if not rows:
+            return
+        feed = np.zeros((len(rows), 1), np.int32)
+        for i, rid in enumerate(rows):
+            feed[i, 0] = self.requests[rid].out[-1]
+        t0 = time.perf_counter()
+        logits, self.kv.caches = self.decode(
+            self.params, self.kv.caches,
+            torch.from_numpy(feed).to(self.device))
+        self.kv.advance()
+        nxt = greedy_sample(logits).cpu().numpy()
+        self.decode_seconds += time.perf_counter() - t0
+        self.decode_steps += 1
+        for i, rid in enumerate(list(rows)):
+            self.sched.on_token(self.requests[rid], int(nxt[i]))
+
+    # -- the serving loop ----------------------------------------------
+    def _idle(self) -> bool:
+        return not (self.sched.queue or self.kv.rows
+                    or self._staging is not None)
+
+    def run(self, requests: list[Request] | None = None, log=print):
+        """Drain the queue; returns the requests that finished during
+        this call.  Requests with an ``arrival_time`` are submitted at
+        that offset from the call's start, the rest up front."""
+        requests = requests or []
+        pending = deque(sorted(
+            (r for r in requests if r.arrival_time is not None),
+            key=lambda r: r.arrival_time))
+        now_batch = [r for r in requests if r.arrival_time is None]
+        if now_batch:
+            self.submit(now_batch)
+        done_before = {rid for rid, r in self.requests.items() if r.done}
+        toks_before = sum(len(r.out) for r in self.requests.values())
+        t0 = time.monotonic()
+        steps = 0
+        while pending or not self._idle():
+            now = time.monotonic() - t0
+            while pending and pending[0].arrival_time <= now:
+                self.submit([pending.popleft()])
+            if self._idle():
+                time.sleep(min(pending[0].arrival_time - now, 0.05))
+                continue
+            self.step()
+            steps += 1
+            if steps > 100_000:
+                raise RuntimeError("serving loop did not converge")
+        dt = time.monotonic() - t0
+        done = [r for rid, r in self.requests.items()
+                if r.done and rid not in done_before]
+        toks = sum(len(r.out) for r in self.requests.values()) \
+            - toks_before
+        if log is not None:
+            ttfts = [r.ttft for r in done if r.ttft is not None]
+            tpots = [r.tpot for r in done if r.tpot is not None]
+            mean = lambda v: float(np.mean(v)) if v else float("nan")
+            log(f"served {len(done)} requests, {toks} tokens in "
+                f"{dt:.2f}s ({toks / max(dt, 1e-9):,.1f} tok/s, "
+                f"{steps} engine steps, mean TTFT "
+                f"{1e3 * mean(ttfts):.1f} ms, mean TPOT "
+                f"{1e3 * mean(tpots):.1f} ms)")
+        return done
+
+    def stats(self) -> dict:
+        s = self.sched.summary()
+        al = self.kv.allocator
+        s.update({
+            "chunk_prefill_steps": self.chunk_prefill_steps,
+            "chunked_requests": self.chunked_requests,
+            "decode_steps": self.decode_steps,
+            "mean_decode_step_s": (self.decode_seconds / self.decode_steps
+                                   if self.decode_steps else None),
+            "page_evictions": al.evictions,
+            "peak_pool_pages": al.peak_used,
+        })
+        return s

@@ -1,0 +1,176 @@
+"""The port's three kernels: each plain PyTorch version against the
+reference's Pallas kernel in interpret mode and against its jnp oracle,
+on the CPU.  (Each Hopper kernel against its plain version, on a card:
+tests/test_torch_cuda.py.)
+
+Tolerances: quantized payloads (q, sexp) are bitwise.  GEMM
+accumulations agree within 1e-5 * max|ref|: every product of a bf16
+and an fp8 value is exact in f32, so only the order of the f32 sums
+differs.  Decode attention agrees within 1e-5 absolute: f32 sums and
+the softmax's exp in another order/implementation."""
+
+import jax.numpy as jnp
+import ml_dtypes
+import numpy as np
+import pytest
+import torch
+
+from repro.core.quant import PerTensorQ as JPerTensorQ
+from repro.core.quant import quant_mx as jquant_mx
+from repro.kernels import dispatch as jdispatch
+from repro.kernels import ref as jref
+from repro.kernels.decode_attn import decode_attn_paged_pallas
+
+from repro_torch import bridge
+from repro_torch.core.quant import PerTensorQ, quant_mx, quant_per_tensor
+from repro_torch.kernels import dispatch, mx_gemm
+
+GEMM_SHAPES = [(5, 96, 200), (16, 256, 72), (1, 32, 33)]
+
+
+def _x(m, k, seed, outliers=True):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((m, k)).astype(np.float32)
+    if outliers:
+        x *= 1 + 300.0 * (rng.random((m, k)) < 0.01)
+    x[0, :32] = 0.0                         # an all-zero group
+    if k >= 96:
+        x[-1, 64:96] *= 1e-30               # a tiny-magnitude group
+    return x
+
+
+def _w(k, n, seed, fmt):
+    rng = np.random.default_rng(seed + 1)
+    w = (rng.standard_normal((k, n)) * 0.05).astype(np.float32)
+    return quant_per_tensor(torch.tensor(w), fmt)
+
+
+def _np(t):
+    return np.asarray(t, np.float32)
+
+
+def _close(got, want, rel=1e-5):
+    got, want = _np(got), _np(want)
+    tol = rel * max(float(np.abs(want).max()), 1e-30)
+    assert np.abs(got - want).max() <= tol, \
+        (float(np.abs(got - want).max()), tol)
+
+
+_ML = {torch.float8_e4m3fn: ml_dtypes.float8_e4m3fn,
+       torch.float8_e5m2: ml_dtypes.float8_e5m2,
+       torch.bfloat16: ml_dtypes.bfloat16}
+
+
+def _jax(t: torch.Tensor):
+    """A torch tensor as a JAX array with the same bits."""
+    if t.dtype in _ML:
+        return jnp.asarray(bridge.bits(t).view(_ML[t.dtype]))
+    return jnp.asarray(t.numpy())
+
+
+@pytest.mark.parametrize("m,k,n", GEMM_SHAPES)
+@pytest.mark.parametrize("fmt", ["e4m3", "e5m2"])
+def test_mx_gemm_plain_matches_pallas_and_ref(m, k, n, fmt):
+    xq = quant_mx(torch.tensor(_x(m, k, m + n)), 32, fmt)
+    wq = _w(k, n, m, "e4m3")
+    got = mx_gemm.mx_gemm(xq.q, xq.sexp, wq.q)          # CPU: plain
+    qx, se, qw = _jax(xq.q), jnp.asarray(xq.sexp.numpy()), _jax(wq.q)
+    ref = jref.mx_gemm_ref(qx, se, qw)
+    one = jnp.float32(1.0)
+    from repro.core.quant import MxQ as JMxQ
+    pallas = jdispatch.mx_matmul(JMxQ(qx, se, one), JPerTensorQ(qw, one),
+                                 out_dtype=jnp.float32, backend="interpret")
+    assert got.shape == (m, n) and got.dtype == torch.float32
+    _close(got, ref)
+    _close(got, pallas)
+
+
+@pytest.mark.parametrize("m,k,n", GEMM_SHAPES)
+@pytest.mark.parametrize("fmt", ["e4m3", "e5m2"])
+def test_fused_quant_gemm_plain_matches_pallas_and_ref(m, k, n, fmt):
+    x = _x(m, k, 3 * m + n)
+    wq = _w(k, n, m, fmt)
+    y, xq = dispatch.fused_quant_matmul(
+        torch.tensor(x), PerTensorQ(wq.q, torch.tensor(1.0)), fmt,
+        out_dtype=torch.float32)
+    qw = _jax(wq.q)
+    one = jnp.float32(1.0)
+    yp, xqp = jdispatch.fused_quant_matmul(
+        jnp.asarray(x), JPerTensorQ(qw, one), fmt, out_dtype=jnp.float32,
+        backend="interpret")
+    jq = jquant_mx(jnp.asarray(x), 32, fmt)
+    for ref_q, ref_e in ((xqp.q, xqp.sexp), (jq.q, jq.sexp)):
+        np.testing.assert_array_equal(bridge.bits(xq.q),
+                                      np.asarray(ref_q).view(np.uint8))
+        np.testing.assert_array_equal(xq.sexp.numpy(), np.asarray(ref_e))
+    np.testing.assert_array_equal(bridge.bits(xq.s).view(np.uint32),
+                                  np.asarray(xqp.s).view(np.uint32))
+    _close(y, yp)
+    _close(y, jref.mx_gemm_ref(jq.q, jq.sexp, qw) * xqp.s)
+
+
+# --- paged decode attention ----------------------------------------------
+
+B, KV, G, DH, T, NP, POOL = 3, 2, 4, 32, 16, 4, 16
+
+
+def _paged(seed, kv_dtype):
+    """Queries, a scrambled pool (rows off the table hold garbage) and a
+    block table; n_valid mixes a partial last page, a single token and
+    a full slot."""
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B, KV, G, DH)).astype(np.float32)
+    k = rng.standard_normal((POOL, KV, T, DH)).astype(np.float32)
+    v = rng.standard_normal((POOL, KV, T, DH)).astype(np.float32)
+    bt = rng.permutation(POOL)[:B * NP].reshape(B, NP).astype(np.int32)
+    nv = np.array([37, 1, NP * T], np.int32)
+    tk, tv = torch.tensor(k), torch.tensor(v)
+    if kv_dtype == "fp8":
+        from repro_torch.models.attention import _quant_kv
+
+        (tk, ks), (tv, vs) = _quant_kv(tk), _quant_kv(tv)
+    else:
+        tk, tv, ks, vs = tk.bfloat16(), tv.bfloat16(), None, None
+    return q, tk, tv, ks, vs, nv, bt
+
+
+@pytest.mark.parametrize("kv_dtype", ["fp8", "bf16"])
+def test_decode_attn_paged_plain_matches_pallas_and_ref(kv_dtype):
+    q, k, v, ks, vs, nv, bt = _paged(11, kv_dtype)
+    sm = DH ** -0.5
+    got = dispatch.decode_attention_paged(
+        torch.tensor(q), k, v, ks, vs, torch.tensor(nv), torch.tensor(bt),
+        sm_scale=sm)
+    jk, jv = _jax(k), _jax(v)
+    jks = None if ks is None else jnp.asarray(ks.numpy())
+    jvs = None if vs is None else jnp.asarray(vs.numpy())
+    ref = jref.decode_attn_paged_ref(jnp.asarray(q), jk, jv, jks, jvs,
+                                     jnp.asarray(nv), jnp.asarray(bt),
+                                     sm_scale=sm)
+    qp = jnp.pad(jnp.asarray(q), ((0, 0), (0, 0), (0, 8 - G), (0, 0)))
+    pallas = decode_attn_paged_pallas(
+        qp, jk, jv, jks, jvs, jnp.asarray(nv), jnp.asarray(bt),
+        sm_scale=sm, interpret=True)[:, :, :G]
+    assert got.shape == (B, KV, G, DH)
+    np.testing.assert_allclose(_np(got), _np(ref), rtol=0, atol=1e-5)
+    np.testing.assert_allclose(_np(got), _np(pallas), rtol=0, atol=1e-5)
+
+
+def test_decode_attn_never_reads_past_the_frontier():
+    """Poisoning every slot at or past n_valid (NaN payloads, NaN
+    scales) must not change the plain version's output."""
+    q, k, v, ks, vs, nv, bt = _paged(5, "fp8")
+    sm = DH ** -0.5
+    args = (torch.tensor(q), k, v, ks, vs, torch.tensor(nv),
+            torch.tensor(bt))
+    clean = dispatch.decode_attention_paged(*args, sm_scale=sm)
+    k2, v2, ks2, vs2 = k.clone(), v.clone(), ks.clone(), vs.clone()
+    for b in range(B):
+        for t in range(int(nv[b]), NP * T):
+            p, o = bt[b, t // T], t % T
+            ks2[p, :, o] = float("nan")
+            vs2[p, :, o] = 1e30
+    poisoned = dispatch.decode_attention_paged(
+        torch.tensor(q), k2, v2, ks2, vs2, torch.tensor(nv),
+        torch.tensor(bt), sm_scale=sm)
+    np.testing.assert_array_equal(_np(clean), _np(poisoned))
