@@ -225,13 +225,15 @@ def phase_kernels(torch, timer) -> dict:
                                                            sm_scale=sm))
         tp = timer.ms(lambda: decode_attn.decode_attn_paged_plain(
             *args, sm_scale=sm))
+        # the function's work is the G = 1 real query row of each
+        # (b, kv-head): dispatch pads the rows to 8 and slices them off
         live = int(nv.sum())
         elt = 1 if kv_dtype == "fp8" else 2
-        nbytes = (4 * b_ * kvh * rows * dh * 2          # q in, out
+        nbytes = (b_ * kvh * dh * (2 + 4)               # q (bf16), out f32
                   + 2 * live * kvh * dh * elt           # live K and V
                   + (2 * live * kvh * 4 if ks is not None else 0)
                   + 4 * b_ + 4 * b_ * n_p)              # n_valid, table
-        b, by = bound_ms(nbytes, 4.0 * live * kvh * dh)  # G = 1 real row
+        b, by = bound_ms(nbytes, 4.0 * live * kvh * dh)
         print(f"decode_attn_paged {kv_dtype} B={b_} KV={kvh} Dh={dh} T={t_} "
               f"n_valid={nv.tolist()}: max_err {err:.3g}, {t:.4f} ms, plain "
               f"{tp:.4f} ms, library none, bound {b * 1e3:.2f} us ({by})")

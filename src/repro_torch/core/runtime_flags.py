@@ -18,10 +18,12 @@ Serving flags
     has no environment switches of its own: the serving path it
     implements is the reference's default one (pre-quantized fp8
     weights, delayed activation scales, floating pages, chunked
-    prefill, usage-based admission); ``REPRO_KV_CACHE`` is honoured
-    (``models.attention.resolve_kv_cache_dtype``).  ``check_serving_env``
-    refuses a reference switch set to a value the port cannot honour,
-    naming the ROADMAP entry that will bring it.
+    prefill, usage-based admission).  ``check_serving_env`` refuses a
+    reference switch set to a value the port cannot honour, naming the
+    ROADMAP entry that will bring it.  The KV-cache dtype is the
+    config's ``kv_cache_dtype`` alone: ``REPRO_KV_CACHE``, the
+    reference's override of it, is refused whenever it is set, so that
+    it cannot be silently ignored.
 """
 
 from __future__ import annotations
@@ -56,6 +58,10 @@ def check_serving_env() -> None:
     """Raise ``NotImplementedError`` when a reference serving switch is
     set to a value this port does not implement (an unset or default
     value is fine)."""
+    if os.environ.get("REPRO_KV_CACHE", "").strip():
+        raise NotImplementedError(
+            "REPRO_KV_CACHE is not read by the port: set the config's "
+            "kv_cache_dtype instead")
     for name, (value, entry) in _SERVING_ENV.items():
         got = os.environ.get(name, "").strip()
         if got and got != value:

@@ -16,7 +16,6 @@ returns a cache whose ``idx`` has advanced.
 
 from __future__ import annotations
 
-import os
 from typing import NamedTuple
 
 import torch
@@ -76,21 +75,12 @@ def attn_defs(cfg):
     }
 
 
-def resolve_kv_cache_dtype(cfg) -> str:
-    """KV-cache storage dtype: the reference's ``REPRO_KV_CACHE``
-    override, else the config's (default "fp8")."""
-    env = os.environ.get("REPRO_KV_CACHE", "").strip()
-    if env and env not in ("bf16", "fp8"):
-        raise ValueError(f"REPRO_KV_CACHE={env!r}: expected bf16 or fp8")
-    return env or cfg.kv_cache_dtype
-
-
 def init_page_pool(cfg, num_pages: int, page_size: int, n_layers: int,
                    device) -> tuple:
     """Zeroed (L, P, KV, T, Dh) payloads and (L, P, KV, T) scales (or
     None) for one segment's floating-page pool."""
     shape = (n_layers, num_pages, cfg.n_kv, page_size, cfg.head_dim)
-    if resolve_kv_cache_dtype(cfg) == "fp8":
+    if cfg.kv_cache_dtype == "fp8":
         z = lambda shp, dt: torch.zeros(shp, dtype=dt, device=device)
         return (z(shape, torch.float8_e4m3fn), z(shape, torch.float8_e4m3fn),
                 z(shape[:-1], torch.float32), z(shape[:-1], torch.float32))

@@ -23,7 +23,7 @@ from repro_torch.core.linear import QT, qlinear
 class PDef(NamedTuple):
     shape: tuple[int, ...]
     logical: tuple[str | None, ...]
-    init: str = "normal"              # normal | zeros | ones | embed
+    init: str = "normal"              # normal | zeros | embed
     quantized: bool = False
     dtype: Any = torch.float32
 
@@ -41,8 +41,6 @@ def init_param(d: PDef, gen: torch.Generator,
     ``gen`` must live on ``device``."""
     if d.init == "zeros":
         return torch.zeros(d.shape, dtype=d.dtype, device=device)
-    if d.init == "ones":
-        return torch.ones(d.shape, dtype=d.dtype, device=device)
     x = torch.empty(d.shape, dtype=d.dtype, device=device)
     if d.init == "embed":
         return x.normal_(0.0, 0.02, generator=gen)
@@ -90,25 +88,11 @@ def rmsnorm(x, scale, eps=1e-5):
     return (y * (1.0 + scale.to(torch.float32))).to(x.dtype)
 
 
-def layernorm(x, scale, bias, eps=1e-5):
-    xf = x.to(torch.float32)
-    mu = xf.mean(dim=-1, keepdim=True)
-    var = ((xf - mu) ** 2).mean(dim=-1, keepdim=True)
-    y = (xf - mu) * torch.rsqrt(var + eps)
-    return (y * scale.to(torch.float32)
-            + bias.to(torch.float32)).to(x.dtype)
-
-
 def norm_defs(cfg, d: int):
-    if cfg.norm == "layernorm":
-        return {"scale": PDef((d,), (None,), "ones"),
-                "bias": PDef((d,), (None,), "zeros")}
     return {"scale": PDef((d,), (None,), "zeros")}   # rmsnorm (1+scale)
 
 
 def apply_norm(cfg, p, x):
-    if cfg.norm == "layernorm":
-        return layernorm(x, p["scale"], p["bias"], cfg.norm_eps)
     return rmsnorm(x, p["scale"], cfg.norm_eps)
 
 

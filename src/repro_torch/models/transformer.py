@@ -58,6 +58,7 @@ def _unsupported(cfg) -> list[str]:
             cfg.pos_embedding not in ("rope", "none"),
         f"attn_type {cfg.attn_type!r}": cfg.attn_type != "full",
         f"act {cfg.act!r}": cfg.act != "swiglu",
+        f"norm {cfg.norm!r}": cfg.norm != "rmsnorm",
         "qk_norm": cfg.qk_norm,
         "logit_softcap": cfg.logit_softcap > 0,
         "tie_embeddings": cfg.tie_embeddings,

@@ -1,7 +1,9 @@
 """Request admission + slot lifecycle for the paged serving engine
-(a copy of ``repro.serving.scheduler``; the metrics-registry mirror of
-``repro.obs`` is left out until observability is ported, ROADMAP
-queue 1 item 12).
+(a copy of ``repro.serving.scheduler``, less what this slice does not
+run: the metrics-registry mirror of ``repro.obs`` waits for
+observability, ROADMAP queue 1 item 12; the speculative-decode
+accept-rate EMA for speculative decode, item 9; the prefix-cache hit
+counts for prefix-hit copy-on-write, item 8).
 
 Host-side and model-free by design: the scheduler owns the FIFO
 queue, request state transitions (QUEUED -> RUNNING [-> PREEMPTED ->
@@ -58,13 +60,6 @@ class Request:
     t_submit: float | None = None
     t_first: float | None = None
     t_last: float | None = None
-    # stamped at admission by the engine's prefix-cache plan
-    # (docs/paged-attention.md): physical pages mapped from prefix-
-    # hash hits, and prompt tokens whose prefill was skipped (served
-    # from the shared pages; the unshared suffix chunk-prefills at an
-    # offset)
-    prefix_pages: int = 0
-    prefill_skipped: int = 0
 
     @property
     def prompt_len(self) -> int:
@@ -117,13 +112,6 @@ class Scheduler:
         self.slo = slo or SLOTargets()
         self.queue: deque[Request] = deque()
         self.all: list[Request] = []
-        # speculative-decode accept-rate EMA (docs/speculative-
-        # decoding.md): starts optimistic so the first steps probe the
-        # full draft length, then tracks the trace
-        self.accept_rate: float = 1.0
-        self.verify_steps: int = 0
-        self.drafted: int = 0
-        self.accepted: int = 0
 
     def submit(self, requests) -> None:
         now = self.clock()
@@ -155,30 +143,6 @@ class Scheduler:
         if hit_stop(req, token):
             req.state = RequestState.FINISHED
         return req.done
-
-    def on_verify(self, proposed: int, accepted: int) -> None:
-        """Record one speculative verify step: ``proposed`` draft
-        tokens were gambled on across the batch, ``accepted`` of them
-        matched the model's own argmaxes.  Updates the accept-rate EMA
-        (0.8·prev + 0.2·step — slow enough to ride out one adversarial
-        window, fast enough to follow a phase change in the trace)."""
-        self.verify_steps += 1
-        self.drafted += int(proposed)
-        self.accepted += int(accepted)
-        if proposed > 0:
-            self.accept_rate = (0.8 * self.accept_rate
-                                + 0.2 * accepted / proposed)
-
-    def draft_len(self, k_max: int) -> int:
-        """Accept-rate-aware draft length for the next verify step:
-        scale the configured maximum by the EMA, floored at 2 — a
-        verify step below 2 proposes nothing, so the EMA would freeze
-        at its low-water mark and never recover.  (The engine may
-        still clamp to 1 for capacity/budget reasons; that bypasses
-        this policy, not the EMA.)"""
-        if k_max <= 2:
-            return max(1, k_max)
-        return max(2, min(k_max, round(k_max * self.accept_rate)))
 
     # -- SLO policy ----------------------------------------------------
     def chunk_budget(self) -> int:
@@ -223,8 +187,7 @@ class Scheduler:
         p50/p99 percentiles ride alongside the means — heavy-traffic
         scheduling is judged on tails, not averages.
 
-        Undefined aggregates (no finished requests, no drafted tokens)
-        are ``None``, never NaN: the dict must stay valid JSON."""
+        Undefined aggregates (no finished requests) are ``None``, never NaN: the dict must stay valid JSON."""
         done = [r for r in self.all if r.done]
         toks = sum(len(r.out) for r in done)
         ttfts = [r.ttft for r in done if r.ttft is not None]
@@ -245,13 +208,5 @@ class Scheduler:
             "p99_ttft_s": pct(ttfts, 99),
             "p50_tpot_s": pct(tpots, 50),
             "p99_tpot_s": pct(tpots, 99),
-            "prefix_hit_requests": sum(r.prefix_pages > 0 for r in done),
-            "prefill_tokens_skipped": sum(r.prefill_skipped
-                                          for r in done),
-            "spec_verify_steps": self.verify_steps,
-            "spec_drafted": self.drafted,
-            "spec_accepted": self.accepted,
-            "spec_accept_rate": (self.accepted / self.drafted
-                                 if self.drafted else None),
         }
         return s

@@ -129,6 +129,14 @@ def test_engine_refuses_unported_reference_switch(monkeypatch):
         _port_engine()
 
 
+def test_engine_refuses_kv_cache_env_override(monkeypatch):
+    # the pool dtype is the config's alone; the reference's override
+    # must not be silently ignored
+    monkeypatch.setenv("REPRO_KV_CACHE", "bf16")
+    with pytest.raises(NotImplementedError, match="kv_cache_dtype"):
+        _port_engine()
+
+
 # --- scheduler units (model-free), from the reference's own cases -------
 
 
@@ -416,3 +424,49 @@ def _reference_child(inp: str, out: str) -> None:
 
 if __name__ == "__main__":
     _reference_child(sys.argv[1], sys.argv[2])
+
+
+# --- the serving profiler's trace summary -------------------------------
+
+
+def test_profile_summary_attributes_card_time_to_steps():
+    from repro_torch.launch.profile_serve import summarize
+
+    def x(cat, name, ts, dur, corr=None):
+        e = {"ph": "X", "cat": cat, "name": name, "ts": ts, "dur": dur}
+        if corr is not None:
+            e["args"] = {"correlation": corr}
+        return e
+
+    long1, long2 = ("void other<" + "a" * 90 + t for t in ("1>", "2>"))
+    trace = {"traceEvents": [
+        x("user_annotation", "decode_step", 0.0, 100.0),
+        x("user_annotation", "prefill_chunk", 200.0, 200.0),
+        x("cuda_runtime", "cudaLaunchKernel", 5.0, 1.0, 1),
+        x("cuda_runtime", "cudaLaunchKernel", 6.0, 1.0, 2),
+        x("cuda_runtime", "cudaLaunchKernel", 210.0, 1.0, 3),
+        x("cuda_runtime", "cudaLaunchKernel", 150.0, 1.0, 4),
+        x("cuda_runtime", "cudaLaunchKernel", 220.0, 1.0, 5),
+        x("cuda_runtime", "cudaLaunchKernel", 230.0, 1.0, 6),
+        x("kernel", "mx_gemm_kernel(args)", 10.0, 30.0, 1),
+        x("kernel", "void other<b>", 30.0, 30.0, 2),   # overlaps: union 50
+        x("kernel", long1, 250.0, 60.0, 3),
+        x("kernel", "mx_gemm_kernel(args)", 310.0, 40.0, 5),
+        x("kernel", long2, 360.0, 20.0, 6),
+        x("gpu_memcpy", "Memcpy HtoD", 160.0, 10.0, 4),  # between steps
+    ]}
+    s = summarize(trace)
+    d, p, run = s["decode_step"], s["prefill_chunk"], s["run"]
+    assert (d["steps"], d["launches"], p["launches"]) == (1, 2, 3)
+    assert d["host_span_ms"] == pytest.approx(0.1)
+    assert d["card_busy_ms"] == pytest.approx(0.05)
+    assert d["card_ms_port_kernels"] == pytest.approx(0.03)
+    assert d["card_ms_other_kernels"] == pytest.approx(0.03)
+    # names are cut to 80 characters; kernels that share the cut name
+    # are summed, not overwritten
+    assert p["card_ms_by_kernel"] == pytest.approx(
+        {"mx_gemm_kernel(args)": 0.04, long1[5:85]: 0.08})
+    assert p["card_busy_ms"] == pytest.approx(0.12)
+    assert run["wall_ms"] == pytest.approx(0.4)
+    assert run["card_busy_ms"] == pytest.approx(0.18)
+    assert run["card_idle_share"] == pytest.approx(0.55)
