@@ -7,17 +7,26 @@ Phases, each fatal on failure:
   1. the card: name and power limit, torch and CUDA versions;
   2. the build: compiles the Hopper kernels of src/repro_torch/csrc;
   3. the kernels: each kernel against its plain PyTorch version at the
-     full-width phi3-mini-3.8b shapes of the serving path, with its time
-     (CUDA events, median of 20 cold-L2 launches), the plain version's,
-     the bound (bytes over 3.35 TB/s or operations over 989 TFLOP/s,
-     whichever is larger) and a PyTorch library call where one computes
-     the same function;
+     shapes its path gives it -- full-width phi3-mini-3.8b serving
+     shapes for mx_gemm, the calibration fused_quant_gemm and paged
+     decode attention, and olmo-7b training shapes (M = 2048 tokens) for
+     fused_quant_gemm_tiled (fused_quant_gemm's M > 32 tile: forward
+     e4m3, dx e5m2 on the transposed weights) and mx_dw_gemm -- with
+     its time (CUDA events, median of 20 cold-L2 launches), the plain
+     version's, the bound (bytes over 3.35 TB/s or operations over 989
+     TFLOP/s, whichever is larger) and a PyTorch library call where one
+     computes the same function;
   4. the engine: phi3-mini-3.8b at full width on random weights from a
-     seed serves 8 requests through the paged engine; every kernel must
-     have been launched on that path; a second run from the same seed
-     must give the same streams; the port on the card must agree with
-     the port on the CPU on a smoke-size model;
-  5. the kernels line (JSON), the card line, and the last line
+     seed serves 8 requests through the paged engine; every serving
+     kernel must have been launched on that path; a second run from the
+     same seed must give the same streams; the port on the card must
+     agree with the port on the CPU on a smoke-size model;
+  5. training: olmo-7b at full width, depth cut to 4 layers, takes 3
+     moss and 3 bf16 steps of batch 1 x 2048 tokens from the same
+     weights and batches; both training kernels must have been launched
+     on that path; the smoke-size olmo-7b trains 3 steps on the card
+     and on the CPU from the same state and batches;
+  6. the kernels line (JSON), the card line, and the last line
      {"ok": true, "device": {...}}.
 
 Imports nothing of JAX and nothing of the JAX package.
@@ -37,15 +46,23 @@ HBM_BYTES_PER_S = 3.35e12           # H100 SXM data sheet
 BF16_FLOPS = 989e12                 # dense bf16 tensor-core peak
 ARCH = "phi3-mini-3.8b"
 GEMM_KN = [(3072, 3072), (3072, 8192), (8192, 3072), (3072, 32064)]
+TRAIN_ARCH = "olmo-7b"
+TRAIN_LAYERS = 4                    # of 32: f32 master + grads + moments
+TRAIN_M = 2048                      # batch 1 x seq 2048 (paper Table 8)
+TRAIN_KN = [(4096, 4096), (4096, 11008), (11008, 4096), (4096, 50304)]
 REPLACES = {
     "mx_gemm": "src/repro/kernels/mx_gemm.py:61",
     "fused_quant_gemm": "src/repro/kernels/mx_fused.py:101",
+    "fused_quant_gemm_tiled": "src/repro/kernels/mx_fused.py:101",
     "decode_attn_paged": "src/repro/kernels/decode_attn.py:408",
+    "mx_dw_gemm": "src/repro/kernels/mx_bwd.py:102",
 }
 SOURCES = {
     "mx_gemm": "src/repro_torch/csrc/mx_gemm.cu",
     "fused_quant_gemm": "src/repro_torch/csrc/mx_fused.cu",
+    "fused_quant_gemm_tiled": "src/repro_torch/csrc/mx_fused.cu",
     "decode_attn_paged": "src/repro_torch/csrc/decode_attn.cu",
+    "mx_dw_gemm": "src/repro_torch/csrc/mx_dw_gemm.cu",
 }
 
 
@@ -196,13 +213,12 @@ def phase_kernels(torch, timer) -> dict:
     res["fused_quant_gemm"]["max_abs_err"] = worst
 
     # -- decode_attn_paged: B=4, KV=32, Dh=96, T=16, 4 pages a slot ----
-    b_, kvh, dh, t_, n_p, rows = 4, 32, 96, 16, 4, 8
+    # (the G = 1 query row of each (slot, kv-head), as dispatch passes it)
+    b_, kvh, dh, t_, n_p = 4, 32, 96, 16, 4
     pool = b_ * n_p + 1
     worst = 0.0
     for kv_dtype in ("fp8", "bf16"):
-        q = torch.zeros(b_, kvh, rows, dh, device="cuda")
-        q[:, :, :1] = torch.randn(b_, kvh, 1, dh, device="cuda",
-                                  generator=gen)
+        q = torch.randn(b_, kvh, 1, dh, device="cuda", generator=gen)
         kf = torch.randn(pool, kvh, t_, dh, device="cuda", generator=gen)
         vf = torch.randn(pool, kvh, t_, dh, device="cuda", generator=gen)
         if kv_dtype == "fp8":
@@ -225,8 +241,7 @@ def phase_kernels(torch, timer) -> dict:
                                                            sm_scale=sm))
         tp = timer.ms(lambda: decode_attn.decode_attn_paged_plain(
             *args, sm_scale=sm))
-        # the function's work is the G = 1 real query row of each
-        # (b, kv-head): dispatch pads the rows to 8 and slices them off
+        # the function's work: the G = 1 query row of each (b, kv-head)
         live = int(nv.sum())
         elt = 1 if kv_dtype == "fp8" else 2
         nbytes = (b_ * kvh * dh * (2 + 4)               # q (bf16), out f32
@@ -234,7 +249,8 @@ def phase_kernels(torch, timer) -> dict:
                   + (2 * live * kvh * 4 if ks is not None else 0)
                   + 4 * b_ + 4 * b_ * n_p)              # n_valid, table
         b, by = bound_ms(nbytes, 4.0 * live * kvh * dh)
-        print(f"decode_attn_paged {kv_dtype} B={b_} KV={kvh} Dh={dh} T={t_} "
+        print(f"decode_attn_paged {kv_dtype} B={b_} KV={kvh} G=1 Dh={dh} "
+              f"T={t_} "
               f"n_valid={nv.tolist()}: max_err {err:.3g}, {t:.4f} ms, plain "
               f"{tp:.4f} ms, library none, bound {b * 1e3:.2f} us ({by})")
         if kv_dtype == "fp8":
@@ -242,6 +258,99 @@ def phase_kernels(torch, timer) -> dict:
                                             library_ms=None, bound_ms=b,
                                             bound_by=by)
     res["decode_attn_paged"]["max_abs_err"] = worst
+    return res
+
+
+def phase_train_kernels(torch, timer) -> dict:
+    """fused_quant_gemm (forward e4m3 on bf16 activations, dx e5m2 on
+    the f32 gradient against the transposed weights) and mx_dw_gemm at
+    olmo-7b training shapes."""
+    from repro_torch.core.quant import mx_operand, quant_per_tensor
+    from repro_torch.kernels import dispatch, mx_bwd, mx_fused
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    m = TRAIN_M
+    res = {}
+    worst_f = worst_d = 0.0
+    for k, n in TRAIN_KN:
+        w = torch.randn(k, n, device="cuda", generator=gen) / k ** 0.5
+        qw = quant_per_tensor(w).q
+        del w
+        x = _activations(torch, gen, m, k)
+        g = torch.randn(m, n, device="cuda", generator=gen) * 1e-3
+        qwt = qw.T.contiguous()
+        for what, xin, wq, fmt in (("fwd", x, qw, "e4m3"),
+                                   ("dx", g, qwt, "e5m2")):
+            kk, nn = wq.shape
+            s = dispatch.global_scale(xin, fmt)
+            acc, q, se = mx_fused.fused_quant_gemm(xin, s, wq, fmt)
+            acc_p, q_p, se_p = mx_fused.fused_quant_gemm_plain(xin, s, wq,
+                                                               fmt)
+            q_mis = int((q.view(torch.uint8) != q_p.view(torch.uint8))
+                        .sum())
+            e_mis = int((se != se_p).sum())
+            err = float((acc - acc_p).abs().max())
+            scale = float(acc_p.abs().max())
+            print(f"fused_quant_gemm {what} {fmt} M={m} K={kk} N={nn}: "
+                  f"max_err {err:.3g} (max|ref| {scale:.3g}), payload "
+                  f"mismatches q {q_mis} / sexp {e_mis}", end="")
+            if q_mis or e_mis or not (err <= 1e-5 * scale
+                                      and torch.isfinite(acc).all()):
+                print()
+                raise AssertionError(f"fused_quant_gemm {what} K={kk} "
+                                     f"N={nn}")
+            worst_f = max(worst_f, err)
+            opnd, wb = mx_operand(q_p, se_p), wq.to(torch.bfloat16)
+            del acc, acc_p, q, se
+            t = timer.ms(lambda: mx_fused.fused_quant_gemm(xin, s, wq, fmt))
+            tp = timer.ms(lambda: mx_fused.fused_quant_gemm_plain(
+                xin, s, wq, fmt))
+            tl = timer.ms(lambda: torch.matmul(opnd, wb))
+            b, by = bound_ms(xin.element_size() * m * kk + 4 + kk * nn
+                             + 4 * m * nn + m * kk + m * kk // 32,
+                             2.0 * m * nn * kk)
+            print(f", {t:.4f} ms, plain {tp:.4f} ms, library {tl:.4f} ms, "
+                  f"bound {b:.4f} ms ({by})")
+            if (what, k, n) == ("fwd", 4096, 11008):
+                res["fused_quant_gemm_tiled"] = dict(
+                    ms=t, plain_ms=tp, library_ms=tl, bound_ms=b,
+                    bound_by=by)
+            if what == "fwd":
+                xq_q, xq_e = q_p, se_p
+            del opnd, wb, q_p, se_p
+        # dW against the forward's residual and the e5m2 gradient
+        gq = quant_per_tensor(g, "e5m2").q
+        acc, qt, et = mx_bwd.mx_dw_gemm(xq_q, xq_e, gq, "e4m3", payload=True)
+        acc_p, qt_p, et_p = mx_bwd.mx_dw_gemm_plain(xq_q, xq_e, gq, "e4m3",
+                                                    payload=True)
+        q_mis = int((qt.view(torch.uint8) != qt_p.view(torch.uint8)).sum())
+        e_mis = int((et != et_p).sum())
+        err = float((acc - acc_p).abs().max())
+        scale = float(acc_p.abs().max())
+        print(f"mx_dw_gemm M={m} K={k} N={n}: max_err {err:.3g} (max|ref| "
+              f"{scale:.3g}), requant payload mismatches q {q_mis} / sexp "
+              f"{e_mis}", end="")
+        if q_mis or e_mis or not (err <= 1e-5 * scale
+                                  and torch.isfinite(acc).all()):
+            print()
+            raise AssertionError(f"mx_dw_gemm K={k} N={n}")
+        worst_d = max(worst_d, err)
+        opnd, gb = mx_operand(qt_p, et_p), gq.to(torch.bfloat16)
+        del acc, acc_p, qt, et, qt_p, et_p
+        t = timer.ms(lambda: mx_bwd.mx_dw_gemm(xq_q, xq_e, gq))
+        tp = timer.ms(lambda: mx_bwd.mx_dw_gemm_plain(xq_q, xq_e, gq))
+        tl = timer.ms(lambda: torch.matmul(opnd, gb))
+        b, by = bound_ms(m * k + m * k // 32 + m * n + 4 * k * n,
+                         2.0 * m * n * k)
+        print(f", {t:.4f} ms, plain {tp:.4f} ms, library {tl:.4f} ms, "
+              f"bound {b:.4f} ms ({by})")
+        if (k, n) == (4096, 11008):
+            res["mx_dw_gemm"] = dict(ms=t, plain_ms=tp, library_ms=tl,
+                                     bound_ms=b, bound_by=by)
+        del x, g, qw, qwt, gq, xq_q, xq_e, opnd, gb
+        torch.cuda.empty_cache()
+    res["fused_quant_gemm_tiled"]["max_abs_err"] = worst_f
+    res["mx_dw_gemm"]["max_abs_err"] = worst_d
     return res
 
 
@@ -363,6 +472,123 @@ def phase_small_reference(torch, np):
               f"(limit {tol:.3g})")
 
 
+def _train_cfg(get_config, QuantConfig, mode, smoke, **kw):
+    qcfg = QuantConfig(mode=mode, **kw)
+    cfg = get_config(TRAIN_ARCH, smoke=smoke).replace(quant=qcfg)
+    return cfg if smoke else cfg.replace(n_layers=TRAIN_LAYERS)
+
+
+def phase_train(torch, np) -> dict:
+    """olmo-7b at full width, 4 of its 32 layers (f32 master weights,
+    gradients and AdamW moments of all 32 would need ~110 GB), batch
+    1 x 2048: 3 moss steps, then 3 bf16 steps from the same weights on
+    the same batches.  Returns the moss path's launches."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.formats import QuantConfig
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.kernels import mx_bwd, mx_fused
+    from repro_torch.train.steps import (TrainHParams, init_train_state,
+                                         make_train_step)
+
+    hp = TrainHParams(peak_lr=3e-4, warmup_steps=0, total_steps=3)
+    base = _train_cfg(get_config, QuantConfig, "moss", smoke=False)
+    print(f"train {TRAIN_ARCH}: full width (d {base.d_model}, {base.n_heads} "
+          f"heads, Dh {base.head_dim}, d_ff {base.d_ff}, vocab {base.vocab}, "
+          f"{base.norm}, remat {base.remat}), depth cut from 32 to "
+          f"{TRAIN_LAYERS} layers, batch 1 x {TRAIN_M}")
+    data = SyntheticLM(DataConfig(vocab=base.vocab, seq_len=TRAIN_M,
+                                  global_batch=1, seed=0))
+    batches = [data.batch_for_step(i) for i in range(3)]
+    init = init_train_state(base, hp, seed=0, device="cuda").params
+    n_params = sum(int(w.numel()) for w in tree_leaves(init))
+    print(f"train: {n_params / 1e9:.3f}B parameters")
+    counters = [mx_fused.counter, mx_fused.counter_tiled, mx_bwd.counter]
+    losses, launches = {}, {}
+    for mode in ("moss", "bf16"):
+        cfg = _train_cfg(get_config, QuantConfig, mode, smoke=False)
+        state = init_train_state(cfg, hp, params=init, device="cuda")
+        step = make_train_step(cfg, hp)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for c in counters:
+            c.reset()
+        losses[mode] = []
+        for i, batch in enumerate(batches):
+            t0 = time.monotonic()
+            state, met = step(state, batch)
+            loss = float(met["loss"])
+            gnorm = float(met["grad_norm"])
+            torch.cuda.synchronize()
+            dt = time.monotonic() - t0
+            losses[mode].append(loss)
+            print(f"train {mode} step {i}: loss {loss:.5f} grad_norm "
+                  f"{gnorm:.4f} lr {float(met['lr']):.3e} step "
+                  f"{dt * 1e3:.1f} ms = {TRAIN_M / dt:.0f} tok/s")
+            if not (np.isfinite(loss) and np.isfinite(gnorm)):
+                raise AssertionError(f"train {mode} step {i}: non-finite")
+        launches[mode] = {c.name: c.count for c in counters}
+        print(f"train {mode}: peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB, "
+              f"launches {json.dumps(launches[mode])}")
+        del state, step
+        torch.cuda.empty_cache()
+    sites = 7 * TRAIN_LAYERS + 1                 # linear sites + head
+    want = {"fused_quant_gemm": 0,
+            "fused_quant_gemm_tiled": 3 * (2 * sites + 7 * TRAIN_LAYERS),
+            "mx_dw_gemm": 3 * sites}
+    if launches["moss"] != want:
+        raise AssertionError(f"moss launches {launches['moss']}, expected "
+                             f"{want} (forward, remat recompute, dx; dW)")
+    for i, (a, b) in enumerate(zip(losses["moss"], losses["bf16"])):
+        rel = abs(a - b) / abs(b)
+        print(f"train step {i}: moss vs bf16 loss rel {rel:.3g} "
+              "(limit 1e-2)")
+        if not rel <= 1e-2:
+            raise AssertionError(f"train step {i}: moss {a} vs bf16 {b}")
+    return {name: launches["moss"][name]
+            for name in ("fused_quant_gemm_tiled", "mx_dw_gemm")}
+
+
+def phase_small_train_reference(torch, np):
+    """The smoke-size olmo-7b (moss, rescale_interval 2, so a refresh
+    happens) trains 3 steps of batch 2 x 64 on the card and on the CPU
+    from the same state and batches: losses within 1e-2 relative and
+    equal scale_t at every step (f32 sums in another order and the
+    rare fp8 rounding flip they cause)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.formats import QuantConfig
+    from repro_torch.core.tree import tree_leaves, tree_map
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.optim.adamw import OptState
+    from repro_torch.train.steps import (TrainHParams, init_train_state,
+                                         make_train_step)
+
+    cfg = _train_cfg(get_config, QuantConfig, "moss", smoke=True,
+                     rescale_interval=2)
+    hp = TrainHParams(peak_lr=1e-3, warmup_steps=0, total_steps=3)
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=64,
+                                  global_batch=2, seed=0))
+    cpu = init_train_state(cfg, hp, seed=0, device="cpu")
+    card = cpu._replace(
+        params=tree_map(lambda t: t.to("cuda"), cpu.params),
+        opt=tree_map(lambda st: OptState(st.mu.to("cuda"), st.nu.to("cuda")),
+                     cpu.opt),
+        scale_s0=tree_map(lambda t: t.to("cuda"), cpu.scale_s0))
+    step = make_train_step(cfg, hp)
+    for i in range(3):
+        batch = data.batch_for_step(i)
+        cpu, mc = step(cpu, batch)
+        card, mg = step(card, batch)
+        a, b = float(mc["loss"]), float(mg["loss"])
+        rel = abs(a - b) / abs(a)
+        same_t = tree_leaves(cpu.scale_t) == tree_leaves(card.scale_t)
+        print(f"smoke train step {i}: card vs CPU loss {b:.6f} / {a:.6f} "
+              f"(rel {rel:.3g}, limit 1e-2), scale_t equal {same_t}")
+        if not (np.isfinite(b) and rel <= 1e-2 and same_t):
+            raise AssertionError(f"smoke train step {i}: card vs CPU")
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch" / "csrc").is_dir():
         return fail(f"{ROOT} is not a checkout of the repository "
@@ -377,10 +603,25 @@ def main() -> int:
     smi = phase_card(torch)
     phase_build()
     timer = Timer(torch)
+    t0 = time.monotonic()
     res = phase_kernels(torch, timer)
+    res_train = phase_train_kernels(torch, timer)
+    print(f"phase kernels: {time.monotonic() - t0:.1f} s")
     del timer
+    t0 = time.monotonic()
     launches = phase_engine(torch, np)
     phase_small_reference(torch, np)
+    print(f"phase engine: {time.monotonic() - t0:.1f} s")
+    t0 = time.monotonic()
+    train_launches = phase_train(torch, np)
+    phase_small_train_reference(torch, np)
+    print(f"phase train: {time.monotonic() - t0:.1f} s")
+    # the serving kernels' rows (fused_quant_gemm is the M <= 32 tile
+    # of the calibration forward) are the serving path's; the training
+    # kernels' rows (fused_quant_gemm_tiled, the M > 32 tile of the same
+    # source, and mx_dw_gemm) are the training path's
+    res.update(res_train)
+    launches.update(train_launches)
     kernels = [dict(name=name, route="cuda", source=SOURCES[name],
                     replaces=REPLACES[name], launches=launches[name],
                     **{k: res[name][k] for k in

@@ -1,4 +1,5 @@
-"""Carry the reference's weights and calibrated scales into the port.
+"""Carry the reference's weights, calibrated scales and train state into
+the port, and the port's train state back out.
 
 Everything crosses as numpy arrays, so this module needs neither JAX
 nor ``repro``: a caller turns the reference's tree into numpy first
@@ -12,6 +13,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.actscale import ActScale
+from repro_torch.core.tree import tree_map
 
 _VIEWS = {
     "bfloat16": (np.uint16, torch.bfloat16),
@@ -36,9 +38,7 @@ def to_torch(x, device="cpu") -> torch.Tensor:
 
 def tree_to_torch(tree, device="cpu"):
     """Nested dicts of numpy arrays -> the same tree of tensors."""
-    if isinstance(tree, dict):
-        return {k: tree_to_torch(v, device) for k, v in tree.items()}
-    return to_torch(tree, device)
+    return tree_map(lambda x: to_torch(x, device), tree)
 
 
 def act_scales_to_torch(act: dict, device="cpu") -> dict:
@@ -55,3 +55,41 @@ def bits(t: torch.Tensor) -> np.ndarray:
     t = t.detach().cpu().contiguous()
     width = {1: torch.uint8, 2: torch.int16, 4: torch.int32}[t.element_size()]
     return t.view(width).numpy()
+
+
+def train_state_to_torch(ref, device="cpu"):
+    """The reference's ``TrainState`` with numpy leaves (params, the
+    ``OptState(mu, nu)`` tree, ``scale_s0``, ``scale_t``, ``step``) ->
+    the port's ``TrainState`` on ``device``."""
+    from repro_torch.optim.adamw import OptState
+    from repro_torch.train.steps import TrainState
+
+    if ref.comm_residual is not None:
+        raise NotImplementedError(
+            "fp8 all-reduce residuals: ROADMAP queue 1 item 13")
+    return TrainState(
+        params=tree_to_torch(ref.params, device),
+        opt=tree_map(lambda st: OptState(to_torch(st[0], device),
+                                         to_torch(st[1], device)),
+                     ref.opt),
+        scale_s0=tree_to_torch(ref.scale_s0, device),
+        scale_t=tree_map(int, ref.scale_t),
+        comm_residual=None, step=int(ref.step))
+
+
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    """An f32 or integer tensor -> numpy (same values, on the host)."""
+    return t.detach().cpu().numpy()
+
+
+def train_state_to_numpy(state):
+    """The port's ``TrainState`` with numpy leaves (``scale_t`` as
+    int32, ``step`` as an int), for comparison with the reference's."""
+    from repro_torch.optim.adamw import OptState
+
+    return state._replace(
+        params=tree_map(to_numpy, state.params),
+        opt=tree_map(lambda st: OptState(to_numpy(st.mu), to_numpy(st.nu)),
+                     state.opt),
+        scale_s0=tree_map(to_numpy, state.scale_s0),
+        scale_t=tree_map(np.int32, state.scale_t))

@@ -1,6 +1,6 @@
 """Model configuration dataclass (counterpart of
 ``repro.configs.base.ModelConfig``): the reference's fields that the
-dense serving slice reads, or refuses when set
+dense serving and training slices read, or refuses when set
 (``models.transformer.build_segments``)."""
 
 from __future__ import annotations
@@ -43,6 +43,7 @@ class ModelConfig:
     norm_eps: float = 1e-5
 
     attn_chunk: int = 512              # flash-chunk size (queries and kv)
+    remat: bool = True                 # recompute each layer in backward
     kv_cache_dtype: Literal["bf16", "fp8"] = "fp8"
 
     quant: QuantConfig = MOSS_CONFIG

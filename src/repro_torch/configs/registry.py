@@ -8,12 +8,12 @@ from .base import ModelConfig
 
 ARCHS: dict[str, str] = {
     "phi3-mini-3.8b": "phi3_mini_38b",
+    "olmo-7b": "olmo_7b",
 }
 
 # reference archs whose families or features the port does not have yet
 NOT_PORTED = {
     "llama2-7b": "queue 1 item 11 (each arch held against the reference)",
-    "olmo-7b": "queue 1 item 11 (LayerNorm)",
     "deepseek-v2-lite-16b": "queue 1 item 10 (MoE, MLA)",
     "phi3.5-moe-42b-a6.6b": "queue 1 item 10 (MoE)",
     "stablelm-12b": "queue 1 item 11 (qk-norm, partial rotary)",

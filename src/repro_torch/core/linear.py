@@ -1,19 +1,28 @@
-"""Quantized linear layers: the forward half of ``repro.core.linear``.
+"""Quantized linear layers: the counterpart of ``repro.core.linear``.
 
 ``qlinear(x, QT(w, s, a), cfg)`` computes ``x @ w`` under the recipe:
 
-  bf16   ``mm`` with bf16 operands and f32 accumulation;
-  moss   the fused two-level quantize + MX GEMM
-         (``kernels.dispatch.fused_quant_matmul``) -- the calibration
-         forward -- or, with a calibrated ``ActScale`` in ``a``, the
-         reduction-free delayed-scale forward ``_qmm_delayed`` (the
-         serving steps) through ``kernels.dispatch.mx_matmul``.
+  bf16   ``mm`` with bf16 operands and f32 accumulation, both ways;
+  moss   ``qmm``, the training GEMM with its own backward (below), or,
+         with a calibrated ``ActScale`` in ``a``, the reduction-free
+         delayed-scale serving forward ``_qmm_delayed`` through
+         ``kernels.dispatch.mx_matmul``.
 
-Weights arrive pre-quantized (fp8 payload + f32 scale, from
-``train.steps.prequantize_params``) or raw with a scale to quantize
-against.  Only the forward exists in this slice; the training VJP
-(``qmm`` as an autograd Function with fp8 residuals) is ROADMAP queue 1
-item 3.
+``qmm`` is a ``torch.autograd.Function`` (the reference's custom VJP):
+
+  forward   y  = fused quantize + MX GEMM (E4M3), ``· s_x · s_w``;
+            it saves only the fp8 residuals, ``MxQ(q, sexp, s)`` of x
+            and ``PerTensorQ`` of w, never x or w;
+  backward  dx = the same fused operator on the E5M2 gradient against
+                 Wᵀ (``dispatch.fused_quant_matmul``);
+            dW = the fp8 residual re-quantized along the tokens against
+                 the per-tensor E5M2 gradient (``dispatch.mx_matmul_dw``).
+
+The weight scale ``w_scale`` is the predicted one under automatic
+scaling (``core.autoscale``); it gets no gradient.  Weights may also
+arrive pre-quantized (fp8 payload + build-time scale) on the serving
+path.  The ``per_tensor`` and ``per_group`` recipes are ROADMAP queue 1
+item 6.
 """
 
 from __future__ import annotations
@@ -25,7 +34,7 @@ import torch.nn.functional as F
 
 from .actscale import REC, ActScale
 from .formats import QuantConfig, is_fp8
-from .quant import PerTensorQ, quant_mx_delayed, quant_per_tensor
+from .quant import MxQ, PerTensorQ, quant_mx_delayed, quant_per_tensor
 
 
 class QT(NamedTuple):
@@ -81,26 +90,82 @@ def _fwd_gemm(cfg: QuantConfig, x2d: torch.Tensor, wq: PerTensorQ):
     x, the residual (q, sexp) from the same kernel."""
     from repro_torch.kernels import dispatch
 
-    _unsupported(cfg)
     wq_p = PerTensorQ(q=_pad_axis(wq.q, 0, cfg.micro_group), s=wq.s)
     return dispatch.fused_quant_matmul(
         _pad_axis(x2d, -1, cfg.micro_group), wq_p, fmt=cfg.fwd_format,
         micro_group=cfg.micro_group, out_dtype=torch.float32)
 
 
-@torch.inference_mode()
+def _qmm_bwd_moss(cfg: QuantConfig, xq: MxQ, wq: PerTensorQ,
+                  g: torch.Tensor, w_dtype: torch.dtype):
+    """dx and dW from the fp8 residuals (``_qmm_bwd`` of the
+    reference, moss branch)."""
+    from repro_torch.kernels import dispatch
+
+    lead = g.shape[:-1]
+    k, n = wq.q.shape
+    g2d = g.reshape(-1, n).to(torch.float32)
+    bfmt = cfg.bwd_format
+    micro = cfg.micro_group
+    # dx = g @ Wᵀ: the fused quantize + GEMM on the E5M2 gradient
+    wqT = PerTensorQ(q=_pad_axis(wq.q.T.contiguous(), 0, micro), s=wq.s)
+    dx2d, _ = dispatch.fused_quant_matmul(
+        _pad_axis(g2d, -1, micro), wqT, fmt=bfmt, micro_group=micro,
+        out_dtype=torch.float32)
+    dx = dx2d[:, :k].reshape(*lead, k).to(g.dtype)
+    # dW = xᵀ @ g: the residual re-quantized along the tokens
+    g_pt = quant_per_tensor(g2d, bfmt)
+    dw = dispatch.mx_matmul_dw(xq, g_pt, fmt=cfg.fwd_format,
+                               out_dtype=torch.float32, out_rows=k)
+    return dx, dw.to(w_dtype)
+
+
+class _QMM(torch.autograd.Function):
+    """The reference's ``qmm`` custom VJP (moss and bf16 modes)."""
+
+    @staticmethod
+    def forward(ctx, cfg: QuantConfig, x, w, w_scale):
+        orig_dtype = x.dtype
+        *lead, k = x.shape
+        ctx.cfg, ctx.w_dtype = cfg, w.dtype
+        if cfg.mode == "bf16":
+            from .runtime_flags import mm
+
+            # residual: the bf16 activation (what MOSS avoids storing)
+            ctx.x_dtype = orig_dtype
+            ctx.save_for_backward(x.to(torch.bfloat16),
+                                  w.to(torch.bfloat16))
+            return mm(x, w, out_dtype=torch.float32).to(orig_dtype)
+        wq = _quantize_w(cfg, w, w_scale)
+        y2d, xq = _fwd_gemm(cfg, x.reshape(-1, k), wq)
+        ctx.save_for_backward(xq.q, xq.sexp, xq.s, wq.q, wq.s)
+        return y2d.reshape(*lead, w.shape[-1]).to(orig_dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        cfg = ctx.cfg
+        if cfg.mode == "bf16":
+            from .runtime_flags import mm
+
+            x_bf16, w_bf16 = ctx.saved_tensors
+            *lead, k = x_bf16.shape
+            g2d = g.reshape(-1, g.shape[-1])
+            dx = mm(g2d, w_bf16.T, out_dtype=torch.float32)
+            dw = mm(x_bf16.reshape(-1, k).T, g2d, out_dtype=torch.float32)
+            return (None, dx.reshape(*lead, k).to(ctx.x_dtype),
+                    dw.to(ctx.w_dtype), None)
+        q, sexp, s, wq_q, wq_s = ctx.saved_tensors
+        dx, dw = _qmm_bwd_moss(cfg, MxQ(q, sexp, s), PerTensorQ(wq_q, wq_s),
+                               g, ctx.w_dtype)
+        return None, dx, dw, None
+
+
 def qmm(cfg: QuantConfig, x: torch.Tensor, w: torch.Tensor,
         w_scale: torch.Tensor) -> torch.Tensor:
-    """Forward of the reference's ``qmm`` custom VJP (no gradient)."""
-    orig_dtype = x.dtype
-    *lead, k = x.shape
-    if cfg.mode == "bf16":
-        from .runtime_flags import mm
-
-        return mm(x, w, out_dtype=torch.float32).to(orig_dtype)
-    wq = _quantize_w(cfg, w, w_scale)
-    y2d, _ = _fwd_gemm(cfg, x.reshape(-1, k), wq)
-    return y2d.reshape(*lead, w.shape[-1]).to(orig_dtype)
+    """``x @ w`` under ``cfg`` with the MOSS backward (see the module
+    docstring)."""
+    _unsupported(cfg)
+    return _QMM.apply(cfg, x, w, w_scale)
 
 
 def qlinear(x: torch.Tensor, wt: QT, cfg: QuantConfig) -> torch.Tensor:

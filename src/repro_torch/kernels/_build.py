@@ -39,7 +39,10 @@ SIGNATURES = {
                        _INT, _INT, _VOID],
     "fused_quant_gemm_launch": [_VOID, _VOID, _VOID, _VOID, _VOID, _VOID,
                                 _INT, _INT, _INT, _INT, _INT, _INT, _INT,
-                                _FLOAT, _FLOAT, _VOID],
+                                _INT, _FLOAT, _FLOAT, _VOID],
+    "mx_dw_gemm_launch": [_VOID, _VOID, _VOID, _VOID, _VOID, _VOID, _INT,
+                          _INT, _INT, _INT, _INT, _INT, _FLOAT, _FLOAT,
+                          _VOID],
     "decode_attn_paged_launch": [_VOID, _VOID, _VOID, _VOID, _VOID, _VOID,
                                  _VOID, _VOID, _INT, _INT, _INT, _INT, _INT,
                                  _INT, _FLOAT, _INT, _VOID],

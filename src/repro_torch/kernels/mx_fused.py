@@ -11,7 +11,10 @@ The caller (``kernels.dispatch.fused_quant_matmul``) computes ``s``
 follows ``repro.core.quant.quant_mx`` and ``mx_gemm``.
 
 A CPU tensor takes the plain version.  A CUDA tensor launches the
-kernel, or raises: there is no fallback.
+kernel, or raises: there is no fallback.  The kernel has two tiles: up
+to ``SMALL_M`` rows (the serving path's calibration forward) a block of
+8 rows streams its weight strip once; above it (training M) a 128 x 128
+tile reuses both panels from shared memory.
 """
 
 from __future__ import annotations
@@ -25,8 +28,10 @@ from repro_torch.core.runtime_flags import mm
 from ._build import LaunchCounter, check, library
 
 MICRO = 32
+SMALL_M = 32          # the largest M that takes the decode-size tile
 
-counter = LaunchCounter("fused_quant_gemm")
+counter = LaunchCounter("fused_quant_gemm")              # the M <= 32 tile
+counter_tiled = LaunchCounter("fused_quant_gemm_tiled")  # the M > 32 tile
 
 
 def fused_quant_gemm_plain(x: torch.Tensor, s: torch.Tensor,
@@ -61,14 +66,15 @@ def fused_quant_gemm(x: torch.Tensor, s: torch.Tensor, qw: torch.Tensor,
     q = torch.empty((m, k), dtype=fp8_dtype(fmt), device=dev)
     sexp = torch.empty((m, k // MICRO), dtype=torch.int8, device=dev)
     vec = int(n % 4 == 0 and qw.data_ptr() % 4 == 0)
+    tiled = m > SMALL_M
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = library().fused_quant_gemm_launch(
             x.data_ptr(), s32.data_ptr(), qw.data_ptr(), acc.data_ptr(),
             q.data_ptr(), sexp.data_ptr(), m, n, k,
             int(x.dtype == torch.bfloat16), int(fmt == "e5m2"),
-            int(qw.dtype == torch.float8_e5m2), vec, fp8_max(fmt),
-            INV_LN2_F32, stream)
+            int(qw.dtype == torch.float8_e5m2), vec, int(tiled),
+            fp8_max(fmt), INV_LN2_F32, stream)
     check(code, "fused_quant_gemm")
-    counter.hit()
+    (counter_tiled if tiled else counter).hit()
     return acc, q, sexp

@@ -33,6 +33,7 @@ GPU_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 SPANS = ("decode_step", "prefill_chunk")
 # the port's own kernels (csrc/*.cu), by the name the trace gives them
 PORT_KERNELS = ("mx_gemm_kernel", "fused_quant_gemm_kernel",
+                "fused_quant_gemm_tiled_kernel", "mx_dw_gemm_kernel",
                 "decode_attn_paged_kernel")
 
 
@@ -49,13 +50,14 @@ def _union_us(intervals) -> float:
     return busy
 
 
-def summarize(trace: dict) -> dict:
-    """Per-kind step statistics and the run's idle share from a Chrome
-    trace exported by ``torch.profiler``."""
+def summarize(trace: dict, kinds=SPANS) -> dict:
+    """Per-kind step statistics (one kind per span name in ``kinds``)
+    and the run's idle share from a Chrome trace exported by
+    ``torch.profiler``."""
     ev = [e for e in trace["traceEvents"] if e.get("ph") == "X"]
     spans = sorted((e["ts"], e["ts"] + e["dur"], e["name"]) for e in ev
                    if e.get("cat") == "user_annotation"
-                   and e["name"] in SPANS)
+                   and e["name"] in kinds)
     starts = [s[0] for s in spans]
     launch_ts = {e["args"]["correlation"]: e["ts"] for e in ev
                  if e.get("cat") in ("cuda_runtime", "cuda_driver")
@@ -68,7 +70,7 @@ def summarize(trace: dict) -> dict:
         if i >= 0 and ts <= spans[i][1]:
             per_span[i].append(g)
     out = {}
-    for kind in SPANS:
+    for kind in kinds:
         idx = [i for i, s in enumerate(spans) if s[2] == kind]
         if not idx:
             continue

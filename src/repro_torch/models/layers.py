@@ -23,7 +23,7 @@ from repro_torch.core.linear import QT, qlinear
 class PDef(NamedTuple):
     shape: tuple[int, ...]
     logical: tuple[str | None, ...]
-    init: str = "normal"              # normal | zeros | embed
+    init: str = "normal"              # normal | zeros | ones | embed
     quantized: bool = False
     dtype: Any = torch.float32
 
@@ -41,6 +41,8 @@ def init_param(d: PDef, gen: torch.Generator,
     ``gen`` must live on ``device``."""
     if d.init == "zeros":
         return torch.zeros(d.shape, dtype=d.dtype, device=device)
+    if d.init == "ones":
+        return torch.ones(d.shape, dtype=d.dtype, device=device)
     x = torch.empty(d.shape, dtype=d.dtype, device=device)
     if d.init == "embed":
         return x.normal_(0.0, 0.02, generator=gen)
@@ -76,6 +78,21 @@ def stack_defs(defs, n: int, axis_name: str = "layers"):
     return {k: stack_defs(v, n, axis_name) for k, v in defs.items()}
 
 
+def wrap_qt(params, scales, mask):
+    """Bundle quantized weights with their predicted scales: quantized
+    leaves become QT(w, s); others stay raw tensors."""
+    if isinstance(params, dict):
+        return {k: wrap_qt(params[k], scales[k], mask[k]) for k in params}
+    return QT(params, scales) if mask else params
+
+
+def wrap_qt_nojit(params, mask):
+    """QT-wrap without precomputed scales (jit scaling, bf16, eval)."""
+    if isinstance(params, dict):
+        return {k: wrap_qt_nojit(params[k], mask[k]) for k in params}
+    return QT(params, None) if mask else params
+
+
 # ---------------------------------------------------------------------------
 # Norms
 # ---------------------------------------------------------------------------
@@ -88,11 +105,25 @@ def rmsnorm(x, scale, eps=1e-5):
     return (y * (1.0 + scale.to(torch.float32))).to(x.dtype)
 
 
+def layernorm(x, scale, bias, eps=1e-5):
+    xf = x.to(torch.float32)
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = torch.square(xf - mu).mean(dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * scale.to(torch.float32)
+            + bias.to(torch.float32)).to(x.dtype)
+
+
 def norm_defs(cfg, d: int):
+    if cfg.norm == "layernorm":
+        return {"scale": PDef((d,), (None,), "ones"),
+                "bias": PDef((d,), (None,), "zeros")}
     return {"scale": PDef((d,), (None,), "zeros")}   # rmsnorm (1+scale)
 
 
 def apply_norm(cfg, p, x):
+    if cfg.norm == "layernorm":
+        return layernorm(x, p["scale"], p["bias"], cfg.norm_eps)
     return rmsnorm(x, p["scale"], cfg.norm_eps)
 
 

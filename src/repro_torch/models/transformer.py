@@ -1,13 +1,18 @@
 """Model assembly (counterpart of ``repro.models.transformer``, dense
-family): embed -> repeated blocks -> final norm -> LM head.  Params are
-stacked over layers like the reference's; the layer scan is a Python
-loop over them."""
+family): embed -> repeated blocks -> final norm -> LM head, and the
+token cross-entropy.  Params are stacked over layers like the
+reference's; the layer scan is a Python loop over them.  In ``train``
+mode the forward runs under autograd, each layer under
+``torch.utils.checkpoint`` when ``cfg.remat`` is set (the reference's
+``jax.checkpoint`` of the scan body); serving callers hold
+``torch.inference_mode`` themselves."""
 
 from __future__ import annotations
 
 from typing import Any, Callable, NamedTuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.formats import QuantConfig
 from . import attention as attn_mod
@@ -58,7 +63,7 @@ def _unsupported(cfg) -> list[str]:
             cfg.pos_embedding not in ("rope", "none"),
         f"attn_type {cfg.attn_type!r}": cfg.attn_type != "full",
         f"act {cfg.act!r}": cfg.act != "swiglu",
-        f"norm {cfg.norm!r}": cfg.norm != "rmsnorm",
+        f"norm {cfg.norm!r}": cfg.norm not in ("rmsnorm", "layernorm"),
         "qk_norm": cfg.qk_norm,
         "logit_softcap": cfg.logit_softcap > 0,
         "tie_embeddings": cfg.tie_embeddings,
@@ -122,27 +127,38 @@ def _layer_cache(c: KVCache, l: int) -> KVCache:
                       v_scale=None if c.v_scale is None else c.v_scale[l])
 
 
-def _slice_layer(tree, l: int):
+def _unbind(t, n: int) -> list:
+    return [None] * n if t is None else list(t.unbind(0))
+
+
+def _layers(tree, n: int) -> list:
+    """A stacked segment subtree -> one subtree per layer.  Each stacked
+    tensor is split once with ``unbind`` (whose backward stacks the
+    per-layer gradients once; indexing ``w[l]`` per layer would build a
+    stacked-size zero gradient for every layer)."""
     from repro_torch.core.linear import QT
 
     if isinstance(tree, QT):
-        return QT(tree.w[l], None if tree.s is None else tree.s[l],
-                  None if tree.a is None else tree.a._replace(
-                      s=tree.a.s[l], sub=tree.a.sub[l]))
+        a = tree.a
+        aa = [None] * n if a is None else [
+            a._replace(s=s, sub=sub)
+            for s, sub in zip(_unbind(a.s, n), _unbind(a.sub, n))]
+        return [QT(w, s, al) for w, s, al in
+                zip(_unbind(tree.w, n), _unbind(tree.s, n), aa)]
     if isinstance(tree, dict):
-        return {k: _slice_layer(v, l) for k, v in tree.items()}
-    return tree[l]
+        per = {k: _layers(v, n) for k, v in tree.items()}
+        return [{k: per[k][l] for k in tree} for l in range(n)]
+    return _unbind(tree, n)
 
 
-@torch.inference_mode()
 def forward(cfg, qcfg: QuantConfig, params, tokens: torch.Tensor,
             caches: dict | None = None, mode: str = "train"):
     """Returns (logits f32, new_caches).
 
-    tokens (B, S).  ``train`` runs without a cache; ``decode`` reads the
-    per-slot depths from the caches' ``idx`` for positions, writes the
-    new K/V into the pools in place and returns the caches with ``idx``
-    advanced by S."""
+    tokens (B, S).  ``train`` runs without a cache, under autograd;
+    ``decode`` reads the per-slot depths from the caches' ``idx`` for
+    positions, writes the new K/V into the pools in place and returns
+    the caches with ``idx`` advanced by S."""
     b, s = tokens.shape
     x = embed_tokens(cfg, params["embed"], tokens)
     dev = x.device
@@ -154,21 +170,42 @@ def forward(cfg, qcfg: QuantConfig, params, tokens: torch.Tensor,
         positions = torch.arange(s, dtype=torch.int32, device=dev)
     else:
         raise NotImplementedError(f"forward mode {mode!r}")
+    remat = cfg.remat and mode == "train" and torch.is_grad_enabled()
 
     new_caches = {}
     for seg in build_segments(cfg):
-        p_seg = params[seg.name]
         c_seg = caches.get(seg.name) if caches is not None else None
         new_c = None
-        for l in range(seg.n):
+        for l, p_l in enumerate(_layers(params[seg.name], seg.n)):
             c_l = None if c_seg is None else _layer_cache(c_seg, l)
-            x, new_c = seg.apply(cfg, qcfg, _slice_layer(p_seg, l), x,
-                                 positions, c_l, mode)
+            if remat:
+                x, new_c = checkpoint(seg.apply, cfg, qcfg, p_l, x,
+                                      positions, c_l, mode,
+                                      use_reentrant=False)
+            else:
+                x, new_c = seg.apply(cfg, qcfg, p_l, x, positions, c_l,
+                                     mode)
         new_caches[seg.name] = (None if c_seg is None
                                 else c_seg._replace(idx=new_c.idx))
     x = apply_norm(cfg, params["final_norm"], x)
     logits = lm_head(cfg, params["embed"], x, qcfg)
     return logits, (new_caches if caches is not None else None)
+
+
+def ce_loss(cfg, logits: torch.Tensor, labels: torch.Tensor,
+            mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Token cross-entropy in f32 (``repro.models.transformer.ce_loss``:
+    max-shifted log-sum-exp, the max held out of the gradient)."""
+    logits = logits.to(torch.float32)
+    m = logits.detach().amax(dim=-1, keepdim=True)
+    shifted = logits - m
+    lse = torch.log(torch.exp(shifted).sum(dim=-1))
+    picked = shifted.gather(-1, labels.long()[..., None])[..., 0]
+    ll = picked - lse
+    if mask is None:
+        return -ll.mean()
+    mask = mask.to(torch.float32)
+    return -(ll * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
 
 
 def _first_idx(caches) -> torch.Tensor:

@@ -1,25 +1,69 @@
-"""The serving half of ``repro.train.steps``: build-time weight
-pre-quantization, the serving QT wrap, and the decode step (which is
-also the chunked-prefill step).  The training step is ROADMAP queue 1
-items 2-5."""
+"""Step functions: the MOSS training step (forward + backward + AdamW +
+automatic scaling) and the serving step, with their state plumbing.
+Counterpart of ``repro.train.steps``.
+
+The MOSS integration points of ``make_train_step``:
+  1. before the forward, the per-tensor weight scales are predicted from
+     the scale states (no max-reductions, paper Eq. 10);
+  2. every linear GEMM runs through ``core.linear.qmm`` (fp8 residuals,
+     the fused dx and dW kernels);
+  3. after the AdamW update the scale states advance one step, with a
+     real max-reduction only when a refresh is due (a host branch).
+
+Master weights, gradients and moments are f32.  The mesh, the fp8
+gradient all-reduce and its ``comm_residual`` are ROADMAP queue 1
+item 13: the state carries ``None`` and the step refuses a mesh.
+"""
 
 from __future__ import annotations
 
+from typing import Any, NamedTuple
+
 import torch
 
-from repro_torch.core.formats import TINY, div_c, fp8_max
+from repro_torch.core.autoscale import advance, measured_scale, predict
+from repro_torch.core.formats import QuantConfig
 from repro_torch.core.linear import QT
 from repro_torch.core.quant import PrequantParams, prequant_weight
-from repro_torch.models.layers import PDef, quant_mask_tree
-from repro_torch.models.transformer import forward, model_defs
+from repro_torch.core.tree import (
+    tree_leaves,
+    tree_map,
+    tree_unflatten,
+    tree_unzip,
+)
+from repro_torch.models.layers import (
+    PDef,
+    init_tree,
+    quant_mask_tree,
+    wrap_qt,
+    wrap_qt_nojit,
+)
+from repro_torch.models.transformer import ce_loss, forward, model_defs
+from repro_torch.optim.adamw import (
+    AdamWConfig,
+    adamw_update,
+    clip_by_global_norm,
+    init_opt_state,
+)
+from repro_torch.optim.schedule import cosine_with_warmup
 
 
-def _tree_map(fn, *trees):
-    """Map ``fn`` over the leaves of nested dicts of the same shape."""
-    first = trees[0]
-    if isinstance(first, dict):
-        return {k: _tree_map(fn, *[t[k] for t in trees]) for k in first}
-    return fn(*trees)
+class TrainState(NamedTuple):
+    params: Any               # f32 master weights (nested dict)
+    opt: Any                  # OptState tree
+    scale_s0: Any             # per-leaf predicted-scale base (f32)
+    scale_t: Any              # per-leaf steps since refresh (int)
+    comm_residual: Any        # fp8-allreduce error feedback: None here
+    step: int
+
+
+class TrainHParams(NamedTuple):
+    peak_lr: float = 3e-4
+    warmup_steps: int = 2000
+    total_steps: int = 100_000
+    grad_clip: float = 1.0
+    microbatches: int = 1     # gradient accumulation (activation memory)
+    adamw: AdamWConfig = AdamWConfig()
 
 
 def _scale_dims(defs):
@@ -41,12 +85,123 @@ def _scale_dims(defs):
 def init_scales(defs, params, qcfg):
     """Per-(layer) slice scale: max(amax, TINY) / FP8_MAX over the
     non-stacked dims."""
-    def init(w, nd):
-        axes = tuple(range(nd, w.dim()))
-        amax = w.to(torch.float32).abs().amax(dim=axes)
-        return div_c(torch.clamp_min(amax, TINY), fp8_max(qcfg.fwd_format))
+    return tree_map(lambda w, nd: measured_scale(w, qcfg, nd), params,
+                    _scale_dims(defs))
 
-    return _tree_map(init, params, _scale_dims(defs))
+
+def predicted_scales(s0, t, lr, qcfg: QuantConfig):
+    """Eq. (10) for every leaf: ``s0 + lr · t / FP8_MAX``."""
+    return tree_map(lambda s, ts: predict(s, ts, lr, qcfg), s0, t)
+
+
+def advance_scales(defs, s0, t, params, qcfg: QuantConfig):
+    """One step forward for every leaf (``core.autoscale.advance``)."""
+    out = tree_map(lambda s, ts, w, nd: advance(s, ts, w, qcfg, nd), s0, t,
+                   params, _scale_dims(defs))
+    return tree_unzip(out, 0), tree_unzip(out, 1)
+
+
+def init_train_state(cfg, hp: TrainHParams, seed: int = 0, params=None,
+                     device="cuda") -> TrainState:
+    """Weights from ``seed`` (a torch Generator on ``device``) unless
+    given, zero moments, measured scales."""
+    defs = model_defs(cfg)
+    if params is None:
+        gen = torch.Generator(device=device).manual_seed(seed)
+        params = init_tree(defs, gen, device)
+    if cfg.quant.grad_comm_fp8:
+        raise NotImplementedError(
+            "fp8 gradient all-reduce: ROADMAP queue 1 item 13")
+    return TrainState(params=params, opt=init_opt_state(params),
+                      scale_s0=init_scales(defs, params, cfg.quant),
+                      scale_t=tree_map(lambda w: 0, params),
+                      comm_residual=None, step=0)
+
+
+def _split(batch: dict, n: int, i: int) -> dict:
+    return {k: v.reshape(n, v.shape[0] // n, *v.shape[1:])[i]
+            for k, v in batch.items()}
+
+
+def make_train_step(cfg, hp: TrainHParams, mesh=None):
+    """The train step ``(state, batch) -> (state, metrics)``: microbatch
+    accumulation, global-norm clip, AdamW on the cosine schedule, and
+    the scale states advanced.  ``batch`` holds ``tokens`` and
+    ``labels`` (B, S) (and optionally ``mask``) on any device."""
+    if mesh is not None:
+        raise NotImplementedError("mesh training: ROADMAP queue 1 item 13")
+    defs = model_defs(cfg)
+    mask = quant_mask_tree(defs)
+    qcfg = cfg.quant
+    auto = qcfg.quantized and qcfg.weight_scaling == "auto"
+
+    def train_step(state: TrainState, batch: dict):
+        lr = cosine_with_warmup(state.step, peak_lr=hp.peak_lr,
+                                warmup_steps=hp.warmup_steps,
+                                total_steps=hp.total_steps)
+        dev = state.params["embed"]["embedding"].device
+        lr_dev = lr.to(dev)
+        scales = (predicted_scales(state.scale_s0, state.scale_t, lr_dev,
+                                   qcfg) if auto else None)
+        params = tree_map(lambda w: w.detach().requires_grad_(True),
+                          state.params)
+        flat = tree_leaves(params)
+        batch = {k: v.to(dev) for k, v in batch.items()}
+
+        n_mb = max(hp.microbatches, 1)
+        grads, loss = None, torch.zeros((), device=dev)
+        for i in range(n_mb):
+            mb = _split(batch, n_mb, i) if n_mb > 1 else batch
+            qp = (wrap_qt(params, scales, mask) if auto
+                  else wrap_qt_nojit(params, mask))
+            logits, _ = forward(cfg, qcfg, qp, mb["tokens"], mode="train")
+            l = ce_loss(cfg, logits, mb["labels"], mb.get("mask"))
+            del logits
+            g = torch.autograd.grad(l, flat)
+            grads = list(g) if grads is None else \
+                [a + b for a, b in zip(grads, g)]
+            loss = loss + l.detach()
+        if n_mb > 1:
+            grads = [g / n_mb for g in grads]
+            loss = loss / n_mb
+        grads = tree_unflatten(state.params, grads)
+
+        with torch.no_grad():
+            grads, gnorm = clip_by_global_norm(grads, hp.grad_clip)
+            new_params, new_opt = adamw_update(hp.adamw, state.params,
+                                               grads, state.opt,
+                                               state.step, lr_dev)
+            del grads
+            if qcfg.quantized:
+                new_s0, new_t = advance_scales(defs, state.scale_s0,
+                                               state.scale_t, new_params,
+                                               qcfg)
+            else:
+                new_s0, new_t = state.scale_s0, state.scale_t
+        metrics = {"loss": loss, "lr": lr, "grad_norm": gnorm}
+        return TrainState(params=new_params, opt=new_opt, scale_s0=new_s0,
+                          scale_t=new_t, comm_residual=None,
+                          step=state.step + 1), metrics
+
+    return train_step
+
+
+def make_eval_step(cfg):
+    defs = model_defs(cfg)
+    mask = quant_mask_tree(defs)
+    qcfg = cfg.quant
+
+    @torch.no_grad()
+    def eval_step(params, batch):
+        dev = params["embed"]["embedding"].device
+        qp = wrap_qt_nojit(params, mask)
+        logits, _ = forward(cfg, qcfg, qp, batch["tokens"].to(dev),
+                            mode="train")
+        m = batch.get("mask")
+        return ce_loss(cfg, logits, batch["labels"].to(dev),
+                       None if m is None else m.to(dev))
+
+    return eval_step
 
 
 def serve_weight_scales(cfg, params):
@@ -81,14 +236,9 @@ def prequantize_params(cfg, params) -> PrequantParams | None:
         return prequant_weight(w, nd, qcfg.fwd_format, scale=s,
                                cast_bf16=qcfg.weight_cast_bf16)
 
-    out = _tree_map(leaf, params, sdims, mask, pred)
-    return PrequantParams(qweights=_unzip(out, 0), scales=_unzip(out, 1))
-
-
-def _unzip(tree, i):
-    if isinstance(tree, dict):
-        return {k: _unzip(v, i) for k, v in tree.items()}
-    return tree[i]
+    out = tree_map(leaf, params, sdims, mask, pred)
+    return PrequantParams(qweights=tree_unzip(out, 0),
+                          scales=tree_unzip(out, 1))
 
 
 def serve_quant_mask(cfg, tree=None):
@@ -126,6 +276,7 @@ def make_decode_step(cfg, scales=None, act_scales=None):
     mask = serve_quant_mask(cfg, scales)
     qcfg = cfg.quant
 
+    @torch.inference_mode()
     def decode_step(params, caches, tokens):
         qp = _wrap_serve(params, mask, scales, act_scales)
         return forward(cfg, qcfg, qp, tokens, caches, mode="decode")

@@ -14,13 +14,19 @@ import pytest
 import torch
 
 from repro_torch.core.quant import quant_mx, quant_per_tensor
-from repro_torch.kernels import decode_attn, dispatch, mx_fused, mx_gemm
+from repro_torch.kernels import (decode_attn, dispatch, mx_bwd, mx_fused,
+                                 mx_gemm)
 from repro_torch.models.attention import _quant_kv
 
 pytestmark = pytest.mark.cuda
 
 GEMM_SHAPES = [(5, 96, 200), (16, 256, 72), (1, 32, 33), (4, 3072, 3072),
                (32, 3072, 8192)]
+# M > 32 takes the fused kernel's large tile: ragged M, N and a
+# single-group K
+LARGE_M_SHAPES = [(33, 96, 200), (130, 256, 72), (256, 32, 129),
+                  (512, 4096, 256)]
+DW_SHAPES = [(128, 256, 192), (256, 96, 200), (64, 4096, 130)]
 
 
 @pytest.fixture
@@ -88,3 +94,90 @@ def test_decode_attn_matches_plain(cuda, kv_dtype):
     got = decode_attn.decode_attn_paged(*args, sm_scale=dh ** -0.5)
     want = decode_attn.decode_attn_paged_plain(*args, sm_scale=dh ** -0.5)
     assert float((got - want).abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize("fmt", ["e4m3", "e5m2"])
+def test_fused_large_m_tile_matches_plain(cuda, fmt):
+    for m, k, n in LARGE_M_SHAPES:
+        x = _x(m, k, m + n).to(cuda)
+        w = torch.tensor(np.random.default_rng(n).standard_normal((k, n)),
+                         dtype=torch.float32) * 0.05
+        qw = quant_per_tensor(w, "e4m3").q.to(cuda)
+        for xin in (x, x.bfloat16()):
+            s = dispatch.global_scale(xin, fmt)
+            acc, q, se = mx_fused.fused_quant_gemm(xin, s, qw, fmt)
+            acc_p, q_p, se_p = mx_fused.fused_quant_gemm_plain(xin, s, qw,
+                                                               fmt)
+            assert torch.equal(q.view(torch.uint8), q_p.view(torch.uint8))
+            assert torch.equal(se, se_p)
+            _close(acc, acc_p)
+
+
+@pytest.mark.parametrize("fmt", ["e4m3", "e5m2"])
+def test_dw_gemm_matches_plain(cuda, fmt):
+    for m, k, n in DW_SHAPES:
+        xq = quant_mx(_x(m, k, m + k).to(cuda), 32, fmt)
+        g = torch.tensor(np.random.default_rng(n).standard_normal((m, n)),
+                         dtype=torch.float32, device=cuda)
+        gq = quant_per_tensor(g, "e5m2")
+        acc, qt, et = mx_bwd.mx_dw_gemm(xq.q, xq.sexp, gq.q, fmt,
+                                        payload=True)
+        acc_p, qt_p, et_p = mx_bwd.mx_dw_gemm_plain(xq.q, xq.sexp, gq.q,
+                                                    fmt, payload=True)
+        assert torch.equal(qt.view(torch.uint8), qt_p.view(torch.uint8))
+        assert torch.equal(et, et_p)
+        _close(acc, acc_p)
+        _close(mx_bwd.mx_dw_gemm(xq.q, xq.sexp, gq.q, fmt), acc_p)
+
+
+def test_decode_attn_dispatch_passes_true_group_rows(cuda, monkeypatch):
+    """G = 1 (phi3-mini): the kernel gets a 1-row q, no padded copy, and
+    agrees with the padded plain path."""
+    b, kvh, dh, t, n_p, pool = 2, 3, 96, 16, 2, 6
+    rng = np.random.default_rng(4)
+    q = torch.tensor(rng.standard_normal((b, kvh, 1, dh)),
+                     dtype=torch.float32)
+    k, ks = _quant_kv(torch.tensor(rng.standard_normal((pool, kvh, t, dh)),
+                                   dtype=torch.float32))
+    v, vs = _quant_kv(torch.tensor(rng.standard_normal((pool, kvh, t, dh)),
+                                   dtype=torch.float32))
+    bt = torch.tensor([[0, 3], [5, 1]], dtype=torch.int32)
+    nv = torch.tensor([20, 7], dtype=torch.int32)
+    cpu = (q, k, v, ks, vs, nv, bt)
+    seen = []
+    kernel = dispatch.decode_attn_paged
+
+    def spy(qq, *a, **kw):
+        seen.append(tuple(qq.shape))
+        return kernel(qq, *a, **kw)
+
+    want = dispatch.decode_attention_paged(*cpu, sm_scale=dh ** -0.5)
+    monkeypatch.setattr(dispatch, "decode_attn_paged", spy)
+    got = dispatch.decode_attention_paged(*[a.to(cuda) for a in cpu],
+                                          sm_scale=dh ** -0.5)
+    assert seen == [(b, kvh, 1, dh)]
+    assert got.shape == (b, kvh, 1, dh)
+    assert float((got.cpu() - want).abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize("m", [32, 256])
+def test_fused_exponent_boundaries_match_plain(cuda, m):
+    """Group maxima within a few ulps above powers of two, where
+    ``log2(r) - 1e-6`` lies next to an integer and a contracted
+    multiply-add would move the ceil: both tiles (M <= 32 and M > 32)
+    must still pick the plain version's exponents."""
+    k = 4096
+    rng = np.random.default_rng(m)
+    x = rng.uniform(-0.5, 0.5, (m, k // 32, 32)).astype(np.float32)
+    i = np.arange(m * k // 32).reshape(m, k // 32)
+    amax = np.ldexp(1.0 + (i // 20 % 40) * 5e-8, -(i % 20))
+    x *= amax[..., None]
+    x[..., 0] = amax
+    x = torch.tensor(x.reshape(m, k), device=cuda)
+    qw = quant_per_tensor(torch.ones(k, 64) * 0.01).q.to(cuda)
+    s = torch.tensor(1.0 / 448.0, device=cuda)
+    for fmt in ("e4m3", "e5m2"):
+        _, q, se = mx_fused.fused_quant_gemm(x, s, qw, fmt)
+        _, q_p, se_p = mx_fused.fused_quant_gemm_plain(x, s, qw, fmt)
+        assert torch.equal(se, se_p)
+        assert torch.equal(q.view(torch.uint8), q_p.view(torch.uint8))
