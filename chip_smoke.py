@@ -12,21 +12,37 @@ Phases, each fatal on failure:
      decode attention, and olmo-7b training shapes (M = 2048 tokens) for
      fused_quant_gemm_tiled (fused_quant_gemm's M > 32 tile: forward
      e4m3, dx e5m2 on the transposed weights) and mx_dw_gemm -- with
-     its time (CUDA events, median of 20 cold-L2 launches), the plain
-     version's, the bound (bytes over 3.35 TB/s or operations over 989
-     TFLOP/s, whichever is larger) and a PyTorch library call where one
-     computes the same function;
+     its time (CUDA events, median of 20 cold-L2 launches; a call under
+     0.1 ms in batches, see Timer), the plain version's, the bound
+     (bytes over 3.35 TB/s or operations over the peak for the operands'
+     type, 1979 TFLOP/s for fp8 and 989 for bf16, whichever is larger)
+     and a PyTorch library call where one computes the same function;
+     the baselines' kernels at the same
+     training shapes: group_gemm (the per_group forward, dx and dW, with
+     torch._scaled_mm beside it as well) and mx_quant (the standalone
+     quantizer);
   4. the engine: phi3-mini-3.8b at full width on random weights from a
      seed serves 8 requests through the paged engine; every serving
      kernel must have been launched on that path; a second run from the
      same seed must give the same streams; the port on the card must
      agree with the port on the CPU on a smoke-size model;
-  5. training: olmo-7b at full width, depth cut to 4 layers, takes 3
-     moss and 3 bf16 steps of batch 1 x 2048 tokens from the same
-     weights and batches; both training kernels must have been launched
-     on that path; the smoke-size olmo-7b trains 3 steps on the card
-     and on the CPU from the same state and batches;
-  6. the kernels line (JSON), the card line, and the last line
+  5. the ablation (the paper's Table 6): the quantizer/GEMM entry points
+     of kernels.ops at its three (M, N, K) shapes -- the MOSS GEMM
+     (mx_gemm), the COAT GEMM (group_gemm), the port's per-tensor GEMM
+     (pt_matmul, f32 upcast product), TE's fp8 GEMM (torch._scaled_mm,
+     cuBLASLt), bf16 torch.matmul, the fused MOSS linear layer
+     (moss_linear: fused_quant_gemm's large tile) and the three
+     quantizers -- once as a user calls them (mx_quant, mx_gemm,
+     group_gemm and fused_quant_gemm_tiled must launch, moss_linear
+     must agree with its plain version), then timed;
+  6. training: olmo-7b at full width, depth cut to 4 layers, takes 3
+     moss, 3 bf16, 3 per_group and 3 per_tensor steps of batch 1 x 2048
+     tokens from the same weights and batches; each quantized recipe
+     must launch exactly its kernels the counted number of times; the
+     smoke-size olmo-7b trains 3 steps in moss, per_group and
+     per_tensor on the card and on the CPU from the same initial state
+     and batches, each device on its own trajectory;
+  7. the kernels line (JSON), the card line, and the last line
      {"ok": true, "device": {...}}.
 
 Imports nothing of JAX and nothing of the JAX package.
@@ -44,18 +60,23 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM data sheet
 BF16_FLOPS = 989e12                 # dense bf16 tensor-core peak
+FP8_FLOPS = 1979e12                 # dense fp8 tensor-core peak
 ARCH = "phi3-mini-3.8b"
 GEMM_KN = [(3072, 3072), (3072, 8192), (8192, 3072), (3072, 32064)]
 TRAIN_ARCH = "olmo-7b"
 TRAIN_LAYERS = 4                    # of 32: f32 master + grads + moments
 TRAIN_M = 2048                      # batch 1 x seq 2048 (paper Table 8)
 TRAIN_KN = [(4096, 4096), (4096, 11008), (11008, 4096), (4096, 50304)]
+# the paper's Table 6 GEMM shapes (M, N, K), as benchmarks/run.py has them
+TABLE6_MNK = [(2048, 7168, 4096), (4096, 2048, 7168), (4096, 4096, 8192)]
 REPLACES = {
     "mx_gemm": "src/repro/kernels/mx_gemm.py:61",
     "fused_quant_gemm": "src/repro/kernels/mx_fused.py:101",
     "fused_quant_gemm_tiled": "src/repro/kernels/mx_fused.py:101",
     "decode_attn_paged": "src/repro/kernels/decode_attn.py:408",
     "mx_dw_gemm": "src/repro/kernels/mx_bwd.py:102",
+    "group_gemm": "src/repro/kernels/group_gemm.py:61",
+    "mx_quant": "src/repro/kernels/mx_quant.py:51",
 }
 SOURCES = {
     "mx_gemm": "src/repro_torch/csrc/mx_gemm.cu",
@@ -63,6 +84,8 @@ SOURCES = {
     "fused_quant_gemm_tiled": "src/repro_torch/csrc/mx_fused.cu",
     "decode_attn_paged": "src/repro_torch/csrc/decode_attn.cu",
     "mx_dw_gemm": "src/repro_torch/csrc/mx_dw_gemm.cu",
+    "group_gemm": "src/repro_torch/csrc/group_gemm.cu",
+    "mx_quant": "src/repro_torch/csrc/mx_quant.cu",
 }
 
 
@@ -71,35 +94,62 @@ def fail(msg: str) -> int:
     return 1
 
 
-def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
+def bound_ms(nbytes: float, flops: float,
+             peak: float = FP8_FLOPS) -> tuple[float, str]:
+    """The least time for the work: bytes over the memory rate or
+    operations over ``peak`` (the card's rate for the operands' type),
+    whichever is larger."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOPS * 1e3
+    t_ops = flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 class Timer:
-    """Median CUDA-event time of one call, L2 flushed before each."""
+    """Median CUDA-event time of one call, L2 flushed before each.
+
+    Events around one launch of a few microseconds measure the launch
+    more than the kernel, so a call under 0.1 ms is timed in batches:
+    behind a sleep on the card (so that the host queues the whole batch
+    before it starts), one pair of events holds 20 (flush, call) pairs;
+    the time of 20 flushes alone, taken the same way, is subtracted, and
+    the per-call median over 7 batches is returned."""
+
+    BATCH = 20
 
     def __init__(self, torch):
         self.torch = torch
         self.flush = torch.empty(96 * 2 ** 20, dtype=torch.uint8,
                                  device="cuda")
 
-    def ms(self, fn, n: int = 20) -> float:
+    def _median(self, fn, n: int, batch: int) -> float:
         torch = self.torch
-        for _ in range(3):
-            fn()
         times = []
         for _ in range(n):
-            self.flush.zero_()
+            if batch == 1:
+                self.flush.zero_()
+            else:
+                torch.cuda._sleep(20_000_000)          # ~10 ms of cycles
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
             a.record()
-            fn()
+            for _ in range(batch):
+                if batch > 1:
+                    self.flush.zero_()
+                if fn is not None:
+                    fn()
             b.record()
             times.append((a, b))
         torch.cuda.synchronize()
         return statistics.median(a.elapsed_time(b) for a, b in times)
+
+    def ms(self, fn, n: int = 20) -> float:
+        for _ in range(3):
+            fn()
+        t = self._median(fn, n, 1)
+        if t >= 0.1:
+            return t
+        b = self.BATCH
+        return (self._median(fn, 7, b) - self._median(None, 7, b)) / b
 
 
 def phase_card(torch) -> str:
@@ -248,7 +298,8 @@ def phase_kernels(torch, timer) -> dict:
                   + 2 * live * kvh * dh * elt           # live K and V
                   + (2 * live * kvh * 4 if ks is not None else 0)
                   + 4 * b_ + 4 * b_ * n_p)              # n_valid, table
-        b, by = bound_ms(nbytes, 4.0 * live * kvh * dh)
+        b, by = bound_ms(nbytes, 4.0 * live * kvh * dh,
+                         FP8_FLOPS if kv_dtype == "fp8" else BF16_FLOPS)
         print(f"decode_attn_paged {kv_dtype} B={b_} KV={kvh} G=1 Dh={dh} "
               f"T={t_} "
               f"n_valid={nv.tolist()}: max_err {err:.3g}, {t:.4f} ms, plain "
@@ -352,6 +403,197 @@ def phase_train_kernels(torch, timer) -> dict:
     res["fused_quant_gemm_tiled"]["max_abs_err"] = worst_f
     res["mx_dw_gemm"]["max_abs_err"] = worst_d
     return res
+
+
+def _col_major(q):
+    """An fp8 (K, N) operand as torch._scaled_mm takes its second
+    argument: column-major (a row-major (N, K) copy, transposed)."""
+    return q.T.contiguous().T
+
+
+def phase_recipe_kernels(torch, timer) -> dict:
+    """group_gemm at olmo-7b training shapes: the per_group forward
+    (e4m3 activations per 128 along K against the e4m3 weights), dx
+    (the e5m2 gradient per 128 along N against Wᵀ) and dW (the
+    residual's transpose requantized per 128 tokens against the e5m2
+    gradient); mx_quant at (2048, 4096) e4m3 on bf16 input and (2048,
+    11008) e5m2 on f32 input."""
+    from repro_torch.core.quant import quant_per_group, quant_per_tensor
+    from repro_torch.kernels import dispatch, group_gemm, mx_quant
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    m = TRAIN_M
+    one = torch.ones((), dtype=torch.float32, device="cuda")
+    res = {}
+    worst = 0.0
+
+    def check(what, xq, qw):
+        nonlocal worst
+        # the operands as dispatch.group_matmul hands them over
+        # (the dW operand is quantized from a transposed view)
+        xq = xq._replace(q=xq.q.contiguous())
+        mm, kk = xq.q.shape
+        nn = qw.shape[1]
+        got = group_gemm.group_gemm(xq.q, xq.s, qw)
+        want = group_gemm.group_gemm_plain(xq.q, xq.s, qw)
+        err = float((got - want).abs().max())
+        scale = float(want.abs().max())
+        if not (err <= 1e-5 * scale and torch.isfinite(got).all()):
+            raise AssertionError(f"group_gemm {what} M={mm} K={kk} N={nn}: "
+                                 f"max err {err} > 1e-5 * {scale}")
+        worst = max(worst, err)
+        del got, want
+        xb, wb = xq.q.to(torch.bfloat16), qw.to(torch.bfloat16)
+        wc = _col_major(qw)
+        t = timer.ms(lambda: group_gemm.group_gemm(xq.q, xq.s, qw))
+        tp = timer.ms(lambda: group_gemm.group_gemm_plain(xq.q, xq.s, qw))
+        tl = timer.ms(lambda: torch.matmul(xb, wb))
+        if xq.q.dtype == qw.dtype == torch.float8_e5m2:
+            ts = None
+        else:
+            ts = timer.ms(lambda: torch._scaled_mm(
+                xq.q, wc, scale_a=one, scale_b=one,
+                out_dtype=torch.float32, use_fast_accum=False))
+        b, by = bound_ms(mm * kk + 4 * mm * (kk // 128) + kk * nn
+                         + 4 * mm * nn, 2.0 * mm * nn * kk)
+        print(f"group_gemm {what} {xq.q.dtype} x {qw.dtype} M={mm} K={kk} "
+              f"N={nn}: max_err {err:.3g} (max|ref| {scale:.3g}), "
+              f"{t:.4f} ms, plain {tp:.4f} ms, library {tl:.4f} ms "
+              f"(torch.matmul bf16), {ts if ts is None else round(ts, 4)} "
+              f"ms (torch._scaled_mm fp8), bound {b:.4f} ms ({by})")
+        return dict(ms=t, plain_ms=tp, library_ms=tl, bound_ms=b,
+                    bound_by=by)
+
+    for k, n in TRAIN_KN:
+        w = torch.randn(k, n, device="cuda", generator=gen) / k ** 0.5
+        wq = quant_per_tensor(w)
+        del w
+        x = _activations(torch, gen, m, k)
+        xq = quant_per_group(x, 128, "e4m3")
+        row = check("fwd", xq, wq.q)
+        if (k, n) == (4096, 11008):
+            res["group_gemm"] = row
+        if (k, n) in ((4096, 11008), (11008, 4096)):
+            g = torch.randn(m, n, device="cuda", generator=gen) * 1e-3
+            check("dx", quant_per_group(g, 128, "e5m2"),
+                  wq.q.T.contiguous())
+            xt = quant_per_group(xq.dequant(torch.bfloat16).T, 128, "e4m3")
+            check("dW", xt, quant_per_tensor(g, "e5m2").q)
+            del g, xt
+        del x, xq, wq
+        torch.cuda.empty_cache()
+    res["group_gemm"]["max_abs_err"] = worst
+
+    for (mm, kk), fmt, dt in (((m, 4096), "e4m3", torch.bfloat16),
+                              ((m, 11008), "e5m2", torch.float32)):
+        x = _activations(torch, gen, mm, kk).to(dt)
+        s = dispatch.global_scale(x, fmt)
+        q, se = mx_quant.mx_quant(x, s, fmt)
+        q_p, se_p = mx_quant.mx_quant_plain(x, s, fmt)
+        q_mis = int((q.view(torch.uint8) != q_p.view(torch.uint8)).sum())
+        e_mis = int((se != se_p).sum())
+        print(f"mx_quant {fmt} {dt} M={mm} K={kk}: payload mismatches q "
+              f"{q_mis} / sexp {e_mis} (of {q.numel()} / {se.numel()})",
+              end="")
+        if q_mis or e_mis:
+            print()
+            raise AssertionError(f"mx_quant {fmt} K={kk}")
+        t = timer.ms(lambda: mx_quant.mx_quant(x, s, fmt))
+        tp = timer.ms(lambda: mx_quant.mx_quant_plain(x, s, fmt))
+        b, by = bound_ms(x.element_size() * mm * kk + 4 + mm * kk
+                         + mm * kk // 32, 0.0)
+        print(f", {t:.4f} ms, plain {tp:.4f} ms, library none, bound "
+              f"{b:.4f} ms ({by})")
+        if fmt == "e4m3":
+            res["mx_quant"] = dict(ms=t, plain_ms=tp, library_ms=None,
+                                   bound_ms=b, bound_by=by, max_abs_err=0.0)
+        del x, q, se, q_p, se_p
+    return res
+
+
+def phase_table6(torch, timer) -> dict:
+    """The paper's Table 6 on the card: per (M, N, K), the GEMMs on
+    pre-quantized operands, the fused MOSS linear layer and the
+    quantizers, through the ablation entry points (kernels.ops,
+    kernels.dispatch).  Each entry point is first called once as a user
+    calls it, between a reset and a read of the launch counts; the
+    fused linear layer is held against its plain version (1e-5 *
+    max|ref|, f32 sum order); then each is timed (median of 10 cold-L2
+    calls).  TE's GEMM is cuBLASLt's fp8 product (torch._scaled_mm),
+    timed beside the port's per-tensor GEMM (pt_matmul, f32
+    accumulation).  It reports times; there is no speed gate."""
+    from repro_torch.core.quant import quant_per_group, quant_per_tensor
+    from repro_torch.kernels import (dispatch, group_gemm, mx_fused,
+                                     mx_gemm, mx_quant, ops)
+
+    counters = [mx_quant.counter, mx_gemm.counter, group_gemm.counter,
+                mx_fused.counter_tiled]
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    launches = {c.name: 0 for c in counters}
+    for m, n, k in TABLE6_MNK:
+        x = _activations(torch, gen, m, k)
+        w = torch.randn(k, n, device="cuda", generator=gen) / k ** 0.5
+        xg, xt = quant_per_group(x, 128), quant_per_tensor(x)
+        # the weight row-major for the port's GEMMs, column-major for
+        # cuBLASLt's fp8 product
+        wq = quant_per_tensor(w)
+        wc = _col_major(wq.q)
+        xb, wb = x, w.to(torch.bfloat16)
+        for c in counters:
+            c.reset()
+        q, sexp, s = ops.mx_quantize(x)
+        outs = [ops.mx_matmul(q, sexp, wq.q, s, wq.s),
+                ops.coat_matmul(xg.q, xg.s, wq.q, wq.s),
+                dispatch.pt_matmul(xt, wq), torch.matmul(xb, wb)]
+        lin = ops.moss_linear(x, w, out_dtype=torch.float32)
+        torch.cuda.synchronize()
+        for c in counters:
+            launches[c.name] += c.count
+        if not all(bool(torch.isfinite(o).all()) for o in outs):
+            raise AssertionError(f"table 6 M={m} N={n} K={k}: non-finite")
+        sx = dispatch.global_scale(x)
+        acc_p, _, _ = mx_fused.fused_quant_gemm_plain(x, sx, wq.q)
+        want = acc_p * (sx * wq.s)
+        err = float((lin - want).abs().max())
+        scale = float(want.abs().max())
+        if not (err <= 1e-5 * scale and torch.isfinite(lin).all()):
+            raise AssertionError(f"table 6 moss_linear M={m} N={n} K={k}: "
+                                 f"max err {err} > 1e-5 * {scale}")
+        ref = outs[-1].float()
+        rel = [float((o.float() - ref).norm() / ref.norm()) for o in outs]
+        del lin, acc_p, want
+        t = {
+            "moss_gemm": lambda: ops.mx_matmul(q, sexp, wq.q, s, wq.s),
+            "coat_gemm": lambda: ops.coat_matmul(xg.q, xg.s, wq.q, wq.s),
+            "pt_matmul": lambda: dispatch.pt_matmul(xt, wq),
+            "te_gemm": lambda: torch._scaled_mm(
+                xt.q, wc, scale_a=xt.s, scale_b=wq.s,
+                out_dtype=torch.bfloat16, use_fast_accum=False),
+            "bf16_gemm": lambda: torch.matmul(xb, wb),
+            "moss_linear": lambda: ops.moss_linear(x, w),
+            "mx_quantize": lambda: ops.mx_quantize(x),
+            "quant_per_group": lambda: quant_per_group(x, 128),
+            "quant_per_tensor": lambda: quant_per_tensor(x),
+        }
+        t = {name: timer.ms(fn, n=10) for name, fn in t.items()}
+        flops = 2.0 * m * n * k
+        tflops = ", ".join(
+            f"{name} {flops / t[name] / 1e9:.1f}" for name in
+            ("moss_gemm", "coat_gemm", "pt_matmul", "te_gemm", "bf16_gemm",
+             "moss_linear"))
+        print(f"table6 M={m} N={n} K={k}: " + ", ".join(
+            f"{name} {ms:.4f} ms" for name, ms in t.items())
+            + f"; GEMM TFLOP/s {tflops}; rel L2 vs bf16 moss "
+            f"{rel[0]:.3g}, coat {rel[1]:.3g}, pt {rel[2]:.3g}; "
+            f"moss_linear vs plain max_err {err:.3g} (max|ref| {scale:.3g})")
+        del x, w, xg, xt, wq, wc, xb, wb, q, sexp, outs, ref
+        torch.cuda.empty_cache()
+    print(f"launches on the ablation path: {json.dumps(launches)}")
+    for name, cnt in launches.items():
+        if cnt != len(TABLE6_MNK):
+            raise AssertionError(f"ablation path: {name} launched {cnt} "
+                                 f"times, expected {len(TABLE6_MNK)}")
+    return launches
 
 
 def _requests(Request, np, cfg, seed):
@@ -472,27 +714,33 @@ def phase_small_reference(torch, np):
               f"(limit {tol:.3g})")
 
 
-def _train_cfg(get_config, QuantConfig, mode, smoke, **kw):
-    qcfg = QuantConfig(mode=mode, **kw)
+def _train_cfg(get_config, quant_from_name, mode, smoke, interval=500):
+    qcfg = quant_from_name(mode, interval)
     cfg = get_config(TRAIN_ARCH, smoke=smoke).replace(quant=qcfg)
     return cfg if smoke else cfg.replace(n_layers=TRAIN_LAYERS)
+
+
+TRAIN_MODES = ("moss", "bf16", "per_group", "per_tensor")
 
 
 def phase_train(torch, np) -> dict:
     """olmo-7b at full width, 4 of its 32 layers (f32 master weights,
     gradients and AdamW moments of all 32 would need ~110 GB), batch
-    1 x 2048: 3 moss steps, then 3 bf16 steps from the same weights on
-    the same batches.  Returns the moss path's launches."""
+    1 x 2048: 3 steps in each recipe (moss, bf16, per_group,
+    per_tensor) from the same weights on the same batches, the
+    baselines with just-in-time weight scales as the training CLI sets
+    them.  Returns the launches of the training kernels on their
+    paths."""
     from repro_torch.configs.registry import get_config
-    from repro_torch.core.formats import QuantConfig
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.core.tree import tree_leaves
-    from repro_torch.kernels import mx_bwd, mx_fused
+    from repro_torch.kernels import group_gemm, mx_bwd, mx_fused, mx_quant
+    from repro_torch.launch.train import quant_from_name
     from repro_torch.train.steps import (TrainHParams, init_train_state,
                                          make_train_step)
 
     hp = TrainHParams(peak_lr=3e-4, warmup_steps=0, total_steps=3)
-    base = _train_cfg(get_config, QuantConfig, "moss", smoke=False)
+    base = _train_cfg(get_config, quant_from_name, "moss", smoke=False)
     print(f"train {TRAIN_ARCH}: full width (d {base.d_model}, {base.n_heads} "
           f"heads, Dh {base.head_dim}, d_ff {base.d_ff}, vocab {base.vocab}, "
           f"{base.norm}, remat {base.remat}), depth cut from 32 to "
@@ -503,10 +751,11 @@ def phase_train(torch, np) -> dict:
     init = init_train_state(base, hp, seed=0, device="cuda").params
     n_params = sum(int(w.numel()) for w in tree_leaves(init))
     print(f"train: {n_params / 1e9:.3f}B parameters")
-    counters = [mx_fused.counter, mx_fused.counter_tiled, mx_bwd.counter]
+    counters = [mx_fused.counter, mx_fused.counter_tiled, mx_bwd.counter,
+                group_gemm.counter, mx_quant.counter]
     losses, launches = {}, {}
-    for mode in ("moss", "bf16"):
-        cfg = _train_cfg(get_config, QuantConfig, mode, smoke=False)
+    for mode in TRAIN_MODES:
+        cfg = _train_cfg(get_config, quant_from_name, mode, smoke=False)
         state = init_train_state(cfg, hp, params=init, device="cuda")
         step = make_train_step(cfg, hp)
         torch.cuda.synchronize()
@@ -533,60 +782,79 @@ def phase_train(torch, np) -> dict:
               f"launches {json.dumps(launches[mode])}")
         del state, step
         torch.cuda.empty_cache()
-    sites = 7 * TRAIN_LAYERS + 1                 # linear sites + head
-    want = {"fused_quant_gemm": 0,
-            "fused_quant_gemm_tiled": 3 * (2 * sites + 7 * TRAIN_LAYERS),
-            "mx_dw_gemm": 3 * sites}
-    if launches["moss"] != want:
-        raise AssertionError(f"moss launches {launches['moss']}, expected "
-                             f"{want} (forward, remat recompute, dx; dW)")
-    for i, (a, b) in enumerate(zip(losses["moss"], losses["bf16"])):
-        rel = abs(a - b) / abs(b)
-        print(f"train step {i}: moss vs bf16 loss rel {rel:.3g} "
-              "(limit 1e-2)")
-        if not rel <= 1e-2:
-            raise AssertionError(f"train step {i}: moss {a} vs bf16 {b}")
-    return {name: launches["moss"][name]
-            for name in ("fused_quant_gemm_tiled", "mx_dw_gemm")}
+    # per step: the forward at every linear site (7 a layer + the head),
+    # the remat recompute of the layers' sites, dx and dW at every site
+    sites = 7 * TRAIN_LAYERS + 1
+    none = {c.name: 0 for c in counters}
+    want = {
+        "moss": {**none,
+                 "fused_quant_gemm_tiled": 3 * (2 * sites + 7 * TRAIN_LAYERS),
+                 "mx_dw_gemm": 3 * sites},
+        "bf16": none,
+        "per_group": {**none,
+                      "group_gemm": 3 * (3 * sites + 7 * TRAIN_LAYERS)},
+        "per_tensor": none,                # pt_matmul: no kernel of its own
+    }
+    for mode in TRAIN_MODES:
+        if launches[mode] != want[mode]:
+            raise AssertionError(f"{mode} launches {launches[mode]}, "
+                                 f"expected {want[mode]} (forward, remat "
+                                 "recompute, dx, dW)")
+    for mode in ("moss", "per_group", "per_tensor"):
+        for i, (a, b) in enumerate(zip(losses[mode], losses["bf16"])):
+            rel = abs(a - b) / abs(b)
+            print(f"train step {i}: {mode} vs bf16 loss rel {rel:.3g} "
+                  "(limit 1e-2)")
+            if not rel <= 1e-2:
+                raise AssertionError(f"train step {i}: {mode} {a} vs "
+                                     f"bf16 {b}")
+    return {"fused_quant_gemm_tiled":
+            launches["moss"]["fused_quant_gemm_tiled"],
+            "mx_dw_gemm": launches["moss"]["mx_dw_gemm"],
+            "group_gemm": launches["per_group"]["group_gemm"]}
 
 
 def phase_small_train_reference(torch, np):
-    """The smoke-size olmo-7b (moss, rescale_interval 2, so a refresh
-    happens) trains 3 steps of batch 2 x 64 on the card and on the CPU
-    from the same state and batches: losses within 1e-2 relative and
-    equal scale_t at every step (f32 sums in another order and the
-    rare fp8 rounding flip they cause)."""
+    """The smoke-size olmo-7b trains 3 steps of batch 2 x 64 on the card
+    and on the CPU from the same initial state and batches, each device
+    on its own trajectory, in moss (rescale_interval 2, so a refresh
+    happens), per_group and per_tensor: losses within 1e-2 relative and
+    equal scale_t at every step (f32 sums in another order and the rare
+    fp8 rounding flip they cause)."""
     from repro_torch.configs.registry import get_config
-    from repro_torch.core.formats import QuantConfig
     from repro_torch.core.tree import tree_leaves, tree_map
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.launch.train import quant_from_name
     from repro_torch.optim.adamw import OptState
     from repro_torch.train.steps import (TrainHParams, init_train_state,
                                          make_train_step)
 
-    cfg = _train_cfg(get_config, QuantConfig, "moss", smoke=True,
-                     rescale_interval=2)
-    hp = TrainHParams(peak_lr=1e-3, warmup_steps=0, total_steps=3)
-    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=64,
-                                  global_batch=2, seed=0))
-    cpu = init_train_state(cfg, hp, seed=0, device="cpu")
-    card = cpu._replace(
-        params=tree_map(lambda t: t.to("cuda"), cpu.params),
-        opt=tree_map(lambda st: OptState(st.mu.to("cuda"), st.nu.to("cuda")),
-                     cpu.opt),
-        scale_s0=tree_map(lambda t: t.to("cuda"), cpu.scale_s0))
-    step = make_train_step(cfg, hp)
-    for i in range(3):
-        batch = data.batch_for_step(i)
-        cpu, mc = step(cpu, batch)
-        card, mg = step(card, batch)
-        a, b = float(mc["loss"]), float(mg["loss"])
-        rel = abs(a - b) / abs(a)
-        same_t = tree_leaves(cpu.scale_t) == tree_leaves(card.scale_t)
-        print(f"smoke train step {i}: card vs CPU loss {b:.6f} / {a:.6f} "
-              f"(rel {rel:.3g}, limit 1e-2), scale_t equal {same_t}")
-        if not (np.isfinite(b) and rel <= 1e-2 and same_t):
-            raise AssertionError(f"smoke train step {i}: card vs CPU")
+    for mode in ("moss", "per_group", "per_tensor"):
+        cfg = _train_cfg(get_config, quant_from_name, mode, smoke=True,
+                         interval=2)
+        hp = TrainHParams(peak_lr=1e-3, warmup_steps=0, total_steps=3)
+        data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=64,
+                                      global_batch=2, seed=0))
+        cpu = init_train_state(cfg, hp, seed=0, device="cpu")
+        card = cpu._replace(
+            params=tree_map(lambda t: t.to("cuda"), cpu.params),
+            opt=tree_map(lambda o: OptState(o.mu.to("cuda"),
+                                            o.nu.to("cuda")), cpu.opt),
+            scale_s0=tree_map(lambda t: t.to("cuda"), cpu.scale_s0))
+        step = make_train_step(cfg, hp)
+        for i in range(3):
+            batch = data.batch_for_step(i)
+            cpu, mc = step(cpu, batch)
+            card, mg = step(card, batch)
+            a, b = float(mc["loss"]), float(mg["loss"])
+            rel = abs(a - b) / abs(a)
+            same_t = tree_leaves(cpu.scale_t) == tree_leaves(card.scale_t)
+            print(f"smoke train {mode} step {i}: card vs CPU loss {b:.6f} "
+                  f"/ {a:.6f} (rel {rel:.3g}, limit 1e-2), scale_t equal "
+                  f"{same_t}")
+            if not (np.isfinite(b) and rel <= 1e-2 and same_t):
+                raise AssertionError(f"smoke train {mode} step {i}: card "
+                                     "vs CPU")
 
 
 def main() -> int:
@@ -605,23 +873,28 @@ def main() -> int:
     timer = Timer(torch)
     t0 = time.monotonic()
     res = phase_kernels(torch, timer)
-    res_train = phase_train_kernels(torch, timer)
+    res.update(phase_train_kernels(torch, timer))
+    res.update(phase_recipe_kernels(torch, timer))
     print(f"phase kernels: {time.monotonic() - t0:.1f} s")
-    del timer
     t0 = time.monotonic()
     launches = phase_engine(torch, np)
     phase_small_reference(torch, np)
     print(f"phase engine: {time.monotonic() - t0:.1f} s")
     t0 = time.monotonic()
+    ablation = phase_table6(torch, timer)
+    print(f"phase table 6: {time.monotonic() - t0:.1f} s")
+    del timer
+    t0 = time.monotonic()
     train_launches = phase_train(torch, np)
     phase_small_train_reference(torch, np)
     print(f"phase train: {time.monotonic() - t0:.1f} s")
-    # the serving kernels' rows (fused_quant_gemm is the M <= 32 tile
-    # of the calibration forward) are the serving path's; the training
-    # kernels' rows (fused_quant_gemm_tiled, the M > 32 tile of the same
-    # source, and mx_dw_gemm) are the training path's
-    res.update(res_train)
+    # each row's launches come from its path: the serving kernels'
+    # (fused_quant_gemm is the M <= 32 tile of the calibration forward)
+    # from the engine, fused_quant_gemm_tiled (the M > 32 tile of the
+    # same source) and mx_dw_gemm from the moss steps, group_gemm from
+    # the per_group steps, mx_quant from the ablation
     launches.update(train_launches)
+    launches["mx_quant"] = ablation["mx_quant"]
     kernels = [dict(name=name, route="cuda", source=SOURCES[name],
                     replaces=REPLACES[name], launches=launches[name],
                     **{k: res[name][k] for k in

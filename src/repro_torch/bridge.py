@@ -5,7 +5,8 @@ Everything crosses as numpy arrays, so this module needs neither JAX
 nor ``repro``: a caller turns the reference's tree into numpy first
 (``jax.tree.map(np.asarray, tree)``) and hands it over.  bf16 crosses
 as a ``uint16`` view and fp8 as a ``uint8`` view, so every bit
-survives."""
+survives.  Tensors land on the card unless the caller names another
+device, like the port's other entry points."""
 
 from __future__ import annotations
 
@@ -22,7 +23,7 @@ _VIEWS = {
 }
 
 
-def to_torch(x, device="cpu") -> torch.Tensor:
+def to_torch(x, device="cuda") -> torch.Tensor:
     """One numpy array (any of f32, int, bf16, fp8) -> a torch tensor
     with the same bits."""
     a = np.array(x, copy=True, order="C")      # writable, owned
@@ -36,12 +37,12 @@ def to_torch(x, device="cpu") -> torch.Tensor:
     return t.view(dtype).to(device)
 
 
-def tree_to_torch(tree, device="cpu"):
+def tree_to_torch(tree, device="cuda"):
     """Nested dicts of numpy arrays -> the same tree of tensors."""
     return tree_map(lambda x: to_torch(x, device), tree)
 
 
-def act_scales_to_torch(act: dict, device="cpu") -> dict:
+def act_scales_to_torch(act: dict, device="cuda") -> dict:
     """{site tag: (s, sub)} numpy pairs (the reference's ActScales,
     turned to numpy) -> {site tag: ActScale}."""
     return {tag: ActScale(s=to_torch(s, device),
@@ -57,7 +58,7 @@ def bits(t: torch.Tensor) -> np.ndarray:
     return t.view(width).numpy()
 
 
-def train_state_to_torch(ref, device="cpu"):
+def train_state_to_torch(ref, device="cuda"):
     """The reference's ``TrainState`` with numpy leaves (params, the
     ``OptState(mu, nu)`` tree, ``scale_s0``, ``scale_t``, ``step``) ->
     the port's ``TrainState`` on ``device``."""

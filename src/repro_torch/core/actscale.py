@@ -69,7 +69,8 @@ class _Recorder:
         current layer index."""
         if cfg.mode != "moss":
             raise NotImplementedError(
-                f"calibration for {cfg.mode!r}: ROADMAP queue 1 item 6")
+                f"calibration for {cfg.mode!r}: ROADMAP next slices, "
+                "serving the baselines")
         k = x.shape[-1]
         g = cfg.micro_group
         xf = x.detach().to(torch.float32).abs().reshape(-1, k)

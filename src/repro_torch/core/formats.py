@@ -61,8 +61,10 @@ def div_c(x: torch.Tensor, c: float) -> torch.Tensor:
 
 
 def ftz(x: torch.Tensor) -> torch.Tensor:
-    """Flush f32 subnormals to zero (see ``MIN_NORMAL``)."""
-    return torch.where(x.abs() < MIN_NORMAL, torch.zeros_like(x), x)
+    """Flush f32 subnormals to a zero of the same sign (see
+    ``MIN_NORMAL``; a flushed negative input quantizes to -0, as in the
+    reference)."""
+    return torch.where(x.abs() < MIN_NORMAL, x * 0.0, x)
 
 
 def cast_fp8(x: torch.Tensor, fmt: FP8Format) -> torch.Tensor:
@@ -104,9 +106,15 @@ def e8m0_decode(exp: torch.Tensor) -> torch.Tensor:
 @dataclasses.dataclass(frozen=True)
 class QuantConfig:
     """Quantization recipe (see ``repro.core.formats.QuantConfig``).
-    The serving slice honours ``mode`` in {"moss", "bf16"} with
-    ``weight_scaling="auto"``; other values raise where they are
-    consumed."""
+
+    mode: "bf16" (no quantization), "per_tensor" (TE-style, one f32
+    scale per tensor), "per_group" (COAT-style, an f32 scale per
+    ``group_size`` along K) or "moss" (level-1 f32 per tensor, level-2
+    E8M0 per ``micro_group`` along K).  weight_scaling: "jit" (a max
+    reduction every step), "delayed" (the previous step's amax) or
+    "auto" (MOSS automatic scaling).  Training takes every mode;
+    serving takes moss with automatic scaling, and the other values
+    raise where they are consumed."""
 
     mode: Literal["bf16", "per_tensor", "per_group", "moss"] = "moss"
     fwd_format: FP8Format = "e4m3"
@@ -125,3 +133,5 @@ class QuantConfig:
 
 BF16_CONFIG = QuantConfig(mode="bf16")
 MOSS_CONFIG = QuantConfig(mode="moss")
+PER_TENSOR_CONFIG = QuantConfig(mode="per_tensor", weight_scaling="jit")
+PER_GROUP_CONFIG = QuantConfig(mode="per_group", weight_scaling="jit")

@@ -2,27 +2,36 @@
 
 ``qlinear(x, QT(w, s, a), cfg)`` computes ``x @ w`` under the recipe:
 
-  bf16   ``mm`` with bf16 operands and f32 accumulation, both ways;
-  moss   ``qmm``, the training GEMM with its own backward (below), or,
-         with a calibrated ``ActScale`` in ``a``, the reduction-free
-         delayed-scale serving forward ``_qmm_delayed`` through
-         ``kernels.dispatch.mx_matmul``.
+  bf16        ``mm`` with bf16 operands and f32 accumulation, both ways;
+  moss,
+  per_group,
+  per_tensor  ``qmm``, the training GEMM with its own backward (below);
+              in moss, with a calibrated ``ActScale`` in ``a``, the
+              reduction-free delayed-scale serving forward
+              ``_qmm_delayed`` through ``kernels.dispatch.mx_matmul``.
 
-``qmm`` is a ``torch.autograd.Function`` (the reference's custom VJP):
+``qmm`` is a ``torch.autograd.Function`` (the reference's custom VJP).
+Its forward saves only the fp8 residuals of x (``MxQ``, ``PerGroupQ``
+or ``PerTensorQ``) and the ``PerTensorQ`` of w, never x or w.
 
-  forward   y  = fused quantize + MX GEMM (E4M3), ``· s_x · s_w``;
-            it saves only the fp8 residuals, ``MxQ(q, sexp, s)`` of x
-            and ``PerTensorQ`` of w, never x or w;
-  backward  dx = the same fused operator on the E5M2 gradient against
-                 Wᵀ (``dispatch.fused_quant_matmul``);
-            dW = the fp8 residual re-quantized along the tokens against
-                 the per-tensor E5M2 gradient (``dispatch.mx_matmul_dw``).
+  moss        y  = fused quantize + MX GEMM (E4M3), ``· s_x · s_w``;
+              dx = the same fused operator on the E5M2 gradient against
+                   Wᵀ (``dispatch.fused_quant_matmul``);
+              dW = the fp8 residual re-quantized along the tokens
+                   against the per-tensor E5M2 gradient
+                   (``dispatch.mx_matmul_dw``).
+  per_group   (COAT) x and the gradient quantized per 128 along K, the
+              GEMMs through ``dispatch.group_matmul``; dW re-quantizes
+              the dequantized residual's transpose per 128 tokens.
+  per_tensor  (TE) one scale per tensor, the GEMMs through
+              ``dispatch.pt_matmul``; dW re-quantizes the dequantized
+              residual's transpose.
 
 The weight scale ``w_scale`` is the predicted one under automatic
 scaling (``core.autoscale``); it gets no gradient.  Weights may also
 arrive pre-quantized (fp8 payload + build-time scale) on the serving
-path.  The ``per_tensor`` and ``per_group`` recipes are ROADMAP queue 1
-item 6.
+path.  Serving the per_group and per_tensor recipes (their delayed
+forward and calibration) is a later ROADMAP slice.
 """
 
 from __future__ import annotations
@@ -30,11 +39,18 @@ from __future__ import annotations
 from typing import Any, NamedTuple
 
 import torch
-import torch.nn.functional as F
 
 from .actscale import REC, ActScale
 from .formats import QuantConfig, is_fp8
-from .quant import MxQ, PerTensorQ, quant_mx_delayed, quant_per_tensor
+from .quant import (
+    MxQ,
+    PerGroupQ,
+    PerTensorQ,
+    pad_axis,
+    quant_mx_delayed,
+    quant_per_group,
+    quant_per_tensor,
+)
 
 
 class QT(NamedTuple):
@@ -52,23 +68,11 @@ def _is_fp8(w: torch.Tensor) -> bool:
     return is_fp8(w)
 
 
-def _pad_axis(x: torch.Tensor, axis: int, mult: int) -> torch.Tensor:
-    """Zero-pad ``axis`` up to a multiple of ``mult`` (zeros are exact
-    under every quantizer here)."""
-    n = x.shape[axis]
-    pad = (-n) % mult
-    if pad == 0:
-        return x
-    axis = axis % x.dim()
-    widths = [0, 0] * (x.dim() - 1 - axis) + [0, pad]
-    return F.pad(x, widths)
-
-
 def _unsupported(cfg: QuantConfig) -> None:
-    if cfg.mode not in ("moss", "bf16"):
+    if cfg.mode != "moss":
         raise NotImplementedError(
-            f"quant mode {cfg.mode!r}: ROADMAP queue 1 item 6 (baseline "
-            "recipes)")
+            f"serving quant mode {cfg.mode!r} (delayed activation "
+            "scales): ROADMAP next slices, serving the baselines")
 
 
 def _quantize_w(cfg: QuantConfig, w: torch.Tensor,
@@ -86,14 +90,24 @@ def _quantize_w(cfg: QuantConfig, w: torch.Tensor,
 
 
 def _fwd_gemm(cfg: QuantConfig, x2d: torch.Tensor, wq: PerTensorQ):
-    """The moss forward GEMM: fused quantize + MX GEMM, one pass over
-    x, the residual (q, sexp) from the same kernel."""
+    """The forward GEMM and the fp8 residual of x.  moss: fused
+    quantize + MX GEMM, one pass over x, the residual (q, sexp) from
+    the same kernel; per_group: K padded to the group, the COAT GEMM;
+    per_tensor: the TE GEMM."""
     from repro_torch.kernels import dispatch
 
-    wq_p = PerTensorQ(q=_pad_axis(wq.q, 0, cfg.micro_group), s=wq.s)
-    return dispatch.fused_quant_matmul(
-        _pad_axis(x2d, -1, cfg.micro_group), wq_p, fmt=cfg.fwd_format,
-        micro_group=cfg.micro_group, out_dtype=torch.float32)
+    if cfg.mode == "moss":
+        wq_p = PerTensorQ(q=pad_axis(wq.q, 0, cfg.micro_group), s=wq.s)
+        return dispatch.fused_quant_matmul(
+            pad_axis(x2d, -1, cfg.micro_group), wq_p, fmt=cfg.fwd_format,
+            micro_group=cfg.micro_group, out_dtype=torch.float32)
+    if cfg.mode == "per_group":
+        xq = quant_per_group(pad_axis(x2d, -1, cfg.group_size),
+                             cfg.group_size, cfg.fwd_format)
+        wq_p = PerTensorQ(q=pad_axis(wq.q, 0, cfg.group_size), s=wq.s)
+        return dispatch.group_matmul(xq, wq_p, out_dtype=torch.float32), xq
+    xq = quant_per_tensor(x2d, cfg.fwd_format)
+    return dispatch.pt_matmul(xq, wq, out_dtype=torch.float32), xq
 
 
 def _qmm_bwd_moss(cfg: QuantConfig, xq: MxQ, wq: PerTensorQ,
@@ -108,9 +122,9 @@ def _qmm_bwd_moss(cfg: QuantConfig, xq: MxQ, wq: PerTensorQ,
     bfmt = cfg.bwd_format
     micro = cfg.micro_group
     # dx = g @ Wᵀ: the fused quantize + GEMM on the E5M2 gradient
-    wqT = PerTensorQ(q=_pad_axis(wq.q.T.contiguous(), 0, micro), s=wq.s)
+    wqT = PerTensorQ(q=pad_axis(wq.q.T.contiguous(), 0, micro), s=wq.s)
     dx2d, _ = dispatch.fused_quant_matmul(
-        _pad_axis(g2d, -1, micro), wqT, fmt=bfmt, micro_group=micro,
+        pad_axis(g2d, -1, micro), wqT, fmt=bfmt, micro_group=micro,
         out_dtype=torch.float32)
     dx = dx2d[:, :k].reshape(*lead, k).to(g.dtype)
     # dW = xᵀ @ g: the residual re-quantized along the tokens
@@ -120,8 +134,44 @@ def _qmm_bwd_moss(cfg: QuantConfig, xq: MxQ, wq: PerTensorQ,
     return dx, dw.to(w_dtype)
 
 
+def _qmm_bwd_baseline(cfg: QuantConfig, xq, wq: PerTensorQ,
+                      g: torch.Tensor, w_dtype: torch.dtype):
+    """dx and dW of the per_group and per_tensor recipes (``_qmm_bwd``
+    of the reference): dx quantizes the gradient along N against Wᵀ;
+    dW dequantizes the fp8 residual to bf16 and re-quantizes its
+    transpose along the tokens (per 128 tokens in per_group, the
+    gradient padded along M to match; one scale in per_tensor)."""
+    from repro_torch.kernels import dispatch
+
+    lead = g.shape[:-1]
+    k, n = wq.q.shape
+    g2d = g.reshape(-1, n).to(torch.float32)
+    bfmt = cfg.bwd_format
+    if cfg.mode == "per_group":
+        gs = cfg.group_size
+        gq = quant_per_group(pad_axis(g2d, -1, gs), gs, bfmt)
+        wqT = PerTensorQ(q=pad_axis(wq.q.T.contiguous(), 0, gs), s=wq.s)
+        dx2d = dispatch.group_matmul(gq, wqT, out_dtype=torch.float32)
+        x2d = xq.dequant(torch.bfloat16)[:, :k]
+        xTq = quant_per_group(pad_axis(x2d.T, -1, gs), gs,
+                              cfg.fwd_format)
+        g_pt = quant_per_tensor(pad_axis(g2d, 0, gs), bfmt)
+        dw = dispatch.group_matmul(xTq, g_pt, out_dtype=torch.float32)
+    else:
+        gq = quant_per_tensor(g2d, bfmt)
+        dx2d = dispatch.pt_matmul(gq, PerTensorQ(q=wq.q.T, s=wq.s),
+                                  out_dtype=torch.float32)
+        xTq = quant_per_tensor(xq.dequant(torch.bfloat16).T, cfg.fwd_format)
+        dw = dispatch.pt_matmul(xTq, gq, out_dtype=torch.float32)
+    dx = dx2d[:, :k].reshape(*lead, k).to(g.dtype)
+    return dx, dw.to(w_dtype)
+
+
+_RESIDUAL = {"moss": MxQ, "per_group": PerGroupQ, "per_tensor": PerTensorQ}
+
+
 class _QMM(torch.autograd.Function):
-    """The reference's ``qmm`` custom VJP (moss and bf16 modes)."""
+    """The reference's ``qmm`` custom VJP (all four recipes)."""
 
     @staticmethod
     def forward(ctx, cfg: QuantConfig, x, w, w_scale):
@@ -138,7 +188,7 @@ class _QMM(torch.autograd.Function):
             return mm(x, w, out_dtype=torch.float32).to(orig_dtype)
         wq = _quantize_w(cfg, w, w_scale)
         y2d, xq = _fwd_gemm(cfg, x.reshape(-1, k), wq)
-        ctx.save_for_backward(xq.q, xq.sexp, xq.s, wq.q, wq.s)
+        ctx.save_for_backward(*xq, wq.q, wq.s)
         return y2d.reshape(*lead, w.shape[-1]).to(orig_dtype)
 
     @staticmethod
@@ -154,17 +204,17 @@ class _QMM(torch.autograd.Function):
             dw = mm(x_bf16.reshape(-1, k).T, g2d, out_dtype=torch.float32)
             return (None, dx.reshape(*lead, k).to(ctx.x_dtype),
                     dw.to(ctx.w_dtype), None)
-        q, sexp, s, wq_q, wq_s = ctx.saved_tensors
-        dx, dw = _qmm_bwd_moss(cfg, MxQ(q, sexp, s), PerTensorQ(wq_q, wq_s),
-                               g, ctx.w_dtype)
+        *res, wq_q, wq_s = ctx.saved_tensors
+        xq, wq = _RESIDUAL[cfg.mode](*res), PerTensorQ(wq_q, wq_s)
+        bwd = _qmm_bwd_moss if cfg.mode == "moss" else _qmm_bwd_baseline
+        dx, dw = bwd(cfg, xq, wq, g, ctx.w_dtype)
         return None, dx, dw, None
 
 
 def qmm(cfg: QuantConfig, x: torch.Tensor, w: torch.Tensor,
         w_scale: torch.Tensor) -> torch.Tensor:
-    """``x @ w`` under ``cfg`` with the MOSS backward (see the module
-    docstring)."""
-    _unsupported(cfg)
+    """``x @ w`` under ``cfg`` with the recipe's backward (see the
+    module docstring)."""
     return _QMM.apply(cfg, x, w, w_scale)
 
 
@@ -172,7 +222,6 @@ def qlinear(x: torch.Tensor, wt: QT, cfg: QuantConfig) -> torch.Tensor:
     """Quantized ``x @ w`` (see module docstring)."""
     if cfg.mode == "bf16":
         return qmm(cfg, x, wt.w, torch.zeros((), dtype=torch.float32))
-    _unsupported(cfg)
     a = wt.a
     if isinstance(a, str):
         # calibration pass: report this site's activation amax, then
@@ -201,6 +250,7 @@ def _qmm_delayed(cfg: QuantConfig, x: torch.Tensor, wt: QT,
     and the GEMM is the MX GEMM kernel."""
     from repro_torch.kernels import dispatch
 
+    _unsupported(cfg)
     orig_dtype = x.dtype
     *lead, k = x.shape
     x2d = x.reshape(-1, k)
@@ -211,10 +261,10 @@ def _qmm_delayed(cfg: QuantConfig, x: torch.Tensor, wt: QT,
     else:
         wq = _quantize_w(cfg, wt.w, wt.s if wt.s is not None
                          else torch.ones((), dtype=torch.float32))
-    x2d = _pad_axis(x2d, -1, cfg.micro_group)
+    x2d = pad_axis(x2d, -1, cfg.micro_group)
     xq = quant_mx_delayed(x2d, a.s, a.sub, cfg.micro_group,
                           cfg.fwd_format)
-    wq_p = PerTensorQ(q=_pad_axis(wq.q, 0, cfg.micro_group), s=wq.s)
+    wq_p = PerTensorQ(q=pad_axis(wq.q, 0, cfg.micro_group), s=wq.s)
     y2d = dispatch.mx_matmul(xq, wq_p, out_dtype=torch.float32)
     return y2d.reshape(*lead, wt.w.shape[-1]).to(orig_dtype)
 

@@ -11,17 +11,34 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+import torch.nn.functional as F
 
 from .formats import (
     TINY,
     FP8Format,
+    QuantConfig,
     cast_fp8,
     div_c,
     ftz,
     e8m0_decode,
     e8m0_encode,
     fp8_max,
+    is_fp8,
 )
+
+
+def pad_axis(x: torch.Tensor, axis: int, mult: int) -> torch.Tensor:
+    """Zero-pad ``axis`` up to a multiple of ``mult`` (zeros are exact
+    under every quantizer here; fp8 through a uint8 view)."""
+    n = x.shape[axis]
+    pad = (-n) % mult
+    if pad == 0:
+        return x
+    axis = axis % x.dim()
+    widths = [0, 0] * (x.dim() - 1 - axis) + [0, pad]
+    if is_fp8(x):
+        return F.pad(x.view(torch.uint8), widths).view(x.dtype)
+    return F.pad(x, widths)
 
 
 class PerTensorQ(NamedTuple):
@@ -32,6 +49,20 @@ class PerTensorQ(NamedTuple):
 
     def dequant(self, dtype=torch.float32) -> torch.Tensor:
         return self.q.to(torch.float32).to(dtype) * self.s.to(dtype)
+
+
+class PerGroupQ(NamedTuple):
+    """COAT-style per-group quantization along the last axis: fp8 ``q``
+    (..., K) and f32 scales ``s`` (..., K // group)."""
+
+    q: torch.Tensor
+    s: torch.Tensor
+
+    def dequant(self, dtype=torch.float32) -> torch.Tensor:
+        g = self.q.shape[-1] // self.s.shape[-1]
+        qf = self.q.to(torch.float32).reshape(*self.q.shape[:-1], -1, g)
+        x = qf * self.s[..., None]
+        return x.reshape(self.q.shape).to(dtype)
 
 
 class MxQ(NamedTuple):
@@ -94,6 +125,27 @@ def quant_per_tensor(x: torch.Tensor, fmt: FP8Format = "e4m3",
         scale = div_c(torch.clamp_min(xf.abs().amax(), TINY), fp8_max(fmt))
     scale = _f32(scale, x.device)
     return PerTensorQ(q=cast_fp8(xf / scale, fmt), s=scale)
+
+
+def quant_per_group(x: torch.Tensor, group: int = 128,
+                    fmt: FP8Format = "e4m3",
+                    scale: torch.Tensor | None = None) -> PerGroupQ:
+    """COAT-style scales along the last axis: per ``group`` elements
+    ``max(amax, TINY) / FP8_MAX`` (or the supplied ``(..., K // group)``
+    scales), then the saturating cast of ``x / s``.  A subnormal input
+    counts as a signed 0 (the reference's flush: it decides e5m2
+    payloads of groups whose amax is below TINY)."""
+    *lead, k = x.shape
+    if k % group:
+        raise ValueError(f"K={k} not divisible by group={group}")
+    xg = ftz(x.to(torch.float32)).reshape(*lead, k // group, group)
+    if scale is None:
+        s = div_c(torch.clamp_min(xg.abs().amax(dim=-1), TINY),
+                  fp8_max(fmt))
+    else:
+        s = _f32(scale, x.device)
+    return PerGroupQ(q=cast_fp8(xg / s[..., None], fmt).reshape(x.shape),
+                     s=s)
 
 
 def group_denominator(sexp: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
@@ -172,3 +224,89 @@ def mx_gemm(xq: MxQ, wq: PerTensorQ,
 
     acc = mm(mx_operand(xq.q, xq.sexp), wq.q, out_dtype=torch.float32)
     return (acc * (xq.s * wq.s)).to(out_dtype)
+
+
+def group_gemm(xq: PerGroupQ, wq: PerGroupQ | PerTensorQ,
+               out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """COAT-style GEMM (paper Fig. 3a): each K group's f32 partial sum
+    rescaled by ``s_x[m, g] · s_w``, then summed over the groups (the
+    reference's formula; the kernel path applies s_w after the sum,
+    ``kernels.dispatch.group_matmul``)."""
+    from .runtime_flags import einsum
+
+    *lead, k = xq.q.shape
+    g = k // xq.s.shape[-1]
+    n = wq.q.shape[-1]
+    xf = xq.q.reshape(*lead, k // g, g)
+    if isinstance(wq, PerTensorQ):
+        w_s = wq.s.reshape(1, 1).expand(k // g, n)
+    else:
+        w_s = wq.s
+    wf = wq.q.reshape(k // g, g, n)
+    partial = einsum("...gk,gkn->...gn", xf, wf, out_dtype=torch.float32)
+    y = (partial * (xq.s[..., None] * w_s)).sum(dim=-2)
+    return y.to(out_dtype)
+
+
+def pt_gemm(xq: PerTensorQ, wq: PerTensorQ,
+            out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """TE-style per-tensor GEMM: the dequant is the one epilogue
+    multiply ``s_x · s_w``."""
+    from .runtime_flags import mm
+
+    acc = mm(xq.q, wq.q, out_dtype=torch.float32)
+    return (acc * (xq.s * wq.s)).to(out_dtype)
+
+
+# Fidelity (paper Eq. 4, and the uniform-noise model of Theorem 1 that
+# the paper's Eqs. 5-7 and Table 7 read).
+
+def snr_db(x: torch.Tensor, x_hat: torch.Tensor) -> torch.Tensor:
+    """Quantization signal-to-noise ratio in dB."""
+    x = x.to(torch.float32)
+    noise = x_hat.to(torch.float32) - x
+    p_noise = torch.clamp_min((noise * noise).mean(), TINY)
+    return 10.0 * torch.log10((x * x).mean() / p_noise)
+
+
+def scheme_snr(x: torch.Tensor, cfg: QuantConfig) -> torch.Tensor:
+    """SNR of quantize -> dequantize under the configured scheme."""
+    if cfg.mode == "per_tensor":
+        dq = quant_per_tensor(x, cfg.fwd_format).dequant()
+    elif cfg.mode == "per_group":
+        dq = quant_per_group(x, cfg.group_size, cfg.fwd_format).dequant()
+    elif cfg.mode == "moss":
+        dq = quant_mx(x, cfg.micro_group, cfg.fwd_format).dequant()
+    else:
+        dq = x.to(torch.bfloat16).to(torch.float32)
+    return snr_db(x, dq)
+
+
+def _uniform_model_snr(x: torch.Tensor,
+                       noise_power: torch.Tensor) -> torch.Tensor:
+    sigma2 = x.to(torch.float32).square().mean()
+    return 10.0 * torch.log10(sigma2 / torch.clamp_min(noise_power, TINY))
+
+
+def model_snr_per_tensor(x: torch.Tensor,
+                         fmt: FP8Format = "e4m3") -> torch.Tensor:
+    """Paper Eq. (5): noise s^2 / 12 with s = max|X| / FP8_MAX."""
+    s = div_c(x.to(torch.float32).abs().amax(), fp8_max(fmt))
+    return _uniform_model_snr(x, div_c(s * s, 12.0))
+
+
+def model_snr_per_group(x: torch.Tensor, group: int = 128,
+                        fmt: FP8Format = "e4m3") -> torch.Tensor:
+    """Paper Eq. (6): noise mean_g s_g^2 / 12."""
+    *lead, k = x.shape
+    xg = x.to(torch.float32).reshape(*lead, k // group, group)
+    s_g = div_c(xg.abs().amax(dim=-1), fp8_max(fmt))
+    return _uniform_model_snr(x, div_c((s_g * s_g).mean(), 12.0))
+
+
+def model_snr_moss(x: torch.Tensor, micro_group: int = 32,
+                   fmt: FP8Format = "e4m3") -> torch.Tensor:
+    """Paper Eq. (7): noise mean_g (s · 2^sexp_g)^2 / 12."""
+    q = quant_mx(x, micro_group, fmt)
+    eff = q.s * e8m0_decode(q.sexp)
+    return _uniform_model_snr(x, div_c((eff * eff).mean(), 12.0))

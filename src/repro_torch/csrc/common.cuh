@@ -39,6 +39,32 @@ __device__ __forceinline__ float ftz(float v) {
   return fabsf(v) < 1.17549435e-38f ? 0.f : v;  // 2^-126
 }
 
+// The E8M0 exponent of a group whose scale ratio is r (its amax over
+// FP8_MAX over the level-1 scale):
+//     e = clip(ceil(log2(max(ftz(r), 2^-149)) - 1e-6), +-127)
+// with log2(r) = logf(r) * f32(1 / log 2) (how the reference's jitted
+// log2 computes), the product and the 1e-6 each rounded on their own
+// (__fmul_rn, __fsub_rn): contracted into one FMA they move the ceil
+// where log2(r) - 1e-6 lies within an ulp of an integer (~1 group in
+// 300k of random data).  Every quantizer of the port takes its exponent
+// from here (mx_fused.cu, mx_dw_gemm.cu, mx_quant.cu).
+__device__ __forceinline__ int e8m0_exponent(float r, float inv_ln2) {
+  r = fmaxf(ftz(r), 1.40129846e-45f);  // 2^-149
+  float e = ceilf(__fsub_rn(__fmul_rn(logf(r), inv_ln2), 1e-6f));
+  e = fminf(fmaxf(e, -127.f), 127.f);
+  return static_cast<int>(e);
+}
+
+// One element's saturating fp8 payload against its group's effective
+// scale d = ftz(ftz(2^e) * s), as quant_mx computes it (0 where d is 0).
+__device__ __forceinline__ uint8_t mx_quant_value(float v, int e, float s,
+                                                  float fmax, bool e5m2) {
+  const float denom = ftz(ftz(exp2i(e)) * s);
+  float qv = denom > 0.f ? v / denom : 0.f;
+  qv = fminf(fmaxf(qv, -fmax), fmax);
+  return float_to_fp8(qv, e5m2);
+}
+
 __device__ __forceinline__ float bf16_round(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }

@@ -10,11 +10,9 @@
 // the residual in 32-token groups along M (the contraction), with its
 // level-1 scale pinned to s_x, so s_x cancels and never reaches the
 // kernel.  Per (column k, 32-token group) it takes the amax of the
-// dequantized values and
-//     e' = clip(ceil(log2(max(ftz(amax / FP8_MAX), 2^-149)) - 1e-6), +-127)
-// with log2(r) = logf(r) * f32(1 / log 2) (rounded step by step, as in
-// csrc/mx_fused.cu), q' = sat_fp8(v / d),
-// d = ftz(2^e') (0 where d is 0), and the operand is bf16(q' * 2^e'):
+// dequantized values, e' = e8m0_exponent(amax / FP8_MAX) (common.cuh),
+// q' = sat_fp8(v / d), d = ftz(2^e') (0 where d is 0), and the operand
+// is bf16(q' * 2^e'):
 // exactly the reference's `ref` branch (quant_mx of the transposed unit
 // residual with global scale 1, then the MX GEMM), with the flushes of
 // csrc/mx_fused.cu.  The result is the unscaled (K, N) f32 accumulation;
@@ -90,17 +88,11 @@ mx_dw_gemm_kernel(const uint8_t* __restrict__ qx, const int8_t* __restrict__ sex
     __syncthreads();      // also: the previous step's reads of as/gs are done
     amax = fmaxf(red[0][c], red[1][c]);
     // 2. the requant of the column's 32-token group
-    const float r = fmaxf(ftz(amax / fmax), 1.40129846e-45f);  // 2^-149
-    float e = ceilf(__fsub_rn(__fmul_rn(logf(r), inv_ln2), 1e-6f));
-    e = fminf(fmaxf(e, -127.f), 127.f);
-    const int ei = static_cast<int>(e);
-    const float denom = ftz(exp2i(ei));
+    const int ei = e8m0_exponent(amax / fmax, inv_ln2);
 #pragma unroll
     for (int i = 0; i < dwt::PER; ++i) {
       const int ml = half + dwt::HALF * i;
-      float qv = denom > 0.f ? v[i] / denom : 0.f;
-      qv = fminf(fmaxf(qv, -fmax), fmax);
-      const uint8_t qb = float_to_fp8(qv, e5m2);
+      const uint8_t qb = mx_quant_value(v[i], ei, 1.f, fmax, e5m2);
       as[ml][c] = bf16_round(fp8_to_float(qb, e5m2) * exp2i(ei));
       if (owner) qt[static_cast<size_t>(kc) * M + m0 + ml] = qb;
     }

@@ -2,13 +2,8 @@
 //
 // Replaces the TPU kernel src/repro/kernels/mx_fused.py:fused_quant_gemm_pallas.
 // Per 32-wide group of each row of x it takes the amax, derives the E8M0
-// exponent against the level-1 scale s,
-//     e = clip(ceil(log2(max(ftz(amax / FP8_MAX / s), 2^-149)) - 1e-6), +-127)
-// with log2(r) = logf(r) * f32(1 / log 2) (how the reference's jitted
-// log2 computes), the product and the 1e-6 each rounded on their own
-// (__fmul_rn, __fsub_rn: nvcc would contract them into one FMA, which
-// moves the ceil where log2(r) - 1e-6 lies within an ulp of an integer),
-// casts q = sat_fp8(x / d) with d = ftz(ftz(2^e) * s)
+// exponent against the level-1 scale s (common.cuh: e8m0_exponent of
+// amax / FP8_MAX / s), casts q = sat_fp8(x / d) with d = ftz(ftz(2^e) * s)
 // (0 where d is 0), and accumulates (q * 2^e) @ Qw in f32.  ftz() flushes
 // an f32 subnormal to 0 at exactly the places the plain version
 // (repro_torch.core.quant) does: the reference runs on XLA's CPU backend
@@ -50,14 +45,8 @@ __device__ __forceinline__ float quant_lane(float v, float s, float fmax,
                                             bool write, uint8_t* q_at,
                                             int8_t* sexp_at) {
   const float amax = warp_max(fabsf(v));
-  const float r = fmaxf(ftz(amax / fmax / s), 1.40129846e-45f);  // 2^-149
-  float e = ceilf(__fsub_rn(__fmul_rn(logf(r), inv_ln2), 1e-6f));
-  e = fminf(fmaxf(e, -127.f), 127.f);
-  const int ei = static_cast<int>(e);
-  const float denom = ftz(ftz(exp2i(ei)) * s);
-  float qv = denom > 0.f ? v / denom : 0.f;
-  qv = fminf(fmaxf(qv, -fmax), fmax);
-  const uint8_t qb = float_to_fp8(qv, e5m2);
+  const int ei = e8m0_exponent(amax / fmax / s, inv_ln2);
+  const uint8_t qb = mx_quant_value(v, ei, s, fmax, e5m2);
   if (write) {
     *q_at = qb;
     if ((threadIdx.x & 31) == 0) *sexp_at = static_cast<int8_t>(ei);

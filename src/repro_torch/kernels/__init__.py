@@ -1,4 +1,5 @@
-"""Hand-written Hopper kernels of the serving path, each beside its
-plain PyTorch version (``mx_gemm``, ``mx_fused``, ``decode_attn``), and
-the dispatch layer above them.  Importing this package builds nothing:
-the CUDA library is compiled at the first launch on a card."""
+"""Hand-written Hopper kernels, each beside its plain PyTorch version
+(``mx_gemm``, ``mx_fused``, ``mx_bwd``, ``mx_quant``, ``group_gemm``,
+``decode_attn``), the dispatch layer above them and the ablation entry
+points (``ops``).  Importing this package builds nothing: the CUDA
+library is compiled at the first launch on a card."""

@@ -31,6 +31,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _VOID = ctypes.c_void_p
 _INT = ctypes.c_int
 _FLOAT = ctypes.c_float
+_LONG = ctypes.c_longlong
 
 # C entry points and their argument types (every one returns the
 # cudaGetLastError() code of its launch)
@@ -43,6 +44,10 @@ SIGNATURES = {
     "mx_dw_gemm_launch": [_VOID, _VOID, _VOID, _VOID, _VOID, _VOID, _INT,
                           _INT, _INT, _INT, _INT, _INT, _FLOAT, _FLOAT,
                           _VOID],
+    "mx_quant_launch": [_VOID, _VOID, _VOID, _VOID, _LONG, _INT, _INT,
+                        _FLOAT, _FLOAT, _VOID],
+    "group_gemm_launch": [_VOID, _VOID, _VOID, _VOID, _INT, _INT, _INT,
+                          _INT, _INT, _INT, _VOID],
     "decode_attn_paged_launch": [_VOID, _VOID, _VOID, _VOID, _VOID, _VOID,
                                  _VOID, _VOID, _INT, _INT, _INT, _INT, _INT,
                                  _INT, _FLOAT, _INT, _VOID],

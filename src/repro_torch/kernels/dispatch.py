@@ -1,18 +1,24 @@
-"""Kernel dispatch: the one entry point for the quantized GEMMs of the
-training and serving paths and the paged decode attention.
+"""Kernel dispatch: the one entry point for the quantizers and quantized
+GEMMs of the training and serving paths and the paged decode attention.
 
 Counterpart of ``repro.kernels.dispatch``.  What the reference keeps
-here stays here: the single global amax of the fused quantizer's
-level-1 scale, the f32 epilogues (``acc · s_x · s_w``, and
-``acc · s_x · s_g`` for dW with its ``out_rows`` slice), and on the
-plain path the padding of the GQA group rows to 8 and the slice back.
-The Hopper kernels mask ragged M, N and query rows themselves, so no
-operand is padded or copied for them; K is a multiple of 32, padded by
-the caller (``core.linear._pad_axis``), and so is dW's M.
+here stays here: the single global amax of the two-level quantizers'
+level-1 scale, the f32 epilogues (``acc · s_x · s_w``, ``acc · s_w``
+after the per-group GEMM, and ``acc · s_x · s_g`` for dW with its
+``out_rows`` slice), and on the plain path the padding of the GQA group
+rows to 8 and the slice back.  The reference pads M and N to its Pallas
+blocks (M to 8 for ``mx_quantize``, M and N to 128 for the GEMMs); the
+Hopper kernels mask ragged M, N and query rows themselves, so no
+operand is padded or copied for them.  K is a multiple of 32 (128 for
+the per-group GEMM), padded by the caller (``core.quant.pad_axis``),
+and so is dW's M.
 
 The device decides the route: CPU tensors take each kernel's plain
 version, CUDA tensors launch the kernel (``kernels.mx_gemm``,
-``kernels.mx_fused``, ``kernels.mx_bwd``, ``kernels.decode_attn``).
+``kernels.mx_fused``, ``kernels.mx_bwd``, ``kernels.mx_quant``,
+``kernels.group_gemm``, ``kernels.decode_attn``).  The per-tensor (TE)
+GEMM has no kernel in the reference either (``pt_matmul``): it is the
+plain upcast product on both devices.
 """
 
 from __future__ import annotations
@@ -21,12 +27,15 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.formats import TINY, div_c, fp8_max
-from repro_torch.core.quant import MxQ, PerTensorQ
+from repro_torch.core.quant import (MxQ, PerGroupQ, PerTensorQ, pad_axis,
+                                    pt_gemm)
 
 from .decode_attn import decode_attn_paged
+from .group_gemm import GROUP, group_gemm
 from .mx_bwd import mx_dw_gemm
 from .mx_fused import fused_quant_gemm
 from .mx_gemm import mx_gemm
+from .mx_quant import mx_quant
 
 MICRO = 32
 
@@ -40,6 +49,20 @@ def global_scale(x: torch.Tensor, fmt: str = "e4m3") -> torch.Tensor:
     ``repro.kernels.ref.global_scale_ref``)."""
     amax = x.to(torch.float32).abs().amax()
     return div_c(torch.clamp_min(amax, TINY), fp8_max(fmt))
+
+
+def mx_quantize(x2d: torch.Tensor, fmt: str = "e4m3",
+                micro_group: int = MICRO) -> MxQ:
+    """Two-level microscaling quantize of a (M, K) tensor: the level-1
+    scale here (one global amax), the groups in the kernel."""
+    if x2d.shape[-1] % micro_group:
+        raise ValueError(f"K={x2d.shape[-1]} not divisible by "
+                         f"micro_group={micro_group}")
+    if micro_group != MICRO:
+        raise NotImplementedError(f"micro_group={micro_group}")
+    s = global_scale(x2d, fmt)
+    q, sexp = mx_quant(x2d.contiguous(), s, fmt)
+    return MxQ(q=q, sexp=sexp, s=s)
 
 
 def mx_matmul(xq: MxQ, wq: PerTensorQ,
@@ -71,16 +94,6 @@ def fused_quant_matmul(x2d: torch.Tensor, wq: PerTensorQ,
     return y, MxQ(q=q, sexp=sexp, s=s)
 
 
-def _pad_rows(t: torch.Tensor, rows: int) -> torch.Tensor:
-    """Zero rows appended up to ``rows`` (fp8 through a uint8 view)."""
-    if t.shape[0] == rows:
-        return t
-    raw = t.view(torch.uint8) if t.element_size() == 1 else t
-    out = raw.new_zeros((rows, *t.shape[1:]))
-    out[:t.shape[0]] = raw
-    return out.view(t.dtype)
-
-
 def mx_matmul_dw(xq: MxQ, gq: PerTensorQ, fmt: str = "e4m3",
                  out_dtype: torch.dtype = torch.float32,
                  out_rows: int | None = None) -> torch.Tensor:
@@ -92,14 +105,39 @@ def mx_matmul_dw(xq: MxQ, gq: PerTensorQ, fmt: str = "e4m3",
     micro = xq.q.shape[-1] // xq.sexp.shape[-1]
     if micro != MICRO:
         raise NotImplementedError(f"mx_matmul_dw: micro-group {micro}")
-    m, k = xq.q.shape
+    k = xq.q.shape[1]
     n = gq.q.shape[-1]
-    mp = _ceil_to(m, MICRO)
-    acc = mx_dw_gemm(_pad_rows(xq.q, mp).contiguous(),
-                     _pad_rows(xq.sexp, mp).contiguous(),
-                     _pad_rows(gq.q, mp).contiguous(), fmt)
+    acc = mx_dw_gemm(pad_axis(xq.q, 0, MICRO).contiguous(),
+                     pad_axis(xq.sexp, 0, MICRO).contiguous(),
+                     pad_axis(gq.q, 0, MICRO).contiguous(), fmt)
     acc = acc[:k if out_rows is None else out_rows, :n]
     return (acc * (xq.s * gq.s)).to(out_dtype)
+
+
+def group_matmul(xq: PerGroupQ, wq: PerTensorQ,
+                 out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """COAT-style GEMM (paper Fig. 3a): the per-group f32 rescale of
+    every partial sum inside the K loop (the kernel), then ``· s_w``."""
+    group = xq.q.shape[-1] // xq.s.shape[-1]
+    if group != GROUP or xq.q.dim() != 2:
+        raise NotImplementedError(
+            f"group_matmul: group {group}, rank {xq.q.dim()} (the kernel "
+            "takes 2-D operands with 128-wide groups)")
+    acc = group_gemm(xq.q.contiguous(), xq.s.contiguous(),
+                     wq.q.contiguous())
+    return (acc * wq.s).to(out_dtype)
+
+
+def pt_matmul(xq: PerTensorQ, wq: PerTensorQ,
+              out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """TE-style per-tensor GEMM, epilogue-only dequant: ``(Qx @ Qw) ·
+    s_x · s_w``.  The reference computes it outside any kernel (there
+    is nothing for a hand-written kernel to fuse), as the upcast product
+    with f32 accumulation; so does this, on either device: the fp8
+    products are exact in f32 and only the order of the f32 sum differs
+    between devices.  (cuBLASLt's fp8 GEMM, ``torch._scaled_mm``, would
+    not do: Hopper's fp8 tensor cores accumulate in less than f32.)"""
+    return pt_gemm(xq, wq, out_dtype=out_dtype)
 
 
 def decode_attention_paged(q, k, v, k_scale, v_scale, n_valid,

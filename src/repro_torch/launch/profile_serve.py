@@ -34,6 +34,7 @@ SPANS = ("decode_step", "prefill_chunk")
 # the port's own kernels (csrc/*.cu), by the name the trace gives them
 PORT_KERNELS = ("mx_gemm_kernel", "fused_quant_gemm_kernel",
                 "fused_quant_gemm_tiled_kernel", "mx_dw_gemm_kernel",
+                "group_gemm_kernel", "mx_quant_kernel",
                 "decode_attn_paged_kernel")
 
 

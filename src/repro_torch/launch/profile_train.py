@@ -1,8 +1,8 @@
 """Where a training step's time goes on the card.
 
 Builds chip_smoke.py's training configuration (olmo-7b at full width,
-depth cut to 4 layers, batch 1 x 2048, moss), takes one untraced
-warm-up step and two timed untraced steps, then two steps under
+depth cut to 4 layers, batch 1 x 2048, moss or ``--quant``), takes one
+untraced warm-up step and two timed untraced steps, then two steps under
 ``torch.profiler``, each inside a ``train_step`` span.  From the Chrome
 trace it reports per step the host span, the card's busy time (the
 union of its kernels' and copies' intervals), the launches and the card
@@ -11,7 +11,7 @@ untraced step's idle share is the traced card time over the untraced
 step (kernel durations do not depend on the host).
 
   PYTHONPATH=src python -m repro_torch.launch.profile_train \\
-      --trace build/train_trace.json [--quant bf16]
+      --trace build/train_trace.json [--quant bf16|per_group|per_tensor]
 """
 
 from __future__ import annotations
@@ -25,7 +25,7 @@ import torch
 from repro_torch.configs.registry import get_config
 from repro_torch.data.pipeline import DataConfig, SyntheticLM
 from repro_torch.launch.profile_serve import summarize
-from repro_torch.launch.train import quant_from_name
+from repro_torch.launch.train import QUANTS, quant_from_name
 from repro_torch.train.steps import (
     TrainHParams,
     init_train_state,
@@ -41,7 +41,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--trace", default="train_trace.json",
                     help="where to write the Chrome trace")
-    ap.add_argument("--quant", default="moss", choices=["moss", "bf16"])
+    ap.add_argument("--quant", default="moss", choices=QUANTS)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_train measures the card: no CUDA device")

@@ -1,5 +1,6 @@
-"""Training CLI: MOSS (or bf16) training steps of the port on synthetic
-tokens, weights from a seed.  Counterpart of ``repro.launch.train``.
+"""Training CLI: training steps of the port in any of the four recipes
+(moss, bf16, per_tensor, per_group) on synthetic tokens, weights from a
+seed.  Counterpart of ``repro.launch.train``.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --arch olmo-7b \\
@@ -30,13 +31,18 @@ from repro_torch.train.steps import (
 )
 
 
+QUANTS = ("moss", "bf16", "per_tensor", "per_group")
+
+
 def quant_from_name(name: str, interval: int = 500) -> QuantConfig:
+    """The recipe of ``name``: automatic weight scaling for moss,
+    just-in-time for the baselines (``repro.launch.train``)."""
+    if name not in QUANTS:
+        raise ValueError(f"quant {name!r}: expected one of {QUANTS}")
     if name == "bf16":
         return QuantConfig(mode="bf16")
-    if name != "moss":
-        raise NotImplementedError(
-            f"quant {name!r}: ROADMAP queue 1 item 6 (baseline recipes)")
-    return QuantConfig(mode="moss", weight_scaling="auto",
+    scaling = "auto" if name == "moss" else "jit"
+    return QuantConfig(mode=name, weight_scaling=scaling,
                        rescale_interval=interval)
 
 
@@ -89,7 +95,7 @@ def main(argv=None):
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128)
-    ap.add_argument("--quant", default="moss", choices=["moss", "bf16"])
+    ap.add_argument("--quant", default="moss", choices=QUANTS)
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--seed", type=int, default=0)

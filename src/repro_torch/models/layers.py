@@ -33,7 +33,7 @@ def is_pdef(x) -> bool:
 
 
 def init_param(d: PDef, gen: torch.Generator,
-               device: torch.device | str = "cpu") -> torch.Tensor:
+               device: torch.device | str = "cuda") -> torch.Tensor:
     """Materialize one parameter from ``gen`` (the reference's
     initializers; a torch Generator draws other numbers than a JAX key,
     so weights from the same seed differ between the packages -- tests
@@ -56,7 +56,7 @@ def init_param(d: PDef, gen: torch.Generator,
 
 
 def init_tree(defs, gen: torch.Generator,
-              device: torch.device | str = "cpu"):
+              device: torch.device | str = "cuda"):
     """Materialize a (nested dict) tree of PDefs, leaves in sorted-key
     order."""
     if is_pdef(defs):

@@ -4,7 +4,9 @@ Counterpart of ``repro.train.steps``.
 
 The MOSS integration points of ``make_train_step``:
   1. before the forward, the per-tensor weight scales are predicted from
-     the scale states (no max-reductions, paper Eq. 10);
+     the scale states (no max-reductions, paper Eq. 10); under ``jit``
+     scaling (the per_group and per_tensor baselines) every GEMM
+     measures its weight instead;
   2. every linear GEMM runs through ``core.linear.qmm`` (fp8 residuals,
      the fused dx and dW kernels);
   3. after the AdamW update the scale states advance one step, with a
@@ -224,7 +226,7 @@ def prequantize_params(cfg, params) -> PrequantParams | None:
     if qcfg.weight_scaling != "auto":
         raise NotImplementedError(
             f"weight_scaling={qcfg.weight_scaling!r} for serving: ROADMAP "
-            "queue 1 item 6")
+            "next slices, serving the baselines")
     defs = model_defs(cfg)
     sdims = _scale_dims(defs)
     mask = quant_mask_tree(defs)

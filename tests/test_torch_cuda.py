@@ -13,9 +13,10 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core.quant import quant_mx, quant_per_tensor
-from repro_torch.kernels import (decode_attn, dispatch, mx_bwd, mx_fused,
-                                 mx_gemm)
+from repro_torch.core.quant import (PerTensorQ, quant_mx, quant_per_group,
+                                    quant_per_tensor)
+from repro_torch.kernels import (decode_attn, dispatch, group_gemm, mx_bwd,
+                                 mx_fused, mx_gemm, mx_quant)
 from repro_torch.models.attention import _quant_kv
 
 pytestmark = pytest.mark.cuda
@@ -27,6 +28,11 @@ GEMM_SHAPES = [(5, 96, 200), (16, 256, 72), (1, 32, 33), (4, 3072, 3072),
 LARGE_M_SHAPES = [(33, 96, 200), (130, 256, 72), (256, 32, 129),
                   (512, 4096, 256)]
 DW_SHAPES = [(128, 256, 192), (256, 96, 200), (64, 4096, 130)]
+# (m, k, n): ragged M and N, one group, and olmo-7b's per_group forward
+# (M 2048, K 4096) and dW (K 11008 rows, 2048 tokens) at a cut N
+GROUP_SHAPES = [(5, 256, 72), (130, 384, 200), (64, 128, 33),
+                (2048, 4096, 1024), (11008, 2048, 256)]
+QUANT_SHAPES = [(1, 32), (5, 96), (33, 4096), (2048, 11008)]
 
 
 @pytest.fixture
@@ -181,3 +187,77 @@ def test_fused_exponent_boundaries_match_plain(cuda, m):
         _, q_p, se_p = mx_fused.fused_quant_gemm_plain(x, s, qw, fmt)
         assert torch.equal(se, se_p)
         assert torch.equal(q.view(torch.uint8), q_p.view(torch.uint8))
+
+
+@pytest.mark.parametrize("fmt", ["e4m3", "e5m2"])
+def test_group_gemm_matches_plain(cuda, fmt):
+    """The forward and dW operand formats (e4m3 x against e4m3 weights,
+    e4m3 residual against the e5m2 gradient) and dx's (e5m2 gradient
+    against e4m3 weights)."""
+    for m, k, n in GROUP_SHAPES:
+        xq = quant_per_group(_x(m, k, m + n).to(cuda), 128, fmt)
+        w = torch.tensor(np.random.default_rng(n).standard_normal((k, n)),
+                         dtype=torch.float32, device=cuda) * 0.05
+        for wfmt in ("e4m3", "e5m2"):
+            if fmt == wfmt == "e5m2":
+                continue
+            qw = quant_per_tensor(w, wfmt).q
+            got = group_gemm.group_gemm(xq.q, xq.s, qw)
+            want = group_gemm.group_gemm_plain(xq.q, xq.s, qw)
+            assert got.shape == (m, n)
+            _close(got, want)
+
+
+@pytest.mark.parametrize("fmt", ["e4m3", "e5m2"])
+def test_mx_quant_matches_plain(cuda, fmt):
+    for m, k in QUANT_SHAPES:
+        x = _x(m, k, m + k).to(cuda)
+        for xin in (x, x.bfloat16()):
+            s = dispatch.global_scale(xin, fmt)
+            q, se = mx_quant.mx_quant(xin, s, fmt)
+            q_p, se_p = mx_quant.mx_quant_plain(xin, s, fmt)
+            assert torch.equal(q.view(torch.uint8), q_p.view(torch.uint8))
+            assert torch.equal(se, se_p)
+
+
+def test_mx_quant_exponent_boundaries_match_plain(cuda):
+    """Group maxima within a few ulps above powers of two (as in
+    ``test_fused_exponent_boundaries_match_plain``): the shared exponent
+    routine must pick the plain version's exponents."""
+    m, k = 256, 4096
+    rng = np.random.default_rng(7)
+    x = rng.uniform(-0.5, 0.5, (m, k // 32, 32)).astype(np.float32)
+    i = np.arange(m * k // 32).reshape(m, k // 32)
+    amax = np.ldexp(1.0 + (i // 20 % 40) * 5e-8, -(i % 20))
+    x *= amax[..., None]
+    x[..., 0] = amax
+    x = torch.tensor(x.reshape(m, k), device=cuda)
+    s = torch.tensor(1.0 / 448.0, device=cuda)
+    for fmt in ("e4m3", "e5m2"):
+        q, se = mx_quant.mx_quant(x, s, fmt)
+        q_p, se_p = mx_quant.mx_quant_plain(x, s, fmt)
+        assert torch.equal(se, se_p)
+        assert torch.equal(q.view(torch.uint8), q_p.view(torch.uint8))
+
+
+# pt_matmul on the card against the CPU's plain upcast product: both
+# multiply the exact fp8 values and add in f32, so only the order of the
+# f32 sum differs, in every pairing of the two formats.
+PT_SHAPES = [(5, 200, 72), (96, 384, 160), (2048, 4096, 1024)]
+
+
+def test_pt_matmul_matches_cpu(cuda):
+    for m, k, n in PT_SHAPES:
+        x = _x(m, k, m + k)
+        w = torch.tensor(np.random.default_rng(n).standard_normal((k, n)),
+                         dtype=torch.float32) * 0.05
+        for xf, wf in (("e4m3", "e4m3"), ("e5m2", "e4m3"), ("e4m3", "e5m2"),
+                       ("e5m2", "e5m2")):
+            xq, wq = quant_per_tensor(x, xf), quant_per_tensor(w, wf)
+            want = dispatch.pt_matmul(xq, wq, out_dtype=torch.float32)
+            got = dispatch.pt_matmul(
+                PerTensorQ(xq.q.to(cuda), xq.s.to(cuda)),
+                PerTensorQ(wq.q.to(cuda), wq.s.to(cuda)),
+                out_dtype=torch.float32)
+            assert got.shape == (m, n)
+            _close(got, want)

@@ -79,3 +79,26 @@ def test_kernel_wrappers_take_the_plain_version_only_on_cpu():
                           torch.zeros((2, 1), dtype=torch.int8),
                           torch.ones((32, 4)).to(torch.float8_e4m3fn))
     np.testing.assert_array_equal(out.numpy(), np.zeros((2, 4)))
+
+
+def test_bridge_and_init_default_to_the_card():
+    """The weight bridge and the initializers put tensors on the card
+    unless the caller names another device, like the entry points:
+    without a card they raise, and never land on the CPU unasked."""
+    import inspect
+
+    from repro_torch import bridge
+    from repro_torch.models import layers
+
+    for fn in (bridge.to_torch, bridge.tree_to_torch,
+               bridge.act_scales_to_torch, bridge.train_state_to_torch,
+               layers.init_param, layers.init_tree):
+        default = inspect.signature(fn).parameters["device"].default
+        assert default == "cuda", fn.__name__
+    x = np.ones(3, np.float32)
+    if torch.cuda.is_available():
+        assert bridge.to_torch(x).device.type == "cuda"
+    else:
+        with pytest.raises((AssertionError, RuntimeError)):
+            bridge.to_torch(x)
+    assert bridge.to_torch(x, device="cpu").device.type == "cpu"

@@ -55,7 +55,8 @@ def both():
     jact = jax_calibrate(jcfg, jp.qweights, jp.scales)
     tcfg = get_config(ARCH, smoke=True)
     tp = tsteps.prequantize_params(
-        tcfg, bridge.tree_to_torch(jax.tree.map(np.asarray, params)))
+        tcfg, bridge.tree_to_torch(jax.tree.map(np.asarray, params),
+                                   device="cpu"))
     return jcfg, jp, jact, tcfg, tp
 
 
@@ -104,7 +105,8 @@ def test_chunk_prefill_and_decode_logits_match(both, kv_dtype):
     jcfg = jcfg.replace(kv_cache_dtype=kv_dtype)
     tcfg = tcfg.replace(kv_cache_dtype=kv_dtype)
     tact = bridge.act_scales_to_torch(
-        {k: (np.asarray(a.s), np.asarray(a.sub)) for k, a in jact.items()})
+        {k: (np.asarray(a.s), np.asarray(a.sub)) for k, a in jact.items()},
+        device="cpu")
     jstep = jsteps.make_decode_step(jcfg, scales=jp.scales,
                                     act_scales=jact)
     tstep = tsteps.make_decode_step(tcfg, scales=tp.scales,

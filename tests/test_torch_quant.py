@@ -143,7 +143,7 @@ def test_quant_kv():
     x[1, 2, 3] = 0.0                     # a zero head vector
     jx = jnp.asarray(x).astype(jnp.bfloat16)
     q_j, s_j = jattn._quant_kv(jx)
-    q_t, s_t = tattn._quant_kv(bridge.to_torch(np.asarray(jx)))
+    q_t, s_t = tattn._quant_kv(bridge.to_torch(np.asarray(jx), device="cpu"))
     _same(q_j, q_t)
     _same(s_j, s_t)
 
@@ -154,7 +154,8 @@ def test_prequantize_params_whole_smoke_tree():
     jp = jsteps.prequantize_params(jcfg, params)
     tp = tsteps.prequantize_params(
         get_config("phi3-mini-3.8b", smoke=True),
-        bridge.tree_to_torch(jax.tree.map(np.asarray, params)))
+        bridge.tree_to_torch(jax.tree.map(np.asarray, params),
+                             device="cpu"))
     jq_leaves = jax.tree_util.tree_flatten_with_path(jp.qweights)[0]
     js_leaves = jax.tree_util.tree_flatten_with_path(jp.scales)[0]
     # 7 per-layer linears + the LM head are fp8; the rest stay raw
@@ -164,5 +165,6 @@ def test_prequantize_params_whole_smoke_tree():
             t = tree_t
             for p in path:
                 t = t[p.key]
-            assert t.dtype == bridge.to_torch(np.asarray(leaf)).dtype, path
+            assert t.dtype == bridge.to_torch(np.asarray(leaf),
+                                             device="cpu").dtype, path
             _same(leaf, t)

@@ -79,7 +79,8 @@ def _port_engine(**kw):
     params = init_tree(model_defs(jax_get_config(ARCH, smoke=True)),
                        jax.random.PRNGKey(SEED))
     return Engine(get_config(ARCH, smoke=True),
-                  bridge.tree_to_torch(jax.tree.map(np.asarray, params)),
+                  bridge.tree_to_torch(jax.tree.map(np.asarray, params),
+                                       device="cpu"),
                   num_slots=SLOTS, max_len=MAX_LEN, chunk_tokens=CHUNK,
                   device="cpu", **kw)
 

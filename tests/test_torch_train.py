@@ -26,8 +26,14 @@ CPU beside them:
   steps in moss and bf16 from the reference's ``init_train_state`` on
   the reference's batches, each held against the reference's step from
   the same state: see ``test_train_steps_match_reference``.
+
+The child also computes the reference's side of
+``tests/test_torch_recipes.py`` (``qmm`` and the train steps in the
+per_group and per_tensor recipes); the two modules share its results
+(``reference``).
 """
 
+import fcntl
 import os
 import pickle
 import subprocess
@@ -61,7 +67,7 @@ from repro_torch import bridge
 from repro_torch.configs.registry import get_config
 from repro_torch.core import autoscale as tauto
 from repro_torch.core.formats import QuantConfig
-from repro_torch.core.linear import qmm
+from repro_torch.core.linear import QT, qlinear, qmm
 from repro_torch.core.quant import quant_mx, quant_per_tensor
 from repro_torch.core.tree import tree_map
 from repro_torch.kernels import dispatch, mx_bwd
@@ -72,6 +78,16 @@ from repro_torch.optim import schedule as tschedule
 from repro_torch.train import steps as tsteps
 
 ARCH = "olmo-7b"
+# the baseline recipes train with just-in-time weight scales
+# (``repro.launch.train.quant_from_name``)
+BASELINES = ("per_group", "per_tensor")
+MODES = ("moss", "bf16") + BASELINES
+
+
+def recipe(mode: str) -> dict:
+    """QuantConfig fields of ``mode`` as the training CLIs set them."""
+    return {"mode": mode,
+            "weight_scaling": "jit" if mode in BASELINES else "auto"}
 
 
 def _np(t):
@@ -120,13 +136,14 @@ REFERENCE_XLA_FLAGS = ("--xla_allow_excess_precision=false "
 
 
 def _reference_child(out: str) -> None:
-    """What the reference computes for this module's tests, compiled
-    with ``REFERENCE_XLA_FLAGS`` under ``REPRO_KERNELS=ref``, pickled."""
+    """What the reference computes for this module's tests and for
+    tests/test_torch_recipes.py, compiled with ``REFERENCE_XLA_FLAGS``
+    under ``REPRO_KERNELS=ref``, pickled."""
     ref = {"dw": {case: _dw_reference(*case) for case in DW_CASES},
            "optimizer": _optimizer_reference(),
            "train": _train_runs(),
            "qmm": {(mode, i): _qmm_reference(mode, *shape)
-                   for mode in ("moss", "bf16")
+                   for mode in MODES
                    for i, shape in enumerate(QMM_SHAPES)}}
     with open(out, "wb") as f:
         pickle.dump(ref, f)
@@ -134,18 +151,28 @@ def _reference_child(out: str) -> None:
 
 @pytest.fixture(scope="module")
 def reference(tmp_path_factory):
-    """``_reference_child``'s results, from one child process (the XLA
-    flags take effect only before the backend starts)."""
-    out = tmp_path_factory.mktemp("reference") / "ref.pkl"
-    env = dict(os.environ)
-    env["XLA_FLAGS"] = (env.get("XLA_FLAGS", "") + " "
-                        + REFERENCE_XLA_FLAGS).strip()
-    env["JAX_PLATFORMS"] = "cpu"
-    env["REPRO_KERNELS"] = "ref"
-    src = str(Path(__file__).resolve().parent.parent / "src")
-    env["PYTHONPATH"] = src + os.pathsep + env.get("PYTHONPATH", "")
-    subprocess.run([sys.executable, __file__, str(out)], env=env,
-                   check=True, timeout=600)
+    """``_reference_child``'s results, from one child process per test
+    run (the XLA flags take effect only before the backend starts).
+    Under pytest-xdist the workers share it through the run's common
+    temporary directory: the first to take the lock runs the child."""
+    base = tmp_path_factory.getbasetemp()
+    if os.environ.get("PYTEST_XDIST_WORKER"):
+        base = base.parent
+    out = base / "torch_reference.pkl"
+    with open(base / "torch_reference.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not out.exists():
+            env = dict(os.environ)
+            env["XLA_FLAGS"] = (env.get("XLA_FLAGS", "") + " "
+                                + REFERENCE_XLA_FLAGS).strip()
+            env["JAX_PLATFORMS"] = "cpu"
+            env["REPRO_KERNELS"] = "ref"
+            src = str(Path(__file__).resolve().parent.parent / "src")
+            env["PYTHONPATH"] = src + os.pathsep + env.get("PYTHONPATH", "")
+            part = out.with_suffix(".part")
+            subprocess.run([sys.executable, __file__, str(part)], env=env,
+                           check=True, timeout=600)
+            os.replace(part, out)
     with open(out, "rb") as f:
         return pickle.load(f)
 
@@ -227,18 +254,19 @@ def _qmm_problem(xshape, n, seed=0):
 
 
 def _qmm_reference(mode, xshape, n):
-    """The reference's y, dx, dW and, in moss, the fp8 residuals its
-    forward saves (x: q, sexp, s; w: q, s), as numpy (in the child)."""
+    """The reference's y, dx, dW and, in a quantized recipe, the fp8
+    residuals its forward saves (x: q, sexp, s in moss, q, s in the
+    baselines; w: q, s), as numpy (in the child)."""
     x, w, g, s = _qmm_problem(xshape, n)
-    jcfg, s = JQuantConfig(mode=mode), jnp.float32(s)
+    jcfg, s = JQuantConfig(**recipe(mode)), jnp.float32(s)
 
     @jax.jit
     def run(x, w, g):
         y, vjp = jax.vjp(lambda a, b: jqmm(jcfg, a, b, s), x, w)
-        if mode != "moss":
+        if mode == "bf16":
             return (y, *vjp(g))
         xq, wq, _ = jqmm_fwd(jcfg, x, w, s)[1]
-        return (y, *vjp(g), xq.q, xq.sexp, xq.s, wq.q, wq.s)
+        return (y, *vjp(g), *xq, wq.q, wq.s)
 
     return [np.asarray(a) for a in run(x, w, g)]
 
@@ -273,11 +301,18 @@ def test_qmm_vjp_matches_reference(reference, mode, xshape, n):
 
 
 def test_qmm_refuses_baseline_recipes():
+    """Training takes the baseline recipes (tests/test_torch_recipes.py);
+    their delayed-scale serving forward and its calibration do not."""
+    from repro_torch.core.actscale import REC, ActScale
+
     x = torch.ones(4, 32)
-    for mode in ("per_tensor", "per_group"):
+    act = ActScale(s=torch.tensor(1.0), sub=None)
+    for mode in BASELINES:
+        cfg = QuantConfig(**recipe(mode))
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            qmm(QuantConfig(mode=mode), x, torch.ones(32, 8),
-                torch.tensor(1.0))
+            qlinear(x, QT(torch.ones(32, 8), torch.tensor(1.0), act), cfg)
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            REC.record("site", x, cfg)
 
 
 # --- automatic scaling, AdamW, the schedule -------------------------------
@@ -303,7 +338,7 @@ def test_autoscale_states_match_reference(weight_scaling):
     tcfg = QuantConfig(weight_scaling=weight_scaling, rescale_interval=2)
     js = jauto.tree_init_scale_states(jax.tree.map(jnp.asarray, tree), jcfg)
     ts = tree_map(lambda w: tauto.init_scale_state(w, tcfg),
-                  bridge.tree_to_torch(tree))
+                  bridge.tree_to_torch(tree, device="cpu"))
     for step, lr in enumerate([1e-3, 3e-3, 2e-4, 5e-3, 1e-3, 7e-4]):
         jp = jauto.tree_predicted_scales(js, jnp.float32(lr), jcfg)
         tp = tree_map(lambda st: tauto.predicted_scale(
@@ -314,7 +349,7 @@ def test_autoscale_states_match_reference(weight_scaling):
         js = jauto.tree_update_scale_states(
             js, jax.tree.map(jnp.asarray, tree), jcfg)
         ts = tree_map(lambda st, w: tauto.update_scale_state(st, w, tcfg),
-                      ts, bridge.tree_to_torch(tree))
+                      ts, bridge.tree_to_torch(tree, device="cpu"))
         for jst, tst in ((js["a"], ts["a"]), (js["b"]["c"], ts["b"]["c"])):
             assert int(jst.steps_since) == tst.steps_since, step
             _assert_f32_close(tst.s0, jst.s0)
@@ -374,7 +409,7 @@ def test_scales_adamw_and_schedule_trajectories_match(reference):
     init, records = reference["optimizer"]
     qt = QuantConfig(rescale_interval=2)
     defs = _small_defs(tlayers.PDef)
-    params = bridge.tree_to_torch(init)
+    params = bridge.tree_to_torch(init, device="cpu")
     s0, t = tsteps.init_scales(defs, params, qt), tree_map(lambda _: 0,
                                                             params)
     opt = tadamw.init_opt_state(params)
@@ -383,8 +418,8 @@ def test_scales_adamw_and_schedule_trajectories_match(reference):
         lr = tschedule.cosine_with_warmup(step, **SCHEDULE)
         np.testing.assert_allclose(lr.numpy(), jlr, rtol=1e-6)
         _assert_trees_close(tsteps.predicted_scales(s0, t, lr, qt), jpred)
-        g, norm = tadamw.clip_by_global_norm(bridge.tree_to_torch(grads),
-                                             1.0)
+        g, norm = tadamw.clip_by_global_norm(
+            bridge.tree_to_torch(grads, device="cpu"), 1.0)
         _assert_f32_close(norm, jnorm)
         params, opt = tadamw.adamw_update(tadamw.AdamWConfig(), params, g,
                                           opt, step, lr)
@@ -486,8 +521,8 @@ def _train_runs():
     batches = [jax.tree.map(np.asarray, data.batch_for_step(i))
                for i in range(3)]
     out = {}
-    for mode in ("moss", "bf16"):
-        jcfg = jcfg0.replace(quant=JQuantConfig(mode=mode,
+    for mode in MODES:
+        jcfg = jcfg0.replace(quant=JQuantConfig(**recipe(mode),
                                                 rescale_interval=2))
         hp = jsteps.TrainHParams(**TRAIN_HP)
         init = jax.tree.map(np.asarray, jax.jit(
@@ -495,9 +530,9 @@ def _train_runs():
                 jcfg, hp, jax.random.PRNGKey(0)))
         jstep = jax.jit(jsteps.make_train_step(jcfg, hp))
         tcfg = get_config(ARCH, smoke=True).replace(
-            quant=QuantConfig(mode=mode, rescale_interval=2))
+            quant=QuantConfig(**recipe(mode), rescale_interval=2))
         tstep = tsteps.make_train_step(tcfg, tsteps.TrainHParams(**TRAIN_HP))
-        tst = bridge.train_state_to_torch(init)
+        tst = bridge.train_state_to_torch(init, device="cpu")
         runs = []
         for b in batches:
             before = bridge.train_state_to_numpy(tst)
@@ -554,8 +589,14 @@ def test_train_steps_match_reference(reference, mode):
       lies within the two packages' difference of zero moves by 2·lr
       the other way.  At most 5% of a leaf may be unsettled (measured
       at most 1.6% / 0.39%)."""
+    print(mode, check_train_steps(reference["train"][mode]))
+
+
+def check_train_steps(runs) -> dict:
+    """``test_train_steps_match_reference``'s limits over one mode's
+    runs; returns the worst value of each measure."""
     worst = {"grad": 0.0, "loss": 0.0, "update": 0.0, "unsettled": 0.0}
-    for i, (before, rs, rm, ps, pm) in enumerate(reference["train"][mode]):
+    for i, (before, rs, rm, ps, pm) in enumerate(runs):
         gr = _step_grads(before, rs, rm["grad_norm"])
         gp = _step_grads(before, ps, pm["grad_norm"])
         rel = abs(pm["loss"] - rm["loss"]) / abs(rm["loss"])
@@ -578,7 +619,7 @@ def test_train_steps_match_reference(reference, mode):
             rel = _rel_l2((pp[name] - w0)[settled], (pr[name] - w0)[settled])
             worst["update"] = max(worst["update"], rel)
             assert rel <= 5e-2, (i, name, rel)
-    print(mode, worst)
+    return worst
 
 
 def test_eval_step_and_microbatches():
