@@ -42,7 +42,15 @@ Phases, each fatal on failure:
      smoke-size olmo-7b trains 3 steps in moss, per_group and
      per_tensor on the card and on the CPU from the same initial state
      and batches, each device on its own trajectory;
-  7. the kernels line (JSON), the card line, and the last line
+  7. MoE training: phi3.5-moe-42b-a6.6b at full width, depth cut to 1
+     layer, batch 2 x 4096 (8192 tokens: the grouped route): moe_gmm and
+     moe_dw_gemm against their plain versions on layer 0's routing of the
+     first batch (up, down, dx, dW; an empty and a full expert), timed
+     beside bf16 torch.bmm; then 3 moss and 3 bf16 steps from the same
+     weights and batches, each moss step launching exactly its kernels,
+     none in bf16; the smoke-size MoE trains 3 moss steps on the grouped
+     route on the card and on the CPU (phase 6's check);
+  8. the kernels line (JSON), the card line, and the last line
      {"ok": true, "device": {...}}.
 
 Imports nothing of JAX and nothing of the JAX package.
@@ -69,6 +77,9 @@ TRAIN_M = 2048                      # batch 1 x seq 2048 (paper Table 8)
 TRAIN_KN = [(4096, 4096), (4096, 11008), (11008, 4096), (4096, 50304)]
 # the paper's Table 6 GEMM shapes (M, N, K), as benchmarks/run.py has them
 TABLE6_MNK = [(2048, 7168, 4096), (4096, 2048, 7168), (4096, 4096, 8192)]
+MOE_ARCH = "phi3.5-moe-42b-a6.6b"
+MOE_LAYERS = 1                      # of 32: f32 master + grads + moments
+MOE_BATCH, MOE_SEQ = 2, 4096        # 8192 tokens > 4096: the grouped route
 REPLACES = {
     "mx_gemm": "src/repro/kernels/mx_gemm.py:61",
     "fused_quant_gemm": "src/repro/kernels/mx_fused.py:101",
@@ -77,6 +88,8 @@ REPLACES = {
     "mx_dw_gemm": "src/repro/kernels/mx_bwd.py:102",
     "group_gemm": "src/repro/kernels/group_gemm.py:61",
     "mx_quant": "src/repro/kernels/mx_quant.py:51",
+    "moe_gmm": "src/repro/kernels/moe_gmm.py:129",
+    "moe_dw_gemm": "src/repro/kernels/moe_gmm.py:232",
 }
 SOURCES = {
     "mx_gemm": "src/repro_torch/csrc/mx_gemm.cu",
@@ -86,6 +99,8 @@ SOURCES = {
     "mx_dw_gemm": "src/repro_torch/csrc/mx_dw_gemm.cu",
     "group_gemm": "src/repro_torch/csrc/group_gemm.cu",
     "mx_quant": "src/repro_torch/csrc/mx_quant.cu",
+    "moe_gmm": "src/repro_torch/csrc/moe_gmm.cu",
+    "moe_dw_gemm": "src/repro_torch/csrc/moe_gmm.cu",
 }
 
 
@@ -814,13 +829,276 @@ def phase_train(torch, np) -> dict:
             "group_gemm": launches["per_group"]["group_gemm"]}
 
 
+def _moe_cfg(get_config, quant_from_name, mode, smoke, interval=500):
+    cfg = get_config(MOE_ARCH, smoke=smoke).replace(
+        quant=quant_from_name(mode, interval))
+    if smoke:     # 128 tokens: the grouped route only without the dense rule
+        return cfg.replace(moe_decode_dense=False)
+    return cfg.replace(n_layers=MOE_LAYERS)
+
+
+def _moe_routing(torch, cfg, params, tokens):
+    """Layer 0's dispatch of ``tokens`` through the port's modules, with
+    the weights at their step-0 scales: the sorted token buffer
+    (E·C, d) bf16 that the up and gate GEMMs take, the sizes and C."""
+    from repro_torch.models import moe
+    from repro_torch.models.attention import attention
+    from repro_torch.models.layers import (apply_norm, embed_tokens,
+                                           quant_mask_tree, wrap_qt_nojit)
+    from repro_torch.models.transformer import _layers, model_defs
+
+    with torch.no_grad():
+        qp = wrap_qt_nojit(params, quant_mask_tree(model_defs(cfg)))
+        p0 = _layers(qp["blocks"], cfg.n_layers)[0]
+        x = embed_tokens(cfg, qp["embed"], tokens.to("cuda"))
+        pos = torch.arange(x.shape[1], dtype=torch.int32, device="cuda")
+        h, _ = attention(cfg, p0["attn"], apply_norm(cfg, p0["ln1"], x),
+                         pos, cfg.quant)
+        hn = apply_norm(cfg, p0["ln2"], x + h).reshape(-1, cfg.d_model)
+        _, _, ids = moe.route(cfg, p0["moe"], hn)
+        cap = moe._capacity(cfg, hn.shape[0])
+        order, dest, sizes = moe.dispatch_plan(ids, cfg.n_experts, cap)
+        buf = torch.zeros((cfg.n_experts * cap + 1, cfg.d_model),
+                          dtype=hn.dtype, device="cuda")
+        buf = buf.index_put((dest,), hn[order // cfg.top_k])
+    return buf[:-1], sizes, cap
+
+
+def phase_moe_kernels(torch, timer, cfg, params, tokens) -> dict:
+    """moe_gmm and moe_dw_gemm against their plain versions at the MoE
+    cell's shapes (E 16, C from the routing of the first batch, d 4096,
+    d_ff 6400) on layer 0's real token buffer and weights: the up
+    forward (e4m3, K 4096, N 6400) at the routed sizes and at sizes with
+    expert 0 empty and expert 1 at full capacity, the down forward on
+    silu(gate) * up (K 6400, N 4096), dx (an e5m2 gradient against the
+    transposed up payloads, K 6400, N 4096) and dW on the up forward's
+    residual (Cp = C rounded up to 32).  Payloads bitwise, accumulations
+    within 1e-5 * max|plain|.  The up forward and dW are timed beside
+    their plain versions and bf16 torch.bmm over the same slots."""
+    import torch.nn.functional as F
+    from repro_torch.core.quant import (mx_operand, pad_axis,
+                                        prequant_weight, quant_per_tensor)
+    from repro_torch.kernels import dispatch, moe_gmm
+
+    e, dff, d = cfg.n_experts, cfg.d_ff, cfg.d_model
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    x, sizes, c = _moe_routing(torch, cfg, params, tokens)
+    cp = c + (-c) % 32
+    print(f"moe routing of batch 0 (layer 0): C {c}, Cp {cp}, sizes "
+          f"{sizes.tolist()}")
+    wq = {n: prequant_weight(params["blocks"]["moe"][n][0], 1, "e4m3")
+          for n in ("w_up", "w_gate", "w_down")}
+    worst = 0.0
+
+    def check(what, xin, qw, sz, fmt):
+        nonlocal worst
+        s = dispatch.global_scale(xin, fmt)
+        acc, q, se = moe_gmm.moe_gmm(xin, s, qw, sz, c, fmt)
+        acc_p, q_p, se_p = moe_gmm.moe_gmm_plain(xin, s, qw, c, fmt)
+        q_mis = int((q.view(torch.uint8) != q_p.view(torch.uint8)).sum())
+        e_mis = int((se != se_p).sum())
+        err = float((acc - acc_p).abs().max())
+        scale = float(acc_p.abs().max())
+        print(f"moe_gmm {what} {fmt} E={e} C={c} K={xin.shape[1]} "
+              f"N={qw.shape[2]} ({int(sz.sum())} routed rows): max_err "
+              f"{err:.3g} (max|ref| {scale:.3g}), payload mismatches q "
+              f"{q_mis} / sexp {e_mis}")
+        if q_mis or e_mis or not (err <= 1e-5 * scale
+                                  and torch.isfinite(acc).all()):
+            raise AssertionError(f"moe_gmm {what}")
+        worst = max(worst, err)
+        return q, se
+
+    xq_q, xq_e = check("up fwd", x, wq["w_up"][0], sizes, "e4m3")
+    sz2 = sizes.clone()
+    sz2[0], sz2[1] = 0, c
+    x2 = x.clone()
+    x2[:c] = 0
+    x2[c:2 * c] = _activations(torch, gen, c, d)
+    check("up fwd (expert 0 empty, expert 1 full)", x2, wq["w_up"][0], sz2,
+          "e4m3")
+    del x2
+    up, gate = (dispatch.moe_grouped_matmul(
+        x, sizes, *wq[n], capacity=c, out_dtype=torch.bfloat16)[0]
+        for n in ("w_up", "w_gate"))
+    h = F.silu(gate.to(torch.float32)).to(torch.bfloat16) * up
+    del up, gate
+    check("down fwd", h, wq["w_down"][0], sizes, "e4m3")
+    del h
+    live = (torch.arange(c, device="cuda")[None, :]
+            < sizes[:, None]).reshape(-1, 1)
+    g = torch.randn(e * c, dff, device="cuda", generator=gen) * 1e-3 * live
+    qwt = wq["w_up"][0].transpose(1, 2).contiguous()
+    check("dx", g, qwt, sizes, "e5m2")
+    del qwt
+    gq = quant_per_tensor(g, "e5m2").q
+    del g
+    res = {"moe_gmm": {"max_abs_err": worst}}
+
+    def slots(a):             # each expert's rows padded to Cp
+        return pad_axis(a.reshape(e, c, -1), 1, 32).reshape(e * cp, -1)
+
+    qx, sx, qg = slots(xq_q), slots(xq_e), slots(gq)
+    acc, qt, et = moe_gmm.moe_dw_gemm(qx, sx, qg, sizes, cp, "e4m3",
+                                      payload=True)
+    acc_p, qt_p, et_p = moe_gmm.moe_dw_gemm_plain(qx, sx, qg, cp, "e4m3",
+                                                  payload=True)
+    q_mis = int((qt.view(torch.uint8) != qt_p.view(torch.uint8)).sum())
+    e_mis = int((et != et_p).sum())
+    err = float((acc - acc_p).abs().max())
+    scale = float(acc_p.abs().max())
+    print(f"moe_dw_gemm E={e} Cp={cp} K={d} N={dff}: max_err {err:.3g} "
+          f"(max|ref| {scale:.3g}), requant payload mismatches q {q_mis} / "
+          f"sexp {e_mis}")
+    if q_mis or e_mis or not (err <= 1e-5 * scale
+                              and torch.isfinite(acc).all()):
+        raise AssertionError("moe_dw_gemm")
+    res["moe_dw_gemm"] = {"max_abs_err": err}
+    dw_opnd = torch.stack([mx_operand(q_, e_) for q_, e_ in zip(qt_p, et_p)])
+    del acc, qt, et, acc_p, qt_p, et_p
+    torch.cuda.empty_cache()
+
+    # times: the up forward and dW, their plain versions, bf16 torch.bmm
+    n_live = int(sizes.sum())
+    qw = wq["w_up"][0]
+    s = dispatch.global_scale(x)
+    xb, wb = x.reshape(e, c, d), qw.to(torch.bfloat16)
+    t = timer.ms(lambda: moe_gmm.moe_gmm(x, s, qw, sizes, c))
+    tp = timer.ms(lambda: moe_gmm.moe_gmm_plain(x, s, qw, c))
+    tl = timer.ms(lambda: torch.bmm(xb, wb))
+    # every row is read and quantized; the products are the routed rows'
+    b, by = bound_ms(2 * e * c * d + 4 + e * d * dff + 4 * e
+                     + 4 * e * c * dff + e * c * d + e * c * d // 32,
+                     2.0 * n_live * d * dff)
+    print(f"moe_gmm up fwd: {t:.4f} ms, plain {tp:.4f} ms, library "
+          f"{tl:.4f} ms (torch.bmm bf16 over the E x C slots), bound "
+          f"{b:.4f} ms ({by}, {n_live} routed rows)")
+    res["moe_gmm"].update(ms=t, plain_ms=tp, library_ms=tl, bound_ms=b,
+                          bound_by=by)
+    del xb, wb
+    gb = qg.to(torch.bfloat16).reshape(e, cp, dff)
+    t = timer.ms(lambda: moe_gmm.moe_dw_gemm(qx, sx, qg, sizes, cp))
+    tp = timer.ms(lambda: moe_gmm.moe_dw_gemm_plain(qx, sx, qg, cp))
+    tl = timer.ms(lambda: torch.bmm(dw_opnd, gb))
+    # the kernel reads each expert's rows up to its size rounded to 32
+    rows = int(torch.clamp_max((sizes + 31) // 32 * 32, cp).sum())
+    b, by = bound_ms(rows * (d + d // 32 + dff) + 4 * e + 4 * e * d * dff,
+                     2.0 * n_live * d * dff)
+    print(f"moe_dw_gemm: {t:.4f} ms, plain {tp:.4f} ms, library {tl:.4f} "
+          f"ms (torch.bmm bf16 over the E x Cp slots), bound {b:.4f} ms "
+          f"({by}, {n_live} routed rows)")
+    res["moe_dw_gemm"].update(ms=t, plain_ms=tp, library_ms=tl, bound_ms=b,
+                              bound_by=by)
+    del dw_opnd, gb, qx, sx, qg, x, wq
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_moe_train(torch, np) -> tuple[dict, dict]:
+    """phi3.5-moe-42b-a6.6b at full width, 1 of its 32 layers (the f32
+    weights, gradients and moments of one layer are 25 GB; two would
+    not fit the card's 80 GB at the training step's peak), batch
+    2 x 4096: the kernel checks on the first batch's routing, then 3
+    moss and 3 bf16 steps from the same weights on the same batches.
+    Returns the MoE kernels' rows and the launches of the moss run."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.kernels import (group_gemm, moe_gmm, mx_bwd, mx_fused,
+                                     mx_quant)
+    from repro_torch.launch.train import quant_from_name
+    from repro_torch.models.layers import init_tree
+    from repro_torch.models.transformer import model_defs
+    from repro_torch.train.steps import (TrainHParams, init_train_state,
+                                         make_train_step)
+
+    hp = TrainHParams(peak_lr=3e-4, warmup_steps=0, total_steps=3)
+    base = _moe_cfg(get_config, quant_from_name, "moss", smoke=False)
+    tokens = MOE_BATCH * MOE_SEQ
+    print(f"train {MOE_ARCH}: full width (d {base.d_model}, "
+          f"{base.n_heads} heads, {base.n_kv} kv heads, Dh {base.head_dim}, "
+          f"{base.n_experts} experts top-{base.top_k}, d_ff {base.d_ff}, "
+          f"vocab {base.vocab}, {base.norm}, remat {base.remat}), depth cut "
+          f"from 32 to {MOE_LAYERS} layer, batch {MOE_BATCH} x {MOE_SEQ}")
+    data = SyntheticLM(DataConfig(vocab=base.vocab, seq_len=MOE_SEQ,
+                                  global_batch=MOE_BATCH, seed=0))
+    batches = [data.batch_for_step(i) for i in range(3)]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    init = init_tree(model_defs(base), gen, "cuda")
+    print(f"train: {sum(int(w.numel()) for w in tree_leaves(init)) / 1e9:.3f}"
+          "B parameters")
+    t0 = time.monotonic()
+    timer = Timer(torch)
+    res = phase_moe_kernels(torch, timer, base, init,
+                            batches[0]["tokens"])
+    del timer
+    print(f"moe kernel checks: {time.monotonic() - t0:.1f} s")
+    counters = [moe_gmm.counter, moe_gmm.counter_dw, mx_fused.counter,
+                mx_fused.counter_tiled, mx_bwd.counter, group_gemm.counter,
+                mx_quant.counter]
+    losses, launches = {}, {}
+    for mode in ("moss", "bf16"):
+        cfg = _moe_cfg(get_config, quant_from_name, mode, smoke=False)
+        state = init_train_state(cfg, hp, params=init, device="cuda")
+        step = make_train_step(cfg, hp)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for c in counters:
+            c.reset()
+        losses[mode] = []
+        for i, batch in enumerate(batches):
+            t0 = time.monotonic()
+            state, met = step(state, batch)
+            loss, aux = float(met["loss"]), float(met["aux"])
+            gnorm = float(met["grad_norm"])
+            torch.cuda.synchronize()
+            dt = time.monotonic() - t0
+            losses[mode].append(loss)
+            print(f"train moe {mode} step {i}: loss {loss:.5f} aux "
+                  f"{aux:.5f} grad_norm {gnorm:.4f} step {dt * 1e3:.1f} ms "
+                  f"= {tokens / dt:.0f} tok/s")
+            if not all(np.isfinite(v) for v in (loss, aux, gnorm)):
+                raise AssertionError(f"train moe {mode} step {i}: "
+                                     "non-finite")
+        launches[mode] = {c.name: c.count for c in counters}
+        print(f"train moe {mode}: peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB, "
+              f"launches {json.dumps(launches[mode])}")
+        del state, step
+        torch.cuda.empty_cache()
+    # per moss step, from the code: attention q, k, v, o and the head
+    # (5 sites) take the fused tile in the forward, the layer's 4 again
+    # in the remat recompute, and dx and dW at all 5; the experts' up,
+    # gate and down take moe_gmm in the forward, the recompute and dx,
+    # and moe_dw_gemm for dW
+    none = {c.name: 0 for c in counters}
+    want = {"moss": {**none, "moe_gmm": 3 * 9, "moe_dw_gemm": 3 * 3,
+                     "fused_quant_gemm_tiled": 3 * 14, "mx_dw_gemm": 3 * 5},
+            "bf16": none}
+    for mode, got in launches.items():
+        if got != want[mode]:
+            raise AssertionError(f"moe {mode} launches {got}, expected "
+                                 f"{want[mode]}")
+    for i, (a, b) in enumerate(zip(losses["moss"], losses["bf16"])):
+        rel = abs(a - b) / abs(b)
+        print(f"train moe step {i}: moss vs bf16 loss rel {rel:.3g} "
+              "(limit 1e-2)")
+        if not rel <= 1e-2:
+            raise AssertionError(f"train moe step {i}: moss {a} vs bf16 {b}")
+    del init
+    torch.cuda.empty_cache()
+    return res, launches["moss"]
+
+
 def phase_small_train_reference(torch, np):
     """The smoke-size olmo-7b trains 3 steps of batch 2 x 64 on the card
     and on the CPU from the same initial state and batches, each device
     on its own trajectory, in moss (rescale_interval 2, so a refresh
-    happens), per_group and per_tensor: losses within 1e-2 relative and
-    equal scale_t at every step (f32 sums in another order and the rare
-    fp8 rounding flip they cause)."""
+    happens), per_group and per_tensor, and so does the smoke-size
+    phi3.5-moe in moss on the grouped route (moe_decode_dense off, so
+    its 128 tokens take the grouped kernels): losses within 1e-2
+    relative and equal scale_t at every step (f32 sums in another order
+    and the rare fp8 rounding flip they cause)."""
     from repro_torch.configs.registry import get_config
     from repro_torch.core.tree import tree_leaves, tree_map
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
@@ -829,9 +1107,12 @@ def phase_small_train_reference(torch, np):
     from repro_torch.train.steps import (TrainHParams, init_train_state,
                                          make_train_step)
 
-    for mode in ("moss", "per_group", "per_tensor"):
-        cfg = _train_cfg(get_config, quant_from_name, mode, smoke=True,
-                         interval=2)
+    runs = [(TRAIN_ARCH, mode, _train_cfg(get_config, quant_from_name,
+                                          mode, smoke=True, interval=2))
+            for mode in ("moss", "per_group", "per_tensor")]
+    runs.append((MOE_ARCH, "moss", _moe_cfg(get_config, quant_from_name,
+                                            "moss", smoke=True, interval=2)))
+    for arch, mode, cfg in runs:
         hp = TrainHParams(peak_lr=1e-3, warmup_steps=0, total_steps=3)
         data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=64,
                                       global_batch=2, seed=0))
@@ -849,12 +1130,13 @@ def phase_small_train_reference(torch, np):
             a, b = float(mc["loss"]), float(mg["loss"])
             rel = abs(a - b) / abs(a)
             same_t = tree_leaves(cpu.scale_t) == tree_leaves(card.scale_t)
-            print(f"smoke train {mode} step {i}: card vs CPU loss {b:.6f} "
+            print(f"smoke train {arch} {mode} step {i}: card vs CPU loss "
+                  f"{b:.6f} "
                   f"/ {a:.6f} (rel {rel:.3g}, limit 1e-2), scale_t equal "
                   f"{same_t}")
             if not (np.isfinite(b) and rel <= 1e-2 and same_t):
-                raise AssertionError(f"smoke train {mode} step {i}: card "
-                                     "vs CPU")
+                raise AssertionError(f"smoke train {arch} {mode} step {i}: "
+                                     "card vs CPU")
 
 
 def main() -> int:
@@ -886,15 +1168,24 @@ def main() -> int:
     del timer
     t0 = time.monotonic()
     train_launches = phase_train(torch, np)
-    phase_small_train_reference(torch, np)
     print(f"phase train: {time.monotonic() - t0:.1f} s")
+    t0 = time.monotonic()
+    moe_res, moe_launches = phase_moe_train(torch, np)
+    print(f"phase moe train: {time.monotonic() - t0:.1f} s")
+    t0 = time.monotonic()
+    phase_small_train_reference(torch, np)
+    print(f"phase small train vs CPU: {time.monotonic() - t0:.1f} s")
+    res.update(moe_res)
     # each row's launches come from its path: the serving kernels'
     # (fused_quant_gemm is the M <= 32 tile of the calibration forward)
     # from the engine, fused_quant_gemm_tiled (the M > 32 tile of the
     # same source) and mx_dw_gemm from the moss steps, group_gemm from
-    # the per_group steps, mx_quant from the ablation
+    # the per_group steps, mx_quant from the ablation, moe_gmm and
+    # moe_dw_gemm from the MoE moss steps
     launches.update(train_launches)
     launches["mx_quant"] = ablation["mx_quant"]
+    launches["moe_gmm"] = moe_launches["moe_gmm"]
+    launches["moe_dw_gemm"] = moe_launches["moe_dw_gemm"]
     kernels = [dict(name=name, route="cuda", source=SOURCES[name],
                     replaces=REPLACES[name], launches=launches[name],
                     **{k: res[name][k] for k in

@@ -1,7 +1,7 @@
 """Model configuration dataclass (counterpart of
 ``repro.configs.base.ModelConfig``): the reference's fields that the
-dense serving and training slices read, or refuses when set
-(``models.transformer.build_segments``)."""
+dense serving and training slices and MoE training read, or refuses
+when set (``models.transformer.build_segments``)."""
 
 from __future__ import annotations
 
@@ -34,6 +34,14 @@ class ModelConfig:
     # --- FFN ---
     act: Literal["swiglu", "geglu", "gelu_mlp", "relu2"] = "swiglu"
     norm: Literal["rmsnorm", "layernorm"] = "rmsnorm"
+
+    # --- MoE (the reference's names and defaults) ---
+    n_experts: int = 0
+    n_shared: int = 0                  # shared experts: refused
+    top_k: int = 0
+    capacity_factor: float = 1.3
+    first_dense: int = 0               # leading dense layers: refused
+    moe_decode_dense: bool = True      # small T: masked dense experts
 
     # --- io / misc ---
     input_mode: Literal["tokens", "embeddings"] = "tokens"

@@ -189,8 +189,8 @@ def calibrate_act_scales(cfg, params, scales=None, *, tokens=None,
             p_seg = wrapped[seg.name]
             for l in range(seg.n):
                 with REC.at_index((l,)):
-                    x, _ = seg.apply(cfg, qcfg, _slice_layer(p_seg, l), x,
-                                     positions, None, "train")
+                    x, _, _ = seg.apply(cfg, qcfg, _slice_layer(p_seg, l),
+                                        x, positions, None, "train")
         x = apply_norm(cfg, wrapped["final_norm"], x)
         lm_head(cfg, wrapped["embed"], x, qcfg)
         stats = REC.stats

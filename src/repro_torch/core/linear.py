@@ -27,6 +27,13 @@ or ``PerTensorQ``) and the ``PerTensorQ`` of w, never x or w.
               ``dispatch.pt_matmul``; dW re-quantizes the dequantized
               residual's transpose.
 
+``qmm_grouped`` (``qlinear_grouped``) is the MoE experts' counterpart
+(the reference's grouped custom VJP, moss and bf16): the flat sorted
+token buffer (E·C, K) against the stacked expert weights (E, K, N),
+every expert in one grouped launch per GEMM (``dispatch.
+moe_grouped_matmul`` forward and dx, ``moe_grouped_matmul_dw`` dW),
+one global amax per buffer and the per-expert weight scales.
+
 The weight scale ``w_scale`` is the predicted one under automatic
 scaling (``core.autoscale``); it gets no gradient.  Weights may also
 arrive pre-quantized (fp8 payload + build-time scale) on the serving
@@ -47,6 +54,7 @@ from .quant import (
     PerGroupQ,
     PerTensorQ,
     pad_axis,
+    prequant_weight,
     quant_mx_delayed,
     quant_per_group,
     quant_per_tensor,
@@ -218,6 +226,107 @@ def qmm(cfg: QuantConfig, x: torch.Tensor, w: torch.Tensor,
     return _QMM.apply(cfg, x, w, w_scale)
 
 
+def _quantize_w_stack(cfg: QuantConfig, w: torch.Tensor,
+                      w_scale: torch.Tensor) -> PerTensorQ:
+    """Per-expert per-tensor quantization of the (E, K, N) stack:
+    ``_quantize_w`` for every expert slice, with the predicted
+    per-expert scales ``w_scale`` (E,) under automatic scaling (no
+    max-reduction over the stack), the measured ones otherwise."""
+    if cfg.weight_cast_bf16:
+        w = w.to(torch.bfloat16)
+    q, s = prequant_weight(
+        w, 1, cfg.fwd_format,
+        scale=w_scale if cfg.weight_scaling == "auto" else None)
+    return PerTensorQ(q=q, s=s)
+
+
+class _QMMGrouped(torch.autograd.Function):
+    """The reference's ``qmm_grouped`` custom VJP (moss and bf16): the
+    flat sorted token buffer x (E·C, K) against the stacked expert
+    weights (E, K, N), every expert's GEMM in one grouped launch.
+
+    moss   y  = ``dispatch.moe_grouped_matmul`` (one global amax, the
+                per-expert weight scales row by row); saved: the fp8
+                residual of the whole buffer and the quantized stack;
+           dx = the same grouped fused GEMM on the E5M2 gradient
+                against the per-expert transposed payloads;
+           dW = ``dispatch.moe_grouped_matmul_dw`` against the
+                per-tensor E5M2 gradient.
+    bf16   the einsums with bf16 operands and f32 accumulation; saved:
+           x and the stack in bf16."""
+
+    @staticmethod
+    def forward(ctx, cfg: QuantConfig, capacity: int, x, w_stack, w_scale,
+                group_sizes):
+        from repro_torch.kernels import dispatch
+        from .runtime_flags import einsum
+
+        orig_dtype = x.dtype
+        e, k, n = w_stack.shape
+        ctx.cfg, ctx.capacity = cfg, capacity
+        ctx.x_dtype, ctx.w_dtype = orig_dtype, w_stack.dtype
+        if cfg.mode == "bf16":
+            ctx.save_for_backward(x.to(torch.bfloat16),
+                                  w_stack.to(torch.bfloat16))
+            y = einsum("eck,ekn->ecn", x.reshape(e, capacity, k), w_stack,
+                       out_dtype=torch.float32)
+            return y.reshape(e * capacity, n).to(orig_dtype)
+        if cfg.mode != "moss":
+            raise NotImplementedError(
+                f"qmm_grouped takes moss and bf16, not {cfg.mode!r} (the "
+                "baselines run the experts one by one)")
+        micro = cfg.micro_group
+        wq = _quantize_w_stack(cfg, w_stack, w_scale)
+        y, xq = dispatch.moe_grouped_matmul(
+            pad_axis(x, -1, micro), group_sizes, pad_axis(wq.q, 1, micro),
+            wq.s, capacity=capacity, fmt=cfg.fwd_format, micro_group=micro,
+            out_dtype=torch.float32)
+        ctx.save_for_backward(*xq, wq.q, wq.s, group_sizes)
+        return y.to(orig_dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        from repro_torch.kernels import dispatch
+        from .runtime_flags import einsum
+
+        cfg, c = ctx.cfg, ctx.capacity
+        if cfg.mode == "bf16":
+            x_bf16, w_bf16 = ctx.saved_tensors
+            e, k, n = w_bf16.shape
+            g3 = g.reshape(e, c, n)
+            dx = einsum("ecn,ekn->eck", g3, w_bf16, out_dtype=torch.float32)
+            dw = einsum("eck,ecn->ekn", x_bf16.reshape(e, c, k), g3,
+                        out_dtype=torch.float32)
+            return (None, None, dx.reshape(e * c, k).to(ctx.x_dtype),
+                    dw.to(ctx.w_dtype), None, None)
+        q, sexp, sx, wq_q, wq_s, sizes = ctx.saved_tensors
+        xq = MxQ(q, sexp, sx)
+        k = wq_q.shape[1]
+        micro = cfg.micro_group
+        g2d = g.to(torch.float32)
+        # dx: the grouped fused GEMM on the E5M2 gradient against each
+        # expert's transposed payload (E, N, K), transposed once here
+        wqT = pad_axis(wq_q.transpose(1, 2).contiguous(), 1, micro)
+        dx, _ = dispatch.moe_grouped_matmul(
+            pad_axis(g2d, -1, micro), sizes, wqT, wq_s, capacity=c,
+            fmt=cfg.bwd_format, micro_group=micro, out_dtype=torch.float32)
+        # dW: the residual re-quantized along each expert's tokens
+        g_pt = quant_per_tensor(g2d, cfg.bwd_format)
+        dw = dispatch.moe_grouped_matmul_dw(
+            xq, g_pt, sizes, capacity=c, fmt=cfg.fwd_format,
+            out_dtype=torch.float32, out_rows=k)
+        return (None, None, dx.to(g.dtype), dw.to(ctx.w_dtype), None, None)
+
+
+def qmm_grouped(cfg: QuantConfig, capacity: int, x: torch.Tensor,
+                w_stack: torch.Tensor, w_scale: torch.Tensor,
+                group_sizes: torch.Tensor) -> torch.Tensor:
+    """The grouped-expert ``x @ w_stack[e]`` for each capacity slot of
+    x under ``cfg`` (moss or bf16), with its backward."""
+    return _QMMGrouped.apply(cfg, capacity, x, w_stack, w_scale,
+                             group_sizes)
+
+
 def qlinear(x: torch.Tensor, wt: QT, cfg: QuantConfig) -> torch.Tensor:
     """Quantized ``x @ w`` (see module docstring)."""
     if cfg.mode == "bf16":
@@ -240,6 +349,27 @@ def qlinear(x: torch.Tensor, wt: QT, cfg: QuantConfig) -> torch.Tensor:
             cfg = QuantConfig(**{**cfg.__dict__, "weight_scaling": "jit"})
         s = torch.ones((), dtype=torch.float32)
     return qmm(cfg, x, wt.w, s)
+
+
+def qlinear_grouped(x_flat: torch.Tensor, wt: QT,
+                    group_sizes: torch.Tensor, capacity: int,
+                    cfg: QuantConfig) -> torch.Tensor:
+    """Grouped-expert qlinear: the flat sorted token buffer
+    ``x_flat`` (E·C, K) against the stacked expert weights ``wt.w``
+    (E, K, N) with their per-expert predicted scales ``wt.s`` (E,);
+    without scales, measured per expert (jit scaling), as ``qlinear``."""
+    e = wt.w.shape[0]
+    dev = wt.w.device
+    if cfg.mode == "bf16":
+        return qmm_grouped(cfg, capacity, x_flat, wt.w,
+                           torch.zeros((e,), dtype=torch.float32,
+                                       device=dev), group_sizes)
+    s = wt.s
+    if s is None:
+        if cfg.weight_scaling == "auto":
+            cfg = QuantConfig(**{**cfg.__dict__, "weight_scaling": "jit"})
+        s = torch.ones((e,), dtype=torch.float32, device=dev)
+    return qmm_grouped(cfg, capacity, x_flat, wt.w, s, group_sizes)
 
 
 @torch.inference_mode()

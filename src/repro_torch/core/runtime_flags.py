@@ -13,7 +13,7 @@ Counterpart of ``repro.core.runtime_flags``.  Two things live here:
     default) for this to hold.  The quantized GEMMs do not come here:
     they go through ``repro_torch.kernels.dispatch``.
 
-Serving flags
+Serving and training flags
     The reference reads ``REPRO_*`` environment variables.  This port
     has no environment switches of its own: the serving path it
     implements is the reference's default one (pre-quantized fp8
@@ -23,7 +23,8 @@ Serving flags
     ROADMAP entry that will bring it.  The KV-cache dtype is the
     config's ``kv_cache_dtype`` alone: ``REPRO_KV_CACHE``, the
     reference's override of it, is refused whenever it is set, so that
-    it cannot be silently ignored.
+    it cannot be silently ignored.  ``check_train_env`` does the same
+    for the training CLI's one reference switch, ``REPRO_MOE_EXPERTS``.
 """
 
 from __future__ import annotations
@@ -67,6 +68,18 @@ def check_serving_env() -> None:
         if got and got != value:
             raise NotImplementedError(
                 f"{name}={got!r} is not ported yet: ROADMAP {entry}")
+
+
+def check_train_env() -> None:
+    """Raise ``NotImplementedError`` when ``REPRO_MOE_EXPERTS`` asks for
+    another MoE expert path than the one the port implements: moss and
+    bf16 run the grouped kernels (``grouped``, the reference's default);
+    the reference's ``vmapped`` A/B path for them is not ported."""
+    got = os.environ.get("REPRO_MOE_EXPERTS", "").strip()
+    if got and got != "grouped":
+        raise NotImplementedError(
+            f"REPRO_MOE_EXPERTS={got!r} is not ported: the port runs "
+            "moss and bf16 experts grouped (ROADMAP queue 1 item 10)")
 
 
 def _bf16_values(t: torch.Tensor) -> torch.Tensor:

@@ -16,9 +16,12 @@ and so is dW's M.
 The device decides the route: CPU tensors take each kernel's plain
 version, CUDA tensors launch the kernel (``kernels.mx_gemm``,
 ``kernels.mx_fused``, ``kernels.mx_bwd``, ``kernels.mx_quant``,
-``kernels.group_gemm``, ``kernels.decode_attn``).  The per-tensor (TE)
-GEMM has no kernel in the reference either (``pt_matmul``): it is the
-plain upcast product on both devices.
+``kernels.group_gemm``, ``kernels.moe_gmm``, ``kernels.decode_attn``).
+The per-tensor (TE) GEMM has no kernel in the reference either
+(``pt_matmul``): it is the plain upcast product on both devices.  The
+grouped-expert entries add the MoE epilogues: the per-expert weight
+scales row by row (``s · repeat(s_w, C)``), and dW's per-expert row
+padding to 32.
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ from repro_torch.core.quant import (MxQ, PerGroupQ, PerTensorQ, pad_axis,
 
 from .decode_attn import decode_attn_paged
 from .group_gemm import GROUP, group_gemm
+from .moe_gmm import moe_dw_gemm, moe_gmm
 from .mx_bwd import mx_dw_gemm
 from .mx_fused import fused_quant_gemm
 from .mx_gemm import mx_gemm
@@ -111,6 +115,64 @@ def mx_matmul_dw(xq: MxQ, gq: PerTensorQ, fmt: str = "e4m3",
                      pad_axis(xq.sexp, 0, MICRO).contiguous(),
                      pad_axis(gq.q, 0, MICRO).contiguous(), fmt)
     acc = acc[:k if out_rows is None else out_rows, :n]
+    return (acc * (xq.s * gq.s)).to(out_dtype)
+
+
+def moe_grouped_matmul(x2d: torch.Tensor, group_sizes: torch.Tensor,
+                       qw_stack: torch.Tensor, w_scales: torch.Tensor, *,
+                       capacity: int, fmt: str = "e4m3",
+                       micro_group: int = MICRO,
+                       out_dtype: torch.dtype = torch.bfloat16
+                       ) -> tuple[torch.Tensor, MxQ]:
+    """Fused two-level quantize + grouped-expert GEMM over the flat
+    sorted token buffer x2d (E·C, K) (expert e owns rows ``[e·C, e·C +
+    group_sizes[e])``, the rest of its slot zero) against ``qw_stack``
+    (E, K, N): one global amax for the whole buffer, the per-expert
+    weight scales ``w_scales`` (E,) applied row by row in the epilogue,
+    ``acc · s · repeat(w_scales, C)``.  Returns the finished GEMM
+    (E·C, N) and the fp8 residual of the whole buffer."""
+    if x2d.shape[-1] % micro_group:
+        raise ValueError(f"K={x2d.shape[-1]} not divisible by "
+                         f"micro_group={micro_group}")
+    if micro_group != MICRO:
+        raise NotImplementedError(f"micro_group={micro_group}")
+    s = global_scale(x2d, fmt)
+    acc, q, sexp = moe_gmm(x2d.contiguous(), s, qw_stack.contiguous(),
+                           group_sizes.to(torch.int32).contiguous(),
+                           capacity, fmt)
+    row_scale = s * w_scales.to(torch.float32).repeat_interleave(capacity)
+    y = (acc * row_scale[:, None]).to(out_dtype)
+    return y, MxQ(q=q, sexp=sexp, s=s)
+
+
+def moe_grouped_matmul_dw(xq: MxQ, gq: PerTensorQ,
+                          group_sizes: torch.Tensor, *, capacity: int,
+                          fmt: str = "e4m3",
+                          out_dtype: torch.dtype = torch.float32,
+                          out_rows: int | None = None) -> torch.Tensor:
+    """The grouped dW: per expert ``requant_M(x̂_e)ᵀ @ Qg_e · s_x · s_g``
+    over its row range, all experts in one launch, the gradient with
+    one per-tensor scale.  Each expert's rows are padded here to a
+    multiple of 32, so that the along-token micro-groups never straddle
+    two experts.  Returns (E, K, N), K sliced to ``out_rows`` (the
+    residual's K carries the micro-group padding)."""
+    micro = xq.q.shape[-1] // xq.sexp.shape[-1]
+    if micro != MICRO:
+        raise NotImplementedError(f"moe_grouped_matmul_dw: micro-group "
+                                  f"{micro}")
+    t, k = xq.q.shape
+    e, n = t // capacity, gq.q.shape[-1]
+    cp = _ceil_to(capacity, MICRO)
+
+    def pad_rows(a):
+        if cp == capacity:
+            return a.contiguous()
+        return pad_axis(a.reshape(e, capacity, -1), 1, MICRO).reshape(
+            e * cp, -1).contiguous()
+
+    acc = moe_dw_gemm(pad_rows(xq.q), pad_rows(xq.sexp), pad_rows(gq.q),
+                      group_sizes.to(torch.int32).contiguous(), cp, fmt)
+    acc = acc[:, :k if out_rows is None else out_rows, :n]
     return (acc * (xq.s * gq.s)).to(out_dtype)
 
 

@@ -35,7 +35,8 @@ SPANS = ("decode_step", "prefill_chunk")
 PORT_KERNELS = ("mx_gemm_kernel", "fused_quant_gemm_kernel",
                 "fused_quant_gemm_tiled_kernel", "mx_dw_gemm_kernel",
                 "group_gemm_kernel", "mx_quant_kernel",
-                "decode_attn_paged_kernel")
+                "decode_attn_paged_kernel", "moe_gmm_kernel",
+                "moe_dw_gemm_kernel")
 
 
 def _short(name: str) -> str:
@@ -95,6 +96,9 @@ def summarize(trace: dict, kinds=SPANS) -> dict:
             / n / 1e3,
             "card_ms_by_kernel": {k: v / n / 1e3 for k, v in
                                   by_kernel.most_common(12)},
+            "card_ms_by_port_kernel": {
+                k: v / n / 1e3 for k, v in by_kernel.most_common()
+                if k.startswith(PORT_KERNELS)},
         }
     t0 = spans[0][0] if spans else 0.0
     t1 = max([spans[-1][1]] + [g["ts"] + g["dur"] for g in gpu

@@ -9,6 +9,10 @@ Usage:
       --smoke --steps 3                      # on the card
   PYTHONPATH=src python -m repro_torch.launch.train --arch olmo-7b \\
       --full --layers 4 --batch 1 --seq 2048 --steps 3
+  PYTHONPATH=src python -m repro_torch.launch.train \\
+      --arch phi3.5-moe-42b-a6.6b --smoke --device cpu --steps 3
+  PYTHONPATH=src python -m repro_torch.launch.train \\
+      --arch phi3.5-moe-42b-a6.6b --full --layers 1 --batch 2 --seq 4096
 
 Checkpoints and meshes are ROADMAP queue 1 item 13: ``--ckpt-dir`` and
 ``--mesh`` raise ``NotImplementedError``.
@@ -23,6 +27,7 @@ import torch
 
 from repro_torch.configs.registry import get_config
 from repro_torch.core.formats import QuantConfig
+from repro_torch.core.runtime_flags import check_train_env
 from repro_torch.data.pipeline import DataConfig, SyntheticLM
 from repro_torch.train.steps import (
     TrainHParams,
@@ -57,6 +62,7 @@ def train(arch: str, *, smoke: bool = True, steps: int = 100,
     if ckpt_dir is not None or mesh is not None:
         raise NotImplementedError(
             "checkpoints and meshes: ROADMAP queue 1 item 13")
+    check_train_env()
     device = torch.device(device)
     cfg = get_config(arch, smoke=smoke).replace(
         quant=quant_from_name(quant, interval))
@@ -80,6 +86,7 @@ def train(arch: str, *, smoke: bool = True, steps: int = 100,
             log(f"step {step + 1:5d} loss {loss:.4f} "
                 f"lr {float(metrics['lr']):.2e} "
                 f"gnorm {float(metrics['grad_norm']):.2f} "
+                f"aux {float(metrics['aux']):.4f} "
                 f"tok/s {tps:,.0f}")
             history.append((step + 1, loss))
     return state, history

@@ -1,6 +1,6 @@
-"""Model assembly (counterpart of ``repro.models.transformer``, dense
-family): embed -> repeated blocks -> final norm -> LM head, and the
-token cross-entropy.  Params are stacked over layers like the
+"""Model assembly (counterpart of ``repro.models.transformer``, the dense
+and MoE families): embed -> repeated blocks -> final norm -> LM head,
+and the token cross-entropy.  Params are stacked over layers like the
 reference's; the layer scan is a Python loop over them.  In ``train``
 mode the forward runs under autograd, each layer under
 ``torch.utils.checkpoint`` when ``cfg.remat`` is set (the reference's
@@ -16,6 +16,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.formats import QuantConfig
 from . import attention as attn_mod
+from . import moe as moe_mod
 from .attention import KVCache
 from .layers import (
     apply_ffn,
@@ -33,7 +34,8 @@ class Segment(NamedTuple):
     name: str
     n: int                       # repeats
     defs: dict                   # one unit's param defs (unstacked)
-    apply: Callable              # (cfg,qcfg,p,x,pos,cache,mode)->(x,cache)
+    apply: Callable              # (cfg,qcfg,p,x,pos,cache,mode)
+    #                              -> (x, cache, aux loss or None)
 
 
 def _dense_unit(cfg, d_ff=None):
@@ -51,13 +53,34 @@ def _dense_apply(cfg, qcfg, p, x, pos, cache, mode):
                                   cache, mode)
     x = x + h
     h = apply_ffn(cfg, p["ffn"], apply_norm(cfg, p["ln2"], x), qcfg)
-    return x + h, cache
+    return x + h, cache, None         # no aux loss (no per-layer launch)
+
+
+def _moe_unit(cfg):
+    return {
+        "ln1": norm_defs(cfg, cfg.d_model),
+        "attn": attn_mod.attn_defs(cfg),
+        "ln2": norm_defs(cfg, cfg.d_model),
+        "moe": moe_mod.moe_defs(cfg),
+    }
+
+
+def _moe_apply(cfg, qcfg, p, x, pos, cache, mode):
+    h, cache = attn_mod.attention(cfg, p["attn"],
+                                  apply_norm(cfg, p["ln1"], x), pos, qcfg,
+                                  cache, mode)
+    x = x + h
+    h, aux = moe_mod.moe_block(cfg, p["moe"], apply_norm(cfg, p["ln2"], x),
+                               qcfg, mode)
+    return x + h, cache, aux
 
 
 def _unsupported(cfg) -> list[str]:
     """What of ``cfg`` the port cannot run yet."""
     checks = {
-        f"family {cfg.family!r}": cfg.family != "dense",
+        f"family {cfg.family!r}": cfg.family not in ("dense", "moe"),
+        "shared experts (n_shared)": cfg.n_shared > 0,
+        "leading dense layers (first_dense)": cfg.first_dense > 0,
         f"input_mode {cfg.input_mode!r}": cfg.input_mode != "tokens",
         f"pos_embedding {cfg.pos_embedding!r}":
             cfg.pos_embedding not in ("rope", "none"),
@@ -78,6 +101,8 @@ def build_segments(cfg) -> list[Segment]:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(bad)} not ported yet: ROADMAP queue 1 "
             "items 10-11")
+    if cfg.family == "moe":
+        return [Segment("blocks", cfg.n_layers, _moe_unit(cfg), _moe_apply)]
     return [Segment("blocks", cfg.n_layers, _dense_unit(cfg), _dense_apply)]
 
 
@@ -93,7 +118,12 @@ def model_defs(cfg) -> dict:
 
 def paged_decode_supported(cfg, max_len: int, page_size: int) -> bool:
     """Floating page pools need a whole number of pages per slot (the
-    dense family's KV cache has no window, so a slot holds max_len)."""
+    dense family's KV cache has no window, so a slot holds max_len).
+    MoE serving is not ported yet: a MoE config raises."""
+    if cfg.family == "moe":
+        raise NotImplementedError(
+            f"{cfg.name}: MoE serving (the dense combine under delayed "
+            "scales, calibration, the paged engine): ROADMAP next slices")
     return cfg.family == "dense" and max_len % page_size == 0
 
 
@@ -153,7 +183,8 @@ def _layers(tree, n: int) -> list:
 
 def forward(cfg, qcfg: QuantConfig, params, tokens: torch.Tensor,
             caches: dict | None = None, mode: str = "train"):
-    """Returns (logits f32, new_caches).
+    """Returns (logits f32, new_caches, aux_loss): ``aux_loss`` is the
+    f32 sum of the MoE blocks' load-balance losses (0 for dense models).
 
     tokens (B, S).  ``train`` runs without a cache, under autograd;
     ``decode`` reads the per-slot depths from the caches' ``idx`` for
@@ -172,6 +203,7 @@ def forward(cfg, qcfg: QuantConfig, params, tokens: torch.Tensor,
         raise NotImplementedError(f"forward mode {mode!r}")
     remat = cfg.remat and mode == "train" and torch.is_grad_enabled()
 
+    aux_total = torch.zeros((), dtype=torch.float32, device=dev)
     new_caches = {}
     for seg in build_segments(cfg):
         c_seg = caches.get(seg.name) if caches is not None else None
@@ -179,17 +211,19 @@ def forward(cfg, qcfg: QuantConfig, params, tokens: torch.Tensor,
         for l, p_l in enumerate(_layers(params[seg.name], seg.n)):
             c_l = None if c_seg is None else _layer_cache(c_seg, l)
             if remat:
-                x, new_c = checkpoint(seg.apply, cfg, qcfg, p_l, x,
-                                      positions, c_l, mode,
-                                      use_reentrant=False)
+                x, new_c, aux = checkpoint(seg.apply, cfg, qcfg, p_l, x,
+                                           positions, c_l, mode,
+                                           use_reentrant=False)
             else:
-                x, new_c = seg.apply(cfg, qcfg, p_l, x, positions, c_l,
-                                     mode)
+                x, new_c, aux = seg.apply(cfg, qcfg, p_l, x, positions,
+                                          c_l, mode)
+            if aux is not None:
+                aux_total = aux_total + aux
         new_caches[seg.name] = (None if c_seg is None
                                 else c_seg._replace(idx=new_c.idx))
     x = apply_norm(cfg, params["final_norm"], x)
     logits = lm_head(cfg, params["embed"], x, qcfg)
-    return logits, (new_caches if caches is not None else None)
+    return logits, (new_caches if caches is not None else None), aux_total
 
 
 def ce_loss(cfg, logits: torch.Tensor, labels: torch.Tensor,

@@ -64,6 +64,7 @@ class TrainHParams(NamedTuple):
     warmup_steps: int = 2000
     total_steps: int = 100_000
     grad_clip: float = 1.0
+    aux_coef: float = 0.01    # weight of the MoE load-balance loss
     microbatches: int = 1     # gradient accumulation (activation memory)
     adamw: AdamWConfig = AdamWConfig()
 
@@ -151,21 +152,25 @@ def make_train_step(cfg, hp: TrainHParams, mesh=None):
         batch = {k: v.to(dev) for k, v in batch.items()}
 
         n_mb = max(hp.microbatches, 1)
-        grads, loss = None, torch.zeros((), device=dev)
+        grads = None
+        loss = torch.zeros((), device=dev)
+        aux = torch.zeros((), device=dev)
         for i in range(n_mb):
             mb = _split(batch, n_mb, i) if n_mb > 1 else batch
             qp = (wrap_qt(params, scales, mask) if auto
                   else wrap_qt_nojit(params, mask))
-            logits, _ = forward(cfg, qcfg, qp, mb["tokens"], mode="train")
+            logits, _, a = forward(cfg, qcfg, qp, mb["tokens"],
+                                   mode="train")
             l = ce_loss(cfg, logits, mb["labels"], mb.get("mask"))
             del logits
-            g = torch.autograd.grad(l, flat)
+            g = torch.autograd.grad(l + hp.aux_coef * a, flat)
             grads = list(g) if grads is None else \
                 [a + b for a, b in zip(grads, g)]
             loss = loss + l.detach()
+            aux = aux + a.detach()
         if n_mb > 1:
             grads = [g / n_mb for g in grads]
-            loss = loss / n_mb
+            loss, aux = loss / n_mb, aux / n_mb
         grads = tree_unflatten(state.params, grads)
 
         with torch.no_grad():
@@ -180,7 +185,7 @@ def make_train_step(cfg, hp: TrainHParams, mesh=None):
                                                qcfg)
             else:
                 new_s0, new_t = state.scale_s0, state.scale_t
-        metrics = {"loss": loss, "lr": lr, "grad_norm": gnorm}
+        metrics = {"loss": loss, "aux": aux, "lr": lr, "grad_norm": gnorm}
         return TrainState(params=new_params, opt=new_opt, scale_s0=new_s0,
                           scale_t=new_t, comm_residual=None,
                           step=state.step + 1), metrics
@@ -197,8 +202,8 @@ def make_eval_step(cfg):
     def eval_step(params, batch):
         dev = params["embed"]["embedding"].device
         qp = wrap_qt_nojit(params, mask)
-        logits, _ = forward(cfg, qcfg, qp, batch["tokens"].to(dev),
-                            mode="train")
+        logits, _, _ = forward(cfg, qcfg, qp, batch["tokens"].to(dev),
+                               mode="train")
         m = batch.get("mask")
         return ce_loss(cfg, logits, batch["labels"].to(dev),
                        None if m is None else m.to(dev))
@@ -281,6 +286,8 @@ def make_decode_step(cfg, scales=None, act_scales=None):
     @torch.inference_mode()
     def decode_step(params, caches, tokens):
         qp = _wrap_serve(params, mask, scales, act_scales)
-        return forward(cfg, qcfg, qp, tokens, caches, mode="decode")
+        logits, caches, _ = forward(cfg, qcfg, qp, tokens, caches,
+                                    mode="decode")
+        return logits, caches
 
     return decode_step

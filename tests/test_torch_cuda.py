@@ -15,8 +15,8 @@ import torch
 
 from repro_torch.core.quant import (PerTensorQ, quant_mx, quant_per_group,
                                     quant_per_tensor)
-from repro_torch.kernels import (decode_attn, dispatch, group_gemm, mx_bwd,
-                                 mx_fused, mx_gemm, mx_quant)
+from repro_torch.kernels import (decode_attn, dispatch, group_gemm, moe_gmm,
+                                 mx_bwd, mx_fused, mx_gemm, mx_quant)
 from repro_torch.models.attention import _quant_kv
 
 pytestmark = pytest.mark.cuda
@@ -33,6 +33,12 @@ DW_SHAPES = [(128, 256, 192), (256, 96, 200), (64, 4096, 130)]
 GROUP_SHAPES = [(5, 256, 72), (130, 384, 200), (64, 128, 33),
                 (2048, 4096, 1024), (11008, 2048, 256)]
 QUANT_SHAPES = [(1, 32), (5, 96), (33, 4096), (2048, 11008)]
+# grouped experts (E, C, K, N): C not a multiple of the 128-row tile
+# (the ragged last block of each slot), ragged N, one K group
+MOE_SHAPES = [(4, 200, 256, 200), (3, 48, 96, 72), (2, 130, 4096, 256),
+              (16, 136, 32, 129)]
+# grouped dW (E, Cp, K, N): Cp a multiple of 32
+MOE_DW_SHAPES = [(4, 224, 256, 200), (2, 32, 96, 72), (3, 1344, 128, 130)]
 
 
 @pytest.fixture
@@ -261,3 +267,94 @@ def test_pt_matmul_matches_cpu(cuda):
                 out_dtype=torch.float32)
             assert got.shape == (m, n)
             _close(got, want)
+
+
+def _moe_sizes(e, c):
+    """Ragged sizes with a full and an empty expert, one ending inside a
+    128-row block and one past a block boundary."""
+    base = [c, 0, min(c, 17), max(c - 1, 0), min(c, 129)]
+    return torch.tensor((base * e)[:e], dtype=torch.int32)
+
+
+def _live(sizes, c):
+    return (torch.arange(c)[None, :] < sizes[:, None].cpu()).reshape(-1, 1)
+
+
+@pytest.mark.parametrize("fmt", ["e4m3", "e5m2"])
+def test_moe_gmm_matches_plain(cuda, fmt):
+    """The grouped fused quantize + GEMM against its plain version: every
+    row's payload bitwise (the rows past each expert's size too: q 0,
+    exponent -127), the accumulation within 1e-5 * max|plain| and 0
+    past the sizes; also with every expert empty."""
+    for e, c, k, n in MOE_SHAPES:
+        sizes = _moe_sizes(e, c)
+        for sz in (sizes, torch.zeros_like(sizes)):
+            x = _x(e * c, k, c + n)
+            x[0, 32:64] *= 1e-30            # a tiny group in a live row
+            x = (x * _live(sz, c)).to(cuda)
+            w = torch.tensor(np.random.default_rng(n).standard_normal(
+                (e, k, n)), dtype=torch.float32) * 0.05
+            qw = torch.stack([quant_per_tensor(wi).q for wi in w]).to(cuda)
+            for xin in (x, x.bfloat16()):
+                s = dispatch.global_scale(xin, fmt)
+                acc, q, se = moe_gmm.moe_gmm(xin, s, qw, sz.to(cuda), c,
+                                             fmt)
+                acc_p, q_p, se_p = moe_gmm.moe_gmm_plain(xin, s, qw, c, fmt)
+                assert torch.equal(q.view(torch.uint8),
+                                   q_p.view(torch.uint8))
+                assert torch.equal(se, se_p)
+                _close(acc, acc_p)
+                dead = ~_live(sz, c)[:, 0]
+                assert bool((acc.cpu()[dead] == 0).all())
+
+
+def test_moe_gmm_exponent_boundaries_match_plain(cuda):
+    """Group maxima within a few ulps above powers of two (as in
+    ``test_fused_exponent_boundaries_match_plain``), a group whose scale
+    is the global amax's (ratio 1, exponent 0) and tiny groups at the
+    2^-149 floor (exponent clipped to -127): the grouped kernel picks
+    the plain version's exponents and payloads."""
+    e, c, k = 2, 136, 4096
+    rng = np.random.default_rng(9)
+    x = rng.uniform(-0.5, 0.5, (e * c, k // 32, 32)).astype(np.float32)
+    i = np.arange(e * c * k // 32).reshape(e * c, k // 32)
+    amax = np.ldexp(1.0 + (i // 20 % 40) * 5e-8, -(i % 20))
+    x *= amax[..., None]
+    x[..., 0] = amax
+    x[3, 5] = np.float32(1.4e-45)            # the smallest subnormal
+    x[4, 7] = np.ldexp(np.float32(1.0), -140)
+    x = torch.tensor(x.reshape(e * c, k), device=cuda)
+    qw = quant_per_tensor(torch.ones(e, k, 64) * 0.01).q.to(cuda)
+    sizes = torch.full((e,), c, dtype=torch.int32, device=cuda)
+    for fmt in ("e4m3", "e5m2"):
+        s = dispatch.global_scale(x, fmt)
+        _, q, se = moe_gmm.moe_gmm(x, s, qw, sizes, c, fmt)
+        _, q_p, se_p = moe_gmm.moe_gmm_plain(x, s, qw, c, fmt)
+        assert torch.equal(se, se_p)
+        assert torch.equal(q.view(torch.uint8), q_p.view(torch.uint8))
+        assert int(se_p.min()) == -127 and int(se_p.max()) == 0
+
+
+@pytest.mark.parametrize("fmt", ["e4m3", "e5m2"])
+def test_moe_dw_gemm_matches_plain(cuda, fmt):
+    """The grouped dW against its plain version: the requant payload
+    bitwise (the groups past each expert's size: q 0, exponent -127),
+    the accumulation within 1e-5 * max|plain|, an empty expert's dW
+    0."""
+    for e, cp, k, n in MOE_DW_SHAPES:
+        sizes = _moe_sizes(e, cp)
+        live = _live(sizes, cp)
+        xq = quant_mx((_x(e * cp, k, cp + k) * live).to(cuda), 32, fmt)
+        g = torch.tensor(np.random.default_rng(n).standard_normal(
+            (e * cp, n)), dtype=torch.float32) * live
+        gq = quant_per_tensor(g.to(cuda), "e5m2")
+        acc, qt, et = moe_gmm.moe_dw_gemm(xq.q, xq.sexp, gq.q,
+                                          sizes.to(cuda), cp, fmt,
+                                          payload=True)
+        acc_p, qt_p, et_p = moe_gmm.moe_dw_gemm_plain(
+            xq.q, xq.sexp, gq.q, cp, fmt, payload=True)
+        assert torch.equal(qt.view(torch.uint8), qt_p.view(torch.uint8))
+        assert torch.equal(et, et_p)
+        _close(acc, acc_p)
+        if e > 1:
+            assert bool((acc[1] == 0).all())

@@ -592,9 +592,10 @@ def test_train_steps_match_reference(reference, mode):
     print(mode, check_train_steps(reference["train"][mode]))
 
 
-def check_train_steps(runs) -> dict:
+def check_train_steps(runs, grad_limit: float = 2e-2) -> dict:
     """``test_train_steps_match_reference``'s limits over one mode's
-    runs; returns the worst value of each measure."""
+    runs (``grad_limit``: the step-0 gradients' rel L2; a caller that
+    sets another states why); returns the worst value of each measure."""
     worst = {"grad": 0.0, "loss": 0.0, "update": 0.0, "unsettled": 0.0}
     for i, (before, rs, rm, ps, pm) in enumerate(runs):
         gr = _step_grads(before, rs, rm["grad_norm"])
@@ -611,7 +612,7 @@ def check_train_steps(runs) -> dict:
             if i == 0:
                 rel = _rel_l2(gp[name], gr[name])
                 worst["grad"] = max(worst["grad"], rel)
-                assert rel <= 2e-2, (name, rel)
+                assert rel <= grad_limit, (name, rel)
             settled = np.abs(gr[name]) >= np.abs(gp[name] - gr[name])
             unsettled = 1.0 - float(settled.mean())
             worst["unsettled"] = max(worst["unsettled"], unsettled)
