@@ -20,12 +20,25 @@ Phases, each fatal on failure:
      the baselines' kernels at the same
      training shapes: group_gemm (the per_group forward, dx and dW, with
      torch._scaled_mm beside it as well) and mx_quant (the standalone
-     quantizer);
+     quantizer); the contiguous (ring) decode attention at
+     h2o-danube-3-4b's decode shape (two rows wrapped past C = 4096,
+     two partial) and at recurrentgemma-2b's local-attention shape (G
+     10, Dh 256), fp8 and bf16, beside SDPA on a bf16 cache, within 1e-5
+     plus twice the plain version's own error against float64 (see
+     attn_limit);
   4. the engine: phi3-mini-3.8b at full width on random weights from a
      seed serves 8 requests through the paged engine; every serving
      kernel must have been launched on that path; a second run from the
-     same seed must give the same streams; the port on the card must
-     agree with the port on the CPU on a smoke-size model;
+     same seed must give the same streams; under identity placement
+     (REPRO_PAGED_PLACEMENT=identity) the streams equal the floating
+     pages' token for token; the legacy Server (REPRO_SERVE_PAGED=0)
+     serves them too; then h2o-danube-3-4b (sliding window 4096) at full
+     width and depth serves 6 requests whose rings wrap, through
+     identity rows and the whole-prompt prefill, launching decode_attn
+     and not decode_attn_paged, with equal streams on a second run; the
+     port on the card must agree with the port on the CPU on smoke-size
+     models (phi3-mini's chunked step, h2o's prefill past the window and
+     its ring decode);
   5. the ablation (the paper's Table 6): the quantizer/GEMM entry points
      of kernels.ops at its three (M, N, K) shapes -- the MOSS GEMM
      (mx_gemm), the COAT GEMM (group_gemm), the port's per-tensor GEMM
@@ -80,12 +93,23 @@ TABLE6_MNK = [(2048, 7168, 4096), (4096, 2048, 7168), (4096, 4096, 8192)]
 MOE_ARCH = "phi3.5-moe-42b-a6.6b"
 MOE_LAYERS = 1                      # of 32: f32 master + grads + moments
 MOE_BATCH, MOE_SEQ = 2, 4096        # 8192 tokens > 4096: the grouped route
+RING_ARCH = "h2o-danube-3-4b"       # sliding window 4096: a ring cache
+# prompts at or past the window (the keep-last-C prefill), two that wrap
+# during decode, two that refill slots at other depths
+RING_PROMPTS = [4160, 4120, 4072, 4060, 512, 97]
+RING_MAX_NEW, RING_MAX_LEN = 48, 4352
+# contiguous decode attention (B, KV, G, Dh, C, n_valid): h2o-danube-3-4b's
+# decode (rows 0-1 wrapped, 2-3 partial), recurrentgemma-2b's local layer
+RING_SHAPES = {"h2o": (4, 8, 4, 120, 4096, [4100, 4200, 300, 97]),
+               "recurrentgemma": (4, 1, 10, 256, 2048, [2048, 2500, 1000,
+                                                        1])}
 REPLACES = {
     "mx_gemm": "src/repro/kernels/mx_gemm.py:61",
     "fused_quant_gemm": "src/repro/kernels/mx_fused.py:101",
     "fused_quant_gemm_tiled": "src/repro/kernels/mx_fused.py:101",
     "decode_attn_paged": "src/repro/kernels/decode_attn.py:408",
-    "mx_dw_gemm": "src/repro/kernels/mx_bwd.py:102",
+    "decode_attn": "src/repro/kernels/decode_attn.py:222",
+    "mx_dw_gemm": "src/repro/kernels/mx_bwd.py:104",
     "group_gemm": "src/repro/kernels/group_gemm.py:61",
     "mx_quant": "src/repro/kernels/mx_quant.py:51",
     "moe_gmm": "src/repro/kernels/moe_gmm.py:129",
@@ -96,6 +120,7 @@ SOURCES = {
     "fused_quant_gemm": "src/repro_torch/csrc/mx_fused.cu",
     "fused_quant_gemm_tiled": "src/repro_torch/csrc/mx_fused.cu",
     "decode_attn_paged": "src/repro_torch/csrc/decode_attn.cu",
+    "decode_attn": "src/repro_torch/csrc/decode_attn.cu",
     "mx_dw_gemm": "src/repro_torch/csrc/mx_dw_gemm.cu",
     "group_gemm": "src/repro_torch/csrc/group_gemm.cu",
     "mx_quant": "src/repro_torch/csrc/mx_quant.cu",
@@ -324,6 +349,107 @@ def phase_kernels(torch, timer) -> dict:
                                             library_ms=None, bound_ms=b,
                                             bound_by=by)
     res["decode_attn_paged"]["max_abs_err"] = worst
+    return res
+
+
+def decode_attn_f64(torch, q, k, v, ks, vs, nv, sm):
+    """decode_attn_ref's function evaluated in float64 (bf16 q and K,
+    the weights rounded to bf16 as there): the yardstick of the f32
+    round-off of the plain version and the kernel."""
+    c = k.shape[2]
+    f = lambda t: t.float().to(torch.bfloat16).double()
+    s = torch.einsum("bkgd,bktd->bkgt", f(q), f(k)) * sm
+    if ks is not None:
+        s = s * ks.double()[:, :, None, :]
+    live = torch.arange(c, device=q.device)[None] < \
+        torch.clamp_max(nv.long(), c)[:, None]
+    s = s.masked_fill(~live[:, None, None, :], float("-inf"))
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    w = p / p.sum(dim=-1, keepdim=True)
+    if vs is not None:
+        w = w * vs.double()[:, :, None, :]
+    return torch.einsum("bkgt,bktd->bkgd", w.to(torch.bfloat16).double(),
+                        f(v))
+
+
+def attn_limit(torch, got, want, exact) -> tuple[float, float, float]:
+    """(kernel-vs-plain error, the plain version's own error against
+    float64, the limit): 1e-5 absolute plus twice the plain version's
+    own round-off.  Over thousands of slots the f32 sums of the scores,
+    of the exponentials and of the weighted V, taken in another order,
+    flip the bf16 rounding of some weights, so the two f32 versions
+    drift apart with the context length; the f64 evaluation says by how
+    much the plain version itself does."""
+    err = float((got - want).abs().max())
+    own = float((want.double() - exact).abs().max())
+    return err, own, 1e-5 + 2.0 * own
+
+
+def phase_ring_kernels(torch, timer) -> dict:
+    """decode_attn (the contiguous ring) against decode_attn_ref at
+    RING_SHAPES, fp8 and bf16, within ``attn_limit``; timed beside the
+    plain version and SDPA
+    (torch.nn.functional.scaled_dot_product_attention) on a bf16 cache
+    of the same shape with the boolean slot mask, the G query rows of a
+    kv head as SDPA's query positions."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attn
+    from repro_torch.models.attention import _quant_kv
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    res, worst = {}, 0.0
+    for name, (b_, kvh, g, dh, c, nv) in RING_SHAPES.items():
+        q = torch.randn(b_, kvh, g, dh, device="cuda", generator=gen)
+        kf = torch.randn(b_, kvh, c, dh, device="cuda", generator=gen)
+        vf = torch.randn(b_, kvh, c, dh, device="cuda", generator=gen)
+        nv = torch.tensor(nv, dtype=torch.int32, device="cuda")
+        live = torch.arange(c, device="cuda")[None] < \
+            torch.clamp_max(nv, c)[:, None]
+        qb, kb, vb = q.bfloat16(), kf.bfloat16(), vf.bfloat16()
+        mask = live[:, None, None, :]
+        sm = dh ** -0.5
+        tl = timer.ms(lambda: F.scaled_dot_product_attention(
+            qb, kb, vb, attn_mask=mask, scale=sm))
+        for kv_dtype in ("fp8", "bf16"):
+            if kv_dtype == "fp8":
+                (k, ks), (v, vs) = _quant_kv(kf), _quant_kv(vf)
+            else:
+                k, v, ks, vs = kb, vb, None, None
+            args = (q, k, v, ks, vs, nv)
+            got = decode_attn.decode_attn(*args, sm_scale=sm)
+            want = decode_attn.decode_attn_ref(*args, sm_scale=sm)
+            err, own, lim = attn_limit(torch, got, want, decode_attn_f64(
+                torch, *args, sm))
+            if not (err <= lim and torch.isfinite(got).all()):
+                raise AssertionError(f"decode_attn {name} {kv_dtype}: max "
+                                     f"err {err} > {lim}")
+            worst = max(worst, err)
+            t = timer.ms(lambda: decode_attn.decode_attn(*args,
+                                                         sm_scale=sm))
+            tp = timer.ms(lambda: decode_attn.decode_attn_ref(
+                *args, sm_scale=sm))
+            # the work this run's data needs: the live slots of each row
+            n_live = int(live.sum())
+            elt = 1 if kv_dtype == "fp8" else 2
+            nbytes = (b_ * kvh * g * dh * (2 + 4)       # q (bf16), out f32
+                      + 2 * n_live * kvh * dh * elt     # live K and V
+                      + (2 * n_live * kvh * 4 if ks is not None else 0)
+                      + 4 * b_)                         # n_valid
+            b, by = bound_ms(nbytes, 4.0 * n_live * kvh * g * dh,
+                             FP8_FLOPS if kv_dtype == "fp8" else BF16_FLOPS)
+            print(f"decode_attn {name} {kv_dtype} B={b_} KV={kvh} G={g} "
+                  f"Dh={dh} C={c} n_valid={nv.tolist()}: max_err "
+                  f"{err:.3g} (plain vs f64 {own:.3g}, limit {lim:.3g}), "
+                  f"{t:.4f} ms, plain {tp:.4f} ms, library "
+                  f"{tl:.4f} ms (SDPA, bf16 cache), bound {b * 1e3:.2f} us "
+                  f"({by})")
+            if (name, kv_dtype) == ("h2o", "fp8"):
+                res["decode_attn"] = dict(ms=t, plain_ms=tp, library_ms=tl,
+                                          bound_ms=b, bound_by=by)
+            del k, v, ks, vs, got, want
+        del q, kf, vf, qb, kb, vb
+    res["decode_attn"]["max_abs_err"] = worst
+    torch.cuda.empty_cache()
     return res
 
 
@@ -619,7 +745,16 @@ def _requests(Request, np, cfg, seed):
             for i, n in enumerate(rng.integers(16, 49, size=8))]
 
 
-def _serve_once(torch, np, seed: int):
+def _checked(torch, fn, finite):
+    """``fn`` (a serving step), noting whether its logits are finite."""
+    def step(*a):
+        logits, caches = fn(*a)
+        finite.append(torch.isfinite(logits).all())
+        return logits, caches
+    return step
+
+
+def _serve_once(torch, np, seed: int, float_pages: bool = True):
     from repro_torch.configs.registry import get_config
     from repro_torch.launch.serve import random_params
     from repro_torch.serving import Engine, Request
@@ -630,15 +765,11 @@ def _serve_once(torch, np, seed: int):
                  max_len=64, page_size=16, device="cuda")
     torch.cuda.synchronize()
     build_s = time.monotonic() - t0
+    if (eng.float_pages, eng.chunked) != (float_pages, True):
+        raise AssertionError(f"engine took float_pages={eng.float_pages}, "
+                             f"chunked={eng.chunked}")
     finite = []
-    step = eng.decode
-
-    def checked(*a):
-        logits, caches = step(*a)
-        finite.append(torch.isfinite(logits).all())
-        return logits, caches
-
-    eng.decode = checked
+    eng.decode = _checked(torch, eng.decode, finite)
     reqs = _requests(Request, np, cfg, seed)
     t0 = time.monotonic()
     eng.run(reqs, log=None)
@@ -652,6 +783,60 @@ def _serve_once(torch, np, seed: int):
     del eng
     torch.cuda.empty_cache()
     return reqs, build_s, run_s, st
+
+
+def _with_env(name: str, value: str, fn):
+    import os
+
+    old = os.environ.get(name)
+    os.environ[name] = value
+    try:
+        return fn()
+    finally:
+        if old is None:
+            del os.environ[name]
+        else:
+            os.environ[name] = old
+
+
+def _legacy_server(torch, np):
+    """The legacy Server (what REPRO_SERVE_PAGED=0 selects) serves
+    phase 4's requests on the same weights: every request finishes with
+    max_new tokens, the logits are finite, and the contiguous decode
+    kernel is launched."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.runtime_flags import serve_paged
+    from repro_torch.kernels import decode_attn
+    from repro_torch.launch.serve import Server, random_params
+    from repro_torch.serving import Request
+
+    if _with_env("REPRO_SERVE_PAGED", "0", serve_paged):
+        raise AssertionError("REPRO_SERVE_PAGED=0 does not select the "
+                             "legacy Server")
+    cfg = get_config(ARCH)
+    srv = Server(cfg, random_params(cfg, 0, "cuda"), batch_slots=4,
+                 max_len=64, device="cuda")
+    finite = []
+    srv.decode = _checked(torch, srv.decode, finite)
+    srv.prefill = _checked(torch, srv.prefill, finite)
+    reqs = _requests(Request, np, cfg, 0)
+    decode_attn.counter_contiguous.reset()
+    t0 = time.monotonic()
+    srv.run(reqs, log=None)
+    torch.cuda.synchronize()
+    run_s = time.monotonic() - t0
+    n = decode_attn.counter_contiguous.count
+    toks = sum(len(r.out) for r in reqs)
+    print(f"legacy Server {ARCH} full width: 8 requests, {toks} tokens in "
+          f"{run_s:.2f} s ({toks / run_s:.1f} tok/s), decode_attn "
+          f"launches {n}")
+    if not all(r.done and len(r.out) == r.max_new for r in reqs):
+        raise AssertionError("legacy Server: a request did not finish")
+    if not bool(torch.stack(finite).all()) or n <= 0:
+        raise AssertionError("legacy Server: non-finite logits or no "
+                             "decode_attn launch")
+    del srv
+    torch.cuda.empty_cache()
 
 
 def phase_engine(torch, np) -> dict:
@@ -678,6 +863,90 @@ def phase_engine(torch, np) -> dict:
     if [r.out for r in reqs] != [r.out for r in again]:
         raise AssertionError("two runs from the same seed differ")
     print("second run from the same seed: identical streams")
+    ident, _, run_i, _ = _with_env(
+        "REPRO_PAGED_PLACEMENT", "identity",
+        lambda: _serve_once(torch, np, seed=0, float_pages=False))
+    if [r.out for r in reqs] != [r.out for r in ident]:
+        raise AssertionError("identity placement's streams differ from "
+                             "the floating pages'")
+    print(f"identity placement: streams equal the floating pages' (serve "
+          f"{run_i:.2f} s)")
+    _legacy_server(torch, np)
+    return launches
+
+
+def _serve_ring_once(torch, np, seed: int):
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.serve import random_params
+    from repro_torch.serving import Engine, Request
+
+    cfg = get_config(RING_ARCH)
+    t0 = time.monotonic()
+    eng = Engine(cfg, random_params(cfg, seed, "cuda"), num_slots=4,
+                 max_len=RING_MAX_LEN, device="cuda")
+    torch.cuda.synchronize()
+    build_s = time.monotonic() - t0
+    c = eng.kv.slot_tokens
+    if eng.float_pages or eng.chunked or not eng.kv.ring or c != cfg.window:
+        raise AssertionError("the windowed arch did not take identity rows "
+                             "and the whole-prompt prefill on its ring")
+    finite = []
+    eng.decode = _checked(torch, eng.decode, finite)
+    eng.prefill = _checked(torch, eng.prefill, finite)
+    rng = np.random.default_rng(seed)
+    reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab, n,
+                                               dtype=np.int32),
+                    max_new=RING_MAX_NEW)
+            for i, n in enumerate(RING_PROMPTS)]
+    t0 = time.monotonic()
+    eng.run(reqs, log=None)
+    torch.cuda.synchronize()
+    run_s = time.monotonic() - t0
+    if not all(r.done and len(r.out) == r.max_new for r in reqs):
+        raise AssertionError("ring: a request did not finish with max_new "
+                             "tokens")
+    if not bool(torch.stack(finite).all()):
+        raise AssertionError("ring: non-finite logits")
+    wrapped = sum(r.prompt_len + r.max_new - 1 > c for r in reqs)
+    st = eng.stats()
+    del eng
+    torch.cuda.empty_cache()
+    return reqs, build_s, run_s, st, wrapped
+
+
+def phase_engine_ring(torch, np) -> dict:
+    """h2o-danube-3-4b at full width and depth on random weights: 6
+    requests through identity rows and the whole-prompt prefill, their
+    rings wrapping; decode_attn and mx_gemm launched, decode_attn_paged
+    not; a second run from the same seed gives the same streams."""
+    from repro_torch.kernels import decode_attn, mx_fused, mx_gemm
+
+    counters = [mx_gemm.counter, mx_fused.counter,
+                decode_attn.counter_contiguous, decode_attn.counter]
+    for c in counters:
+        c.reset()
+    reqs, build_s, run_s, st, wrapped = _serve_ring_once(torch, np, seed=0)
+    launches = {c.name: c.count for c in counters}
+    toks = sum(len(r.out) for r in reqs)
+    print(f"engine {RING_ARCH} full width: {len(reqs)} requests (prompts "
+          f"{RING_PROMPTS}, {wrapped} rings wrapped), {toks} tokens, build "
+          f"{build_s:.2f} s, serve {run_s:.2f} s = {toks / run_s:.1f} "
+          f"tok/s, {st['prefill_calls']} prefills of "
+          f"{st['mean_prefill_s']:.3f} s mean, {st['decode_steps']} decode "
+          f"steps, mean decode step {1e3 * st['mean_decode_step_s']:.2f} ms")
+    print(f"launches on the windowed path: {json.dumps(launches)}")
+    if launches["decode_attn_paged"] != 0:
+        raise AssertionError("the windowed path launched decode_attn_paged")
+    for name in ("mx_gemm", "fused_quant_gemm", "decode_attn"):
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the "
+                                 "windowed path")
+    if wrapped < 4:
+        raise AssertionError(f"only {wrapped} rings wrapped")
+    again, *_ = _serve_ring_once(torch, np, seed=0)
+    if [r.out for r in reqs] != [r.out for r in again]:
+        raise AssertionError("ring: two runs from the same seed differ")
+    print("ring: second run from the same seed: identical streams")
     return launches
 
 
@@ -726,6 +995,47 @@ def phase_small_reference(torch, np):
             raise AssertionError(f"smoke step {i}: card vs CPU logits "
                                  f"{err} > {tol}")
         print(f"smoke step {i}: card vs CPU max |d logit| {err:.3g} "
+              f"(limit {tol:.3g})")
+    _small_ring_reference(torch, np)
+
+
+def _small_ring_reference(torch, np):
+    """h2o-danube-3-4b's smoke model at window 16 on the card against
+    the CPU, fed the same tokens: the whole-prompt prefill of 21 tokens
+    (the ring keeps the last 16) and four ring decode steps through the
+    contiguous kernel; logits within 2e-2 * max|logit| as above."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.actscale import calibrate_act_scales
+    from repro_torch.launch.serve import random_params
+    from repro_torch.serving.engine import prepare_weights, to_device
+    from repro_torch.train.steps import make_decode_step, make_prefill_step
+
+    cfg = get_config(RING_ARCH, smoke=True).replace(window=16)
+    params = random_params(cfg, 0, "cpu")
+    prompt = np.random.default_rng(6).integers(0, cfg.vocab, (1, 21))
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        with torch.inference_mode():
+            qw, sc = prepare_weights(cfg, to_device(params, dev))
+            act = calibrate_act_scales(cfg, qw, sc)
+        pre = make_prefill_step(cfg, 48, scales=sc, act_scales=act)
+        dec = make_decode_step(cfg, scales=sc, act_scales=act)
+        logits, caches = pre(qw, torch.from_numpy(prompt).to(dev))
+        logs = [logits[0].float().cpu().numpy()]
+        for i in range(4):
+            src = logs if dev == "cpu" else outs["cpu"]
+            feed = torch.tensor([[int(src[i][-1].argmax())]],
+                                dtype=torch.int32, device=dev)
+            logits, caches = dec(qw, caches, feed)
+            logs.append(logits[0].float().cpu().numpy())
+        outs[dev] = logs
+    for i, (a, b) in enumerate(zip(outs["cpu"], outs["cuda"])):
+        tol = 2e-2 * float(np.abs(a).max())
+        err = float(np.abs(a - b).max())
+        if not (np.isfinite(b).all() and err <= tol):
+            raise AssertionError(f"smoke ring step {i}: card vs CPU logits "
+                                 f"{err} > {tol}")
+        print(f"smoke ring step {i}: card vs CPU max |d logit| {err:.3g} "
               f"(limit {tol:.3g})")
 
 
@@ -1157,11 +1467,17 @@ def main() -> int:
     res = phase_kernels(torch, timer)
     res.update(phase_train_kernels(torch, timer))
     res.update(phase_recipe_kernels(torch, timer))
+    res.update(phase_ring_kernels(torch, timer))
     print(f"phase kernels: {time.monotonic() - t0:.1f} s")
     t0 = time.monotonic()
     launches = phase_engine(torch, np)
-    phase_small_reference(torch, np)
     print(f"phase engine: {time.monotonic() - t0:.1f} s")
+    t0 = time.monotonic()
+    ring_launches = phase_engine_ring(torch, np)
+    print(f"phase engine ring: {time.monotonic() - t0:.1f} s")
+    t0 = time.monotonic()
+    phase_small_reference(torch, np)
+    print(f"phase small serving vs CPU: {time.monotonic() - t0:.1f} s")
     t0 = time.monotonic()
     ablation = phase_table6(torch, timer)
     print(f"phase table 6: {time.monotonic() - t0:.1f} s")
@@ -1178,11 +1494,12 @@ def main() -> int:
     res.update(moe_res)
     # each row's launches come from its path: the serving kernels'
     # (fused_quant_gemm is the M <= 32 tile of the calibration forward)
-    # from the engine, fused_quant_gemm_tiled (the M > 32 tile of the
+    # from the engine, decode_attn from the windowed engine, fused_quant_gemm_tiled (the M > 32 tile of the
     # same source) and mx_dw_gemm from the moss steps, group_gemm from
     # the per_group steps, mx_quant from the ablation, moe_gmm and
     # moe_dw_gemm from the MoE moss steps
     launches.update(train_launches)
+    launches["decode_attn"] = ring_launches["decode_attn"]
     launches["mx_quant"] = ablation["mx_quant"]
     launches["moe_gmm"] = moe_launches["moe_gmm"]
     launches["moe_dw_gemm"] = moe_launches["moe_dw_gemm"]

@@ -26,6 +26,7 @@ class ModelConfig:
 
     # --- attention ---
     attn_type: Literal["full", "swa", "local"] = "full"
+    window: int = 4096                 # "swa" / "local": keys a query sees
     rope_theta: float = 10_000.0
     rope_pct: float = 1.0
     qk_norm: bool = False

@@ -14,13 +14,17 @@ Counterpart of ``repro.core.runtime_flags``.  Two things live here:
     they go through ``repro_torch.kernels.dispatch``.
 
 Serving and training flags
-    The reference reads ``REPRO_*`` environment variables.  This port
-    has no environment switches of its own: the serving path it
-    implements is the reference's default one (pre-quantized fp8
-    weights, delayed activation scales, floating pages, chunked
-    prefill, usage-based admission).  ``check_serving_env`` refuses a
-    reference switch set to a value the port cannot honour, naming the
-    ROADMAP entry that will bring it.  The KV-cache dtype is the
+    The reference reads ``REPRO_*`` environment variables.  The port
+    reads three of them as the reference does: ``REPRO_SERVE_PAGED``
+    (the paged engine, or the legacy ``Server`` under 0),
+    ``REPRO_PAGED_PLACEMENT`` (float or identity pages) and
+    ``REPRO_CHUNKED_PREFILL`` (chunked, or the whole-prompt prefill
+    under 0).  For the others the port implements the reference's
+    default (pre-quantized fp8 weights, delayed activation scales,
+    usage-based admission with preemption, no speculative decode, no
+    quant-health taps, the decode kernel), and ``check_serving_env``
+    refuses one set to another value, naming the ROADMAP entry that
+    will bring it.  The KV-cache dtype is the
     config's ``kv_cache_dtype`` alone: ``REPRO_KV_CACHE``, the
     reference's override of it, is refused whenever it is set, so that
     it cannot be silently ignored.  ``check_train_env`` does the same
@@ -40,12 +44,6 @@ _SERVING_ENV = {
                              "quantization for serving)"),
     "REPRO_SERVE_DELAYED_ACT": ("1", "queue 1 item 7 (just-in-time "
                                 "activation scaling for serving)"),
-    "REPRO_SERVE_PAGED": ("1", "next slice: identity placement and the "
-                          "legacy Server"),
-    "REPRO_PAGED_PLACEMENT": ("float", "next slice: identity placement "
-                              "and the legacy Server"),
-    "REPRO_CHUNKED_PREFILL": ("1", "next slice: the v1 whole-prompt "
-                              "prefill"),
     "REPRO_PREEMPTION": ("1", "next slices: reservation admission with "
                          "preemption swap"),
     "REPRO_SPEC_DECODE": ("0", "queue 1 item 9 (speculative decode)"),
@@ -53,6 +51,34 @@ _SERVING_ENV = {
     "REPRO_DECODE_ATTN": ("kernel", "queue 1 item 7 (the einsum decode "
                           "escape hatch)"),
 }
+
+
+def serve_paged() -> bool:
+    """Whether the serving CLI drives the paged engine (the legacy
+    ``Server`` under ``REPRO_SERVE_PAGED=0``)."""
+    return os.environ.get("REPRO_SERVE_PAGED", "1").strip() != "0"
+
+
+PAGED_PLACEMENTS = ("float", "identity")
+
+
+def paged_placement() -> str:
+    """The engine's page placement: ``REPRO_PAGED_PLACEMENT``, else
+    floating pages (where the arch and max_len allow them)."""
+    env = os.environ.get("REPRO_PAGED_PLACEMENT", "").strip()
+    if env:
+        if env not in PAGED_PLACEMENTS:
+            raise ValueError(f"REPRO_PAGED_PLACEMENT={env!r}: expected one "
+                             f"of {PAGED_PLACEMENTS}")
+        return env
+    return "float"
+
+
+def chunked_prefill() -> bool:
+    """Whether the engine prefills in chunks interleaved with decode
+    steps (where the arch and max_len allow it), or whole prompts under
+    ``REPRO_CHUNKED_PREFILL=0``."""
+    return os.environ.get("REPRO_CHUNKED_PREFILL", "1").strip() != "0"
 
 
 def check_serving_env() -> None:

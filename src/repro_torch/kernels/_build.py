@@ -57,6 +57,9 @@ SIGNATURES = {
     "decode_attn_paged_launch": [_VOID, _VOID, _VOID, _VOID, _VOID, _VOID,
                                  _VOID, _VOID, _INT, _INT, _INT, _INT, _INT,
                                  _INT, _FLOAT, _INT, _VOID],
+    "decode_attn_launch": [_VOID, _VOID, _VOID, _VOID, _VOID, _VOID, _VOID,
+                           _INT, _INT, _INT, _INT, _INT, _FLOAT, _INT,
+                           _VOID],
 }
 
 _LIB: ctypes.CDLL | None = None

@@ -1,5 +1,6 @@
 """Kernel dispatch: the one entry point for the quantizers and quantized
-GEMMs of the training and serving paths and the paged decode attention.
+GEMMs of the training and serving paths and the decode attention (paged
+and contiguous).
 
 Counterpart of ``repro.kernels.dispatch``.  What the reference keeps
 here stays here: the single global amax of the two-level quantizers'
@@ -33,7 +34,7 @@ from repro_torch.core.formats import TINY, div_c, fp8_max
 from repro_torch.core.quant import (MxQ, PerGroupQ, PerTensorQ, pad_axis,
                                     pt_gemm)
 
-from .decode_attn import decode_attn_paged
+from .decode_attn import decode_attn, decode_attn_paged
 from .group_gemm import GROUP, group_gemm
 from .moe_gmm import moe_dw_gemm, moe_gmm
 from .mx_bwd import mx_dw_gemm
@@ -202,29 +203,47 @@ def pt_matmul(xq: PerTensorQ, wq: PerTensorQ,
     return pt_gemm(xq, wq, out_dtype=out_dtype)
 
 
-def decode_attention_paged(q, k, v, k_scale, v_scale, n_valid,
-                           block_table, *,
-                           sm_scale: float | None = None) -> torch.Tensor:
-    """Single-step decode attention over the floating page pool.
-    q (B, KV, G, Dh); the pool and table as in
-    ``kernels.decode_attn``.  Returns (B, KV, G, Dh) f32.  The kernel
-    takes the G rows as they are; the plain path pads them to the
-    8-row tile and slices back, as the reference does, so its sums
-    keep the reference's shapes."""
+def _decode_rows(q, n_valid, sm_scale):
+    """Shared front of both decode routes: refuse the batched-query
+    form, default sm_scale, broadcast a scalar or (B,) n_valid to (B,)
+    int32, and on the CPU pad G to the 8-row tile (the kernel takes the
+    true G rows)."""
     if q.dim() != 4:
         raise NotImplementedError(
             "batched-query (speculative verify) decode attention: "
             "ROADMAP queue 1 item 9")
     b, _, g, dh = q.shape
-    if sm_scale is None:
-        sm_scale = dh ** -0.5
-    nv = n_valid.to(torch.int32).reshape(-1).expand(b).contiguous()
-    bt = block_table.to(torch.int32).contiguous()
-    if q.device.type != "cpu":
-        return decode_attn_paged(q, k, v, k_scale, v_scale, nv, bt,
-                                 sm_scale=sm_scale)
-    gp = _ceil_to(max(g, 8), 8)
+    nv = n_valid.to(torch.int32).reshape(-1)
+    if nv.shape[0] not in (1, b):
+        raise ValueError(f"n_valid {tuple(n_valid.shape)}: expected (), "
+                         f"(1,) or ({b},)")
+    nv = nv.expand(b).contiguous()
+    gp = g if q.device.type != "cpu" else _ceil_to(max(g, 8), 8)
     qp = F.pad(q, (0, 0, 0, gp - g)) if gp != g else q
-    out = decode_attn_paged(qp, k, v, k_scale, v_scale, nv, bt,
-                            sm_scale=sm_scale)
+    return qp, nv, g, dh ** -0.5 if sm_scale is None else sm_scale
+
+
+def decode_attention(q, k, v, k_scale, v_scale, n_valid, *,
+                     sm_scale: float | None = None) -> torch.Tensor:
+    """Single-step decode attention over the contiguous (ring) cache.
+    q (B, KV, G, Dh); k/v (B, KV, C, Dh) and scales as in
+    ``kernels.decode_attn``; n_valid the cache ``idx``, a scalar shared
+    by every row or (B,) per-slot depths.  Returns (B, KV, G, Dh) f32.
+    The kernel takes the G rows as they are; the plain path pads them
+    to the 8-row tile and slices back, as the reference does."""
+    qp, nv, g, sm = _decode_rows(q, n_valid, sm_scale)
+    out = decode_attn(qp, k, v, k_scale, v_scale, nv, sm_scale=sm)
+    return out[:, :, :g]
+
+
+def decode_attention_paged(q, k, v, k_scale, v_scale, n_valid,
+                           block_table, *,
+                           sm_scale: float | None = None) -> torch.Tensor:
+    """Single-step decode attention over the floating page pool.
+    q (B, KV, G, Dh); the pool and table as in ``kernels.decode_attn``.
+    Returns (B, KV, G, Dh) f32; G rows as ``decode_attention``."""
+    qp, nv, g, sm = _decode_rows(q, n_valid, sm_scale)
+    out = decode_attn_paged(qp, k, v, k_scale, v_scale, nv,
+                            block_table.to(torch.int32).contiguous(),
+                            sm_scale=sm)
     return out[:, :, :g]

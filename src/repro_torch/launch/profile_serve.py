@@ -1,9 +1,12 @@
 """Where a serving run's time goes on the card.
 
-Builds the full-width engine that ``chip_smoke.py`` serves with, serves
-one untraced warm-up trace, then serves a second trace under
-``torch.profiler`` with every model step inside a ``decode_step`` or
-``prefill_chunk`` span.  From the profiler's Chrome trace it reports,
+Builds a full-width engine that ``chip_smoke.py`` serves with (phi3-mini
+on floating pages, or with ``--arch h2o-danube-3-4b`` the windowed model
+on identity rows with the whole-prompt prefill, its prompts at or past
+the 4096-token window so that every decode step reads a full ring),
+serves one untraced warm-up trace, then serves a second trace under
+``torch.profiler`` with every model step inside a ``decode_step``,
+``prefill_chunk`` or ``prefill`` (whole-prompt) span.  From the profiler's Chrome trace it reports,
 per kind of step: the host span of the step function, the card's busy
 time for the work launched in it (the union of its kernels' and copies'
 intervals), the launches, and the card time by kernel; and for the
@@ -11,6 +14,8 @@ whole traced run the card's idle share.
 
   PYTHONPATH=src python -m repro_torch.launch.profile_serve \\
       --trace build/serve_trace.json
+  PYTHONPATH=src python -m repro_torch.launch.profile_serve \\
+      --arch h2o-danube-3-4b --trace build/ring_trace.json
 
 The profiler adds host time to every launch, so the traced steps are
 slower than the warm-up's; both mean decode steps are printed.
@@ -23,19 +28,20 @@ import bisect
 import collections
 import json
 
+import numpy as np
 import torch
 
 from repro_torch.configs.registry import get_config
 from repro_torch.launch.serve import make_requests, random_params
-from repro_torch.serving import Engine
+from repro_torch.serving import Engine, Request
 
 GPU_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
-SPANS = ("decode_step", "prefill_chunk")
+SPANS = ("decode_step", "prefill_chunk", "prefill")
 # the port's own kernels (csrc/*.cu), by the name the trace gives them
 PORT_KERNELS = ("mx_gemm_kernel", "fused_quant_gemm_kernel",
                 "fused_quant_gemm_tiled_kernel", "mx_dw_gemm_kernel",
                 "group_gemm_kernel", "mx_quant_kernel",
-                "decode_attn_paged_kernel", "moe_gmm_kernel",
+                "decode_attn_kernel", "moe_gmm_kernel",
                 "moe_dw_gemm_kernel")
 
 
@@ -111,33 +117,55 @@ def summarize(trace: dict, kinds=SPANS) -> dict:
     return out
 
 
+def _ring_requests(cfg, n: int, max_new: int, seed: int) -> list[Request]:
+    """``n`` prompts of 4096-4200 tokens: at or past the window."""
+    rng = np.random.default_rng(seed)
+    return [Request(rid=i, prompt=rng.integers(0, cfg.vocab, int(k),
+                                               dtype=np.int32),
+                    max_new=max_new)
+            for i, k in enumerate(rng.integers(4096, 4201, size=n))]
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="phi3-mini-3.8b",
+                    choices=("phi3-mini-3.8b", "h2o-danube-3-4b"))
     ap.add_argument("--trace", default="serve_trace.json",
                     help="where to write the Chrome trace")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_serve measures the card: no CUDA device")
 
-    # chip_smoke.py's engine: full width, 4 slots, 64-token slots of
-    # 16-token pages, 8 requests of 16 new tokens (prompts here of 24-48
-    # tokens)
-    cfg = get_config("phi3-mini-3.8b")
-    eng = Engine(cfg, random_params(cfg, 0, "cuda"), 4, max_len=64,
-                 page_size=16, device="cuda")
-    step = eng.decode
+    cfg = get_config(args.arch)
+    params = random_params(cfg, 0, "cuda")
+    if args.arch == "phi3-mini-3.8b":
+        # chip_smoke.py's engine: 4 slots, 64-token slots of 16-token
+        # pages, 8 requests of 16 new tokens (prompts here of 24-48)
+        eng = Engine(cfg, params, 4, max_len=64, page_size=16,
+                     device="cuda")
+        warm = make_requests(cfg, 8, 48, 16, seed=0)
+        reqs = make_requests(cfg, 8, 48, 16, seed=1)
+    else:
+        # chip_smoke.py's windowed engine: 4 slots over 4096-slot rings
+        eng = Engine(cfg, params, 4, max_len=4352, device="cuda")
+        warm = _ring_requests(cfg, 4, 4, seed=0)
+        reqs = _ring_requests(cfg, 4, 12, seed=1)
+    del params
+    step, prefill = eng.decode, eng.prefill
 
     def spanned(params, caches, toks):
         name = SPANS[0] if toks.shape[1] == 1 else SPANS[1]
         with torch.profiler.record_function(name):
             return step(params, caches, toks)
 
-    eng.decode = spanned
-    warm = make_requests(cfg, 8, 48, 16, seed=0)
+    def spanned_prefill(*a):
+        with torch.profiler.record_function(SPANS[2]):
+            return prefill(*a)
+
+    eng.decode, eng.prefill = spanned, spanned_prefill
     eng.run(warm)
     warm_step = eng.decode_seconds / eng.decode_steps
     eng.decode_seconds, eng.decode_steps = 0.0, 0
-    reqs = make_requests(cfg, 8, 48, 16, seed=1)
     for r in reqs:
         r.rid += len(warm)
     acts = [torch.profiler.ProfilerActivity.CPU,

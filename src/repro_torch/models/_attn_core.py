@@ -1,5 +1,6 @@
-"""Chunked causal attention for train mode (counterpart of
-``repro.models._attn_core``): the calibration forward's attention.
+"""Chunked causal attention for train and prefill modes (counterpart of
+``repro.models._attn_core``): the calibration forward's and the
+whole-prompt prefill's attention, with the sliding-window term.
 No TPU kernel sits behind it, so it is plain torch ops: query chunks
 outside, KV chunks inside with an online softmax, so scores never
 exceed (B, H, Cq, Ck)."""
@@ -14,6 +15,13 @@ from repro_torch.core.runtime_flags import einsum
 NEG_INF = -1e30
 
 
+def _window(cfg):
+    """The number of keys a query sees ("swa", "local"), else None."""
+    if cfg.attn_type in ("swa", "local"):
+        return cfg.window
+    return None
+
+
 def chunked_attention(cfg, q, k, v, q_pos0: int = 0):
     """q: (B, S, H, Dh); k, v: (B, T, KV, Dh) -> (B, S, H, Dh)."""
     b, s, h, dh = q.shape
@@ -21,6 +29,7 @@ def chunked_attention(cfg, q, k, v, q_pos0: int = 0):
     t = k.shape[1]
     kvh = k.shape[2]
     g = h // kvh
+    window = _window(cfg)
     scale = dh ** -0.5
     dev = q.device
 
@@ -43,7 +52,10 @@ def chunked_attention(cfg, q, k, v, q_pos0: int = 0):
             vj = v[:, j * ck:(j + 1) * ck].repeat_interleave(g, dim=2)
             kpos = torch.arange(j * ck, (j + 1) * ck, device=dev)
             scores = einsum("bqhd,bkhd->bhqk", qi, kj) * scale
-            mask = (qpos[:, None] >= kpos[None, :]) & (kpos < t)[None, :]
+            mask = qpos[:, None] >= kpos[None, :]
+            if window is not None:
+                mask &= (qpos[:, None] - kpos[None, :]) < window
+            mask &= (kpos < t)[None, :]
             scores = torch.where(mask[None, None], scores, neg)
             m_new = torch.maximum(m, scores.amax(dim=-1))
             p = torch.exp(scores - m_new[..., None])

@@ -84,7 +84,8 @@ def _unsupported(cfg) -> list[str]:
         f"input_mode {cfg.input_mode!r}": cfg.input_mode != "tokens",
         f"pos_embedding {cfg.pos_embedding!r}":
             cfg.pos_embedding not in ("rope", "none"),
-        f"attn_type {cfg.attn_type!r}": cfg.attn_type != "full",
+        f"attn_type {cfg.attn_type!r}": cfg.attn_type not in ("full",
+                                                              "swa"),
         f"act {cfg.act!r}": cfg.act != "swiglu",
         f"norm {cfg.norm!r}": cfg.norm not in ("rmsnorm", "layernorm"),
         "qk_norm": cfg.qk_norm,
@@ -116,15 +117,51 @@ def model_defs(cfg) -> dict:
     return defs
 
 
-def paged_decode_supported(cfg, max_len: int, page_size: int) -> bool:
-    """Floating page pools need a whole number of pages per slot (the
-    dense family's KV cache has no window, so a slot holds max_len).
-    MoE serving is not ported yet: a MoE config raises."""
+def init_caches(cfg, batch: int, max_len: int, per_slot: bool = False,
+                device="cuda") -> dict:
+    """Contiguous caches for every segment, payloads stacked over the
+    segment's layers: (L, B, KV, C, Dh).  One ``idx`` is shared by the
+    layers: a scalar 0, or with ``per_slot`` a (B,) vector of zeros so
+    that serving slots track their own depths."""
+    caches = {}
+    for seg in build_segments(cfg):
+        one = attn_mod.init_cache(cfg, batch, max_len, device)
+        stack = lambda t: None if t is None else \
+            t[None].expand(seg.n, *t.shape).contiguous()
+        idx = (torch.zeros((batch,), dtype=torch.int32, device=device)
+               if per_slot else one.idx)
+        caches[seg.name] = KVCache(stack(one.k), stack(one.v),
+                                   stack(one.k_scale), stack(one.v_scale),
+                                   idx)
+    return caches
+
+
+def _serving_family(cfg) -> bool:
+    """Whether ``cfg`` has per-head KV caches the port serves.  MoE
+    serving is not ported yet: a MoE config raises."""
     if cfg.family == "moe":
         raise NotImplementedError(
             f"{cfg.name}: MoE serving (the dense combine under delayed "
             "scales, calibration, the paged engine): ROADMAP next slices")
-    return cfg.family == "dense" and max_len % page_size == 0
+    return cfg.family == "dense"
+
+
+def paged_decode_supported(cfg, max_len: int, page_size: int) -> bool:
+    """Floating page pools need an unwrapped cache (no window ring: the
+    pool append writes ``idx // T`` directly) of a whole number of
+    pages."""
+    if not _serving_family(cfg):
+        return False
+    c = attn_mod.cache_len(cfg, max_len)
+    return c == max_len and c % page_size == 0
+
+
+def chunk_prefill_supported(cfg, max_len: int) -> bool:
+    """Chunked prefill writes prompt chunks at absolute positions, so it
+    needs an unwrapped cache (C == max_len)."""
+    if not _serving_family(cfg):
+        return False
+    return attn_mod.cache_len(cfg, max_len) == max_len
 
 
 def init_paged_pools(cfg, max_len: int, num_pages: int, page_size: int,
@@ -152,6 +189,7 @@ def init_paged_pools(cfg, max_len: int, num_pages: int, page_size: int,
 
 
 def _layer_cache(c: KVCache, l: int) -> KVCache:
+    # views: the layer's in-place writes land in the stacked tensors
     return c._replace(k=c.k[l], v=c.v[l],
                       k_scale=None if c.k_scale is None else c.k_scale[l],
                       v_scale=None if c.v_scale is None else c.v_scale[l])
@@ -187,17 +225,20 @@ def forward(cfg, qcfg: QuantConfig, params, tokens: torch.Tensor,
     f32 sum of the MoE blocks' load-balance losses (0 for dense models).
 
     tokens (B, S).  ``train`` runs without a cache, under autograd;
-    ``decode`` reads the per-slot depths from the caches' ``idx`` for
-    positions, writes the new K/V into the pools in place and returns
-    the caches with ``idx`` advanced by S."""
+    ``prefill`` writes the prompt's K/V into fresh contiguous caches
+    (``init_caches``) from position 0; ``decode`` reads the depths from
+    the caches' ``idx`` (a scalar or one per slot) for positions.  The
+    caches are written in place and come back with ``idx`` advanced by
+    S."""
     b, s = tokens.shape
     x = embed_tokens(cfg, params["embed"], tokens)
     dev = x.device
     if mode == "decode":
         pos0 = _first_idx(caches)
-        positions = pos0[:, None] + torch.arange(s, dtype=torch.int32,
-                                                 device=dev)
-    elif mode == "train":
+        positions = torch.arange(s, dtype=torch.int32, device=dev)
+        positions = (pos0[:, None] + positions if pos0.dim()
+                     else pos0 + positions)
+    elif mode in ("train", "prefill"):
         positions = torch.arange(s, dtype=torch.int32, device=dev)
     else:
         raise NotImplementedError(f"forward mode {mode!r}")

@@ -1,5 +1,5 @@
-"""Paged-KV continuous-batching serving over the floating page pool:
-``paged_cache`` (page allocator and pool), ``scheduler`` (FIFO
+"""Paged-KV continuous-batching serving: ``paged_cache`` (page
+allocator, floating page pool and identity rows), ``scheduler`` (FIFO
 admission, retirement, TTFT/TPOT, SLO policy) and ``engine``."""
 
 from .engine import Engine, greedy_sample, prepare_weights
@@ -8,6 +8,7 @@ from .paged_cache import (
     BlockTable,
     FloatingPageCache,
     PageAllocator,
+    PagedKVCache,
     PagedCacheError,
     PageExhausted,
     SlotCapacityExceeded,
@@ -17,7 +18,8 @@ from .scheduler import Request, RequestState, Scheduler, SLOTargets
 
 __all__ = [
     "Engine", "greedy_sample", "prepare_weights", "PAGE_SIZE",
-    "BlockTable", "FloatingPageCache", "PageAllocator", "PagedCacheError",
+    "BlockTable", "FloatingPageCache", "PageAllocator", "PagedKVCache",
+    "PagedCacheError",
     "PageExhausted", "SlotCapacityExceeded", "page_keys", "Request",
     "RequestState", "Scheduler", "SLOTargets",
 ]

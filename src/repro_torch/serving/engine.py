@@ -1,30 +1,36 @@
-"""Continuous-batching serving engine over the floating page pool
-(counterpart of ``repro.serving.engine``, Scheduler v2 on floating
-pages -- the reference's default serving path).
+"""Continuous-batching serving engine over the paged KV cache
+(counterpart of ``repro.serving.engine``).
 
-One engine ``step()`` is
+Scheduler v2 (the default; chunked prefill): one engine ``step()`` is
 
   1. retire finished requests (release their pages, shrink them out of
      the decode batch);
   2. up to ``Scheduler.chunk_budget()`` chunked-prefill steps: the
      staging request's next ``chunk_tokens`` prompt tokens run as one
      (1, chunk) decode-mode step, written at the request's own depth
-     into its own pages; the final chunk's last real logit is the first
-     output token, and the request joins the decode batch;
+     (into its own pages, or into a detached one-row cache under
+     identity placement); the final chunk's last real logit is the
+     first output token, and the request joins the decode batch;
   3. one batched (B, 1) decode over the resident rows, every row at its
      own depth.
 
+The v1 path (``REPRO_CHUNKED_PREFILL=0``, and what an arch chunks
+cannot serve takes without being asked: a windowed ring) prefills each
+admitted prompt whole, right-padded to a 16-token bucket, in one (1, S)
+step, and admits on worst-case reservations.  Placement: floating pages
+by default, identity rows (``REPRO_PAGED_PLACEMENT=identity``, and a
+windowed ring, whose cache is C = window < max_len slots).
+
 Weights are pre-quantized to fp8 at build and the activation scales are
 calibrated at build (one forward over a fixed prompt), as in the
-reference.  Admission is usage-based (a request reserves its prompt plus
-one page); when growth finds the pool dry the reference preempts to
-host, which this slice does not have yet: size the pool fully backed
-(the default) and it never happens.  Not yet
-ported, each raising ``NotImplementedError`` when reached: preemption
-swap-to-host and prefix-cache hits with copy-on-write (ROADMAP queue 1
-item 8), identity placement with the v1 whole-prompt prefill and the
-legacy ``Server`` (next slice), speculative decode (queue 1 item 9),
-quant-health telemetry (queue 1 item 12).
+reference.  With chunked prefill on floating pages admission is
+usage-based (a request reserves its prompt plus one page); when growth
+finds the pool dry the reference preempts to host, which the port does
+not have yet: size the pool fully backed (the default) and it never
+happens.  Not yet ported, each raising ``NotImplementedError`` when
+reached: preemption swap-to-host and prefix-cache hits with
+copy-on-write (ROADMAP queue 1 item 8), speculative decode (queue 1
+item 9), quant-health telemetry (queue 1 item 12).
 
 The engine runs on ``device="cuda"`` unless the caller asks for the CPU;
 there it runs the kernels' plain versions.
@@ -40,18 +46,32 @@ import numpy as np
 import torch
 
 from repro_torch.core.actscale import calibrate_act_scales
-from repro_torch.core.runtime_flags import check_serving_env
-from repro_torch.models.transformer import paged_decode_supported
-from repro_torch.train.steps import make_decode_step, prequantize_params
+from repro_torch.core.runtime_flags import (
+    check_serving_env,
+    chunked_prefill,
+    paged_placement,
+)
+from repro_torch.models.transformer import (
+    chunk_prefill_supported,
+    init_caches,
+    paged_decode_supported,
+)
+from repro_torch.train.steps import (
+    make_decode_step,
+    make_prefill_step,
+    prequantize_params,
+)
 
 from .paged_cache import (
     PAGE_SIZE,
     FloatingPageCache,
+    PagedKVCache,
     PageExhausted,
     SlotCapacityExceeded,
 )
 from .scheduler import Request, Scheduler, SLOTargets
 
+PROMPT_BUCKET = 16
 CHUNK_TOKENS = 32
 
 
@@ -96,6 +116,7 @@ class _Staging:
     admitted but it has no decode-batch row until the last chunk."""
     req: Request
     pos: int                  # next prompt position to chunk-prefill
+    row_cache: dict | None    # detached one-row caches (identity only)
 
 
 class Engine:
@@ -119,11 +140,6 @@ class Engine:
             raise NotImplementedError(
                 "prefix-cache hits with copy-on-write: ROADMAP queue 1 "
                 "item 8")
-        if not paged_decode_supported(cfg, max_len, page_size):
-            raise NotImplementedError(
-                f"{cfg.name} max_len={max_len} page_size={page_size}: "
-                "identity placement and the v1 prefill are the next slice "
-                "(floating pages need max_len a whole number of pages)")
         self.cfg = cfg
         self.max_len = max_len
         self.num_slots = num_slots
@@ -133,14 +149,33 @@ class Engine:
             self.params, self.scales = prepare_weights(cfg, params)
             self.act_scales = calibrate_act_scales(cfg, self.params,
                                                    self.scales)
+        self.prefill = make_prefill_step(cfg, max_len, scales=self.scales,
+                                         act_scales=self.act_scales)
         self.decode = make_decode_step(cfg, scales=self.scales,
                                        act_scales=self.act_scales)
-        self.kv = FloatingPageCache(cfg, max_len, num_slots,
-                                    page_size=page_size,
-                                    num_pages=num_pages, usage_mode=True,
-                                    device=self.device)
+        self.float_pages = (paged_placement() == "float"
+                            and paged_decode_supported(cfg, max_len,
+                                                       page_size))
+        self.chunked = (chunked_prefill()
+                        and chunk_prefill_supported(cfg, max_len))
+        # usage-based admission needs preemption, which lives on the
+        # floating pool's block tables (REPRO_PREEMPTION=0 is refused);
+        # identity placement and the v1 prefill admit on reservations
+        self.preemption = self.chunked and self.float_pages
+        if self.float_pages:
+            self.kv = FloatingPageCache(cfg, max_len, num_slots,
+                                        page_size=page_size,
+                                        num_pages=num_pages,
+                                        usage_mode=self.preemption,
+                                        device=self.device)
+        else:
+            self.kv = PagedKVCache(cfg, max_len, num_slots,
+                                   page_size=page_size,
+                                   num_pages=num_pages, device=self.device)
         self.chunk_tokens = max(1, min(chunk_tokens, self.kv.slot_tokens))
         self._staging: _Staging | None = None
+        self.prefill_calls = 0
+        self.prefill_seconds = 0.0
         self.chunk_prefill_steps = 0
         self.chunked_requests = 0
         self.decode_steps = 0
@@ -154,17 +189,20 @@ class Engine:
         return req.prompt_len + req.max_new - 1
 
     def _admit_tokens(self, req: Request) -> int:
-        # usage-based admission: the prompt plus one page of headroom;
-        # growth past it extends page by page
-        return min(self._total_tokens(req),
-                   req.prompt_len + self.kv.page_size)
+        """Usage-based admission under preemption: the prompt plus one
+        page of headroom (growth past it extends page by page); the
+        worst case otherwise."""
+        total = self._total_tokens(req)
+        if self.preemption:
+            return min(total, req.prompt_len + self.kv.page_size)
+        return total
 
     def submit(self, requests: list[Request]) -> None:
         for req in requests:
             if req.eos_id is None:
                 req.eos_id = self.eos_id
             total = self._total_tokens(req)
-            if total > self.kv.slot_tokens:
+            if not self.kv.ring and total > self.kv.slot_tokens:
                 raise SlotCapacityExceeded(
                     f"request {req.rid}: prompt {req.prompt_len} + "
                     f"max_new {req.max_new} needs {total} cache "
@@ -182,6 +220,11 @@ class Engine:
     # -- the engine step -----------------------------------------------
     @torch.inference_mode()
     def step(self) -> None:
+        if not self.chunked:
+            self._retire_and_refill()
+            self._admit_new_rows()
+            self._decode_once()
+            return
         self._retire()
         self._chunk_phase()
         self._retire()          # an attached request may finish at once
@@ -212,7 +255,7 @@ class Engine:
                 grow()
                 return
             except PageExhausted:
-                if not self._preempt_one():
+                if not (self.preemption and self._preempt_one()):
                     raise
 
     # -- chunked prefill -----------------------------------------------
@@ -227,7 +270,9 @@ class Engine:
             return False          # stays queued (backpressure)
         req = self.sched.pop()
         self.kv.stage_admit(req.rid, admit)
-        self._staging = _Staging(req=req, pos=0)
+        row_cache = None if self.float_pages else init_caches(
+            self.cfg, 1, self.max_len, per_slot=True, device=self.device)
+        self._staging = _Staging(req=req, pos=0, row_cache=row_cache)
         self.chunked_requests += 1
         return True
 
@@ -241,18 +286,29 @@ class Engine:
         n_real = min(chunk, plen - st.pos)
         toks = np.zeros((1, chunk), np.int32)
         toks[0, :n_real] = req.prompt[st.pos:st.pos + n_real]
-        self._grow_or_preempt(
-            lambda: self.kv.stage_ensure(req.rid, st.pos, st.pos + n_real))
-        self.kv.stage_stamp(req.rid, st.pos)
-        logits, self.kv.caches = self.decode(
-            self.params, self.kv.caches,
-            torch.from_numpy(toks).to(self.device))
+        toks = torch.from_numpy(toks).to(self.device)
+        if self.float_pages:
+            self._grow_or_preempt(
+                lambda: self.kv.stage_ensure(req.rid, st.pos,
+                                             st.pos + n_real))
+            self.kv.stage_stamp(req.rid, st.pos)
+            logits, self.kv.caches = self.decode(self.params,
+                                                 self.kv.caches, toks)
+        else:
+            # identity placement: the chunk runs on a detached one-row
+            # cache; only the depth stamp moves between chunks
+            for c in st.row_cache.values():
+                c.idx.fill_(st.pos)
+            logits, _ = self.decode(self.params, st.row_cache, toks)
         self.chunk_prefill_steps += 1
         st.pos += n_real
         if st.pos < plen:
             return
         first = int(torch.argmax(logits[0, n_real - 1]))
-        self.kv.stage_attach(req.rid, plen)
+        if self.float_pages:
+            self.kv.stage_attach(req.rid, plen)
+        else:
+            self.kv.stage_attach(req.rid, st.row_cache, plen)
         self._staging = None
         self.sched.on_token(req, first)
 
@@ -264,10 +320,81 @@ class Engine:
             self._chunk_step()
             budget -= 1
 
+    # -- v1: whole-prompt prefill admission -----------------------------
+    def _bucket_len(self, n: int) -> int:
+        c = self.kv.slot_tokens
+        if n >= c:
+            return n          # the ring's keep-last-C prefill, exact
+        return min(c, -(-n // PROMPT_BUCKET) * PROMPT_BUCKET)
+
+    def _prefill_request(self, req: Request) -> dict:
+        """The (1, bucket) prefill of one prompt; returns the one-row
+        caches and emits the request's first token (TTFT)."""
+        n = req.prompt_len
+        toks = np.zeros((1, self._bucket_len(n)), np.int32)
+        toks[0, :n] = req.prompt
+        t0 = time.perf_counter()
+        logits, one = self.prefill(self.params,
+                                   torch.from_numpy(toks).to(self.device),
+                                   min(n, toks.shape[1]) - 1)
+        first = int(greedy_sample(logits)[0])
+        self.prefill_seconds += time.perf_counter() - t0
+        self.prefill_calls += 1
+        self.sched.on_token(req, first)
+        return one
+
+    def _admissible_head(self) -> Request | None:
+        """The head request when it fits under the pool's actual
+        free-page accounting, else None."""
+        head = self.sched.peek()
+        if head is None or not self.kv.can_admit(self._total_tokens(head)):
+            return None
+        return head
+
+    def _admit(self, req: Request, row: int | None = None) -> None:
+        """Admit one popped request: whole-prompt prefill, then place its
+        row (a new row, or ``row`` in place)."""
+        one = self._prefill_request(req)
+        total = self._total_tokens(req)
+        if row is None:
+            self.kv.append(req.rid, one, req.prompt_len, total)
+        else:
+            self.kv.refill(row, req.rid, one, req.prompt_len, total)
+
+    def _retire_and_refill(self):
+        row = 0
+        while row < len(self.kv.rows):
+            owner = self.kv.rows[row]
+            if owner is not None and not self.requests[owner].done:
+                row += 1
+                continue
+            if owner is not None:
+                self.kv.release(row)
+            head = self._admissible_head()
+            if head is not None:
+                # a refill may itself be done at once (max_new == 1 or
+                # EOS): the loop re-checks this row
+                self._admit(self.sched.pop(), row=row)
+            else:
+                self.kv.shrink(row)
+                # the swapped-in last row is re-checked at this index
+
+    def _admit_new_rows(self):
+        while len(self.kv.rows) < self.num_slots:
+            head = self._admissible_head()
+            if head is None:
+                break
+            self._admit(self.sched.pop())
+            if head.done:                         # instant finish
+                self._retire_and_refill()
+
     # -- decode --------------------------------------------------------
     def _decode_once(self):
-        self._grow_or_preempt(
-            lambda: self.kv.prepare_decode() if self.kv.rows else None)
+        if self.float_pages:
+            # restamp idx / block tables; growth past a usage
+            # reservation may find the pool dry (preempt and retry)
+            self._grow_or_preempt(
+                lambda: self.kv.prepare_decode() if self.kv.rows else None)
         rows = self.kv.rows
         if not rows:
             return
@@ -336,6 +463,9 @@ class Engine:
         s = self.sched.summary()
         al = self.kv.allocator
         s.update({
+            "prefill_calls": self.prefill_calls,
+            "mean_prefill_s": (self.prefill_seconds / self.prefill_calls
+                               if self.prefill_calls else None),
             "chunk_prefill_steps": self.chunk_prefill_steps,
             "chunked_requests": self.chunked_requests,
             "decode_steps": self.decode_steps,

@@ -1,21 +1,32 @@
-"""Paged KV cache (counterpart of ``repro.serving.paged_cache``, the
-floating placement).
+"""Paged KV cache (counterpart of ``repro.serving.paged_cache``): the
+page allocator and the two device-cache placements it governs.
 
 ``PageAllocator`` is host bookkeeping, copied from the reference: a
 free list of fixed-size pages with refcounts, reservation- or
 usage-based admission, and the prefix-hash map (chained page keys,
 first-writer-wins, LRU eviction of refcount-0 hashed pages).
 
-``FloatingPageCache`` holds one global page pool per segment,
-``(L, P+1, KV, T, Dh)`` payloads (+ ``(L, P+1, KV, T)`` scales), shared
-by every slot; per-slot state is the host block tables, stamped into the
-device ``idx (B,)`` / ``block_table (B, NP)`` tensors before every
-step.  Admission, retirement and refill are host-list surgery.  The
-pool tensors are written in place by the model step (the reference's
-jitted helpers return new arrays instead).  Preemption's swap-to-host
-and copy-on-write of shared or prefix-hashed pages wait (ROADMAP
-queue 1 item 8) and raise when reached; the identity placement and its
-whole-prompt prefill (with ``_pool_insert``) wait for the next slice.
+``PagedKVCache`` (identity placement) keeps per-slot contiguous rows
+``(L, B, KV, C, Dh)``, the block tables being accounting over an
+identity mapping.  It serves what the floating pool cannot (windowed
+rings: C = the window < max_len) and ``REPRO_PAGED_PLACEMENT=identity``.
+Where the reference concatenates a row onto its stacked tree on every
+admission, the port allocates ``num_slots`` rows once and moves rows in
+place, in the reference's row order (a new row at the end, a retired
+row swapped with the last).
+
+``FloatingPageCache`` (float placement, the default) holds one global
+page pool per segment, ``(L, P+1, KV, T, Dh)`` payloads (+ ``(L, P+1,
+KV, T)`` scales), shared by every slot; per-slot state is the host
+block tables, stamped into the device ``idx (B,)`` / ``block_table (B,
+NP)`` tensors before every step.  Admission, retirement and refill are
+host-list surgery; a whole-prompt prefill's pages are scattered into the
+pool (``_pool_insert``).
+
+Every device tensor is written in place (the reference's jitted
+helpers return new arrays instead).  Preemption's swap-to-host and
+copy-on-write of shared or prefix-hashed pages wait (ROADMAP queue 1
+item 8) and raise when reached.
 """
 
 from __future__ import annotations
@@ -26,7 +37,9 @@ from collections import OrderedDict
 import numpy as np
 import torch
 
+from repro_torch.models.attention import _bytes, cache_len
 from repro_torch.models.transformer import (
+    init_caches,
     init_paged_pools,
     paged_decode_supported,
 )
@@ -346,6 +359,184 @@ class PageAllocator:
         return len(bt.pages)
 
 
+# ---------------------------------------------------------------------------
+# Identity-placement row moves.  Stacked payloads are (L, B, ...) with the
+# slot row at dim 1; one idx (B,) serves every layer.  A one-row prefill
+# cache is (L, 1, ...) with a scalar idx, a staging row's idx is (1,).
+# ---------------------------------------------------------------------------
+
+
+def _leaves(c):
+    return [t for t in (c.k, c.v, c.k_scale, c.v_scale) if t is not None]
+
+
+def write_row(big: dict, one: dict, row: int, length: int) -> None:
+    """Copy a one-row cache into row ``row`` of the stacked caches, in
+    place, and stamp that row's depth to ``length``: a prompt right-padded
+    to a bucket arrives with its padded length, and the true one makes
+    the validity mask hide the padding (the reference's ``_stamp_idx``).
+    Every other row keeps its depth.  (The reference's ``_first_row`` and
+    ``_append_row`` are this at the next free row.)"""
+    for name, c in one.items():
+        dst = big[name]
+        for a, o in zip(_leaves(dst), _leaves(c)):
+            _bytes(a)[:, row] = _bytes(o[:, 0].to(a.dtype))
+        dst.idx[row] = length
+
+
+def _swap_shrink(big: dict, row: int, last: int) -> None:
+    """Move row ``last`` into ``row`` (retiring a finished slot from the
+    decode batch; the caller drops the last row)."""
+    if row == last:
+        return
+    for c in big.values():
+        for a in _leaves(c):
+            _bytes(a)[:, row] = _bytes(a)[:, last]
+        c.idx[row] = c.idx[last]
+
+
+class PagedKVCache:
+    """Identity-placement device cache: per-slot contiguous rows and
+    lengths, governed by a ``PageAllocator`` (see module docstring).
+    ``rows[i]`` is the owner id (request rid) resident in device row i,
+    or None for a released row awaiting refill or shrink within an
+    engine step.  ``caches`` is the first ``len(rows)`` rows of the
+    preallocated store, as views."""
+
+    def __init__(self, cfg, max_len: int, num_slots: int,
+                 page_size: int = PAGE_SIZE,
+                 num_pages: int | None = None, device="cuda"):
+        self.cfg = cfg
+        self.max_len = max_len
+        self.num_slots = num_slots
+        self.page_size = page_size
+        self.device = torch.device(device)
+        self.slot_tokens = cache_len(cfg, max_len)    # ring capacity C
+        self.ring = self.slot_tokens < max_len        # window arch
+        if num_pages is None:
+            num_pages = num_slots * pages_for(self.slot_tokens, page_size)
+        self.allocator = PageAllocator(
+            num_pages, page_size,
+            # windowed rings wrap by design: growth clamps instead of
+            # raising; non-windowed rows raise before corruption
+            slot_tokens=None if self.ring else self.slot_tokens)
+        self.rows: list[int | None] = []
+        self.lengths: list[int] = []
+        self._store = init_caches(cfg, num_slots, max_len, per_slot=True,
+                                  device=self.device)
+
+    @property
+    def caches(self) -> dict | None:
+        n = len(self.rows)
+        if n == 0:
+            return None
+        cut = lambda t: None if t is None else t[:, :n]
+        return {name: c._replace(k=cut(c.k), v=cut(c.v),
+                                 k_scale=cut(c.k_scale),
+                                 v_scale=cut(c.v_scale), idx=c.idx[:n])
+                for name, c in self._store.items()}
+
+    @caches.setter
+    def caches(self, new: dict) -> None:
+        # a step wrote its rows in place; keep the depths it advanced
+        n = len(self.rows)
+        for name, c in new.items():
+            self._store[name].idx[:n] = c.idx
+
+    # -- admission -----------------------------------------------------
+    def _resident(self, n_tokens: int) -> int:
+        return min(n_tokens, self.slot_tokens)
+
+    def can_admit(self, total_tokens: int) -> bool:
+        """A slot (fresh row or released row awaiting refill) AND a page
+        reservation are both available."""
+        has_slot = len(self.rows) < self.num_slots or None in self.rows
+        return has_slot and self.allocator.can_admit(
+            self._resident(total_tokens))
+
+    def append(self, owner: int, one: dict, length: int,
+               total_tokens: int) -> int:
+        """Admit ``owner`` into a NEW device row from its one-row prefill
+        caches; returns the row index."""
+        assert len(self.rows) < self.num_slots
+        self.allocator.admit(owner, self._resident(length),
+                             self._resident(total_tokens))
+        write_row(self._store, one, len(self.rows), length)
+        self.rows.append(owner)
+        self.lengths.append(length)
+        return len(self.rows) - 1
+
+    def refill(self, row: int, owner: int, one: dict, length: int,
+               total_tokens: int) -> None:
+        """Admit ``owner`` into a released row in place."""
+        assert self.rows[row] is None, "refill requires a released row"
+        self.allocator.admit(owner, self._resident(length),
+                             self._resident(total_tokens))
+        write_row(self._store, one, row, length)
+        self.rows[row] = owner
+        self.lengths[row] = length
+
+    # -- chunked-prefill staging (admission / attach split) ------------
+    def stage_admit(self, owner: int, total_tokens: int) -> None:
+        """Admission only: commit the page reservation while the request
+        chunk-prefills into a detached one-row cache."""
+        self.allocator.admit(owner, 0, self._resident(total_tokens))
+
+    def stage_attach(self, owner: int, one: dict, length: int) -> int:
+        """Attach only: move the finished staging row into the decode
+        batch and materialize its page accounting."""
+        self.allocator.grow(owner, self._resident(length))
+        assert len(self.rows) < self.num_slots
+        write_row(self._store, one, len(self.rows), length)
+        self.rows.append(owner)
+        self.lengths.append(length)
+        return len(self.rows) - 1
+
+    # -- retirement ----------------------------------------------------
+    def release(self, row: int) -> None:
+        """Free the row's pages (request finished).  The row must then be
+        ``refill``ed or ``shrink``ed before the next decode."""
+        self.allocator.release(self.rows[row])
+        self.rows[row] = None
+
+    def shrink(self, row: int) -> None:
+        """Drop a released row from the decode batch (swap-with-last)."""
+        assert self.rows[row] is None
+        last = len(self.rows) - 1
+        _swap_shrink(self._store, row, last)
+        self.rows[row] = self.rows[last]
+        self.lengths[row] = self.lengths[last]
+        self.rows.pop()
+        self.lengths.pop()
+
+    # -- decode bookkeeping --------------------------------------------
+    def advance(self) -> None:
+        """Mirror one decode step: every resident row appended one token
+        (the device idx advanced inside the step); grow page backing
+        across boundaries."""
+        for i, owner in enumerate(self.rows):
+            assert owner is not None, "decode ran with a released row"
+            self.lengths[i] += 1
+            self.allocator.grow(owner, self._resident(self.lengths[i]))
+
+
+def _pool_insert(pool, one, pages: torch.Tensor, n_new: int) -> None:
+    """Scatter the first ``n_new`` pages of a one-row prefill cache into
+    physical pool rows ``pages`` ((n_new,) int64), in place.  Payloads:
+    pool (L, P, KV, T, ...), one (L, 1, KV, C, ...) with C >= n_new·T;
+    padded-bucket positions past the true length ride along and are
+    masked by the slot depth."""
+    t = pool.k.shape[3]
+
+    def scatter(buf, row):
+        r = row[:, 0, :, :n_new * t]
+        r = r.reshape(r.shape[0], r.shape[1], n_new, t, *r.shape[3:])
+        _bytes(buf)[:, pages] = _bytes(r.movedim(2, 1).to(buf.dtype))
+
+    for buf, row in zip(_leaves(pool), _leaves(one)):
+        scatter(buf, row)
+
+
 class FloatingPageCache:
     """Floating-placement device cache: one global page pool per segment,
     host block tables stamped into the device idx / block-table tensors
@@ -363,6 +554,7 @@ class FloatingPageCache:
         self.page_size = page_size
         self.device = torch.device(device)
         self.slot_tokens = max_len
+        self.ring = False
         self.pages_per_slot = self.slot_tokens // page_size
         if num_pages is None:
             num_pages = num_slots * self.pages_per_slot
@@ -397,6 +589,32 @@ class FloatingPageCache:
                 "copy-on-write of a shared page: ROADMAP queue 1 item 8 "
                 "(next slices: preemption swap and prefix-hit "
                 "copy-on-write)")
+
+    def _insert(self, owner: int, one: dict) -> None:
+        """Scatter a whole-prompt prefill's pages into the pool."""
+        pages = self.allocator.table(owner).pages
+        idx = torch.tensor(pages, dtype=torch.int64, device=self.device)
+        for name, pool in self.caches.items():
+            _pool_insert(pool, one[name], idx, len(pages))
+
+    def append(self, owner: int, one: dict, length: int,
+               total_tokens: int) -> int:
+        """Admit a prefilled request into the pool; its batch position
+        is the next host-list slot (the pool has no row dim)."""
+        assert len(self.rows) < self.num_slots
+        self.allocator.admit(owner, length, self._resident(total_tokens))
+        self._insert(owner, one)
+        self.rows.append(owner)
+        self.lengths.append(length)
+        return len(self.rows) - 1
+
+    def refill(self, row: int, owner: int, one: dict, length: int,
+               total_tokens: int) -> None:
+        assert self.rows[row] is None, "refill requires a released row"
+        self.allocator.admit(owner, length, self._resident(total_tokens))
+        self._insert(owner, one)
+        self.rows[row] = owner
+        self.lengths[row] = length
 
     # -- chunked-prefill staging (admission / attach split) ------------
     def stage_admit(self, owner: int, total_tokens: int, shared=(),

@@ -40,7 +40,12 @@ from repro_torch.models.layers import (
     wrap_qt,
     wrap_qt_nojit,
 )
-from repro_torch.models.transformer import ce_loss, forward, model_defs
+from repro_torch.models.transformer import (
+    ce_loss,
+    forward,
+    init_caches,
+    model_defs,
+)
 from repro_torch.optim.adamw import (
     AdamWConfig,
     adamw_update,
@@ -291,3 +296,29 @@ def make_decode_step(cfg, scales=None, act_scales=None):
         return logits, caches
 
     return decode_step
+
+
+def make_prefill_step(cfg, max_len: int, scales=None, act_scales=None):
+    """The whole-prompt prefill: tokens (B, S) from position 0 into fresh
+    contiguous caches of ``cache_len(cfg, max_len)`` slots with a
+    scalar ``idx`` (a prompt of S >= C keeps its last C positions, p in
+    slot p % C).  Returns (logits (B, 1, V), caches).
+
+    The step's optional third argument ``last`` is the position whose
+    logits come back (default the last): the engine right-pads prompts
+    to a length bucket, and the causal last-token logits then sit at the
+    true prompt length - 1."""
+    mask = serve_quant_mask(cfg, scales)
+    qcfg = cfg.quant
+
+    @torch.inference_mode()
+    def prefill_step(params, tokens, last: int | None = None):
+        qp = _wrap_serve(params, mask, scales, act_scales)
+        caches = init_caches(cfg, tokens.shape[0], max_len,
+                             device=tokens.device)
+        logits, caches, _ = forward(cfg, qcfg, qp, tokens, caches,
+                                    mode="prefill")
+        pos = logits.shape[1] - 1 if last is None else last
+        return logits[:, pos:pos + 1], caches
+
+    return prefill_step

@@ -108,6 +108,120 @@ def test_decode_attn_matches_plain(cuda, kv_dtype):
     assert float((got - want).abs().max()) <= 1e-5
 
 
+# contiguous decode attention (B, KV, G, Dh, C, n_valid): h2o-danube-3-4b's
+# decode at full width (rows 0-1 wrapped past C, 2-3 partial), a ragged
+# small case, and recurrentgemma's local attention (G 10, Dh 256)
+RING_SHAPES = [(4, 8, 4, 120, 4096, [4100, 4200, 300, 97]),
+               (3, 2, 1, 96, 40, [41, 1, 17]),
+               (2, 1, 10, 256, 2048, [2048, 3000])]
+
+
+def _decode_attn_f64(q, k, v, ks, vs, nv, sm):
+    """decode_attn_ref's function in float64 (bf16 q and K, the weights
+    rounded to bf16 as there)."""
+    c = k.shape[2]
+    f = lambda t: t.float().to(torch.bfloat16).double()
+    s = torch.einsum("bkgd,bktd->bkgt", f(q), f(k)) * sm
+    if ks is not None:
+        s = s * ks.double()[:, :, None, :]
+    live = torch.arange(c, device=q.device)[None] < \
+        torch.clamp_max(nv.long(), c)[:, None]
+    s = s.masked_fill(~live[:, None, None, :], float("-inf"))
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    w = p / p.sum(dim=-1, keepdim=True)
+    if vs is not None:
+        w = w * vs.double()[:, :, None, :]
+    return torch.einsum("bkgt,bktd->bkgd", w.to(torch.bfloat16).double(),
+                        f(v))
+
+
+@pytest.mark.parametrize("kv_dtype", ["fp8", "bf16"])
+def test_decode_attn_contiguous_matches_plain(cuda, kv_dtype):
+    """Within 1e-5 absolute plus twice the plain version's own round-off
+    against a float64 evaluation: over thousands of slots the f32 sums
+    taken in another order flip the bf16 rounding of some weights, so
+    the two f32 versions drift apart with the context length."""
+    rng = np.random.default_rng(5)
+    for b, kvh, g, dh, c, nv in RING_SHAPES:
+        q = torch.tensor(rng.standard_normal((b, kvh, g, dh)),
+                         dtype=torch.float32)
+        k = torch.tensor(rng.standard_normal((b, kvh, c, dh)),
+                         dtype=torch.float32)
+        v = torch.tensor(rng.standard_normal((b, kvh, c, dh)),
+                         dtype=torch.float32)
+        if kv_dtype == "fp8":
+            (k, ks), (v, vs) = _quant_kv(k), _quant_kv(v)
+        else:
+            k, v, ks, vs = k.bfloat16(), v.bfloat16(), None, None
+        nv = torch.tensor(nv, dtype=torch.int32)
+        args = [None if a is None else a.to(cuda)
+                for a in (q, k, v, ks, vs, nv)]
+        got = decode_attn.decode_attn(*args, sm_scale=dh ** -0.5)
+        want = decode_attn.decode_attn_ref(*args, sm_scale=dh ** -0.5)
+        exact = _decode_attn_f64(*args, dh ** -0.5)
+        own = float((want.double() - exact).abs().max())
+        err = float((got - want).abs().max())
+        assert err <= 1e-5 + 2 * own, (b, g, dh, c, err, own)
+
+
+def test_decode_attn_layouts_give_the_same_bits(cuda):
+    """The paged and the contiguous kernel over the same bytes (the cache
+    cut into pages in order) at Dh 256: one operation order."""
+    b, kvh, g, dh, t, n_p = 2, 2, 10, 256, 16, 8
+    rng = np.random.default_rng(6)
+    q = torch.tensor(rng.standard_normal((b, kvh, g, dh)),
+                     dtype=torch.float32, device=cuda)
+    k, ks = _quant_kv(torch.tensor(
+        rng.standard_normal((b, kvh, n_p * t, dh)), dtype=torch.float32,
+        device=cuda))
+    v, vs = _quant_kv(torch.tensor(
+        rng.standard_normal((b, kvh, n_p * t, dh)), dtype=torch.float32,
+        device=cuda))
+
+    def pages(x):
+        x = x.reshape(b, kvh, n_p, t, *x.shape[3:]).movedim(2, 1)
+        return x.reshape(b * n_p, kvh, t, *x.shape[4:]).contiguous()
+
+    bt = torch.arange(b * n_p, dtype=torch.int32, device=cuda).reshape(
+        b, n_p)
+    nv = torch.tensor([100, 128], dtype=torch.int32, device=cuda)
+    got = decode_attn.decode_attn(q, k, v, ks, vs, nv, sm_scale=0.0625)
+    paged = decode_attn.decode_attn_paged(
+        q, pages(k.view(torch.uint8)).view(k.dtype),
+        pages(v.view(torch.uint8)).view(v.dtype), pages(ks), pages(vs),
+        nv, bt, sm_scale=0.0625)
+    assert torch.equal(got, paged)
+
+
+def test_decode_attention_contiguous_dispatch_passes_true_group_rows(
+        cuda, monkeypatch):
+    """G = 4 (h2o-danube-3-4b): the kernel gets the 4 rows, no padded
+    copy, and agrees with the padded plain path; a scalar n_valid is
+    broadcast."""
+    b, kvh, g, dh, c = 2, 3, 4, 120, 64
+    rng = np.random.default_rng(7)
+    q = torch.tensor(rng.standard_normal((b, kvh, g, dh)),
+                     dtype=torch.float32)
+    k, ks = _quant_kv(torch.tensor(rng.standard_normal((b, kvh, c, dh)),
+                                   dtype=torch.float32))
+    v, vs = _quant_kv(torch.tensor(rng.standard_normal((b, kvh, c, dh)),
+                                   dtype=torch.float32))
+    nv = torch.tensor(70, dtype=torch.int32)
+    cpu = (q, k, v, ks, vs, nv)
+    seen = []
+    kernel = dispatch.decode_attn
+
+    def spy(qq, *a, **kw):
+        seen.append(tuple(qq.shape))
+        return kernel(qq, *a, **kw)
+
+    want = dispatch.decode_attention(*cpu)
+    monkeypatch.setattr(dispatch, "decode_attn", spy)
+    got = dispatch.decode_attention(*[a.to(cuda) for a in cpu])
+    assert seen == [(b, kvh, g, dh)]
+    assert float((got.cpu() - want).abs().max()) <= 1e-5
+
+
 @pytest.mark.parametrize("fmt", ["e4m3", "e5m2"])
 def test_fused_large_m_tile_matches_plain(cuda, fmt):
     for m, k, n in LARGE_M_SHAPES:

@@ -31,6 +31,7 @@ import pytest
 
 from repro_torch import bridge
 from repro_torch.configs.registry import get_config
+from repro_torch.launch.serve import Server
 from repro_torch.serving import (
     Engine,
     PageAllocator,
@@ -45,44 +46,86 @@ from repro_torch.serving import (
 ARCH = "phi3-mini-3.8b"
 LENS = [5, 16, 23, 9, 31]          # under, at and across 16-token chunks
 MAX_NEW, SLOTS, MAX_LEN, CHUNK, SEED = 8, 3, 48, 16, 0
+# the windowed arch at window 16 (a 16-slot ring under max_len 48): 12
+# and 14 cross the window mid-decode, 20 is past it from the start
+H2O, H2O_WINDOW, H2O_LENS = "h2o-danube-3-4b", 16, [5, 12, 20, 9, 14]
+# the other serving paths, each against the reference's (the floating
+# page, chunked path is ``test_engine_streams_match_reference``'s run)
+RUNS = {
+    "identity-chunked": dict(env={"REPRO_PAGED_PLACEMENT": "identity"}),
+    "identity-v1": dict(env={"REPRO_PAGED_PLACEMENT": "identity",
+                             "REPRO_CHUNKED_PREFILL": "0"}),
+    "float-v1": dict(env={"REPRO_CHUNKED_PREFILL": "0"}),
+    "server": dict(server=True),
+    "h2o-fp8": dict(arch=H2O, window=H2O_WINDOW, kv="fp8", lens=H2O_LENS),
+    "h2o-bf16": dict(arch=H2O, window=H2O_WINDOW, kv="bf16",
+                     lens=H2O_LENS),
+}
 
 
-def _prompts():
+def _prompts(lens=LENS):
     rng = np.random.default_rng(1)
-    return [rng.integers(0, 512, n).astype(np.int32) for n in LENS]
+    return [rng.integers(0, 512, n).astype(np.int32) for n in lens]
+
+
+def _run_cfg(get, run):
+    """The run's config from ``get`` (either package's get_config)."""
+    cfg = get(run.get("arch", ARCH), smoke=True)
+    if "window" in run:
+        cfg = cfg.replace(window=run["window"], kv_cache_dtype=run["kv"])
+    return cfg
 
 
 @pytest.fixture(scope="module")
 def reference(tmp_path_factory):
-    """The reference engine's streams and logit gaps (one child run)."""
+    """The reference's streams and logit gaps for the default run and
+    every run of ``RUNS`` (one child process)."""
     d = tmp_path_factory.mktemp("jax_engine")
-    prompts = _prompts()
-    np.savez(d / "in.npz", arch=ARCH, seed=SEED, slots=SLOTS,
-             max_len=MAX_LEN, chunk=CHUNK, max_new=MAX_NEW,
-             lens=np.array(LENS), prompts=np.concatenate(prompts))
     env = dict(os.environ)
     env["XLA_FLAGS"] = (env.get("XLA_FLAGS", "") +
                         " --xla_allow_excess_precision=false").strip()
     env["JAX_PLATFORMS"] = "cpu"
     src = str(Path(__file__).resolve().parent.parent / "src")
     env["PYTHONPATH"] = src + os.pathsep + env.get("PYTHONPATH", "")
-    subprocess.run([sys.executable, __file__, str(d / "in.npz"),
-                    str(d / "out.json")], env=env, check=True, timeout=600)
+    subprocess.run([sys.executable, __file__, str(d / "out.json")],
+                   env=env, check=True, timeout=900)
     return json.loads((d / "out.json").read_text())
 
 
-def _port_engine(**kw):
+def _params(arch=ARCH):
     from repro.models.layers import init_tree
     from repro.models.transformer import model_defs
     from repro.configs.registry import get_config as jax_get_config
 
-    params = init_tree(model_defs(jax_get_config(ARCH, smoke=True)),
+    params = init_tree(model_defs(jax_get_config(arch, smoke=True)),
                        jax.random.PRNGKey(SEED))
-    return Engine(get_config(ARCH, smoke=True),
-                  bridge.tree_to_torch(jax.tree.map(np.asarray, params),
-                                       device="cpu"),
+    return bridge.tree_to_torch(jax.tree.map(np.asarray, params),
+                                device="cpu")
+
+
+def _port_engine(**kw):
+    return Engine(get_config(ARCH, smoke=True), _params(),
                   num_slots=SLOTS, max_len=MAX_LEN, chunk_tokens=CHUNK,
                   device="cpu", **kw)
+
+
+def _assert_streams(reqs, want, solo=None):
+    """Equal greedy streams, except past a reference tie (top two logits
+    within 1e-3 * max|logit|), where that request's comparison stops;
+    at most one request may stop early.  With ``solo`` (the reference
+    serving each request alone) a request may instead equal its solo
+    stream: the reference's own batch composition then moved it."""
+    exact = 0
+    for i, (r, stream, gaps) in enumerate(zip(reqs, want["streams"],
+                                              want["gaps"])):
+        if r.out == stream or (solo is not None
+                               and r.out == solo["streams"][i]):
+            exact += 1
+            continue
+        t = next(i for i, (a, b) in enumerate(zip(r.out, stream)) if a != b)
+        gap, big = gaps[t]
+        assert gap <= 1e-3 * big, (r.rid, t, r.out, stream, gap, big)
+    assert exact >= len(reqs) - 1, exact
 
 
 def test_engine_streams_match_reference(reference):
@@ -92,15 +135,43 @@ def test_engine_streams_match_reference(reference):
     eng.run(reqs, log=None)
     assert all(r.done and len(r.out) == MAX_NEW for r in reqs)
     assert eng.kv.allocator.free_pages == eng.kv.allocator.num_pages
-    exact = 0
-    for r, want, gaps in zip(reqs, reference["streams"], reference["gaps"]):
-        if r.out == want:
-            exact += 1
-            continue
-        t = next(i for i, (a, b) in enumerate(zip(r.out, want)) if a != b)
-        gap, big = gaps[t]
-        assert gap <= 1e-3 * big, (r.rid, t, r.out, want, gap, big)
-    assert exact >= len(reqs) - 1, exact
+    _assert_streams(reqs, reference["default"])
+
+
+@pytest.mark.parametrize("name", sorted(RUNS))
+def test_serving_paths_match_reference(reference, monkeypatch, name):
+    """Identity placement (chunked and whole-prompt), the whole-prompt
+    prefill on floating pages, the legacy Server, and the windowed arch
+    on its ring (identity and whole-prompt without being asked), in fp8
+    and bf16 caches.
+
+    On the ring the reference's streams can depend on the batch they
+    were served in: in its fp8 run the request of 9 prompt tokens
+    leaves its solo stream at the fifth token (a top-two gap of 1.5%
+    of max|logit|, no tie), because a last-bit difference in a batched
+    f32 sum flips an fp8 rounding of the cache.  So a windowed request
+    may equal the reference's stream either in the mixed batch or
+    served alone; the port's own mixed and solo streams are held equal
+    in tests/test_torch_ring.py."""
+    run = RUNS[name]
+    for k, v in run.get("env", {}).items():
+        monkeypatch.setenv(k, v)
+    cfg = _run_cfg(get_config, run)
+    params = _params(cfg.name)
+    reqs = [Request(rid=i, prompt=p, max_new=MAX_NEW)
+            for i, p in enumerate(_prompts(run.get("lens", LENS)))]
+    if run.get("server"):
+        Server(cfg, params, batch_slots=SLOTS, max_len=MAX_LEN,
+               device="cpu").run(list(reqs), log=None)
+    else:
+        eng = Engine(cfg, params, num_slots=SLOTS, max_len=MAX_LEN,
+                     chunk_tokens=CHUNK, device="cpu")
+        assert eng.float_pages == (name == "float-v1")
+        assert eng.chunked == name.endswith("chunked")
+        eng.run(reqs, log=None)
+        assert not eng.kv.rows
+    assert all(r.done and len(r.out) == MAX_NEW for r in reqs)
+    _assert_streams(reqs, reference[name], reference.get(name + "-solo"))
 
 
 def test_engine_is_deterministic_and_retires():
@@ -127,6 +198,10 @@ def test_engine_refuses_what_waits_and_oversize():
 def test_engine_refuses_unported_reference_switch(monkeypatch):
     monkeypatch.setenv("REPRO_SPEC_DECODE", "1")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
+        _port_engine()
+    monkeypatch.setenv("REPRO_SPEC_DECODE", "0")
+    monkeypatch.setenv("REPRO_PAGED_PLACEMENT", "floating")
+    with pytest.raises(ValueError, match="REPRO_PAGED_PLACEMENT"):
         _port_engine()
 
 
@@ -372,59 +447,92 @@ def test_allocator_lru_eviction_and_revival():
 # --- the reference engine, run as a child process ------------------------
 
 
-def _reference_child(inp: str, out: str) -> None:
-    """The child process: serve with the reference's Engine and write
-    its streams and, per generated token, the gap between the top two
-    logits it was sampled from and the largest |logit|."""
+def _reference_serve(cfg, params, run, prompts, slots=SLOTS):
+    """Serve ``prompts`` through the reference's Engine (or its legacy
+    Server); returns the streams and, per generated token, the gap
+    between the top two logits it was sampled from and the largest
+    |logit|."""
+    from repro.launch.serve import Server as JServer
+    from repro.serving import Engine as JEngine, Request as JRequest
+
+    reqs = [JRequest(rid=i, prompt=p, max_new=MAX_NEW)
+            for i, p in enumerate(prompts)]
+    gaps = {r.rid: [] for r in reqs}
+    last = {}
+
+    def capture(fn, row_of):
+        def step(*a):
+            out = fn(*a)
+            last["logits"] = np.asarray(out[0], np.float32)
+            last["row_of"] = row_of()
+            return out
+        return step
+
+    def record(on_token):
+        def rec(req, token):
+            row = last["row_of"](req, last["logits"])
+            top = np.sort(row)
+            assert int(np.argmax(row)) == int(token)
+            gaps[req.rid].append([float(top[-1] - top[-2]),
+                                  float(np.abs(row).max())])
+            return on_token(req, token)
+        return rec
+
+    first = lambda req, lg: lg[0, -1]
+    if run.get("server"):
+        srv = JServer(cfg, params, batch_slots=slots, max_len=MAX_LEN)
+        slots = lambda: (lambda req, lg: lg[srv.slots.index(req), 0])
+        srv.prefill = capture(srv.prefill, lambda: first)
+        srv.decode = capture(srv.decode, slots)
+        srv._on_token = record(srv._on_token)
+        srv.run(list(reqs), log=lambda *a: None)
+    else:
+        eng = JEngine(cfg, params, num_slots=slots, max_len=MAX_LEN,
+                      chunk_tokens=CHUNK, prefix_cache=False)
+
+        def decode_rows():
+            rows = list(eng.kv.rows)
+
+            def row_of(req, lg):
+                if lg.shape[1] == 1:             # batched decode step
+                    return lg[rows.index(req.rid), 0]
+                # the last chunk of a prompt
+                return lg[0, (req.prompt_len - 1) % lg.shape[1]]
+            return row_of
+
+        eng._run_decode = capture(eng._run_decode, decode_rows)
+        eng._run_prefill = capture(eng._run_prefill, lambda: first)
+        eng.sched.on_token = record(eng.sched.on_token)
+        eng.run(reqs, log=None)
+    return {"streams": [r.out for r in reqs],
+            "gaps": [gaps[r.rid] for r in reqs]}
+
+
+def _reference_child(out: str) -> None:
+    """The child process: every run's reference streams, into ``out``."""
     from repro.configs.registry import get_config as jax_get_config
     from repro.models.layers import init_tree
     from repro.models.transformer import model_defs
-    from repro.serving import Engine as JEngine, Request as JRequest
 
-    spec = np.load(inp)
-    cfg = jax_get_config(str(spec["arch"]), smoke=True)
-    params = init_tree(model_defs(cfg),
-                       jax.random.PRNGKey(int(spec["seed"])))
-    eng = JEngine(cfg, params, num_slots=int(spec["slots"]),
-                  max_len=int(spec["max_len"]),
-                  chunk_tokens=int(spec["chunk"]), prefix_cache=False)
-    lens, flat = spec["lens"], spec["prompts"]
-    offs = np.concatenate([[0], np.cumsum(lens)])
-    reqs = [JRequest(rid=i,
-                     prompt=flat[offs[i]:offs[i + 1]].astype(np.int32),
-                     max_new=int(spec["max_new"]))
-            for i in range(len(lens))]
-    gaps = {r.rid: [] for r in reqs}
-    last = {}
-    run_decode, on_token = eng._run_decode, eng.sched.on_token
-
-    def capture(*a):
-        logits, caches = run_decode(*a)
-        last["logits"] = np.asarray(logits, np.float32)
-        last["rows"] = list(eng.kv.rows)
-        return logits, caches
-
-    def record(req, token):
-        lg = last["logits"]
-        if lg.shape[1] == 1:                 # batched decode step
-            row = lg[last["rows"].index(req.rid), 0]
-        else:                                # last chunk of a prompt
-            row = lg[0, (req.prompt_len - 1) % lg.shape[1]]
-        top = np.sort(row)
-        assert int(np.argmax(row)) == int(token)
-        gaps[req.rid].append([float(top[-1] - top[-2]),
-                              float(np.abs(row).max())])
-        return on_token(req, token)
-
-    eng._run_decode, eng.sched.on_token = capture, record
-    eng.run(reqs, log=None)
-    gaps = [gaps[r.rid] for r in reqs]
+    res = {}
+    for name, run in [("default", {})] + sorted(RUNS.items()):
+        for k in ("REPRO_PAGED_PLACEMENT", "REPRO_CHUNKED_PREFILL"):
+            os.environ.pop(k, None)
+        os.environ.update(run.get("env", {}))
+        cfg = _run_cfg(jax_get_config, run)
+        params = init_tree(model_defs(jax_get_config(cfg.name, smoke=True)),
+                           jax.random.PRNGKey(SEED))
+        prompts = _prompts(run.get("lens", LENS))
+        res[name] = _reference_serve(cfg, params, run, prompts)
+        if "window" in run:           # one slot: each request alone
+            res[name + "-solo"] = _reference_serve(cfg, params, run,
+                                                   prompts, slots=1)
     with open(out, "w") as f:
-        json.dump({"streams": [r.out for r in reqs], "gaps": gaps}, f)
+        json.dump(res, f)
 
 
 if __name__ == "__main__":
-    _reference_child(sys.argv[1], sys.argv[2])
+    _reference_child(sys.argv[1])
 
 
 # --- the serving profiler's trace summary -------------------------------

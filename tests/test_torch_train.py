@@ -29,8 +29,9 @@ CPU beside them:
 
 The child also computes the reference's side of
 ``tests/test_torch_recipes.py`` (``qmm`` and the train steps in the
-per_group and per_tensor recipes); the two modules share its results
-(``reference``).
+per_group and per_tensor recipes) and of tests/test_torch_ring.py's
+model tests (``h2o_reference``: the sliding-window forward and prefill
+step); the modules share its results (``reference``).
 """
 
 import fcntl
@@ -139,7 +140,10 @@ def _reference_child(out: str) -> None:
     """What the reference computes for this module's tests and for
     tests/test_torch_recipes.py, compiled with ``REFERENCE_XLA_FLAGS``
     under ``REPRO_KERNELS=ref``, pickled."""
+    from test_torch_ring import h2o_reference
+
     ref = {"dw": {case: _dw_reference(*case) for case in DW_CASES},
+           "h2o": h2o_reference(),
            "optimizer": _optimizer_reference(),
            "train": _train_runs(),
            "qmm": {(mode, i): _qmm_reference(mode, *shape)
