@@ -25,14 +25,24 @@ Phases, each fatal on failure:
      two partial) and at recurrentgemma-2b's local-attention shape (G
      10, Dh 256), fp8 and bf16, beside SDPA on a bf16 cache, within 1e-5
      plus twice the plain version's own error against float64 (see
-     attn_limit);
+     attn_limit); the verify (q_len > 1) form of both decode kernels at
+     phi3-mini's verify step (S 4, G 1; paged and contiguous, 64 and
+     ~4096 slots) and at h2o-danube-3-4b's widths (contiguous,
+     unwrapped, S 4, G 4), within
+     the same limit of the 5-D plain version and each draft row bitwise
+     the q_len = 1 kernel at that draft's limit;
   4. the engine: phi3-mini-3.8b at full width on random weights from a
      seed serves 8 requests through the paged engine; every serving
      kernel must have been launched on that path; a second run from the
      same seed must give the same streams; under identity placement
      (REPRO_PAGED_PLACEMENT=identity) the streams equal the floating
      pages' token for token; the legacy Server (REPRO_SERVE_PAGED=0)
-     serves them too; then h2o-danube-3-4b (sliding window 4096) at full
+     serves them too; speculative verify (spec_decode=True, k 4) serves
+     them with the n-gram draft, an oracle draft of the plain streams and
+     the oracle under identity placement, each stream equal to the plain
+     one, launching the verify forms; 2 prompts of ~4000 tokens give the
+     same streams plainly and with the oracle draft; then
+     h2o-danube-3-4b (sliding window 4096) at full
      width and depth serves 6 requests whose rings wrap, through
      identity rows and the whole-prompt prefill, launching decode_attn
      and not decode_attn_paged, with equal streams on a second run; the
@@ -103,12 +113,38 @@ RING_MAX_NEW, RING_MAX_LEN = 48, 4352
 RING_SHAPES = {"h2o": (4, 8, 4, 120, 4096, [4100, 4200, 300, 97]),
                "recurrentgemma": (4, 1, 10, 256, 2048, [2048, 2500, 1000,
                                                         1])}
+# the verify (q_len > 1) form of decode attention (layout, B, KV, S, G, Dh,
+# page size or C, pages a slot, n_valid after the S-token write):
+# phi3-mini's verify step in the spec engine phase (4 pages of 16 a slot;
+# under identity placement its contiguous rows of max_len 64), phi3-mini
+# at a long context (256 pages a slot; identity rows of 4160 slots) and
+# h2o-danube-3-4b's widths on an unwrapped contiguous cache (S 4 x G 4:
+# two blocks a kv head)
+VERIFY_SHAPES = {
+    "phi3": ("paged", 4, 32, 4, 1, 96, 16, 4, [17, 64, 33, 5]),
+    "phi3-long": ("paged", 4, 32, 4, 1, 96, 16, 256,
+                  [3000, 4096, 3517, 3999]),
+    "phi3-identity": ("contiguous", 4, 32, 4, 1, 96, 64, 1,
+                      [17, 64, 33, 5]),
+    "phi3-identity-long": ("contiguous", 4, 32, 4, 1, 96, 4160, 1,
+                           [3000, 4096, 3517, 3999]),
+    "h2o": ("contiguous", 4, 8, 4, 4, 120, 4096, 1, [4096, 4000, 300, 97]),
+}
+# the verify entries of the kernels line: the shapes of the spec engine
+# phase's launches
+VERIFY_REPORTED = {"decode_attn_paged_verify": "phi3",
+                   "decode_attn_verify": "phi3-identity"}
+# the spec engine phase's long-context run: 2 prompts of ~4000 tokens
+SPEC_LONG_PROMPTS, SPEC_LONG_MAX_NEW, SPEC_LONG_MAX_LEN = [4000, 3968], 32, 4160
+SPEC_K = 4
 REPLACES = {
     "mx_gemm": "src/repro/kernels/mx_gemm.py:61",
     "fused_quant_gemm": "src/repro/kernels/mx_fused.py:101",
     "fused_quant_gemm_tiled": "src/repro/kernels/mx_fused.py:101",
     "decode_attn_paged": "src/repro/kernels/decode_attn.py:408",
     "decode_attn": "src/repro/kernels/decode_attn.py:222",
+    "decode_attn_paged_verify": "src/repro/kernels/decode_attn.py:408",
+    "decode_attn_verify": "src/repro/kernels/decode_attn.py:222",
     "mx_dw_gemm": "src/repro/kernels/mx_bwd.py:104",
     "group_gemm": "src/repro/kernels/group_gemm.py:61",
     "mx_quant": "src/repro/kernels/mx_quant.py:51",
@@ -121,6 +157,8 @@ SOURCES = {
     "fused_quant_gemm_tiled": "src/repro_torch/csrc/mx_fused.cu",
     "decode_attn_paged": "src/repro_torch/csrc/decode_attn.cu",
     "decode_attn": "src/repro_torch/csrc/decode_attn.cu",
+    "decode_attn_paged_verify": "src/repro_torch/csrc/decode_attn.cu",
+    "decode_attn_verify": "src/repro_torch/csrc/decode_attn.cu",
     "mx_dw_gemm": "src/repro_torch/csrc/mx_dw_gemm.cu",
     "group_gemm": "src/repro_torch/csrc/group_gemm.cu",
     "mx_quant": "src/repro_torch/csrc/mx_quant.cu",
@@ -182,11 +220,14 @@ class Timer:
         torch.cuda.synchronize()
         return statistics.median(a.elapsed_time(b) for a, b in times)
 
-    def ms(self, fn, n: int = 20) -> float:
+    def ms(self, fn, n: int = 20, batched: bool = False) -> float:
+        """``batched`` times in batches whatever the call's time: for a
+        wrapper whose host work (checks, copies) outlasts a short kernel,
+        one pair of events around one call would time the host."""
         for _ in range(3):
             fn()
         t = self._median(fn, n, 1)
-        if t >= 0.1:
+        if t >= 0.1 and not batched:
             return t
         b = self.BATCH
         return (self._median(fn, 7, b) - self._median(None, 7, b)) / b
@@ -223,6 +264,7 @@ def _activations(torch, gen, m, k):
 
 
 def phase_kernels(torch, timer) -> dict:
+    import torch.nn.functional as F
     from repro_torch.core.quant import mx_operand, quant_mx, quant_per_tensor
     from repro_torch.kernels import decode_attn, dispatch, mx_fused, mx_gemm
     from repro_torch.models.attention import _quant_kv
@@ -320,6 +362,10 @@ def phase_kernels(torch, timer) -> dict:
         nv = torch.tensor([17, 64, 33, 5], dtype=torch.int32, device="cuda")
         args = (q, k, v, ks, vs, nv, bt)
         sm = dh ** -0.5
+        if kv_dtype == "fp8":
+            # SDPA on the slots' pages gathered into a bf16 cache, with
+            # the slot mask
+            tl = timer.ms(sdpa_on_pages(torch, F, q, kf, vf, bt, nv, sm))
         got = decode_attn.decode_attn_paged(*args, sm_scale=sm)
         want = decode_attn.decode_attn_paged_plain(*args, sm_scale=sm)
         err = float((got - want).abs().max())
@@ -343,33 +389,67 @@ def phase_kernels(torch, timer) -> dict:
         print(f"decode_attn_paged {kv_dtype} B={b_} KV={kvh} G=1 Dh={dh} "
               f"T={t_} "
               f"n_valid={nv.tolist()}: max_err {err:.3g}, {t:.4f} ms, plain "
-              f"{tp:.4f} ms, library none, bound {b * 1e3:.2f} us ({by})")
+              f"{tp:.4f} ms, library {tl:.4f} ms (SDPA, gathered bf16 "
+              f"cache), bound {b * 1e3:.2f} us ({by})")
         if kv_dtype == "fp8":
             res["decode_attn_paged"] = dict(ms=t, plain_ms=tp,
-                                            library_ms=None, bound_ms=b,
+                                            library_ms=tl, bound_ms=b,
                                             bound_by=by)
     res["decode_attn_paged"]["max_abs_err"] = worst
     return res
 
 
+def sdpa_on_pages(torch, F, q, kf, vf, bt, nv, sm):
+    """A call of SDPA that computes the paged kernel's function on a bf16
+    cache: q (B, KV, S, G, Dh) or (B, KV, G, Dh), the pages of (P, KV,
+    T, Dh) ``kf``/``vf`` gathered by ``bt`` into (B, KV, C, Dh) bf16
+    (outside the call), the S·G rows as SDPA's query positions under
+    each draft's slot mask."""
+    from repro_torch.kernels.decode_attn import gather_pages
+
+    kb = gather_pages(kf.bfloat16(), bt)
+    vb = gather_pages(vf.bfloat16(), bt)
+    return sdpa_on_cache(torch, F, q, kb, vb, nv, sm)
+
+
+def sdpa_on_cache(torch, F, q, kb, vb, nv, sm):
+    """As ``sdpa_on_pages`` on a contiguous bf16 cache (B, KV, C, Dh)."""
+    s_len = q.shape[2] if q.dim() == 5 else 1
+    b, kvh, g, dh = q.shape[0], q.shape[1], q.shape[-2], q.shape[-1]
+    c = kb.shape[2]
+    back = torch.arange(s_len - 1, -1, -1, device=q.device)
+    lim = torch.clamp_max(nv.long()[:, None] - back[None], c)   # (B, S)
+    live = torch.arange(c, device=q.device)[None, None] < lim[:, :, None]
+    mask = live[:, None, :, None, :].expand(b, 1, s_len, g, c).reshape(
+        b, 1, s_len * g, c)
+    qb = q.reshape(b, kvh, s_len * g, dh).bfloat16()
+    return lambda: F.scaled_dot_product_attention(qb, kb, vb,
+                                                  attn_mask=mask, scale=sm)
+
+
 def decode_attn_f64(torch, q, k, v, ks, vs, nv, sm):
     """decode_attn_ref's function evaluated in float64 (bf16 q and K,
     the weights rounded to bf16 as there): the yardstick of the f32
-    round-off of the plain version and the kernel."""
+    round-off of the plain version and the kernel.  q (B, KV, G, Dh), or
+    the verify form (B, KV, S, G, Dh) whose draft j sees the slots below
+    n_valid - (S-1-j)."""
     c = k.shape[2]
     f = lambda t: t.float().to(torch.bfloat16).double()
-    s = torch.einsum("bkgd,bktd->bkgt", f(q), f(k)) * sm
+    q5 = q if q.dim() == 5 else q[:, :, None]
+    back = torch.arange(q5.shape[2] - 1, -1, -1, device=q.device)
+    s = torch.einsum("bksgd,bktd->bksgt", f(q5), f(k)) * sm
     if ks is not None:
-        s = s * ks.double()[:, :, None, :]
-    live = torch.arange(c, device=q.device)[None] < \
-        torch.clamp_max(nv.long(), c)[:, None]
-    s = s.masked_fill(~live[:, None, None, :], float("-inf"))
+        s = s * ks.double()[:, :, None, None, :]
+    lim = torch.clamp_max(nv.long()[:, None] - back[None], c)     # (B, S)
+    live = torch.arange(c, device=q.device)[None, None] < lim[:, :, None]
+    s = s.masked_fill(~live[:, None, :, None, :], float("-inf"))
     p = torch.exp(s - s.amax(dim=-1, keepdim=True))
     w = p / p.sum(dim=-1, keepdim=True)
     if vs is not None:
-        w = w * vs.double()[:, :, None, :]
-    return torch.einsum("bkgt,bktd->bkgd", w.to(torch.bfloat16).double(),
-                        f(v))
+        w = w * vs.double()[:, :, None, None, :]
+    out = torch.einsum("bksgt,bktd->bksgd", w.to(torch.bfloat16).double(),
+                       f(v))
+    return out if q.dim() == 5 else out[:, :, 0]
 
 
 def attn_limit(torch, got, want, exact) -> tuple[float, float, float]:
@@ -449,6 +529,108 @@ def phase_ring_kernels(torch, timer) -> dict:
             del k, v, ks, vs, got, want
         del q, kf, vf, qb, kb, vb
     res["decode_attn"]["max_abs_err"] = worst
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_verify_kernels(torch, timer) -> dict:
+    """The verify (q_len > 1) form of both decode kernels at
+    VERIFY_SHAPES, fp8 and bf16: within ``attn_limit`` of the 5-D plain
+    version, each draft row bitwise the q_len = 1 kernel at that draft's
+    limit; the kernel's launch timed apart from the wrapper's depth
+    check, beside the plain version and SDPA on the gathered bf16 cache
+    with each draft's slot mask."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attn
+    from repro_torch.models.attention import _quant_kv
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    res, worst = {}, {}
+    for name, (layout, b_, kvh, s_len, g, dh, t_, n_p, nv) in \
+            VERIFY_SHAPES.items():
+        paged = layout == "paged"
+        key = "decode_attn_paged_verify" if paged else "decode_attn_verify"
+        c = t_ * n_p
+        slots = b_ * n_p + 1 if paged else b_
+        q = torch.randn(b_, kvh, s_len, g, dh, device="cuda", generator=gen)
+        kf = torch.randn(slots, kvh, t_, dh, device="cuda", generator=gen)
+        vf = torch.randn(slots, kvh, t_, dh, device="cuda", generator=gen)
+        bt = torch.randperm(slots - 1, device="cuda", generator=gen)[
+            :b_ * n_p].reshape(b_, n_p).to(torch.int32) if paged else None
+        nv = torch.tensor(nv, dtype=torch.int32, device="cuda")
+        rows = q.reshape(b_, kvh, s_len * g, dh)
+        sm = dh ** -0.5
+        tl = timer.ms(sdpa_on_pages(torch, F, q, kf, vf, bt, nv, sm)
+                      if paged else sdpa_on_cache(
+                          torch, F, q, kf.bfloat16(), vf.bfloat16(), nv, sm),
+                      batched=True)
+        for kv_dtype in ("fp8", "bf16"):
+            if kv_dtype == "fp8":
+                (k, ks), (v, vs) = _quant_kv(kf), _quant_kv(vf)
+            else:
+                k, v, ks, vs = kf.bfloat16(), vf.bfloat16(), None, None
+            tail = (bt,) if paged else ()
+            kernel, launch = ((decode_attn.decode_attn_paged,
+                               decode_attn.launch_paged) if paged else
+                              (decode_attn.decode_attn, decode_attn.launch))
+            plain = (decode_attn.decode_attn_paged_plain if paged
+                     else decode_attn.decode_attn_ref)
+            args = (k, v, ks, vs, nv) + tail
+            got = kernel(rows, *args, sm_scale=sm, q_len=s_len).reshape(
+                q.shape)
+            want = plain(q, *args, sm_scale=sm)
+            cont = [None if x is None else
+                    (decode_attn.gather_pages(x, bt) if paged else x)
+                    for x in (k, v, ks, vs)]
+            err, own, lim = attn_limit(torch, got, want, decode_attn_f64(
+                torch, q, *cont, nv, sm))
+            if not (err <= lim and torch.isfinite(got).all()):
+                raise AssertionError(f"{key} {name} {kv_dtype}: max err "
+                                     f"{err} > {lim}")
+            for j in range(s_len):
+                solo = kernel(q[:, :, j].contiguous(), k, v, ks, vs,
+                              nv - (s_len - 1 - j), *tail, sm_scale=sm)
+                if not torch.equal(got[:, :, j], solo):
+                    raise AssertionError(f"{key} {name} {kv_dtype}: draft "
+                                         f"{j} differs from the q_len = 1 "
+                                         "kernel at its limit")
+            worst[key] = max(worst.get(key, 0.0), err)
+            # the kernel's launch alone (the wrapper's depth check, a few
+            # small launches, timed apart), in batches: one pair of
+            # events around one short launch would time the host
+            t = timer.ms(lambda: launch(rows, *args, sm_scale=sm,
+                                        q_len=s_len), batched=True)
+            tw = timer.ms(lambda: kernel(rows, *args, sm_scale=sm,
+                                         q_len=s_len), batched=True)
+            tp = timer.ms(lambda: plain(q, *args, sm_scale=sm),
+                          batched=True)
+            # the work this run's data needs: each row's live slots, the
+            # widest row's K and V read once
+            n_live = int(torch.clamp_max(nv, c).sum())
+            row_slots = sum(min(int(n) - (s_len - 1 - j), c)
+                            for n in nv.tolist() for j in range(s_len))
+            elt = 1 if kv_dtype == "fp8" else 2
+            nbytes = (b_ * kvh * s_len * g * dh * (2 + 4)  # q, out f32
+                      + 2 * n_live * kvh * dh * elt        # live K and V
+                      + (2 * n_live * kvh * 4 if ks is not None else 0)
+                      + 4 * b_ + (4 * b_ * n_p if paged else 0))
+            b, by = bound_ms(nbytes, 4.0 * row_slots * kvh * g * dh,
+                             FP8_FLOPS if kv_dtype == "fp8" else BF16_FLOPS)
+            print(f"{key} {name} {kv_dtype} B={b_} KV={kvh} S={s_len} "
+                  f"G={g} Dh={dh} C={c}"
+                  f"{f' (T={t_})' if paged else ''} n_valid={nv.tolist()}: "
+                  f"max_err {err:.3g} (plain vs f64 {own:.3g}, limit "
+                  f"{lim:.3g}), drafts bitwise the q_len=1 kernel, "
+                  f"{t:.4f} ms (the wrapper with its depth check "
+                  f"{tw:.4f} ms), plain {tp:.4f} ms, library {tl:.4f} ms "
+                  f"(SDPA, bf16 cache), bound {b * 1e3:.2f} us ({by})")
+            if VERIFY_REPORTED.get(key) == name and kv_dtype == "fp8":
+                res[key] = dict(ms=t, plain_ms=tp, library_ms=tl,
+                                bound_ms=b, bound_by=by)
+            del k, v, ks, vs, got, want, cont
+        del q, kf, vf, rows
+    for key, err in worst.items():
+        res[key]["max_abs_err"] = err
     torch.cuda.empty_cache()
     return res
 
@@ -754,7 +936,11 @@ def _checked(torch, fn, finite):
     return step
 
 
-def _serve_once(torch, np, seed: int, float_pages: bool = True):
+def _serve_once(torch, np, seed: int, float_pages: bool = True,
+                reqs=None, max_len: int = 64, **engine_kw):
+    """Serve ``reqs`` (phase 4's 8 requests by default) through a
+    full-width phi3-mini engine on weights from ``seed``; returns the
+    requests, the build and serve seconds and the engine's stats."""
     from repro_torch.configs.registry import get_config
     from repro_torch.launch.serve import random_params
     from repro_torch.serving import Engine, Request
@@ -762,15 +948,20 @@ def _serve_once(torch, np, seed: int, float_pages: bool = True):
     cfg = get_config(ARCH)
     t0 = time.monotonic()
     eng = Engine(cfg, random_params(cfg, seed, "cuda"), num_slots=4,
-                 max_len=64, page_size=16, device="cuda")
+                 max_len=max_len, page_size=16, device="cuda", **engine_kw)
     torch.cuda.synchronize()
     build_s = time.monotonic() - t0
     if (eng.float_pages, eng.chunked) != (float_pages, True):
         raise AssertionError(f"engine took float_pages={eng.float_pages}, "
                              f"chunked={eng.chunked}")
+    if eng.spec != bool(engine_kw.get("spec_decode")):
+        raise AssertionError(f"engine took spec={eng.spec}")
     finite = []
     eng.decode = _checked(torch, eng.decode, finite)
-    reqs = _requests(Request, np, cfg, seed)
+    if eng.spec:
+        eng.verify = _checked(torch, eng.verify, finite)
+    if reqs is None:
+        reqs = _requests(Request, np, cfg, seed)
     t0 = time.monotonic()
     eng.run(reqs, log=None)
     torch.cuda.synchronize()
@@ -872,6 +1063,108 @@ def phase_engine(torch, np) -> dict:
     print(f"identity placement: streams equal the floating pages' (serve "
           f"{run_i:.2f} s)")
     _legacy_server(torch, np)
+    return launches, [list(r.out) for r in reqs]
+
+
+class Oracle:
+    """A draft source that proposes a plain run's streams (``truth``,
+    one list per request id): every draft is accepted."""
+
+    def __init__(self, truth):
+        self.truth = truth
+
+    def propose(self, req, k):
+        t = self.truth[req.rid]
+        return t[len(req.out):len(req.out) + k]
+
+
+def _spec_line(label, reqs, run_s, st, launches):
+    toks = sum(len(r.out) for r in reqs)
+    rate = st["spec_accept_rate"]
+    ms = st["mean_verify_step_s"]
+    print(f"spec {label}: {len(reqs)} requests, {toks} tokens, serve "
+          f"{run_s:.2f} s = {toks / run_s:.1f} tok/s, "
+          f"{st['spec_verify_steps']} verify steps of "
+          f"{'n/a' if ms is None else f'{1e3 * ms:.2f}'} ms mean, "
+          f"{st['decode_steps']} plain decode steps, accept rate "
+          f"{'n/a' if rate is None else f'{rate:.3f}'}, verify-form "
+          f"launches {json.dumps(launches)}")
+
+
+def phase_engine_spec(torch, np, plain: list) -> dict:
+    """Speculative verify at full width and depth: phi3-mini serves phase
+    4's 8 requests with spec_decode=True, spec_k=4 three times -- with
+    the default n-gram draft, with an oracle draft that proposes phase
+    4's plain streams (``plain``), and with the oracle under identity
+    placement -- and every stream must equal phase 4's token for token;
+    the verify form must have been launched.  Then 2 prompts of ~4000
+    tokens (max_len 4160, 32 new tokens) are served plainly and with the
+    oracle draft on the same weights, with equal streams."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import decode_attn
+    from repro_torch.serving import Request
+
+    counters = [decode_attn.counter_verify,
+                decode_attn.counter_contiguous_verify]
+    counts = lambda: {c.name: c.count for c in counters}
+    for c in counters:
+        c.reset()
+    oracle = Oracle(dict(enumerate(plain)))
+    runs = [("n-gram draft", True, {}),
+            ("oracle draft", True, dict(draft=oracle)),
+            ("oracle draft, identity placement", False,
+             dict(draft=oracle))]
+    for label, float_pages, kw in runs:
+        before = counts()
+        run = lambda: _serve_once(torch, np, seed=0, float_pages=float_pages,
+                                  spec_decode=True, spec_k=SPEC_K, **kw)
+        reqs, _, run_s, st = (run() if float_pages else _with_env(
+            "REPRO_PAGED_PLACEMENT", "identity", run))
+        if [list(r.out) for r in reqs] != plain:
+            raise AssertionError(f"spec {label}: streams differ from "
+                                 "phase 4's plain streams")
+        _spec_line(label, reqs, run_s, st,
+                   {n: c - before[n] for n, c in counts().items()})
+        if kw and st["spec_verify_steps"] <= 0:
+            raise AssertionError(f"spec {label}: no verify step")
+    launches = counts()
+    print(f"verify-form launches on the spec path: {json.dumps(launches)}")
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the "
+                                 "spec path")
+
+    # the long context: plain, then the oracle over the plain streams
+    cfg = get_config(ARCH)
+
+    def long_requests():
+        rng = np.random.default_rng(3)
+        return [Request(rid=i, prompt=rng.integers(0, cfg.vocab, n,
+                                                   dtype=np.int32),
+                        max_new=SPEC_LONG_MAX_NEW)
+                for i, n in enumerate(SPEC_LONG_PROMPTS)]
+
+    base, _, run_b, st_b = _serve_once(torch, np, seed=0,
+                                       reqs=long_requests(),
+                                       max_len=SPEC_LONG_MAX_LEN)
+    toks = sum(len(r.out) for r in base)
+    print(f"long context plain: prompts {SPEC_LONG_PROMPTS}, {toks} tokens, "
+          f"serve {run_b:.2f} s, {st_b['chunk_prefill_steps']} prefill "
+          f"chunks, {st_b['decode_steps']} decode steps of "
+          f"{1e3 * st_b['mean_decode_step_s']:.2f} ms mean")
+    before = counts()
+    truth = {r.rid: list(r.out) for r in base}
+    spec, _, run_s, st = _serve_once(
+        torch, np, seed=0, reqs=long_requests(), max_len=SPEC_LONG_MAX_LEN,
+        spec_decode=True, spec_k=SPEC_K, draft=Oracle(truth))
+    n_long = {n: c - before[n] for n, c in counts().items()}
+    _spec_line("long context, oracle draft", spec, run_s, st, n_long)
+    if [list(r.out) for r in spec] != list(truth.values()):
+        raise AssertionError("spec long context: streams differ from the "
+                             "plain run's")
+    if n_long["decode_attn_paged_verify"] <= 0:
+        raise AssertionError("spec long context: no verify launch")
+    print("long context: spec streams equal the plain run's")
     return launches
 
 
@@ -1468,10 +1761,14 @@ def main() -> int:
     res.update(phase_train_kernels(torch, timer))
     res.update(phase_recipe_kernels(torch, timer))
     res.update(phase_ring_kernels(torch, timer))
+    res.update(phase_verify_kernels(torch, timer))
     print(f"phase kernels: {time.monotonic() - t0:.1f} s")
     t0 = time.monotonic()
-    launches = phase_engine(torch, np)
+    launches, plain = phase_engine(torch, np)
     print(f"phase engine: {time.monotonic() - t0:.1f} s")
+    t0 = time.monotonic()
+    spec_launches = phase_engine_spec(torch, np, plain)
+    print(f"phase engine spec: {time.monotonic() - t0:.1f} s")
     t0 = time.monotonic()
     ring_launches = phase_engine_ring(torch, np)
     print(f"phase engine ring: {time.monotonic() - t0:.1f} s")
@@ -1494,10 +1791,12 @@ def main() -> int:
     res.update(moe_res)
     # each row's launches come from its path: the serving kernels'
     # (fused_quant_gemm is the M <= 32 tile of the calibration forward)
-    # from the engine, decode_attn from the windowed engine, fused_quant_gemm_tiled (the M > 32 tile of the
-    # same source) and mx_dw_gemm from the moss steps, group_gemm from
-    # the per_group steps, mx_quant from the ablation, moe_gmm and
+    # from the engine, the verify forms from the spec engine, decode_attn
+    # from the windowed engine, fused_quant_gemm_tiled (the M > 32 tile
+    # of the same source) and mx_dw_gemm from the moss steps, group_gemm
+    # from the per_group steps, mx_quant from the ablation, moe_gmm and
     # moe_dw_gemm from the MoE moss steps
+    launches.update(spec_launches)
     launches.update(train_launches)
     launches["decode_attn"] = ring_launches["decode_attn"]
     launches["mx_quant"] = ablation["mx_quant"]

@@ -15,14 +15,15 @@ Counterpart of ``repro.core.runtime_flags``.  Two things live here:
 
 Serving and training flags
     The reference reads ``REPRO_*`` environment variables.  The port
-    reads three of them as the reference does: ``REPRO_SERVE_PAGED``
+    reads four of them as the reference does: ``REPRO_SERVE_PAGED``
     (the paged engine, or the legacy ``Server`` under 0),
-    ``REPRO_PAGED_PLACEMENT`` (float or identity pages) and
+    ``REPRO_PAGED_PLACEMENT`` (float or identity pages),
     ``REPRO_CHUNKED_PREFILL`` (chunked, or the whole-prompt prefill
-    under 0).  For the others the port implements the reference's
-    default (pre-quantized fp8 weights, delayed activation scales,
-    usage-based admission with preemption, no speculative decode, no
-    quant-health taps, the decode kernel), and ``check_serving_env``
+    under 0) and ``REPRO_SPEC_DECODE`` (speculative verify steps under
+    1).  For the others the port implements the reference's default
+    (pre-quantized fp8 weights, delayed activation scales, usage-based
+    admission with preemption, no quant-health taps, the decode
+    kernel), and ``check_serving_env``
     refuses one set to another value, naming the ROADMAP entry that
     will bring it.  The KV-cache dtype is the
     config's ``kv_cache_dtype`` alone: ``REPRO_KV_CACHE``, the
@@ -46,7 +47,6 @@ _SERVING_ENV = {
                                 "activation scaling for serving)"),
     "REPRO_PREEMPTION": ("1", "next slices: reservation admission with "
                          "preemption swap"),
-    "REPRO_SPEC_DECODE": ("0", "queue 1 item 9 (speculative decode)"),
     "REPRO_QUANT_HEALTH": ("0", "queue 1 item 12 (observability)"),
     "REPRO_DECODE_ATTN": ("kernel", "queue 1 item 7 (the einsum decode "
                           "escape hatch)"),
@@ -79,6 +79,14 @@ def chunked_prefill() -> bool:
     steps (where the arch and max_len allow it), or whole prompts under
     ``REPRO_CHUNKED_PREFILL=0``."""
     return os.environ.get("REPRO_CHUNKED_PREFILL", "1").strip() != "0"
+
+
+def spec_decode() -> bool:
+    """Whether the serving engine runs speculative verify steps in the
+    decode phase (``REPRO_SPEC_DECODE=1``; the chunked scheduler only).
+    Off by default: greedy output is the same either way, and the gain
+    depends on how often the drafts are accepted."""
+    return os.environ.get("REPRO_SPEC_DECODE", "0").strip() == "1"
 
 
 def check_serving_env() -> None:

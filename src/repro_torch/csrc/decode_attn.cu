@@ -1,36 +1,55 @@
-// Decode attention for Hopper (one query position per slot), over the
-// floating page pool or over a contiguous (ring) cache.
+// Decode attention for Hopper, over the floating page pool or over a
+// contiguous (ring) cache: one query position per slot (decode), or
+// q_len draft positions per slot (the speculative verify step).
 //
-// Replaces the TPU kernels (q_len = 1)
+// Replaces the TPU kernels (q_len >= 1)
 //   src/repro/kernels/decode_attn.py:decode_attn_paged_pallas  (paged)
 //   src/repro/kernels/decode_attn.py:decode_attn_pallas        (contiguous)
-// For batch row b and kv head h, over the live slots t < n:
+// Batch row b and kv head h hold R = q_len * G query rows, draft-major:
+// row r belongs to draft j = r / G and sees the live slots t < n_r,
+//     n_r = min(n_valid[b] - (q_len - 1 - j), NP * T)
+// (n_valid is the depth after this step's write; at q_len = 1 every row
+// sees t < min(n_valid[b], NP * T)).  Over those slots
 //     s_t = (q . k_t) * sm_scale * k_scale[t]       (bf16-rounded q and k)
 //     w_t = exp(s_t - max s) / sum exp(s - max s) * v_scale[t]
 //     out = sum_t bf16(w_t) * v_t
 // in f32, the operation order of the reference einsum path.  The cache is
 // e4m3 with per-(token, kv-head) f32 scales, or bf16 without scales.
-//   paged:      n = min(n_valid[b], NP * T); slot t lives in physical page
-//               block_table[b, t / T] at offset t % T of the (P, KV, T, Dh)
-//               pool;
-//   contiguous: n = min(n_valid[b], C); slot t lives at (b, h, t) of the
+//   paged:      slot t lives in physical page block_table[b, t / T] at
+//               offset t % T of the (P, KV, T, Dh) pool;
+//   contiguous: T is C and NP is 1; slot t lives at (b, h, t) of the
 //               (B, KV, C, Dh) cache.  A wrapped ring (n_valid >= C) is
-//               fully live, and slot order does not matter to the softmax.
+//               fully live, and slot order does not matter to the softmax
+//               (q_len > 1 needs an unwrapped cache: the wrapper checks).
 //
 // What bounds it on the H100: the live KV bytes, 2 * n * Dh * (1 or 2)
 // bytes per (b, h) plus the scales, over 3.35 TB/s (h2o-danube-3-4b's
-// decode, B 4, KV 8, C 4096, Dh 120, fp8: ~32 MB, ~9.7 us).
+// decode, B 4, KV 8, C 4096, Dh 120, fp8: ~32 MB, ~9.7 us).  The q_len
+// draft rows share that one read.
 //
 // The simple design: one block per (b, kv head, 8 query rows); four warps
-// walk the live slots, so no slot past n is ever touched.  Three passes
-// over the live slots recompute q . k (the keys of one row stay in L1/L2):
-// the max, the sum of exponentials, then the weighted sum of V.  This keeps
-// the reference's order (divide by the sum before the bf16 rounding of the
-// weights) at any context length with no shared-memory ceiling.  Lane l
-// holds head dims l, l + 32, ... (DPL of them: 4 up to Dh 128, 8 up to Dh
-// 256); lanes past Dh hold zeros.  The two layouts share this kernel and
-// differ only in the slot address, so they sum in one order: the same
-// bytes give the same bits through either.
+// walk the slots, so no slot past the block's largest n_r is ever
+// touched.  Three passes over the slots recompute q . k (the keys of one
+// row stay in L1/L2): the max, the sum of exponentials, then the weighted
+// sum of V.  This keeps the reference's order (divide by the sum before
+// the bf16 rounding of the weights) at any context length with no
+// shared-memory ceiling.  Lane l holds head dims l, l + 32, ... (DPL of
+// them: 4 up to Dh 128, 8 up to Dh 256); lanes past Dh hold zeros.  The
+// two layouts share this kernel and differ only in the slot address, so
+// they sum in one order: the same bytes give the same bits through
+// either.
+//
+// Per-row limits (q_len > 1): the block's rows differ in limit by at most
+// q_len - 1 slots.  Each pass walks the slots below the least limit with
+// no check, then the few up to the largest, where a row whose limit is
+// passed keeps its state (a select, not a masked term: a zero term would
+// still move the compensated sum, and 0 * v turns a NaN in a rejected
+// draft's or a trash page's bytes into the sum).  A warp visits its slots
+// (t % 4) in the same order whatever the limits, and both stretches
+// compute a row's update with the same operations, so each row sums in
+// the order of a q_len = 1 launch at its own limit: draft j's row is
+// bitwise that launch's output.  At q_len = 1 every limit is the same and
+// the checked stretch is empty.
 #include "common.cuh"
 
 namespace da {
@@ -47,7 +66,7 @@ __device__ __forceinline__ float kv_elem(const void* base, size_t i) {
 }
 
 // PAGED: T is the page size and NP the pages per slot; contiguous: T is C
-// and NP is 1.
+// and NP is 1.  R = q_len * G.
 template <bool FP8, bool PAGED, int DPL>
 __global__ void __launch_bounds__(da::WARPS * 32)
 decode_attn_kernel(const float* __restrict__ q, const void* __restrict__ k,
@@ -56,8 +75,8 @@ decode_attn_kernel(const float* __restrict__ q, const void* __restrict__ k,
                    const float* __restrict__ v_scale,
                    const int* __restrict__ n_valid,
                    const int* __restrict__ block_table,
-                   float* __restrict__ out, int KV, int R, int Dh, int T,
-                   int NP, float sm_scale) {
+                   float* __restrict__ out, int KV, int R, int G, int Dh,
+                   int T, int NP, float sm_scale) {
   __shared__ float qs[da::ROWS][DPL * 32];
   __shared__ float stat[da::WARPS][da::ROWS];
   __shared__ float red[da::WARPS][da::ROWS][DPL * 32];
@@ -70,8 +89,28 @@ decode_attn_kernel(const float* __restrict__ q, const void* __restrict__ k,
     qs[r][d] = (r < rows && d < Dh) ? bf16_round(qb[r * Dh + d]) : 0.f;
   }
   __syncthreads();
-  const int n = min(n_valid[b], NP * T);
+  // each row's limit (the block's rows past R, never stored, take the
+  // last draft's), and the least and largest of them
+  const int q_len = R / G;
+  int lim[da::ROWS];
+  int lo = NP * T, hi = 0;
+#pragma unroll
+  for (int r = 0; r < da::ROWS; ++r) {
+    const int j = min((r0 + r) / G, q_len - 1);
+    lim[r] = min(n_valid[b] - (q_len - 1 - j), NP * T);
+    lo = min(lo, lim[r]);
+    hi = max(hi, lim[r]);
+  }
   const int* bt = PAGED ? block_table + static_cast<size_t>(b) * NP : nullptr;
+
+  // visit(t, live) for this warp's slots t below hi: below lo every row
+  // is live, above it live(r) tests row r's limit
+  auto walk = [&](auto&& visit) {
+    int t = warp;
+    for (; t < lo; t += da::WARPS) visit(t, [](int) { return true; });
+    for (; t < hi; t += da::WARPS)
+      visit(t, [&](int r) { return t < lim[r]; });
+  };
 
   // score of slot t for every row, in every lane; also hands back the
   // slot's flat index for the scale arrays
@@ -103,13 +142,14 @@ decode_attn_kernel(const float* __restrict__ q, const void* __restrict__ k,
   float mx[da::ROWS];
 #pragma unroll
   for (int r = 0; r < da::ROWS; ++r) mx[r] = -__int_as_float(0x7f800000);  // -inf
-  for (int t = warp; t < n; t += da::WARPS) {
+  walk([&](int t, auto live) {
     float s[da::ROWS];
     size_t slot;
     scores(t, s, slot);
 #pragma unroll
-    for (int r = 0; r < da::ROWS; ++r) mx[r] = fmaxf(mx[r], s[r]);
-  }
+    for (int r = 0; r < da::ROWS; ++r)
+      mx[r] = live(r) ? fmaxf(mx[r], s[r]) : mx[r];
+  });
   if (lane == 0)
 #pragma unroll
     for (int r = 0; r < da::ROWS; ++r) stat[warp][r] = mx[r];
@@ -129,7 +169,7 @@ decode_attn_kernel(const float* __restrict__ q, const void* __restrict__ k,
   float sum[da::ROWS], comp[da::ROWS];
 #pragma unroll
   for (int r = 0; r < da::ROWS; ++r) sum[r] = comp[r] = 0.f;
-  for (int t = warp; t < n; t += da::WARPS) {
+  walk([&](int t, auto live) {
     float s[da::ROWS];
     size_t slot;
     scores(t, s, slot);
@@ -137,10 +177,12 @@ decode_attn_kernel(const float* __restrict__ q, const void* __restrict__ k,
     for (int r = 0; r < da::ROWS; ++r) {
       const float y = expf(s[r] - mx[r]) - comp[r];
       const float u = sum[r] + y;
-      comp[r] = (u - sum[r]) - y;
-      sum[r] = u;
+      const float c = (u - sum[r]) - y;
+      const bool ok = live(r);
+      comp[r] = ok ? c : comp[r];
+      sum[r] = ok ? u : sum[r];
     }
-  }
+  });
   if (lane == 0)
 #pragma unroll
     for (int r = 0; r < da::ROWS; ++r) stat[warp][r] = sum[r];
@@ -158,7 +200,7 @@ decode_attn_kernel(const float* __restrict__ q, const void* __restrict__ k,
   for (int r = 0; r < da::ROWS; ++r)
 #pragma unroll
     for (int i = 0; i < DPL; ++i) acc[r][i] = 0.f;
-  for (int t = warp; t < n; t += da::WARPS) {
+  walk([&](int t, auto live) {
     float s[da::ROWS];
     size_t slot;
     scores(t, s, slot);
@@ -175,10 +217,14 @@ decode_attn_kernel(const float* __restrict__ q, const void* __restrict__ k,
       float w = expf(s[r] - mx[r]) / sum[r];
       if constexpr (FP8) w *= vs;
       w = bf16_round(w);
+      const bool ok = live(r);
 #pragma unroll
-      for (int i = 0; i < DPL; ++i) acc[r][i] = fmaf(w, vf[i], acc[r][i]);
+      for (int i = 0; i < DPL; ++i) {
+        const float a = fmaf(w, vf[i], acc[r][i]);
+        acc[r][i] = ok ? a : acc[r][i];
+      }
     }
-  }
+  });
 #pragma unroll
   for (int r = 0; r < da::ROWS; ++r)
 #pragma unroll
@@ -197,23 +243,25 @@ template <bool FP8, bool PAGED>
 static void launch_dpl(dim3 grid, cudaStream_t st, const float* q,
                        const void* k, const void* v, const float* ks,
                        const float* vs, const int* nv, const int* bt,
-                       float* o, int KV, int R, int Dh, int T, int NP,
-                       float sm_scale) {
+                       float* o, int KV, int R, int G, int Dh, int T,
+                       int NP, float sm_scale) {
   if (Dh <= 128)
     decode_attn_kernel<FP8, PAGED, 4><<<grid, da::WARPS * 32, 0, st>>>(
-        q, k, v, ks, vs, nv, bt, o, KV, R, Dh, T, NP, sm_scale);
+        q, k, v, ks, vs, nv, bt, o, KV, R, G, Dh, T, NP, sm_scale);
   else
     decode_attn_kernel<FP8, PAGED, 8><<<grid, da::WARPS * 32, 0, st>>>(
-        q, k, v, ks, vs, nv, bt, o, KV, R, Dh, T, NP, sm_scale);
+        q, k, v, ks, vs, nv, bt, o, KV, R, G, Dh, T, NP, sm_scale);
 }
 
 template <bool PAGED>
 static int launch(const void* q, const void* k, const void* v,
                   const void* k_scale, const void* v_scale,
                   const void* n_valid, const void* block_table, void* out,
-                  int B, int KV, int R, int Dh, int T, int NP,
+                  int B, int KV, int R, int q_len, int Dh, int T, int NP,
                   float sm_scale, int fp8, void* stream) {
-  if (Dh > 256) return static_cast<int>(cudaErrorInvalidValue);
+  if (Dh > 256 || q_len < 1 || R % q_len)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int G = R / q_len;
   dim3 grid(B, KV, (R + da::ROWS - 1) / da::ROWS);
   auto st = static_cast<cudaStream_t>(stream);
   auto qf = static_cast<const float*>(q);
@@ -223,11 +271,11 @@ static int launch(const void* q, const void* k, const void* v,
   auto bt = static_cast<const int*>(block_table);
   auto o = static_cast<float*>(out);
   if (fp8)
-    launch_dpl<true, PAGED>(grid, st, qf, k, v, ks, vs, nv, bt, o, KV, R, Dh,
-                            T, NP, sm_scale);
+    launch_dpl<true, PAGED>(grid, st, qf, k, v, ks, vs, nv, bt, o, KV, R, G,
+                            Dh, T, NP, sm_scale);
   else
     launch_dpl<false, PAGED>(grid, st, qf, k, v, ks, vs, nv, bt, o, KV, R,
-                             Dh, T, NP, sm_scale);
+                             G, Dh, T, NP, sm_scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -236,18 +284,19 @@ extern "C" int decode_attn_paged_launch(const void* q, const void* k,
                                         const void* v_scale,
                                         const void* n_valid,
                                         const void* block_table, void* out,
-                                        int B, int KV, int R, int Dh, int T,
-                                        int NP, float sm_scale, int fp8,
+                                        int B, int KV, int R, int q_len,
+                                        int Dh, int T, int NP,
+                                        float sm_scale, int fp8,
                                         void* stream) {
   return launch<true>(q, k, v, k_scale, v_scale, n_valid, block_table, out,
-                      B, KV, R, Dh, T, NP, sm_scale, fp8, stream);
+                      B, KV, R, q_len, Dh, T, NP, sm_scale, fp8, stream);
 }
 
 extern "C" int decode_attn_launch(const void* q, const void* k, const void* v,
                                   const void* k_scale, const void* v_scale,
                                   const void* n_valid, void* out, int B,
-                                  int KV, int R, int Dh, int C,
+                                  int KV, int R, int q_len, int Dh, int C,
                                   float sm_scale, int fp8, void* stream) {
   return launch<false>(q, k, v, k_scale, v_scale, n_valid, nullptr, out, B,
-                       KV, R, Dh, C, 1, sm_scale, fp8, stream);
+                       KV, R, q_len, Dh, C, 1, sm_scale, fp8, stream);
 }

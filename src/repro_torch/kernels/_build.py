@@ -56,9 +56,9 @@ SIGNATURES = {
                            _FLOAT, _FLOAT, _VOID],
     "decode_attn_paged_launch": [_VOID, _VOID, _VOID, _VOID, _VOID, _VOID,
                                  _VOID, _VOID, _INT, _INT, _INT, _INT, _INT,
-                                 _INT, _FLOAT, _INT, _VOID],
+                                 _INT, _INT, _FLOAT, _INT, _VOID],
     "decode_attn_launch": [_VOID, _VOID, _VOID, _VOID, _VOID, _VOID, _VOID,
-                           _INT, _INT, _INT, _INT, _INT, _FLOAT, _INT,
+                           _INT, _INT, _INT, _INT, _INT, _INT, _FLOAT, _INT,
                            _VOID],
 }
 

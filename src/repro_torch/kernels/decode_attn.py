@@ -1,8 +1,12 @@
 """Decode attention: the wrappers of the Hopper kernel
 ``csrc/decode_attn.cu`` and their plain PyTorch versions.
 
-One query position per slot (q_len = 1): q (B, KV, R, Dh) with R the
-query rows of each kv head, against
+q (B, KV, R, Dh) holds R = q_len · G query rows of each kv head,
+draft-major: q_len = 1 is decode (one query position per slot), q_len
+= k the speculative verify step, whose row r belongs to draft j = r // G
+and sees the slots below ``min(n_valid[b] - (q_len-1-j), C)`` (n_valid
+is the depth after the step's write, so draft j sees its own position
+and the earlier drafts', not the later ones').  They run against
 
 - a contiguous (ring) cache (``decode_attn``): k/v (B, KV, C, Dh) in
   e4m3 (with (B, KV, C) f32 scales) or bf16 (scales None); slot t of row
@@ -17,10 +21,13 @@ query rows of each kv head, against
   ``decode_attn_paged_pallas``; the plain version follows
   ``repro.kernels.ref.decode_attn_paged_ref``.
 
-n_valid is (B,) int32 with every entry >= 1; Dh is at most 256.
-Returns (B, KV, R, Dh) f32.  One kernel serves both layouts (only the
-slot address differs), so the same bytes give the same bits through
-either.
+n_valid is (B,) int32 with every entry >= q_len; with q_len > 1 the
+cache must be unwrapped, every entry <= C (both wrappers check, on
+either device).  Dh is at most 256.  Returns (B, KV, R, Dh) f32.  One
+kernel serves both layouts (only the slot address differs), so the same
+bytes give the same bits through either; draft j's rows are bitwise a
+q_len = 1 launch at that draft's limit.  The plain versions take the
+reference's 5-D form, q (B, KV, S, G, Dh) with S = q_len.
 
 A CPU tensor takes the plain version.  A CUDA tensor launches the
 kernel, or raises: there is no fallback.
@@ -39,6 +46,9 @@ MAX_DH = 256
 
 counter = LaunchCounter("decode_attn_paged")
 counter_contiguous = LaunchCounter("decode_attn")
+# the q_len > 1 (verify) launches of the same two kernels
+counter_verify = LaunchCounter("decode_attn_paged_verify")
+counter_contiguous_verify = LaunchCounter("decode_attn_verify")
 
 
 def gather_pages(pool: torch.Tensor, block_table: torch.Tensor
@@ -56,29 +66,38 @@ def decode_attn_ref(q, k, v, k_scale, v_scale, n_valid, *,
     """Contiguous-cache decode attention: q (B, KV, G, Dh), k/v
     (B, KV, C, Dh), scales (B, KV, C) or None, n_valid (B,).  Scales
     fold into the score (K) and the combine weight (V); slots
-    ``>= min(n_valid[b], C)`` are masked."""
+    ``>= min(n_valid[b], C)`` are masked.
+
+    A 5-D q (B, KV, S, G, Dh) is the verify form: draft j sees the
+    slots below ``min(n_valid[b] - (S-1-j), C)``; returns
+    (B, KV, S, G, Dh).  Both forms take the reference's 5-D einsum
+    order, a 4-D q as one draft."""
     c = k.shape[2]
-    scores = einsum("bkgd,bktd->bkgt", q, k) * sm_scale
+    q5 = q if q.dim() == 5 else q[:, :, None]
+    scores = einsum("bksgd,bktd->bksgt", q5, k) * sm_scale
     if k_scale is not None:
-        scores = scores * k_scale[:, :, None, :]
-    lim = torch.clamp_max(n_valid.to(torch.int64), c)
-    valid = torch.arange(c, device=q.device)[None, :] < lim[:, None]
-    scores = torch.where(valid[:, None, None, :], scores,
+        scores = scores * k_scale[:, :, None, None, :]
+    back = torch.arange(q5.shape[2] - 1, -1, -1, device=q.device)
+    lim = torch.clamp_max(n_valid.to(torch.int64)[:, None] - back[None], c)
+    valid = torch.arange(c, device=q.device)[None, None] < lim[:, :, None]
+    scores = torch.where(valid[:, None, :, None, :], scores,
                          torch.tensor(NEG_INF, dtype=scores.dtype,
                                       device=scores.device))
     m = scores.amax(dim=-1, keepdim=True)
     p = torch.exp(scores - m)
     w = p / p.sum(dim=-1, keepdim=True)
     if v_scale is not None:
-        w = w * v_scale[:, :, None, :]
-    return einsum("bkgt,bktd->bkgd", w, v)
+        w = w * v_scale[:, :, None, None, :]
+    out = einsum("bksgt,bktd->bksgd", w, v)
+    return out if q.dim() == 5 else out[:, :, 0]
 
 
 def decode_attn_paged_plain(q, k, v, k_scale, v_scale, n_valid,
                             block_table, *, sm_scale: float
                             ) -> torch.Tensor:
     """Gather each slot's pages into the contiguous layout, then the
-    contiguous version (as ``repro.kernels.ref.decode_attn_paged_ref``)."""
+    contiguous version (as ``repro.kernels.ref.decode_attn_paged_ref``);
+    q 4-D or the 5-D verify form."""
     kg, vg = gather_pages(k, block_table), gather_pages(v, block_table)
     ksg = None if k_scale is None else gather_pages(k_scale, block_table)
     vsg = None if v_scale is None else gather_pages(v_scale, block_table)
@@ -86,10 +105,16 @@ def decode_attn_paged_plain(q, k, v, k_scale, v_scale, n_valid,
                            sm_scale=sm_scale)
 
 
-def _check(name, q, k, v, k_scale, v_scale, n_valid, slots_shape):
+def _check(name, q, k, v, k_scale, v_scale, n_valid, slots_shape, q_len,
+           cap):
     """Shapes and types both layouts share; ``slots_shape`` is the
-    scales' shape, (P, KV, T) or (B, KV, C)."""
-    b, kvh, _, dh = q.shape
+    scales' shape, (P, KV, T) or (B, KV, C), and ``cap`` the slots a
+    row addresses (C or NP·T).  With q_len > 1, every n_valid entry
+    must lie in [q_len, cap]: checked here on the CPU, and on the card
+    by an assert on the device that does not wait for it."""
+    b, kvh, rows, dh = q.shape
+    if q_len < 1 or rows % q_len:
+        raise ValueError(f"{name}: {rows} query rows, q_len {q_len}")
     if k.shape != v.shape or k.shape[1] != kvh or k.shape[3] != dh:
         raise ValueError(f"{name}: q {tuple(q.shape)}, cache "
                          f"{tuple(k.shape)} / {tuple(v.shape)}")
@@ -105,6 +130,27 @@ def _check(name, q, k, v, k_scale, v_scale, n_valid, slots_shape):
         raise TypeError(f"{name}: unscaled cache {k.dtype}")
     if n_valid.shape != (b,):
         raise ValueError(f"{name}: n_valid {tuple(n_valid.shape)}")
+    if q_len > 1:
+        ok = ((n_valid >= q_len) & (n_valid <= cap)).all()
+        if n_valid.device.type == "cpu":
+            if not bool(ok):
+                raise ValueError(f"{name}: q_len {q_len} needs every "
+                                 f"n_valid in [{q_len}, {cap}] (an "
+                                 f"unwrapped cache), got "
+                                 f"{n_valid.tolist()}")
+        else:
+            torch._assert_async(ok)
+
+
+def _plain(fn, q, q_len, *args, sm_scale):
+    """The plain version on the 4-D rows: q_len > 1 runs the 5-D form
+    on (B, KV, q_len, R/q_len, Dh) and flattens the result back."""
+    if q_len == 1:
+        return fn(q, *args, sm_scale=sm_scale)
+    b, kvh, rows, dh = q.shape
+    out = fn(q.reshape(b, kvh, q_len, rows // q_len, dh), *args,
+             sm_scale=sm_scale)
+    return out.reshape(b, kvh, rows, dh)
 
 
 def _launch_checks(name, q, tensors):
@@ -121,18 +167,27 @@ def _launch_checks(name, q, tensors):
 
 
 def decode_attn(q, k, v, k_scale, v_scale, n_valid, *,
-                sm_scale: float) -> torch.Tensor:
-    """(B, KV, R, Dh) f32 attention output over a contiguous cache (see
-    module docstring)."""
+                sm_scale: float, q_len: int = 1) -> torch.Tensor:
+    """(B, KV, R, Dh) f32 attention output over a contiguous cache, R =
+    q_len · G rows (see module docstring)."""
     b, kvh, rows, dh = q.shape
     _check("decode_attn", q, k, v, k_scale, v_scale, n_valid,
-           (b, kvh, k.shape[2]))
+           (b, kvh, k.shape[2]), q_len, k.shape[2])
     if k.shape[0] != b:
         raise ValueError(f"decode_attn: q {tuple(q.shape)}, cache "
                          f"{tuple(k.shape)}")
     if q.device.type == "cpu":
-        return decode_attn_ref(q, k, v, k_scale, v_scale, n_valid,
-                               sm_scale=sm_scale)
+        return _plain(decode_attn_ref, q, q_len, k, v, k_scale, v_scale,
+                      n_valid, sm_scale=sm_scale)
+    return launch(q, k, v, k_scale, v_scale, n_valid, sm_scale=sm_scale,
+                  q_len=q_len)
+
+
+def launch(q, k, v, k_scale, v_scale, n_valid, *, sm_scale: float,
+           q_len: int = 1) -> torch.Tensor:
+    """``decode_attn``'s launch on the card, without its shape and depth
+    checks (``_check``): for operands that passed them."""
+    b, kvh, rows, dh = q.shape
     fp8 = k_scale is not None
     tensors = [k, v, n_valid] + ([k_scale, v_scale] if fp8 else [])
     _launch_checks("decode_attn", q, tensors)
@@ -145,26 +200,36 @@ def decode_attn(q, k, v, k_scale, v_scale, n_valid, *,
             qf.data_ptr(), k.data_ptr(), v.data_ptr(),
             k_scale.data_ptr() if fp8 else None,
             v_scale.data_ptr() if fp8 else None,
-            n_valid.data_ptr(), out.data_ptr(), b, kvh, rows, dh,
+            n_valid.data_ptr(), out.data_ptr(), b, kvh, rows, q_len, dh,
             k.shape[2], float(sm_scale), int(fp8), stream)
     check(code, "decode_attn")
-    counter_contiguous.hit()
+    (counter_contiguous if q_len == 1 else counter_contiguous_verify).hit()
     return out
 
 
 def decode_attn_paged(q, k, v, k_scale, v_scale, n_valid, block_table, *,
-                      sm_scale: float) -> torch.Tensor:
-    """(B, KV, R, Dh) f32 attention output over the floating page pool
-    (see module docstring)."""
+                      sm_scale: float, q_len: int = 1) -> torch.Tensor:
+    """(B, KV, R, Dh) f32 attention output over the floating page pool,
+    R = q_len · G rows (see module docstring)."""
     b, kvh, rows, dh = q.shape
-    _check("decode_attn_paged", q, k, v, k_scale, v_scale, n_valid,
-           (k.shape[0], kvh, k.shape[2]))
     if block_table.dim() != 2 or block_table.shape[0] != b:
         raise ValueError(f"decode_attn_paged: block_table "
                          f"{tuple(block_table.shape)}")
+    _check("decode_attn_paged", q, k, v, k_scale, v_scale, n_valid,
+           (k.shape[0], kvh, k.shape[2]), q_len,
+           block_table.shape[1] * k.shape[2])
     if q.device.type == "cpu":
-        return decode_attn_paged_plain(q, k, v, k_scale, v_scale, n_valid,
-                                       block_table, sm_scale=sm_scale)
+        return _plain(decode_attn_paged_plain, q, q_len, k, v, k_scale,
+                      v_scale, n_valid, block_table, sm_scale=sm_scale)
+    return launch_paged(q, k, v, k_scale, v_scale, n_valid, block_table,
+                        sm_scale=sm_scale, q_len=q_len)
+
+
+def launch_paged(q, k, v, k_scale, v_scale, n_valid, block_table, *,
+                 sm_scale: float, q_len: int = 1) -> torch.Tensor:
+    """``decode_attn_paged``'s launch on the card, without its shape and
+    depth checks (``_check``): for operands that passed them."""
+    b, kvh, rows, dh = q.shape
     fp8 = k_scale is not None
     tensors = [k, v, n_valid, block_table] + \
         ([k_scale, v_scale] if fp8 else [])
@@ -179,8 +244,8 @@ def decode_attn_paged(q, k, v, k_scale, v_scale, n_valid, block_table, *,
             k_scale.data_ptr() if fp8 else None,
             v_scale.data_ptr() if fp8 else None,
             n_valid.data_ptr(), block_table.data_ptr(), out.data_ptr(),
-            b, kvh, rows, dh, k.shape[2], block_table.shape[1],
+            b, kvh, rows, q_len, dh, k.shape[2], block_table.shape[1],
             float(sm_scale), int(fp8), stream)
     check(code, "decode_attn_paged")
-    counter.hit()
+    (counter if q_len == 1 else counter_verify).hit()
     return out

@@ -204,15 +204,14 @@ def pt_matmul(xq: PerTensorQ, wq: PerTensorQ,
 
 
 def _decode_rows(q, n_valid, sm_scale):
-    """Shared front of both decode routes: refuse the batched-query
-    form, default sm_scale, broadcast a scalar or (B,) n_valid to (B,)
-    int32, and on the CPU pad G to the 8-row tile (the kernel takes the
-    true G rows)."""
-    if q.dim() != 4:
-        raise NotImplementedError(
-            "batched-query (speculative verify) decode attention: "
-            "ROADMAP queue 1 item 9")
-    b, _, g, dh = q.shape
+    """Shared front of both decode routes: default sm_scale, broadcast a
+    scalar or (B,) n_valid to (B,) int32, and flatten q to the kernel's
+    (B, KV, S·G', Dh) rows, draft-major, where S is 1 for a 4-D q and
+    the draft count of a 5-D (B, KV, S, G, Dh) one.  On the card G' is
+    the true G (no padded copy); on the CPU each draft's G rows are
+    padded to the 8-row tile, as the reference pads them."""
+    b, kvh, g, dh = q.shape[0], q.shape[1], q.shape[-2], q.shape[-1]
+    s_len = q.shape[2] if q.dim() == 5 else 1
     nv = n_valid.to(torch.int32).reshape(-1)
     if nv.shape[0] not in (1, b):
         raise ValueError(f"n_valid {tuple(n_valid.shape)}: expected (), "
@@ -220,30 +219,41 @@ def _decode_rows(q, n_valid, sm_scale):
     nv = nv.expand(b).contiguous()
     gp = g if q.device.type != "cpu" else _ceil_to(max(g, 8), 8)
     qp = F.pad(q, (0, 0, 0, gp - g)) if gp != g else q
-    return qp, nv, g, dh ** -0.5 if sm_scale is None else sm_scale
+    qp = qp.reshape(b, kvh, s_len * gp, dh)
+    sm = dh ** -0.5 if sm_scale is None else sm_scale
+
+    def unflatten(out):
+        out = out.reshape(b, kvh, s_len, gp, dh)[:, :, :, :g]
+        return out if q.dim() == 5 else out[:, :, 0]
+
+    return qp, nv, s_len, sm, unflatten
 
 
 def decode_attention(q, k, v, k_scale, v_scale, n_valid, *,
                      sm_scale: float | None = None) -> torch.Tensor:
-    """Single-step decode attention over the contiguous (ring) cache.
-    q (B, KV, G, Dh); k/v (B, KV, C, Dh) and scales as in
+    """Decode attention over the contiguous (ring) cache.  q
+    (B, KV, G, Dh); k/v (B, KV, C, Dh) and scales as in
     ``kernels.decode_attn``; n_valid the cache ``idx``, a scalar shared
     by every row or (B,) per-slot depths.  Returns (B, KV, G, Dh) f32.
-    The kernel takes the G rows as they are; the plain path pads them
-    to the 8-row tile and slices back, as the reference does."""
-    qp, nv, g, sm = _decode_rows(q, n_valid, sm_scale)
-    out = decode_attn(qp, k, v, k_scale, v_scale, nv, sm_scale=sm)
-    return out[:, :, :g]
+
+    A 5-D q (B, KV, S, G, Dh) is the speculative verify form: S draft
+    queries per row; n_valid is the depth after the S-token write
+    (every entry >= S, the cache unwrapped) and draft j sees the slots
+    below ``min(n_valid[b] - (S-1-j), C)``.  Returns (B, KV, S, G, Dh)
+    f32; the S·G rows share one read of the cache."""
+    qp, nv, s_len, sm, unflatten = _decode_rows(q, n_valid, sm_scale)
+    return unflatten(decode_attn(qp, k, v, k_scale, v_scale, nv,
+                                 sm_scale=sm, q_len=s_len))
 
 
 def decode_attention_paged(q, k, v, k_scale, v_scale, n_valid,
                            block_table, *,
                            sm_scale: float | None = None) -> torch.Tensor:
-    """Single-step decode attention over the floating page pool.
-    q (B, KV, G, Dh); the pool and table as in ``kernels.decode_attn``.
-    Returns (B, KV, G, Dh) f32; G rows as ``decode_attention``."""
-    qp, nv, g, sm = _decode_rows(q, n_valid, sm_scale)
-    out = decode_attn_paged(qp, k, v, k_scale, v_scale, nv,
-                            block_table.to(torch.int32).contiguous(),
-                            sm_scale=sm)
-    return out[:, :, :g]
+    """Decode attention over the floating page pool: q (B, KV, G, Dh) or
+    the 5-D verify form, as ``decode_attention``; the pool and table as
+    in ``kernels.decode_attn``."""
+    qp, nv, s_len, sm, unflatten = _decode_rows(q, n_valid, sm_scale)
+    return unflatten(decode_attn_paged(
+        qp, k, v, k_scale, v_scale, nv,
+        block_table.to(torch.int32).contiguous(), sm_scale=sm,
+        q_len=s_len))

@@ -6,7 +6,8 @@ on identity rows with the whole-prompt prefill, its prompts at or past
 the 4096-token window so that every decode step reads a full ring),
 serves one untraced warm-up trace, then serves a second trace under
 ``torch.profiler`` with every model step inside a ``decode_step``,
-``prefill_chunk`` or ``prefill`` (whole-prompt) span.  From the profiler's Chrome trace it reports,
+``prefill_chunk``, ``prefill`` (whole-prompt) or, under
+``REPRO_SPEC_DECODE=1``, ``verify_step`` span.  From the profiler's Chrome trace it reports,
 per kind of step: the host span of the step function, the card's busy
 time for the work launched in it (the union of its kernels' and copies'
 intervals), the launches, and the card time by kernel; and for the
@@ -18,7 +19,8 @@ whole traced run the card's idle share.
       --arch h2o-danube-3-4b --trace build/ring_trace.json
 
 The profiler adds host time to every launch, so the traced steps are
-slower than the warm-up's; both mean decode steps are printed.
+slower than the warm-up's; both mean decode (and verify) steps are
+printed.
 """
 
 from __future__ import annotations
@@ -36,7 +38,7 @@ from repro_torch.launch.serve import make_requests, random_params
 from repro_torch.serving import Engine, Request
 
 GPU_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
-SPANS = ("decode_step", "prefill_chunk", "prefill")
+SPANS = ("decode_step", "prefill_chunk", "prefill", "verify_step")
 # the port's own kernels (csrc/*.cu), by the name the trace gives them
 PORT_KERNELS = ("mx_gemm_kernel", "fused_quant_gemm_kernel",
                 "fused_quant_gemm_tiled_kernel", "mx_dw_gemm_kernel",
@@ -151,7 +153,7 @@ def main(argv=None):
         warm = _ring_requests(cfg, 4, 4, seed=0)
         reqs = _ring_requests(cfg, 4, 12, seed=1)
     del params
-    step, prefill = eng.decode, eng.prefill
+    step, prefill, verify = eng.decode, eng.prefill, eng.verify
 
     def spanned(params, caches, toks):
         name = SPANS[0] if toks.shape[1] == 1 else SPANS[1]
@@ -162,10 +164,26 @@ def main(argv=None):
         with torch.profiler.record_function(SPANS[2]):
             return prefill(*a)
 
+    def spanned_verify(*a):
+        with torch.profiler.record_function(SPANS[3]):
+            return verify(*a)
+
     eng.decode, eng.prefill = spanned, spanned_prefill
+    if eng.spec:
+        eng.verify = spanned_verify
+
+    def step_totals():
+        return {"decode": (eng.decode_seconds, eng.decode_steps),
+                "verify": (eng.verify_seconds, eng.sched.verify_steps)}
+
+    def mean_ms(before, after):
+        return {kind: 1e3 * (after[kind][0] - before[kind][0])
+                / (after[kind][1] - before[kind][1])
+                for kind in after if after[kind][1] > before[kind][1]}
+
+    t_start = step_totals()
     eng.run(warm)
-    warm_step = eng.decode_seconds / eng.decode_steps
-    eng.decode_seconds, eng.decode_steps = 0.0, 0
+    t_warm = step_totals()
     for r in reqs:
         r.rid += len(warm)
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -176,15 +194,17 @@ def main(argv=None):
     prof.export_chrome_trace(args.trace)
     with open(args.trace) as f:
         report = summarize(json.load(f))
-    untraced = 1e3 * warm_step
-    report["mean_decode_step_ms"] = {
-        "untraced": untraced,
-        "traced": 1e3 * eng.decode_seconds / eng.decode_steps}
-    # kernel durations do not depend on the host, so the traced card
-    # time over the untraced step reads the untraced step's idle share
-    if "decode_step" in report and untraced > 0:
-        report["decode_card_idle_share_untraced"] = (
-            1.0 - report["decode_step"]["card_busy_ms"] / untraced)
+    untraced = mean_ms(t_start, t_warm)
+    traced = mean_ms(t_warm, step_totals())
+    for kind in untraced:
+        report[f"mean_{kind}_step_ms"] = {"untraced": untraced[kind],
+                                          "traced": traced.get(kind)}
+        # kernel durations do not depend on the host, so the traced card
+        # time over the untraced step reads the untraced step's idle share
+        if f"{kind}_step" in report and untraced[kind] > 0:
+            report[f"{kind}_card_idle_share_untraced"] = (
+                1.0 - report[f"{kind}_step"]["card_busy_ms"]
+                / untraced[kind])
     print(json.dumps(report, indent=1))
     return report
 

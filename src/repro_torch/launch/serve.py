@@ -8,6 +8,8 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch h2o-danube-3-4b \\
       --smoke --device cpu --legacy
+  REPRO_SPEC_DECODE=1 PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --smoke --device cpu             # speculative verify steps
 """
 
 from __future__ import annotations
@@ -180,8 +182,15 @@ def main(argv=None):
                     device=device)
     print(f"path: paged continuous-batching engine on {device} "
           f"({'float' if engine.float_pages else 'identity'} placement, "
-          f"{'chunked' if engine.chunked else 'whole-prompt'} prefill)")
+          f"{'chunked' if engine.chunked else 'whole-prompt'} prefill"
+          f"{', speculative verify' if engine.spec else ''})")
     engine.run(reqs)
+    if engine.spec:
+        st = engine.stats()
+        rate = st["spec_accept_rate"]
+        print(f"speculative verify: {st['spec_verify_steps']} verify steps, "
+              f"{st['decode_steps']} plain decode steps, accept rate "
+              f"{'n/a' if rate is None else f'{rate:.3f}'}")
     return engine
 
 

@@ -10,6 +10,12 @@ Modes:
            chunked-prefill step -- S prompt tokens written at the
            slot's depth, attending the resident history plus an
            in-chunk causal mask.
+  verify   the speculative verify step: S = k tokens per slot (the last
+           committed token and k - 1 drafts) written at the slot's depth,
+           then attended through the decode kernel's batched-query form
+           (draft j sees its own position and the earlier drafts', as
+           the j-th of k sequential decode steps would).  S == 1 is
+           decode.  Unwrapped caches only (the engine's gate).
 
 The cache is updated IN PLACE: where the reference donates the caches
 to its jitted step and gets new arrays back, ``_cache_write`` writes
@@ -152,6 +158,26 @@ def _decode_attention(cfg, q, cache: KVCache, n_valid):
             qg, cache.k, cache.v, cache.k_scale, cache.v_scale, n_valid,
             sm_scale=dh ** -0.5)
     return out.reshape(b, 1, h, dh).to(q.dtype)
+
+
+def _verify_attention(cfg, q, cache: KVCache, n_valid):
+    """q: (B, S, H, Dh), S draft queries per slot, against the cache the
+    drafts were just written into; ``n_valid`` is the depth after that
+    write.  The (B, KV, S, G, Dh) regroup (head h of draft j is kv head
+    h // G, row h % G) takes the 5-D form of the decode dispatch, so the
+    history is read in place, never dequantized."""
+    b, s, h, dh = q.shape
+    kvh = cache.k.shape[1]
+    qg = q.reshape(b, s, kvh, h // kvh, dh).transpose(1, 2)
+    if cache.block_table is not None:
+        out = dispatch.decode_attention_paged(
+            qg, cache.k, cache.v, cache.k_scale, cache.v_scale, n_valid,
+            cache.block_table, sm_scale=dh ** -0.5)
+    else:
+        out = dispatch.decode_attention(
+            qg, cache.k, cache.v, cache.k_scale, cache.v_scale, n_valid,
+            sm_scale=dh ** -0.5)
+    return out.transpose(1, 2).reshape(b, s, h, dh).to(q.dtype)
 
 
 def _bytes(t: torch.Tensor) -> torch.Tensor:
@@ -322,11 +348,14 @@ def attention(cfg, p, x, positions, qcfg: QuantConfig,
     """Returns (out, new_cache); see the module docstring for modes.
     ``prefill`` writes into ``cache``, a fresh contiguous cache
     (``transformer.init_caches``), from position 0."""
-    if mode == "decode":
+    if mode in ("decode", "verify"):
         q, k_new, v_new = _project_qkv(cfg, p, x, positions, qcfg)
         if x.shape[1] == 1:
             new_cache = _cache_write(cfg, cache, k_new, v_new)
             out = _decode_attention(cfg, q, new_cache, new_cache.idx)
+        elif mode == "verify":
+            new_cache = _cache_write(cfg, cache, k_new, v_new)
+            out = _verify_attention(cfg, q, new_cache, new_cache.idx)
         else:
             pos0 = cache.idx
             new_cache = _cache_write(cfg, cache, k_new, v_new)
@@ -337,8 +366,7 @@ def attention(cfg, p, x, positions, qcfg: QuantConfig,
         new_cache = (_cache_write(cfg, cache, k, v) if mode == "prefill"
                      else None)
     else:
-        raise NotImplementedError(
-            f"attention mode {mode!r}: ROADMAP queue 1 item 9 (verify)")
+        raise ValueError(f"attention mode {mode!r}")
     y = dense_general(out.reshape(*out.shape[:-2], -1), QTflat(p["wo"]),
                       qcfg)
     return y, new_cache

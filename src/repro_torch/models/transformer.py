@@ -164,6 +164,13 @@ def chunk_prefill_supported(cfg, max_len: int) -> bool:
     return attn_mod.cache_len(cfg, max_len) == max_len
 
 
+def spec_verify_supported(cfg, max_len: int) -> bool:
+    """The speculative verify step writes k positions at absolute depths
+    and a rejection truncates the depth: the same gate as chunked
+    prefill (an unwrapped cache, C == max_len)."""
+    return chunk_prefill_supported(cfg, max_len)
+
+
 def init_paged_pools(cfg, max_len: int, num_pages: int, page_size: int,
                      device) -> dict:
     """Floating-page pools for every segment: payloads stacked over the
@@ -226,14 +233,15 @@ def forward(cfg, qcfg: QuantConfig, params, tokens: torch.Tensor,
 
     tokens (B, S).  ``train`` runs without a cache, under autograd;
     ``prefill`` writes the prompt's K/V into fresh contiguous caches
-    (``init_caches``) from position 0; ``decode`` reads the depths from
-    the caches' ``idx`` (a scalar or one per slot) for positions.  The
-    caches are written in place and come back with ``idx`` advanced by
-    S."""
+    (``init_caches``) from position 0; ``decode`` and ``verify`` (S
+    draft tokens per slot, attended through the decode kernel) read the
+    depths from the caches' ``idx`` (a scalar or one per slot) for
+    positions.  The caches are written in place and come back with
+    ``idx`` advanced by S."""
     b, s = tokens.shape
     x = embed_tokens(cfg, params["embed"], tokens)
     dev = x.device
-    if mode == "decode":
+    if mode in ("decode", "verify"):
         pos0 = _first_idx(caches)
         positions = torch.arange(s, dtype=torch.int32, device=dev)
         positions = (pos0[:, None] + positions if pos0.dim()
@@ -241,7 +249,7 @@ def forward(cfg, qcfg: QuantConfig, params, tokens: torch.Tensor,
     elif mode in ("train", "prefill"):
         positions = torch.arange(s, dtype=torch.int32, device=dev)
     else:
-        raise NotImplementedError(f"forward mode {mode!r}")
+        raise ValueError(f"forward mode {mode!r}")
     remat = cfg.remat and mode == "train" and torch.is_grad_enabled()
 
     aux_total = torch.zeros((), dtype=torch.float32, device=dev)

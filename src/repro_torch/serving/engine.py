@@ -12,7 +12,13 @@ Scheduler v2 (the default; chunked prefill): one engine ``step()`` is
      identity placement); the final chunk's last real logit is the
      first output token, and the request joins the decode batch;
   3. one batched (B, 1) decode over the resident rows, every row at its
-     own depth.
+     own depth; or, with speculative decode (``spec_decode=True`` or
+     ``REPRO_SPEC_DECODE=1``), one (B, k) verify step: up to k - 1
+     draft tokens per row from the draft source (``NgramDraft`` unless
+     another is given), all k positions through one forward over the
+     cache, and per row the longest draft prefix that matches the
+     model's own argmax committed, plus the model's next token.  Greedy
+     output is token for token that of plain decode.
 
 The v1 path (``REPRO_CHUNKED_PREFILL=0``, and what an arch chunks
 cannot serve takes without being asked: a windowed ring) prefills each
@@ -29,8 +35,10 @@ finds the pool dry the reference preempts to host, which the port does
 not have yet: size the pool fully backed (the default) and it never
 happens.  Not yet ported, each raising ``NotImplementedError`` when
 reached: preemption swap-to-host and prefix-cache hits with
-copy-on-write (ROADMAP queue 1 item 8), speculative decode (queue 1
-item 9), quant-health telemetry (queue 1 item 12).
+copy-on-write (ROADMAP queue 1 item 8), quant-health telemetry (queue 1
+item 12).  Speculative decode needs the chunked path and an unwrapped
+cache (``spec_verify_supported``); elsewhere (a windowed ring, the v1
+prefill) the flag is inert, as in the reference.
 
 The engine runs on ``device="cuda"`` unless the caller asks for the CPU;
 there it runs the kernels' plain versions.
@@ -50,15 +58,18 @@ from repro_torch.core.runtime_flags import (
     check_serving_env,
     chunked_prefill,
     paged_placement,
+    spec_decode as spec_decode_flag,
 )
 from repro_torch.models.transformer import (
     chunk_prefill_supported,
     init_caches,
     paged_decode_supported,
+    spec_verify_supported,
 )
 from repro_torch.train.steps import (
     make_decode_step,
     make_prefill_step,
+    make_verify_step,
     prequantize_params,
 )
 
@@ -70,6 +81,7 @@ from .paged_cache import (
     SlotCapacityExceeded,
 )
 from .scheduler import Request, Scheduler, SLOTargets
+from .spec import DraftSource, NgramDraft
 
 PROMPT_BUCKET = 16
 CHUNK_TOKENS = 32
@@ -129,6 +141,9 @@ class Engine:
                  eos_id: int | None = None,
                  prefix_cache: bool = False,
                  slo: SLOTargets | None = None,
+                 spec_decode: bool | None = None,
+                 draft: DraftSource | None = None,
+                 spec_k: int = 4,
                  device="cuda"):
         check_serving_env()
         self.device = resolve_device(device)
@@ -173,6 +188,24 @@ class Engine:
                                    page_size=page_size,
                                    num_pages=num_pages, device=self.device)
         self.chunk_tokens = max(1, min(chunk_tokens, self.kv.slot_tokens))
+        # speculative decode (the constructor's argument wins over the
+        # flag) rides on the chunked path: per-slot depths and an
+        # unwrapped cache.  It also needs batch-independent activation
+        # scales (delayed, or the bf16 pipeline): a just-in-time amax
+        # over a (B, k) window would differ from the (B, 1) steps it
+        # replaces.  The port's serving scales are always delayed.
+        self.spec = ((spec_decode if spec_decode is not None
+                      else spec_decode_flag())
+                     and self.chunked
+                     and spec_verify_supported(cfg, max_len)
+                     and (self.act_scales is not None
+                          or cfg.quant.mode == "bf16"))
+        self.draft: DraftSource = draft if draft is not None \
+            else NgramDraft()
+        self.spec_k = max(1, int(spec_k))
+        self.verify = (make_verify_step(cfg, scales=self.scales,
+                                        act_scales=self.act_scales)
+                       if self.spec else None)
         self._staging: _Staging | None = None
         self.prefill_calls = 0
         self.prefill_seconds = 0.0
@@ -180,6 +213,7 @@ class Engine:
         self.chunked_requests = 0
         self.decode_steps = 0
         self.decode_seconds = 0.0
+        self.verify_seconds = 0.0
         self.sched = Scheduler(slo=slo)
         self.requests: dict[int, Request] = {}
 
@@ -228,7 +262,10 @@ class Engine:
         self._retire()
         self._chunk_phase()
         self._retire()          # an attached request may finish at once
-        self._decode_once()
+        if self.spec:
+            self._verify_once()
+        else:
+            self._decode_once()
 
     def _retire(self):
         row = 0
@@ -412,6 +449,77 @@ class Engine:
         for i, rid in enumerate(list(rows)):
             self.sched.on_token(self.requests[rid], int(nxt[i]))
 
+    # -- speculative verify --------------------------------------------
+    def _verify_once(self):
+        """One verify step over the resident rows: propose up to k - 1
+        drafts per row, run all k positions ([last output, drafts...])
+        through one (B, k) forward, and commit per row the longest
+        draft prefix that matches the model's own argmax plus the
+        model's next token.  k is cut so that no row can overrun its
+        ``max_new`` budget or its slot, and the step falls back to
+        ``_decode_once`` when that or an empty proposal round leaves
+        nothing to try."""
+        rows = self.kv.rows
+        if not rows:
+            return
+        reqs = [self.requests[rid] for rid in rows]
+        k = self.sched.draft_len(self.spec_k)
+        for i, r in enumerate(reqs):
+            # a k-step commits up to k tokens and writes k positions
+            k = min(k, r.max_new - len(r.out),
+                    self.kv.slot_tokens - self.kv.lengths[i])
+        props = ([list(self.draft.propose(r, k - 1))[:k - 1]
+                  for r in reqs] if k > 1 else [])
+        if k > 1:
+            k = min(k, 1 + max(len(p) for p in props))
+        if k <= 1:
+            self._decode_once()
+            return
+        feed = np.zeros((len(rows), k), np.int32)
+        n_prop = []
+        for i, r in enumerate(reqs):
+            feed[i, 0] = r.out[-1]
+            p = props[i][:k - 1]
+            n_prop.append(len(p))
+            # an unproposed slot stays 0: it commits only on an argmax
+            # equal to 0, which is then plain decode's token anyway
+            feed[i, 1:1 + len(p)] = p
+        if self.float_pages:
+            # make the whole k-token write window private, then restamp
+            self._grow_or_preempt(
+                lambda: self.kv.prepare_decode(write_tokens=k))
+        t0 = time.perf_counter()
+        logits, self.kv.caches = self.verify(
+            self.params, self.kv.caches, torch.from_numpy(feed).to(
+                self.device))
+        nxt = torch.argmax(logits, dim=-1).cpu().numpy()     # (B, k)
+        self.verify_seconds += time.perf_counter() - t0
+        advs, accepted = [], 0
+        for i, rid in enumerate(list(rows)):
+            req = self.requests[rid]
+            drafts_in, done, j = 0, False, 0
+            # logits[i, j] is the model's prediction after feed[i, :j+1],
+            # the j-th sequential step's: accept while the drafts match
+            while j < k - 1 and int(feed[i, j + 1]) == int(nxt[i, j]):
+                done = self.sched.on_token(req, int(feed[i, j + 1]))
+                drafts_in += 1
+                j += 1
+                if done:
+                    break         # EOS or budget inside the window
+            if not done:
+                # the model's own token at the first mismatch (or past
+                # the window): a verify step always commits one
+                self.sched.on_token(req, int(nxt[i, j]))
+            # the depth advances by the committed tokens whose K/V this
+            # step wrote: out[-1] and the accepted drafts (the new
+            # token's K/V is written by the next step, as in decode)
+            advs.append(drafts_in + (0 if done else 1))
+            accepted += min(drafts_in, n_prop[i])
+        self.kv.commit(advs)
+        # the denominator is the whole (k-1)·B window, so unfilled slots
+        # count as misses and the EMA shortens k
+        self.sched.on_verify((k - 1) * len(rows), accepted)
+
     # -- the serving loop ----------------------------------------------
     def _idle(self) -> bool:
         return not (self.sched.queue or self.kv.rows
@@ -471,6 +579,9 @@ class Engine:
             "decode_steps": self.decode_steps,
             "mean_decode_step_s": (self.decode_seconds / self.decode_steps
                                    if self.decode_steps else None),
+            "mean_verify_step_s": (self.verify_seconds
+                                   / self.sched.verify_steps
+                                   if self.sched.verify_steps else None),
             "page_evictions": al.evictions,
             "peak_pool_pages": al.peak_used,
         })

@@ -519,6 +519,22 @@ class PagedKVCache:
             self.lengths[i] += 1
             self.allocator.grow(owner, self._resident(self.lengths[i]))
 
+    def commit(self, advs) -> None:
+        """Mirror one verify step: row i committed ``advs[i]`` tokens
+        (accepted drafts and the correction token).  The verify step
+        advanced the rows' device idx by the full draft length, so it is
+        restamped from the host lengths: that truncates every rejected
+        draft at once (its bytes stay, past the depth, masked)."""
+        assert len(advs) == len(self.rows)
+        for i, owner in enumerate(self.rows):
+            assert owner is not None, "verify ran with a released row"
+            self.lengths[i] += int(advs[i])
+            self.allocator.grow(owner, self._resident(self.lengths[i]))
+        depth = torch.tensor(self.lengths, dtype=torch.int32,
+                             device=self.device)
+        for c in self._store.values():
+            c.idx[:len(self.rows)] = depth
+
 
 def _pool_insert(pool, one, pages: torch.Tensor, n_new: int) -> None:
     """Scatter the first ``n_new`` pages of a one-row prefill cache into
@@ -704,3 +720,16 @@ class FloatingPageCache:
         for i, owner in enumerate(self.rows):
             assert owner is not None, "decode ran with a released row"
             self.lengths[i] += 1
+
+    def commit(self, advs) -> None:
+        """Mirror one verify step: row i committed ``advs[i]`` tokens
+        (accepted drafts and the correction token).  Only the host
+        lengths move: ``prepare_decode`` restamps the device idx and
+        block tables from them before the next step, so the rejected
+        drafts' bytes past the new depth stay masked until overwritten,
+        and the frontier pages ensured for the verify window stay in the
+        table as the next step's write targets."""
+        assert len(advs) == len(self.rows)
+        for i, owner in enumerate(self.rows):
+            assert owner is not None, "verify ran with a released row"
+            self.lengths[i] += int(advs[i])

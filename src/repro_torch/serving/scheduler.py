@@ -1,9 +1,8 @@
 """Request admission + slot lifecycle for the paged serving engine
-(a copy of ``repro.serving.scheduler``, less what this slice does not
-run: the metrics-registry mirror of ``repro.obs`` waits for
-observability, ROADMAP queue 1 item 12; the speculative-decode
-accept-rate EMA for speculative decode, item 9; the prefix-cache hit
-counts for prefix-hit copy-on-write, item 8).
+(a copy of ``repro.serving.scheduler``, less what the port does not run
+yet: the metrics-registry mirror of ``repro.obs`` waits for
+observability, ROADMAP queue 1 item 12; the prefix-cache hit counts for
+prefix-hit copy-on-write, item 8).
 
 Host-side and model-free by design: the scheduler owns the FIFO
 queue, request state transitions (QUEUED -> RUNNING [-> PREEMPTED ->
@@ -18,7 +17,9 @@ page-exhaustion backpressure keeps it queued, head-of-line FIFO: a
 large stuck request is not overtaken), *how many* prompt chunks to
 interleave this step (``chunk_budget``) and *whom* to swap out when
 the pool runs dry (``pick_victim``), and tells the scheduler *what
-happened* (``on_token``); everything tensor-shaped lives in
+happened* (``on_token``, ``on_verify``); with speculative decode it
+also sets the draft length of the next verify step from an accept-rate
+EMA (``draft_len``).  Everything tensor-shaped lives in
 ``engine``/``paged_cache``.  That split keeps refill order, retirement,
 backpressure and the SLO policies unit-testable without building a
 model.
@@ -112,6 +113,13 @@ class Scheduler:
         self.slo = slo or SLOTargets()
         self.queue: deque[Request] = deque()
         self.all: list[Request] = []
+        # speculative-decode accept-rate EMA: starts optimistic, so the
+        # first verify steps try the full draft length, then follows the
+        # trace
+        self.accept_rate: float = 1.0
+        self.verify_steps: int = 0
+        self.drafted: int = 0
+        self.accepted: int = 0
 
     def submit(self, requests) -> None:
         now = self.clock()
@@ -143,6 +151,28 @@ class Scheduler:
         if hit_stop(req, token):
             req.state = RequestState.FINISHED
         return req.done
+
+    def on_verify(self, proposed: int, accepted: int) -> None:
+        """Record one speculative verify step: ``proposed`` draft tokens
+        were put to the model across the batch and ``accepted`` of them
+        matched its own argmax.  Updates the accept-rate EMA (0.8 · prev
+        + 0.2 · this step: slow enough to ride out one bad window, fast
+        enough to follow a change in the trace)."""
+        self.verify_steps += 1
+        self.drafted += int(proposed)
+        self.accepted += int(accepted)
+        if proposed > 0:
+            self.accept_rate = (0.8 * self.accept_rate
+                                + 0.2 * accepted / proposed)
+
+    def draft_len(self, k_max: int) -> int:
+        """The next verify step's length: ``k_max`` scaled by the
+        accept-rate EMA, at least 2 (a step of 1 proposes nothing, and
+        the EMA could then never recover).  The engine may still cut it
+        to 1 for a budget or capacity, which bypasses this policy."""
+        if k_max <= 2:
+            return max(1, k_max)
+        return max(2, min(k_max, round(k_max * self.accept_rate)))
 
     # -- SLO policy ----------------------------------------------------
     def chunk_budget(self) -> int:
@@ -187,7 +217,8 @@ class Scheduler:
         p50/p99 percentiles ride alongside the means — heavy-traffic
         scheduling is judged on tails, not averages.
 
-        Undefined aggregates (no finished requests) are ``None``, never NaN: the dict must stay valid JSON."""
+        Undefined aggregates (no finished requests, no drafted tokens)
+        are ``None``, never NaN: the dict must stay valid JSON."""
         done = [r for r in self.all if r.done]
         toks = sum(len(r.out) for r in done)
         ttfts = [r.ttft for r in done if r.ttft is not None]
@@ -208,5 +239,10 @@ class Scheduler:
             "p99_ttft_s": pct(ttfts, 99),
             "p50_tpot_s": pct(tpots, 50),
             "p99_tpot_s": pct(tpots, 99),
+            "spec_verify_steps": self.verify_steps,
+            "spec_drafted": self.drafted,
+            "spec_accepted": self.accepted,
+            "spec_accept_rate": (self.accepted / self.drafted
+                                 if self.drafted else None),
         }
         return s

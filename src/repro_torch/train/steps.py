@@ -298,6 +298,28 @@ def make_decode_step(cfg, scales=None, act_scales=None):
     return decode_step
 
 
+def make_verify_step(cfg, scales=None, act_scales=None):
+    """The speculative verify step: tokens (B, k) = [last committed
+    token, draft_1 .. draft_{k-1}] per slot.  All k positions are written
+    to the cache and attended in one forward through the decode kernel's
+    batched-query form; logits (B, k, V) come back for every position,
+    position j's being what the j-th of k sequential decode steps would
+    give (with the same weights and delayed activation scales).  The
+    caches' ``idx`` advances by k; the caller truncates the depths of
+    rejected drafts."""
+    mask = serve_quant_mask(cfg, scales)
+    qcfg = cfg.quant
+
+    @torch.inference_mode()
+    def verify_step(params, caches, tokens):
+        qp = _wrap_serve(params, mask, scales, act_scales)
+        logits, caches, _ = forward(cfg, qcfg, qp, tokens, caches,
+                                    mode="verify")
+        return logits, caches
+
+    return verify_step
+
+
 def make_prefill_step(cfg, max_len: int, scales=None, act_scales=None):
     """The whole-prompt prefill: tokens (B, S) from position 0 into fresh
     contiguous caches of ``cache_len(cfg, max_len)`` slots with a

@@ -222,6 +222,123 @@ def test_decode_attention_contiguous_dispatch_passes_true_group_rows(
     assert float((got.cpu() - want).abs().max()) <= 1e-5
 
 
+# the verify form (B, KV, S, G, Dh, T, NP, n_valid): phi3-mini's (G 1: one
+# block of 4 live rows a (b, kv head)), h2o-danube-3-4b's group (G 4: 16
+# rows, two blocks) and a group of 10 at Dh 256 (rows across blocks)
+VERIFY_SHAPES = [(4, 32, 4, 1, 96, 16, 4, [17, 64, 33, 5]),
+                 (3, 2, 4, 4, 120, 16, 4, [40, 4, 64]),
+                 (2, 2, 3, 10, 256, 16, 8, [100, 128])]
+
+
+def _verify_case(shape, kv_dtype, seed, device):
+    """q (B, KV, S, G, Dh), a contiguous cache of NP·T slots, the same
+    bytes as a scrambled page pool with its block table, and n_valid."""
+    b, kvh, s, g, dh, t, n_p, nv = shape
+    rng = np.random.default_rng(seed)
+    c = n_p * t
+    q = torch.tensor(rng.standard_normal((b, kvh, s, g, dh)),
+                     dtype=torch.float32)
+    kf = torch.tensor(rng.standard_normal((b, kvh, c, dh)),
+                      dtype=torch.float32)
+    vf = torch.tensor(rng.standard_normal((b, kvh, c, dh)),
+                      dtype=torch.float32)
+    if kv_dtype == "fp8":
+        (k, ks), (v, vs) = _quant_kv(kf), _quant_kv(vf)
+    else:
+        k, v, ks, vs = kf.bfloat16(), vf.bfloat16(), None, None
+    perm = torch.tensor(rng.permutation(b * n_p), dtype=torch.int64)
+
+    def pool(x):
+        if x is None:
+            return None
+        raw = x.view(torch.uint8) if x.element_size() == 1 else x
+        p = raw.reshape(b, kvh, n_p, t, *x.shape[3:]).movedim(2, 1)
+        p = p.reshape(b * n_p, kvh, t, *x.shape[3:])[perm].contiguous()
+        return p.view(x.dtype) if x.element_size() == 1 else p
+
+    bt = torch.argsort(perm).reshape(b, n_p).to(torch.int32)
+    cont = [None if x is None else x.to(device) for x in (k, v, ks, vs)]
+    paged = [None if x is None else pool(x).to(device)
+             for x in (k, v, ks, vs)]
+    return (q.to(device), cont, paged, bt.to(device),
+            torch.tensor(nv, dtype=torch.int32, device=device))
+
+
+@pytest.mark.parametrize("kv_dtype", ["fp8", "bf16"])
+def test_decode_attn_verify_matches_plain_and_single_query(cuda, kv_dtype):
+    """The q_len > 1 form in both layouts: within 1e-5 of the 5-D plain
+    version, the two layouts bitwise equal, and each draft row bitwise
+    the q_len = 1 kernel at that draft's limit (n_valid - (S-1-j))."""
+    for i, shape in enumerate(VERIFY_SHAPES):
+        q, cont, paged, bt, nv = _verify_case(shape, kv_dtype, 10 + i, cuda)
+        b, kvh, s, g, dh = q.shape
+        sm = dh ** -0.5
+        rows = q.reshape(b, kvh, s * g, dh)
+        got = decode_attn.decode_attn(rows, *cont, nv, sm_scale=sm,
+                                      q_len=s)
+        got_p = decode_attn.decode_attn_paged(rows, *paged, nv, bt,
+                                              sm_scale=sm, q_len=s)
+        want = decode_attn.decode_attn_ref(q, *cont, nv, sm_scale=sm)
+        assert torch.equal(got, got_p), shape
+        err = float((got.reshape(q.shape) - want).abs().max())
+        assert err <= 1e-5, (shape, kv_dtype, err)
+        for j in range(s):
+            nv_j = nv - (s - 1 - j)
+            solo = decode_attn.decode_attn(q[:, :, j].contiguous(), *cont,
+                                           nv_j, sm_scale=sm)
+            solo_p = decode_attn.decode_attn_paged(
+                q[:, :, j].contiguous(), *paged, nv_j, bt, sm_scale=sm)
+            assert torch.equal(got.reshape(q.shape)[:, :, j], solo)
+            assert torch.equal(got_p.reshape(q.shape)[:, :, j], solo_p)
+
+
+@pytest.mark.parametrize("kv_dtype", ["fp8", "bf16"])
+def test_decode_attn_verify_ignores_nan_past_the_limits(cuda, kv_dtype):
+    """NaN payloads and scales in every slot at or past n_valid (the
+    trash page, stale bytes) leave both layouts' verify outputs finite
+    and bitwise unchanged; NaN in the later drafts' slots, past draft
+    0's own limit (rejected drafts' bytes), leaves draft 0's rows so."""
+    q, cont, paged, bt, nv = _verify_case(VERIFY_SHAPES[1], kv_dtype, 3,
+                                          cuda)
+    b, kvh, s, g, dh = q.shape
+    rows = q.reshape(b, kvh, s * g, dh)
+    t = paged[0].shape[2]
+
+    def run():
+        return (decode_attn.decode_attn(rows, *cont, nv, sm_scale=0.1,
+                                        q_len=s),
+                decode_attn.decode_attn_paged(rows, *paged, nv, bt,
+                                              sm_scale=0.1, q_len=s))
+
+    def fill(lo_of):
+        """NaN into the slots from lo_of(n_valid[b]) on, in both layouts
+        (0x7F is e4m3fn's NaN)."""
+        for bi in range(b):
+            lo = lo_of(int(nv[bi]))
+            for slot in range(lo, bt.shape[1] * t):
+                page, off = int(bt[bi, slot // t]), slot % t
+                for x, where in [(x, (bi, slice(None), slot)) for x in cont
+                                 if x is not None] + \
+                        [(x, (page, slice(None), off)) for x in paged
+                         if x is not None]:
+                    raw = x.view(torch.uint8) if x.element_size() == 1 \
+                        else x
+                    raw[where] = 0x7F if raw.dtype == torch.uint8 \
+                        else float("nan")
+
+    clean, clean_p = run()
+    fill(lambda n: n)
+    got, got_p = run()
+    assert bool(torch.isfinite(got).all() and torch.isfinite(got_p).all())
+    assert torch.equal(got, clean) and torch.equal(got_p, clean_p)
+    fill(lambda n: n - (s - 1))
+    got, got_p = run()
+    first = slice(0, g)                       # draft 0's rows
+    for out, ref in ((got, clean), (got_p, clean_p)):
+        assert bool(torch.isfinite(out[:, :, first]).all())
+        assert torch.equal(out[:, :, first], ref[:, :, first])
+
+
 @pytest.mark.parametrize("fmt", ["e4m3", "e5m2"])
 def test_fused_large_m_tile_matches_plain(cuda, fmt):
     for m, k, n in LARGE_M_SHAPES:

@@ -132,8 +132,9 @@ def test_decode_attn_plain_matches_reference_and_pallas(kv_dtype, g, dh):
 
 def test_decode_attention_routes_agree_and_refuse():
     """The contiguous route and the paged route over the same bytes (the
-    cache cut into scrambled pages) give the same bits; a batched-query
-    q and a wrong n_valid length are refused."""
+    cache cut into scrambled pages) give the same bits, in the 4-D
+    (decode) and the 5-D (verify) form; a wrong n_valid length is
+    refused."""
     t, n_p = 16, C // 16
     q, k, v, ks, vs = _cache(7, 4, 120, "fp8")
     bt = torch.tensor(np.random.default_rng(8).permutation(B * n_p)
@@ -153,8 +154,14 @@ def test_decode_attention_routes_agree_and_refuse():
     paged = dispatch.decode_attention_paged(q, pages(k), pages(v),
                                             pages(ks), pages(vs), nv, bt)
     np.testing.assert_array_equal(got.numpy(), paged.numpy())
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        dispatch.decode_attention(q[:, :, None], k, v, ks, vs, nv)
+    # two drafts a row; every depth holds both drafts' writes
+    q5 = torch.stack([q, q.flip(-1)], dim=2)
+    nv5 = torch.tensor([37, 2, 48], dtype=torch.int32)
+    got5 = dispatch.decode_attention(q5, k, v, ks, vs, nv5)
+    paged5 = dispatch.decode_attention_paged(q5, pages(k), pages(v),
+                                             pages(ks), pages(vs), nv5, bt)
+    assert got5.shape == q5.shape
+    np.testing.assert_array_equal(got5.numpy(), paged5.numpy())
     with pytest.raises(ValueError, match="n_valid"):
         dispatch.decode_attention(q, k, v, ks, vs, nv[:2])
 

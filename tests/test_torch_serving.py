@@ -43,6 +43,8 @@ from repro_torch.serving import (
     page_keys,
 )
 
+from test_torch_spec import Adversarial, HalfOracle, Oracle
+
 ARCH = "phi3-mini-3.8b"
 LENS = [5, 16, 23, 9, 31]          # under, at and across 16-token chunks
 MAX_NEW, SLOTS, MAX_LEN, CHUNK, SEED = 8, 3, 48, 16, 0
@@ -60,7 +62,23 @@ RUNS = {
     "h2o-fp8": dict(arch=H2O, window=H2O_WINDOW, kv="fp8", lens=H2O_LENS),
     "h2o-bf16": dict(arch=H2O, window=H2O_WINDOW, kv="bf16",
                      lens=H2O_LENS),
+    "bf16-chunked": dict(kv="bf16"),
 }
+# speculative decode (``Engine(spec_decode=True)``) on both placements and
+# both cache dtypes, each with a draft source made from the streams of the
+# plain run named by ``truth`` (each package's drafts from its own run)
+IDENTITY = {"REPRO_PAGED_PLACEMENT": "identity"}
+SPEC_RUNS = {
+    "spec-float-fp8": dict(truth="default", draft="half", k=4),
+    "spec-identity-fp8": dict(truth="identity-chunked", draft="oracle",
+                              k=4, env=IDENTITY),
+    "spec-float-bf16": dict(truth="bf16-chunked", draft="adversarial", k=3,
+                            kv="bf16"),
+    "spec-identity-bf16": dict(truth="bf16-chunked", draft="half2", k=4,
+                               kv="bf16", env=IDENTITY),
+}
+DRAFTS = {"oracle": Oracle, "adversarial": Adversarial, "half": HalfOracle,
+          "half2": lambda truth: HalfOracle(truth, good=2)}
 
 
 def _prompts(lens=LENS):
@@ -71,15 +89,17 @@ def _prompts(lens=LENS):
 def _run_cfg(get, run):
     """The run's config from ``get`` (either package's get_config)."""
     cfg = get(run.get("arch", ARCH), smoke=True)
-    if "window" in run:
-        cfg = cfg.replace(window=run["window"], kv_cache_dtype=run["kv"])
-    return cfg
+    over = {k: run[key] for k, key in (("window", "window"),
+                                       ("kv_cache_dtype", "kv"))
+            if key in run}
+    return cfg.replace(**over) if over else cfg
 
 
 @pytest.fixture(scope="module")
 def reference(tmp_path_factory):
     """The reference's streams and logit gaps for the default run and
-    every run of ``RUNS`` (one child process)."""
+    every run of ``RUNS``, and the streams of every run of ``SPEC_RUNS``
+    (one child process)."""
     d = tmp_path_factory.mktemp("jax_engine")
     env = dict(os.environ)
     env["XLA_FLAGS"] = (env.get("XLA_FLAGS", "") +
@@ -166,12 +186,52 @@ def test_serving_paths_match_reference(reference, monkeypatch, name):
     else:
         eng = Engine(cfg, params, num_slots=SLOTS, max_len=MAX_LEN,
                      chunk_tokens=CHUNK, device="cpu")
-        assert eng.float_pages == (name == "float-v1")
-        assert eng.chunked == name.endswith("chunked")
+        env = run.get("env", {})
+        assert eng.float_pages == (
+            env.get("REPRO_PAGED_PLACEMENT") != "identity"
+            and "window" not in run)
+        assert eng.chunked == (env.get("REPRO_CHUNKED_PREFILL") != "0"
+                               and "window" not in run)
         eng.run(reqs, log=None)
         assert not eng.kv.rows
     assert all(r.done and len(r.out) == MAX_NEW for r in reqs)
     _assert_streams(reqs, reference[name], reference.get(name + "-solo"))
+
+
+@pytest.mark.parametrize("name", sorted(SPEC_RUNS))
+def test_spec_paths_match_reference(reference, monkeypatch, name):
+    """Speculative verify on floating pages and identity rows, fp8 and
+    bf16 caches: the port's speculative streams equal its own plain
+    streams token for token, and the reference's speculative streams
+    (which equal the reference's plain ones) up to a reference tie.
+    (How many verify steps a run takes depends on the wall clock: the
+    chunk budget reads the requests' latencies.)"""
+    run = SPEC_RUNS[name]
+    for k, v in run.get("env", {}).items():
+        monkeypatch.setenv(k, v)
+    cfg = _run_cfg(get_config, run)
+    params = _params()
+
+    def serve(**kw):
+        eng = Engine(cfg, params, num_slots=SLOTS, max_len=MAX_LEN,
+                     chunk_tokens=CHUNK, device="cpu", **kw)
+        reqs = [Request(rid=i, prompt=p, max_new=MAX_NEW)
+                for i, p in enumerate(_prompts())]
+        eng.run(reqs, log=None)
+        assert all(r.done and len(r.out) == MAX_NEW for r in reqs)
+        assert not eng.kv.rows
+        return reqs, eng
+
+    plain, _ = serve()
+    truth = {r.rid: r.out for r in plain}
+    reqs, eng = serve(spec_decode=True, spec_k=run["k"],
+                      draft=DRAFTS[run["draft"]](truth))
+    assert eng.spec and eng.stats()["spec_verify_steps"] > 0
+    assert [r.out for r in reqs] == [r.out for r in plain]
+    want, base = reference[name], reference[run["truth"]]
+    assert want["streams"] == base["streams"] and want["verify_steps"] > 0
+    _assert_streams(reqs, {"streams": want["streams"],
+                           "gaps": base["gaps"]})
 
 
 def test_engine_is_deterministic_and_retires():
@@ -196,10 +256,10 @@ def test_engine_refuses_what_waits_and_oversize():
 
 
 def test_engine_refuses_unported_reference_switch(monkeypatch):
-    monkeypatch.setenv("REPRO_SPEC_DECODE", "1")
+    monkeypatch.setenv("REPRO_QUANT_HEALTH", "1")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         _port_engine()
-    monkeypatch.setenv("REPRO_SPEC_DECODE", "0")
+    monkeypatch.setenv("REPRO_QUANT_HEALTH", "0")
     monkeypatch.setenv("REPRO_PAGED_PLACEMENT", "floating")
     with pytest.raises(ValueError, match="REPRO_PAGED_PLACEMENT"):
         _port_engine()
@@ -447,6 +507,24 @@ def test_allocator_lru_eviction_and_revival():
 # --- the reference engine, run as a child process ------------------------
 
 
+def _reference_spec_serve(cfg, params, run, prompts, truth):
+    """Serve ``prompts`` through the reference's Engine with speculative
+    decode and ``run``'s draft source over ``truth`` (its plain
+    streams); returns the streams and the verify counts."""
+    from repro.serving import Engine as JEngine, Request as JRequest
+
+    reqs = [JRequest(rid=i, prompt=p, max_new=MAX_NEW)
+            for i, p in enumerate(prompts)]
+    eng = JEngine(cfg, params, num_slots=SLOTS, max_len=MAX_LEN,
+                  chunk_tokens=CHUNK, prefix_cache=False, spec_decode=True,
+                  draft=DRAFTS[run["draft"]](dict(enumerate(truth))),
+                  spec_k=run["k"])
+    assert eng.spec
+    eng.run(reqs, log=None)
+    return {"streams": [r.out for r in reqs],
+            "verify_steps": eng.stats()["spec_verify_steps"]}
+
+
 def _reference_serve(cfg, params, run, prompts, slots=SLOTS):
     """Serve ``prompts`` through the reference's Engine (or its legacy
     Server); returns the streams and, per generated token, the gap
@@ -527,6 +605,15 @@ def _reference_child(out: str) -> None:
         if "window" in run:           # one slot: each request alone
             res[name + "-solo"] = _reference_serve(cfg, params, run,
                                                    prompts, slots=1)
+    for name, run in sorted(SPEC_RUNS.items()):
+        for k in ("REPRO_PAGED_PLACEMENT", "REPRO_CHUNKED_PREFILL"):
+            os.environ.pop(k, None)
+        os.environ.update(run.get("env", {}))
+        cfg = _run_cfg(jax_get_config, run)
+        params = init_tree(model_defs(jax_get_config(cfg.name, smoke=True)),
+                           jax.random.PRNGKey(SEED))
+        res[name] = _reference_spec_serve(cfg, params, run, _prompts(),
+                                          res[run["truth"]]["streams"])
     with open(out, "w") as f:
         json.dump(res, f)
 
