@@ -9,9 +9,13 @@ Phases, each fatal on failure:
   3. the kernels: each kernel against its plain PyTorch version at the
      shapes its path gives it -- full-width phi3-mini-3.8b serving
      shapes for mx_gemm, the calibration fused_quant_gemm and paged
-     decode attention, and olmo-7b training shapes (M = 2048 tokens) for
-     fused_quant_gemm_tiled (fused_quant_gemm's M > 32 tile: forward
-     e4m3, dx e5m2 on the transposed weights) and mx_dw_gemm -- with
+     decode attention; mx_gemm's wgmma tile (M > 32: mx_gemm_tiled) at
+     Table 6's shapes, h2o-danube-3-4b's 4160-token prefill and a ragged
+     shape, in all four operand formats, two calls bitwise equal; and
+     olmo-7b training shapes (M = 2048 tokens) for
+     fused_quant_gemm_tiled (fused_quant_gemm at M > 32, the mx_quant
+     kernel then the wgmma tile: forward e4m3, dx e5m2 on the transposed
+     weights) and mx_dw_gemm -- with
      its time (CUDA events, median of 20 cold-L2 launches; a call under
      0.1 ms in batches, see Timer), the plain version's, the bound
      (bytes over 3.35 TB/s or operations over the peak for the operands'
@@ -51,13 +55,13 @@ Phases, each fatal on failure:
      its ring decode);
   5. the ablation (the paper's Table 6): the quantizer/GEMM entry points
      of kernels.ops at its three (M, N, K) shapes -- the MOSS GEMM
-     (mx_gemm), the COAT GEMM (group_gemm), the port's per-tensor GEMM
-     (pt_matmul, f32 upcast product), TE's fp8 GEMM (torch._scaled_mm,
-     cuBLASLt), bf16 torch.matmul, the fused MOSS linear layer
-     (moss_linear: fused_quant_gemm's large tile) and the three
-     quantizers -- once as a user calls them (mx_quant, mx_gemm,
-     group_gemm and fused_quant_gemm_tiled must launch, moss_linear
-     must agree with its plain version), then timed;
+     (mx_gemm's wgmma tile), the COAT GEMM (group_gemm), the port's
+     per-tensor GEMM (pt_matmul, f32 upcast product), TE's fp8 GEMM
+     (torch._scaled_mm, cuBLASLt), bf16 torch.matmul, the fused MOSS
+     linear layer (moss_linear: fused_quant_gemm at M > 32, the mx_quant
+     kernel then the wgmma tile) and the three quantizers -- once as a
+     user calls them (each kernel launched exactly as counted,
+     moss_linear must agree with its plain version), then timed;
   6. training: olmo-7b at full width, depth cut to 4 layers, takes 3
      moss, 3 bf16, 3 per_group and 3 per_tensor steps of batch 1 x 2048
      tokens from the same weights and batches; each quantized recipe
@@ -100,6 +104,13 @@ TRAIN_M = 2048                      # batch 1 x seq 2048 (paper Table 8)
 TRAIN_KN = [(4096, 4096), (4096, 11008), (11008, 4096), (4096, 50304)]
 # the paper's Table 6 GEMM shapes (M, N, K), as benchmarks/run.py has them
 TABLE6_MNK = [(2048, 7168, 4096), (4096, 2048, 7168), (4096, 4096, 8192)]
+# mx_gemm's wgmma tile (M > 32) at (M, N, K): Table 6; h2o-danube-3-4b's
+# whole-prompt prefill of 4160 tokens (qkv, o, gate and up, down); a
+# ragged shape (M, N not multiples of 128, K % 64 == 32); the first is
+# the kernels line's mx_gemm_tiled entry
+TILED_MNK = TABLE6_MNK + [(4160, 5760, 3840), (4160, 3840, 3840),
+                          (4160, 10240, 3840), (4160, 3840, 10240),
+                          (130, 200, 96)]
 MOE_ARCH = "phi3.5-moe-42b-a6.6b"
 MOE_LAYERS = 1                      # of 32: f32 master + grads + moments
 MOE_BATCH, MOE_SEQ = 2, 4096        # 8192 tokens > 4096: the grouped route
@@ -139,6 +150,7 @@ SPEC_LONG_PROMPTS, SPEC_LONG_MAX_NEW, SPEC_LONG_MAX_LEN = [4000, 3968], 32, 4160
 SPEC_K = 4
 REPLACES = {
     "mx_gemm": "src/repro/kernels/mx_gemm.py:61",
+    "mx_gemm_tiled": "src/repro/kernels/mx_gemm.py:61",
     "fused_quant_gemm": "src/repro/kernels/mx_fused.py:101",
     "fused_quant_gemm_tiled": "src/repro/kernels/mx_fused.py:101",
     "decode_attn_paged": "src/repro/kernels/decode_attn.py:408",
@@ -153,8 +165,10 @@ REPLACES = {
 }
 SOURCES = {
     "mx_gemm": "src/repro_torch/csrc/mx_gemm.cu",
+    "mx_gemm_tiled": "src/repro_torch/csrc/mx_gemm.cu",
     "fused_quant_gemm": "src/repro_torch/csrc/mx_fused.cu",
-    "fused_quant_gemm_tiled": "src/repro_torch/csrc/mx_fused.cu",
+    # M > 32: the mx_quant kernel, then mx_gemm.cu's wgmma tile
+    "fused_quant_gemm_tiled": "src/repro_torch/csrc/mx_gemm.cu",
     "decode_attn_paged": "src/repro_torch/csrc/decode_attn.cu",
     "decode_attn": "src/repro_torch/csrc/decode_attn.cu",
     "decode_attn_paged_verify": "src/repro_torch/csrc/decode_attn.cu",
@@ -396,6 +410,69 @@ def phase_kernels(torch, timer) -> dict:
                                             library_ms=tl, bound_ms=b,
                                             bound_by=by)
     res["decode_attn_paged"]["max_abs_err"] = worst
+    return res
+
+
+def phase_mx_gemm_tiled(torch, timer) -> dict:
+    """mx_gemm's wgmma tile (M > 32) against its plain version at
+    TILED_MNK: within 1e-5 * max|ref|, finite, two calls bitwise equal,
+    e4m3 activations and weights; the first Table 6 shape and the ragged
+    one also in the other three operand formats.  Timed (e4m3) beside
+    the plain version and torch.matmul on the bf16 operands; the bound
+    counts fp8 operations (bound_ms), though the tile runs bf16 products
+    (at most 989 TFLOP/s, half that rate)."""
+    from repro_torch.core.quant import mx_operand, quant_mx, quant_per_tensor
+    from repro_torch.kernels import mx_gemm
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    res, worst = {}, 0.0
+    for m, n, k in TILED_MNK:
+        x = _activations(torch, gen, m, k)
+        w = torch.randn(k, n, device="cuda", generator=gen) / k ** 0.5
+        fmts = [("e4m3", "e4m3")]
+        if (m, n, k) in (TILED_MNK[0], TILED_MNK[-1]):
+            fmts += [("e4m3", "e5m2"), ("e5m2", "e4m3"), ("e5m2", "e5m2")]
+        for xf, wf in fmts:
+            xq = quant_mx(x, 32, xf)
+            q, se = xq.q.contiguous(), xq.sexp.contiguous()
+            qw = quant_per_tensor(w, wf).q
+            before = mx_gemm.counter_tiled.count
+            got = mx_gemm.mx_gemm(q, se, qw)
+            again = mx_gemm.mx_gemm(q, se, qw)
+            if mx_gemm.counter_tiled.count != before + 2:
+                raise AssertionError(f"mx_gemm M={m}: the wgmma tile was "
+                                     "not launched")
+            want = mx_gemm.mx_gemm_plain(q, se, qw)
+            err = float((got - want).abs().max())
+            scale = float(want.abs().max())
+            same = torch.equal(got.view(torch.int32), again.view(torch.int32))
+            line = (f"mx_gemm_tiled {xf} x {wf} M={m} N={n} K={k}: max_err "
+                    f"{err:.3g} (max|ref| {scale:.3g}), two calls "
+                    f"{'bitwise' if same else 'DIFFER'}")
+            if not (err <= 1e-5 * scale and torch.isfinite(got).all()
+                    and same):
+                raise AssertionError(line)
+            worst = max(worst, err)
+            del got, again, want
+            if (xf, wf) != ("e4m3", "e4m3"):
+                print(line)
+                continue
+            opnd, wb = mx_operand(q, se), qw.to(torch.bfloat16)
+            t = timer.ms(lambda: mx_gemm.mx_gemm(q, se, qw))
+            tp = timer.ms(lambda: mx_gemm.mx_gemm_plain(q, se, qw))
+            tl = timer.ms(lambda: torch.matmul(opnd, wb))
+            b, by = bound_ms(m * k + m * k // 32 + k * n + 4 * m * n,
+                             2.0 * m * n * k)
+            print(f"{line}, {t:.4f} ms ({2e-9 * m * n * k / t:.1f} TFLOP/s), "
+                  f"plain {tp:.4f} ms, library {tl:.4f} ms (torch.matmul "
+                  f"bf16), bound {b:.4f} ms ({by})")
+            if (m, n, k) == TILED_MNK[0]:
+                res["mx_gemm_tiled"] = dict(ms=t, plain_ms=tp, library_ms=tl,
+                                            bound_ms=b, bound_by=by)
+            del opnd, wb
+        del x, w
+        torch.cuda.empty_cache()
+    res["mx_gemm_tiled"]["max_abs_err"] = worst
     return res
 
 
@@ -849,8 +926,8 @@ def phase_table6(torch, timer) -> dict:
     from repro_torch.kernels import (dispatch, group_gemm, mx_fused,
                                      mx_gemm, mx_quant, ops)
 
-    counters = [mx_quant.counter, mx_gemm.counter, group_gemm.counter,
-                mx_fused.counter_tiled]
+    counters = [mx_quant.counter, mx_gemm.counter, mx_gemm.counter_tiled,
+                group_gemm.counter, mx_fused.counter_tiled]
     gen = torch.Generator(device="cuda").manual_seed(4)
     launches = {c.name: 0 for c in counters}
     for m, n, k in TABLE6_MNK:
@@ -912,10 +989,16 @@ def phase_table6(torch, timer) -> dict:
         del x, w, xg, xt, wq, wc, xb, wb, q, sexp, outs, ref
         torch.cuda.empty_cache()
     print(f"launches on the ablation path: {json.dumps(launches)}")
-    for name, cnt in launches.items():
-        if cnt != len(TABLE6_MNK):
-            raise AssertionError(f"ablation path: {name} launched {cnt} "
-                                 f"times, expected {len(TABLE6_MNK)}")
+    # per shape: mx_quantize and moss_linear's quantizer launch mx_quant,
+    # mx_matmul and moss_linear's GEMM the wgmma tile (M > 32), never the
+    # 8-row tile; coat_matmul launches group_gemm; moss_linear is one
+    # fused_quant_gemm call
+    n = len(TABLE6_MNK)
+    want = {"mx_quant": 2 * n, "mx_gemm": 0, "mx_gemm_tiled": 2 * n,
+            "group_gemm": n, "fused_quant_gemm_tiled": n}
+    if launches != want:
+        raise AssertionError(f"ablation path: launches {launches}, "
+                             f"expected {want}")
     return launches
 
 
@@ -1210,11 +1293,12 @@ def _serve_ring_once(torch, np, seed: int):
 def phase_engine_ring(torch, np) -> dict:
     """h2o-danube-3-4b at full width and depth on random weights: 6
     requests through identity rows and the whole-prompt prefill, their
-    rings wrapping; decode_attn and mx_gemm launched, decode_attn_paged
-    not; a second run from the same seed gives the same streams."""
+    rings wrapping; decode_attn and both mx_gemm tiles launched,
+    decode_attn_paged not; a second run from the same seed gives the same
+    streams."""
     from repro_torch.kernels import decode_attn, mx_fused, mx_gemm
 
-    counters = [mx_gemm.counter, mx_fused.counter,
+    counters = [mx_gemm.counter, mx_gemm.counter_tiled, mx_fused.counter,
                 decode_attn.counter_contiguous, decode_attn.counter]
     for c in counters:
         c.reset()
@@ -1230,7 +1314,10 @@ def phase_engine_ring(torch, np) -> dict:
     print(f"launches on the windowed path: {json.dumps(launches)}")
     if launches["decode_attn_paged"] != 0:
         raise AssertionError("the windowed path launched decode_attn_paged")
-    for name in ("mx_gemm", "fused_quant_gemm", "decode_attn"):
+    # decode steps take the 8-row tile, the whole-prompt prefills the
+    # wgmma tile
+    for name in ("mx_gemm", "mx_gemm_tiled", "fused_quant_gemm",
+                 "decode_attn"):
         if launches[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched on the "
                                  "windowed path")
@@ -1352,7 +1439,8 @@ def phase_train(torch, np) -> dict:
     from repro_torch.configs.registry import get_config
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.core.tree import tree_leaves
-    from repro_torch.kernels import group_gemm, mx_bwd, mx_fused, mx_quant
+    from repro_torch.kernels import (group_gemm, mx_bwd, mx_fused, mx_gemm,
+                                     mx_quant)
     from repro_torch.launch.train import quant_from_name
     from repro_torch.train.steps import (TrainHParams, init_train_state,
                                          make_train_step)
@@ -1370,7 +1458,8 @@ def phase_train(torch, np) -> dict:
     n_params = sum(int(w.numel()) for w in tree_leaves(init))
     print(f"train: {n_params / 1e9:.3f}B parameters")
     counters = [mx_fused.counter, mx_fused.counter_tiled, mx_bwd.counter,
-                group_gemm.counter, mx_quant.counter]
+                group_gemm.counter, mx_quant.counter, mx_gemm.counter,
+                mx_gemm.counter_tiled]
     losses, launches = {}, {}
     for mode in TRAIN_MODES:
         cfg = _train_cfg(get_config, quant_from_name, mode, smoke=False)
@@ -1401,13 +1490,15 @@ def phase_train(torch, np) -> dict:
         del state, step
         torch.cuda.empty_cache()
     # per step: the forward at every linear site (7 a layer + the head),
-    # the remat recompute of the layers' sites, dx and dW at every site
+    # the remat recompute of the layers' sites, dx and dW at every site;
+    # each fused_quant_gemm call (M 2048 > 32) launches mx_quant and the
+    # wgmma tile
     sites = 7 * TRAIN_LAYERS + 1
+    fused = 3 * (2 * sites + 7 * TRAIN_LAYERS)
     none = {c.name: 0 for c in counters}
     want = {
-        "moss": {**none,
-                 "fused_quant_gemm_tiled": 3 * (2 * sites + 7 * TRAIN_LAYERS),
-                 "mx_dw_gemm": 3 * sites},
+        "moss": {**none, "fused_quant_gemm_tiled": fused, "mx_quant": fused,
+                 "mx_gemm_tiled": fused, "mx_dw_gemm": 3 * sites},
         "bf16": none,
         "per_group": {**none,
                       "group_gemm": 3 * (3 * sites + 7 * TRAIN_LAYERS)},
@@ -1426,10 +1517,10 @@ def phase_train(torch, np) -> dict:
             if not rel <= 1e-2:
                 raise AssertionError(f"train step {i}: {mode} {a} vs "
                                      f"bf16 {b}")
-    return {"fused_quant_gemm_tiled":
-            launches["moss"]["fused_quant_gemm_tiled"],
-            "mx_dw_gemm": launches["moss"]["mx_dw_gemm"],
-            "group_gemm": launches["per_group"]["group_gemm"]}
+    return {name: launches["moss"][name] for name in
+            ("fused_quant_gemm_tiled", "mx_quant", "mx_gemm_tiled",
+             "mx_dw_gemm")} | {
+                 "group_gemm": launches["per_group"]["group_gemm"]}
 
 
 def _moe_cfg(get_config, quant_from_name, mode, smoke, interval=500):
@@ -1608,7 +1699,7 @@ def phase_moe_train(torch, np) -> tuple[dict, dict]:
     from repro_torch.core.tree import tree_leaves
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.kernels import (group_gemm, moe_gmm, mx_bwd, mx_fused,
-                                     mx_quant)
+                                     mx_gemm, mx_quant)
     from repro_torch.launch.train import quant_from_name
     from repro_torch.models.layers import init_tree
     from repro_torch.models.transformer import model_defs
@@ -1638,7 +1729,7 @@ def phase_moe_train(torch, np) -> tuple[dict, dict]:
     print(f"moe kernel checks: {time.monotonic() - t0:.1f} s")
     counters = [moe_gmm.counter, moe_gmm.counter_dw, mx_fused.counter,
                 mx_fused.counter_tiled, mx_bwd.counter, group_gemm.counter,
-                mx_quant.counter]
+                mx_quant.counter, mx_gemm.counter, mx_gemm.counter_tiled]
     losses, launches = {}, {}
     for mode in ("moss", "bf16"):
         cfg = _moe_cfg(get_config, quant_from_name, mode, smoke=False)
@@ -1673,10 +1764,12 @@ def phase_moe_train(torch, np) -> tuple[dict, dict]:
     # (5 sites) take the fused tile in the forward, the layer's 4 again
     # in the remat recompute, and dx and dW at all 5; the experts' up,
     # gate and down take moe_gmm in the forward, the recompute and dx,
-    # and moe_dw_gemm for dW
+    # and moe_dw_gemm for dW; each fused call (M 8192) launches mx_quant
+    # and the wgmma tile
     none = {c.name: 0 for c in counters}
     want = {"moss": {**none, "moe_gmm": 3 * 9, "moe_dw_gemm": 3 * 3,
-                     "fused_quant_gemm_tiled": 3 * 14, "mx_dw_gemm": 3 * 5},
+                     "fused_quant_gemm_tiled": 3 * 14, "mx_quant": 3 * 14,
+                     "mx_gemm_tiled": 3 * 14, "mx_dw_gemm": 3 * 5},
             "bf16": none}
     for mode, got in launches.items():
         if got != want[mode]:
@@ -1758,6 +1851,7 @@ def main() -> int:
     timer = Timer(torch)
     t0 = time.monotonic()
     res = phase_kernels(torch, timer)
+    res.update(phase_mx_gemm_tiled(torch, timer))
     res.update(phase_train_kernels(torch, timer))
     res.update(phase_recipe_kernels(torch, timer))
     res.update(phase_ring_kernels(torch, timer))
@@ -1776,7 +1870,7 @@ def main() -> int:
     phase_small_reference(torch, np)
     print(f"phase small serving vs CPU: {time.monotonic() - t0:.1f} s")
     t0 = time.monotonic()
-    ablation = phase_table6(torch, timer)
+    phase_table6(torch, timer)
     print(f"phase table 6: {time.monotonic() - t0:.1f} s")
     del timer
     t0 = time.monotonic()
@@ -1790,16 +1884,16 @@ def main() -> int:
     print(f"phase small train vs CPU: {time.monotonic() - t0:.1f} s")
     res.update(moe_res)
     # each row's launches come from its path: the serving kernels'
-    # (fused_quant_gemm is the M <= 32 tile of the calibration forward)
-    # from the engine, the verify forms from the spec engine, decode_attn
-    # from the windowed engine, fused_quant_gemm_tiled (the M > 32 tile
-    # of the same source) and mx_dw_gemm from the moss steps, group_gemm
-    # from the per_group steps, mx_quant from the ablation, moe_gmm and
+    # (mx_gemm is the M <= 32 tile, fused_quant_gemm the M <= 32 kernel
+    # of the calibration forward) from the engine, the verify forms from
+    # the spec engine, decode_attn from the windowed engine,
+    # fused_quant_gemm_tiled (calls at M > 32), the mx_quant and
+    # mx_gemm_tiled launches they make, and mx_dw_gemm from the moss
+    # steps, group_gemm from the per_group steps, moe_gmm and
     # moe_dw_gemm from the MoE moss steps
     launches.update(spec_launches)
     launches.update(train_launches)
     launches["decode_attn"] = ring_launches["decode_attn"]
-    launches["mx_quant"] = ablation["mx_quant"]
     launches["moe_gmm"] = moe_launches["moe_gmm"]
     launches["moe_dw_gemm"] = moe_launches["moe_dw_gemm"]
     kernels = [dict(name=name, route="cuda", source=SOURCES[name],

@@ -173,9 +173,11 @@ __device__ __forceinline__ void mx_tile_store(
 }
 
 // ---------------------------------------------------------------------------
-// The fused quantizer's lane routine and the large-M fused tile, shared by
-// fused_quant_gemm (mx_fused.cu) and the grouped-expert moe_gmm
-// (moe_gmm.cu), so that the two forward quantizers cannot drift apart.
+// The fused quantizer's lane routine, shared by fused_quant_gemm's M <= 32
+// kernel (mx_fused.cu) and the grouped-expert moe_gmm (moe_gmm.cu), so
+// that the forward quantizers cannot drift apart, and the CUDA-core
+// fused tile of moe_gmm.  (fused_quant_gemm at M > 32 is the mx_quant
+// kernel plus mx_gemm.cu's wgmma tile.)
 // ---------------------------------------------------------------------------
 
 // One lane's element of a 32-wide group (the warp is the group): the

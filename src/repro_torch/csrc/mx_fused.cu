@@ -13,28 +13,25 @@
 // caller applies s * s_w.
 // Both e4m3 (forward) and e5m2 (dx) go through the same kernel.
 //
-// Two tiles, chosen by the wrapper from M:
+// M <= 32 (the serving path's calibration forward) only: the MX GEMM
+// tile of mx_gemm.cu with the quantizer fused into the shared-memory
+// staging of x.  There the fp8 weight bytes dominate, so the bound is
+// K * N bytes over 3.35 TB/s, and a block of 8 rows x 32 columns streams
+// its weight strip once.  The quantizer is one warp per (row, 32-group),
+// lane = element.  q and sexp are written once per row panel, by the
+// blocks of column tile 0 (the TPU kernel rewrites them for every N
+// block).  Ragged M and N are masked here; K is a multiple of 32.
 //
-// M <= 32 (the serving path's calibration forward): the MX GEMM tile of
-// mx_gemm.cu with the quantizer fused into the shared-memory staging of
-// x.  There the fp8 weight bytes dominate, so the bound is K * N bytes
-// over 3.35 TB/s, and a block of 8 rows x 32 columns streams its weight
-// strip once.
-//
-// M > 32 (training: the forward, the remat recompute and dx at 2048
-// tokens; common.cuh: fused_tile, shared with moe_gmm.cu): the bound
-// is the operations, 2 * M * K * N over the fp8 tensor-core peak, and
-// the small tile would re-read the weight strip once per 8 rows.  The
-// large tile gives each block 128 x 128 outputs: per 32-wide K step
-// (one micro-group) it quantizes its 128 rows into a transposed operand
-// panel and upcasts a 32 x 128 weight panel, both in
-// shared memory, and each of 256 threads accumulates an 8 x 8 register
-// tile on the CUDA cores (tensor cores are later work).
-//
-// In both, the quantizer is one warp per (row, 32-group), lane =
-// element.  q and sexp are written once per row panel, by the blocks of
-// column tile 0 (the TPU kernel rewrites them for every N block).
-// Ragged M and N are masked here; K is a multiple of 32.
+// M > 32 (training: the forward, the remat recompute and dx) takes no
+// kernel of this file: the wrapper (kernels/mx_fused.py) launches the
+// mx_quant kernel (mx_quant.cu), which writes q and sexp once per
+// element, then mx_gemm.cu's wgmma tile on them.  Quantizing inside a
+// 128 x 128 GEMM tile would redo each row's 32-groups once per column
+// tile (86 times at N 11008), and the quantizer (a warp max, two
+// divisions, a logf and an IEEE division: ~60-100 instructions an
+// element) costs ~8,192 x 100 / 128 ~ 6k SM cycles per 128 x 128 x 64
+// step against ~512 cycles of bf16 tensor-core products: it, not the
+// GEMM, would set the pace.
 #include "common.cuh"
 
 __global__ void __launch_bounds__(mxt::THREADS)
@@ -80,46 +77,18 @@ fused_quant_gemm_kernel(const void* __restrict__ x, const float* __restrict__ s_
   mx_tile_store(acc, red, out, m0, M, nb, N);
 }
 
-// The large tile (common.cuh: fused_tile), every block a full tile of
-// the (M, N) output that computes its products.
-__global__ void __launch_bounds__(fqt::THREADS)
-fused_quant_gemm_tiled_kernel(const void* __restrict__ x,
-                              const float* __restrict__ s_ptr,
-                              const uint8_t* __restrict__ qw,
-                              float* __restrict__ out,
-                              uint8_t* __restrict__ q_out,
-                              int8_t* __restrict__ sexp_out, int M, int N,
-                              int K, bool x_bf16, bool e5m2, bool w_e5m2,
-                              bool vec, float fmax, float inv_ln2) {
-  const size_t row0 = static_cast<size_t>(blockIdx.x) * fqt::BM;
-  fused_tile(x, row0, min(fqt::BM, M - static_cast<int>(row0)), qw, out,
-             q_out, sexp_out, blockIdx.y * fqt::BN, N, K, x_bf16, e5m2,
-             w_e5m2, vec, fmaxf(*s_ptr, 1e-30f), fmax, inv_ln2,
-             blockIdx.y == 0, true);
-}
-
 extern "C" int fused_quant_gemm_launch(const void* x, const void* s,
                                        const void* qw, void* out, void* q,
                                        void* sexp, int M, int N, int K,
                                        int x_bf16, int e5m2, int w_e5m2,
-                                       int vec, int tiled, float fmax,
-                                       float inv_ln2, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* sp = static_cast<const float*>(s);
-  const uint8_t* w = static_cast<const uint8_t*>(qw);
-  float* o = static_cast<float*>(out);
-  uint8_t* qo = static_cast<uint8_t*>(q);
-  int8_t* eo = static_cast<int8_t*>(sexp);
-  if (tiled) {
-    dim3 grid((M + fqt::BM - 1) / fqt::BM, (N + fqt::BN - 1) / fqt::BN);
-    fused_quant_gemm_tiled_kernel<<<grid, fqt::THREADS, 0, st>>>(
-        x, sp, w, o, qo, eo, M, N, K, x_bf16 != 0, e5m2 != 0, w_e5m2 != 0,
-        vec != 0, fmax, inv_ln2);
-  } else {
-    dim3 grid((M + mxt::MT - 1) / mxt::MT, (N + mxt::BN - 1) / mxt::BN);
-    fused_quant_gemm_kernel<<<grid, mxt::THREADS, 0, st>>>(
-        x, sp, w, o, qo, eo, M, N, K, x_bf16 != 0, e5m2 != 0, w_e5m2 != 0,
-        vec != 0, fmax, inv_ln2);
-  }
+                                       int vec, float fmax, float inv_ln2,
+                                       void* stream) {
+  dim3 grid((M + mxt::MT - 1) / mxt::MT, (N + mxt::BN - 1) / mxt::BN);
+  fused_quant_gemm_kernel<<<grid, mxt::THREADS, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+      x, static_cast<const float*>(s), static_cast<const uint8_t*>(qw),
+      static_cast<float*>(out), static_cast<uint8_t*>(q),
+      static_cast<int8_t*>(sexp), M, N, K, x_bf16 != 0, e5m2 != 0,
+      w_e5m2 != 0, vec != 0, fmax, inv_ln2);
   return static_cast<int>(cudaGetLastError());
 }

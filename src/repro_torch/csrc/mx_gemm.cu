@@ -2,23 +2,47 @@
 //
 // Replaces the TPU kernel src/repro/kernels/mx_gemm.py:mx_gemm_pallas.
 // It is the delayed-scale serving forward of every linear layer (prefill
-// chunks, decode steps, the LM head); the caller applies s_x * s_w.
+// chunks, decode steps, the LM head), the Table 6 MOSS GEMM and, behind
+// the mx_quant kernel, fused_quant_gemm at M > 32; the caller applies
+// s_x * s_w.  Two tiles, chosen by the wrapper from M (kernels/mx_gemm.py
+// SMALL_M):
 //
-// What bounds it on the H100: at decode M is the batch (<= 4), so the
-// product is a weight-streaming GEMV and the bound is the fp8 weight
-// bytes (K * N) over 3.35 TB/s; the activation operand is a few KB.
+// M <= 32 (decode steps M = B, verify steps M = B * k, 32-token prefill
+// chunks): the bound is the fp8 weight bytes (K * N) over 3.35 TB/s, a
+// weight-streaming GEMV; the activation operand is a few KB.  One block
+// per (8-row, 32-column) output tile walks all of K (the loop replaces
+// the TPU's sequential K grid axis).  Rows go on grid x and columns on
+// grid y, so the row tiles of one column tile run together and share its
+// weight bytes through L2.  The left operand is dequantized to bf16-exact
+// f32 values in shared memory 512 columns at a time; every thread
+// streams 4 weight bytes per k-row and keeps 8 x 4 f32 accumulators on
+// the CUDA cores.
 //
-// The simple design: one block per (8-row, 32-column) output tile that
-// walks all of K (the loop replaces the TPU's sequential K grid axis).
-// Rows go on grid x and columns on grid y, so the row tiles of one
-// column tile run together and share its weight bytes through L2.  The
-// left operand is dequantized to bf16-exact f32 values in shared memory
-// 512 columns at a time; every thread streams 4 weight bytes per k-row
-// and keeps 8 x 4 f32 accumulators.  Ragged M and N are masked in the
-// kernel; K is a multiple of 32 (the caller pads).  Plain FMA on
-// bf16-exact values, no tensor cores yet: wgmma, TMA and warp
-// specialisation are later work.
+// M > 32 (prefill, Table 6, training): the bound is the operations,
+// 2 * M * N * K.  The reference's MXU dot multiplies bf16(q * 2^e) by
+// bf16(Qw) with f32 accumulation, and those products are exact in f32,
+// so a bf16 wgmma with f32 accumulators computes the same function, only
+// the order of the sums differs: the tile is capped by the bf16 peak
+// (989 TFLOP/s), half the fp8 rate that bound_ms counts.  An fp8 wgmma
+// would need a per-row 2^e rescale of a partial sum every 32-wide K step
+// (the in-loop rescale MOSS argues against) and accumulates narrower
+// than f32.  The design (wgmma.cuh: mx_wgmma_tile): 128 x 128 output
+// tiles of 512 threads; two producer warpgroups convert the fp8 bytes
+// into 128-byte-swizzled bf16 panels (q times 2^e for A, K-major; Qw as
+// it lies for B, MN-major, read transposed by the instruction) on the
+// integer pipe, a 3-deep mbarrier ring ahead of two consumer warpgroups
+// that issue m64n128k16 products and add each K-128 partial sum to f32
+// registers (the tensor core's own accumulation truncates: ~1e-5 *
+// max|out| at K 10240).  Converting costs ~2 integer instructions an
+// element, paid once per (tile, element) and shared by 128 columns or
+// rows; the products of a 128 x 128 x 64 step take ~512 SM cycles at the
+// bf16 peak.  Measured (H100 at 700 W): ~300 TFLOP/s, the conversion
+// and its shared-memory stores holding it (PERF.md).
+//
+// Ragged M and N are masked in both tiles; K is a multiple of 32 (the
+// caller pads), K % 64 == 32 reads as zeros in the last step.
 #include "common.cuh"
+#include "wgmma.cuh"
 
 __global__ void __launch_bounds__(mxt::THREADS)
 mx_gemm_kernel(const uint8_t* __restrict__ qx, const int8_t* __restrict__ sexp,
@@ -69,4 +93,53 @@ extern "C" int mx_gemm_launch(const void* qx, const void* sexp, const void* qw,
       static_cast<const uint8_t*>(qw), static_cast<float*>(out), M, N, K,
       x_e5m2 != 0, w_e5m2 != 0, vec != 0);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <bool XE5, bool WE5, bool VEC>
+__global__ void __launch_bounds__(wgt::THREADS, 1)
+mx_gemm_tiled_kernel(const uint8_t* __restrict__ qx,
+                     const int8_t* __restrict__ sexp,
+                     const uint8_t* __restrict__ qw, float* __restrict__ out,
+                     int M, int N, int K) {
+  extern __shared__ uint8_t smem[];
+  mx_wgmma_tile<XE5, WE5, VEC>(qx, sexp, qw, out, M, N, K,
+                               blockIdx.x * wgt::BM, blockIdx.y * wgt::BN,
+                               smem);
+}
+
+template <bool XE5, bool WE5, bool VEC>
+static cudaError_t launch_tiled(const uint8_t* qx, const int8_t* sexp,
+                                const uint8_t* qw, float* out, int M, int N,
+                                int K, cudaStream_t st) {
+  auto kernel = mx_gemm_tiled_kernel<XE5, WE5, VEC>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, wgt::SMEM_BYTES);
+  if (err != cudaSuccess) return err;
+  dim3 grid((M + wgt::BM - 1) / wgt::BM, (N + wgt::BN - 1) / wgt::BN);
+  kernel<<<grid, wgt::THREADS, wgt::SMEM_BYTES, st>>>(qx, sexp, qw, out, M,
+                                                       N, K);
+  return cudaGetLastError();
+}
+
+// vec: qx and qw 16-byte aligned and N % 16 == 0 (16-byte loads).
+extern "C" int mx_gemm_tiled_launch(const void* qx, const void* sexp,
+                                    const void* qw, void* out, int M, int N,
+                                    int K, int x_e5m2, int w_e5m2, int vec,
+                                    void* stream) {
+  auto a = static_cast<const uint8_t*>(qx);
+  auto e = static_cast<const int8_t*>(sexp);
+  auto w = static_cast<const uint8_t*>(qw);
+  auto o = static_cast<float*>(out);
+  auto st = static_cast<cudaStream_t>(stream);
+  using Launch = cudaError_t (*)(const uint8_t*, const int8_t*,
+                                 const uint8_t*, float*, int, int, int,
+                                 cudaStream_t);
+  // indexed by x_e5m2 * 4 + w_e5m2 * 2 + vec
+  static const Launch launch[8] = {
+      launch_tiled<false, false, false>, launch_tiled<false, false, true>,
+      launch_tiled<false, true, false>,  launch_tiled<false, true, true>,
+      launch_tiled<true, false, false>,  launch_tiled<true, false, true>,
+      launch_tiled<true, true, false>,   launch_tiled<true, true, true>};
+  const int sel = (x_e5m2 ? 4 : 0) | (w_e5m2 ? 2 : 0) | (vec ? 1 : 0);
+  return static_cast<int>(launch[sel](a, e, w, o, M, N, K, st));
 }

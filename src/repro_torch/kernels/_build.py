@@ -38,9 +38,11 @@ _LONG = ctypes.c_longlong
 SIGNATURES = {
     "mx_gemm_launch": [_VOID, _VOID, _VOID, _VOID, _INT, _INT, _INT, _INT,
                        _INT, _INT, _VOID],
+    "mx_gemm_tiled_launch": [_VOID, _VOID, _VOID, _VOID, _INT, _INT, _INT,
+                             _INT, _INT, _INT, _VOID],
     "fused_quant_gemm_launch": [_VOID, _VOID, _VOID, _VOID, _VOID, _VOID,
                                 _INT, _INT, _INT, _INT, _INT, _INT, _INT,
-                                _INT, _FLOAT, _FLOAT, _VOID],
+                                _FLOAT, _FLOAT, _VOID],
     "mx_dw_gemm_launch": [_VOID, _VOID, _VOID, _VOID, _VOID, _VOID, _INT,
                           _INT, _INT, _INT, _INT, _INT, _FLOAT, _FLOAT,
                           _VOID],

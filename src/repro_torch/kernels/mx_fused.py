@@ -11,10 +11,20 @@ The caller (``kernels.dispatch.fused_quant_matmul``) computes ``s``
 follows ``repro.core.quant.quant_mx`` and ``mx_gemm``.
 
 A CPU tensor takes the plain version.  A CUDA tensor launches the
-kernel, or raises: there is no fallback.  The kernel has two tiles: up
-to ``SMALL_M`` rows (the serving path's calibration forward) a block of
-8 rows streams its weight strip once; above it (training M) a 128 x 128
-tile reuses both panels from shared memory.
+kernel, or raises: there is no fallback.  Up to ``SMALL_M`` rows (the
+serving path's calibration forward) one fused kernel quantizes x into
+the staging of an 8-row tile that streams its weight strip once.  Above
+it (training: the forward, the remat recompute and dx) the call is two
+launches into the same outputs: the ``mx_quant`` kernel writes q and
+sexp once per element, then ``mx_gemm``'s 128 x 128 ``wgmma`` tile
+computes acc from them.  A quantizer inside a 128 x 128 GEMM tile
+re-quantizes its rows once per column tile (N/128 times), at ~60-100
+instructions an element against ~512 SM cycles of tensor-core products
+per 128 x 128 x 64 step, so it, not the GEMM, would set the pace; one
+pass costs a read of x and a write of the payload.  The payload and
+acc are what the fused kernel computes: the two quantizers share
+``csrc/common.cuh``'s routines, and ``fused_quant_gemm_plain`` equals
+``mx_quant_plain`` followed by ``mx_gemm_plain`` bit for bit.
 """
 
 from __future__ import annotations
@@ -25,13 +35,16 @@ from repro_torch.core.formats import INV_LN2_F32, fp8_dtype, fp8_max, is_fp8
 from repro_torch.core.quant import mx_operand, quant_mx
 from repro_torch.core.runtime_flags import mm
 
+from . import mx_gemm, mx_quant
 from ._build import LaunchCounter, check, library
 
 MICRO = 32
-SMALL_M = 32          # the largest M that takes the decode-size tile
+SMALL_M = mx_gemm.SMALL_M  # the largest M that takes the fused 8-row kernel
 
-counter = LaunchCounter("fused_quant_gemm")              # the M <= 32 tile
-counter_tiled = LaunchCounter("fused_quant_gemm_tiled")  # the M > 32 tile
+counter = LaunchCounter("fused_quant_gemm")              # the M <= 32 kernel
+# calls at M > 32 (each launches mx_quant and mx_gemm_tiled, which count
+# their own launches)
+counter_tiled = LaunchCounter("fused_quant_gemm_tiled")
 
 
 def fused_quant_gemm_plain(x: torch.Tensor, s: torch.Tensor,
@@ -65,16 +78,22 @@ def fused_quant_gemm(x: torch.Tensor, s: torch.Tensor, qw: torch.Tensor,
     acc = torch.empty((m, n), dtype=torch.float32, device=dev)
     q = torch.empty((m, k), dtype=fp8_dtype(fmt), device=dev)
     sexp = torch.empty((m, k // MICRO), dtype=torch.int8, device=dev)
+    if m > SMALL_M:
+        if x.data_ptr() % 16:         # mx_quant reads 16-byte vectors
+            x = x.clone()
+        mx_quant.launch(x, s32, q, sexp, fmt)
+        mx_gemm.launch_tiled(q, sexp, qw, acc)
+        counter_tiled.hit()
+        return acc, q, sexp
     vec = int(n % 4 == 0 and qw.data_ptr() % 4 == 0)
-    tiled = m > SMALL_M
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = library().fused_quant_gemm_launch(
             x.data_ptr(), s32.data_ptr(), qw.data_ptr(), acc.data_ptr(),
             q.data_ptr(), sexp.data_ptr(), m, n, k,
             int(x.dtype == torch.bfloat16), int(fmt == "e5m2"),
-            int(qw.dtype == torch.float8_e5m2), vec, int(tiled),
-            fp8_max(fmt), INV_LN2_F32, stream)
+            int(qw.dtype == torch.float8_e5m2), vec, fp8_max(fmt),
+            INV_LN2_F32, stream)
     check(code, "fused_quant_gemm")
-    (counter_tiled if tiled else counter).hit()
+    counter.hit()
     return acc, q, sexp

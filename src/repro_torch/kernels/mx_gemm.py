@@ -7,7 +7,12 @@ TPU kernel ``repro.kernels.mx_gemm.mx_gemm_pallas``; the plain version
 follows ``repro.kernels.ref.mx_gemm_ref``.
 
 A CPU tensor takes the plain version.  A CUDA tensor launches the
-kernel, or raises: there is no fallback.
+kernel, or raises: there is no fallback.  The kernel has two tiles,
+chosen from M (``tile_for``): up to ``SMALL_M`` rows (decode and verify
+steps, 32-token prefill chunks) the 8-row tile streams the weights on
+the CUDA cores; above it (whole-prompt prefill, Table 6, training
+behind ``mx_fused``) a 128 x 128 tile runs bf16 ``wgmma`` products on
+the tensor cores.
 """
 
 from __future__ import annotations
@@ -21,8 +26,16 @@ from repro_torch.core.runtime_flags import mm
 from ._build import LaunchCounter, check, library
 
 MICRO = 32
+SMALL_M = 32          # the largest M that takes the 8-row tile
 
-counter = LaunchCounter("mx_gemm")
+counter = LaunchCounter("mx_gemm")              # the M <= 32 tile
+counter_tiled = LaunchCounter("mx_gemm_tiled")  # the M > 32 wgmma tile
+
+
+def tile_for(m: int) -> str:
+    """The tile that takes M rows on the card: "small" (8 rows on the
+    CUDA cores) or "tiled" (128 x 128 on the tensor cores)."""
+    return "small" if m <= SMALL_M else "tiled"
 
 
 def mx_gemm_plain(qx: torch.Tensor, sexp: torch.Tensor,
@@ -57,6 +70,9 @@ def mx_gemm(qx: torch.Tensor, sexp: torch.Tensor,
     m, k = qx.shape
     n = qw.shape[1]
     out = torch.empty((m, n), dtype=torch.float32, device=dev)
+    if tile_for(m) == "tiled":
+        launch_tiled(qx, sexp, qw, out)
+        return out
     vec = int(n % 4 == 0 and qw.data_ptr() % 4 == 0)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -67,3 +83,22 @@ def mx_gemm(qx: torch.Tensor, sexp: torch.Tensor,
     check(code, "mx_gemm")
     counter.hit()
     return out
+
+
+def launch_tiled(qx: torch.Tensor, sexp: torch.Tensor, qw: torch.Tensor,
+                 out: torch.Tensor) -> None:
+    """The wgmma tile into ``out`` (M, N) f32, on checked contiguous CUDA
+    operands (also ``mx_fused``'s M > 32 GEMM)."""
+    m, k = qx.shape
+    n = qw.shape[1]
+    vec = int(n % 16 == 0 and qx.data_ptr() % 16 == 0
+              and qw.data_ptr() % 16 == 0)
+    dev = qx.device
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = library().mx_gemm_tiled_launch(
+            qx.data_ptr(), sexp.data_ptr(), qw.data_ptr(), out.data_ptr(),
+            m, n, k, int(qx.dtype == torch.float8_e5m2),
+            int(qw.dtype == torch.float8_e5m2), vec, stream)
+    check(code, "mx_gemm_tiled")
+    counter_tiled.hit()

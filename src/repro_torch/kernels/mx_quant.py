@@ -50,16 +50,27 @@ def mx_quant(x: torch.Tensor, s: torch.Tensor, fmt: str = "e4m3"):
         raise ValueError("mx_quant: x must be contiguous and 16-byte "
                          "aligned")
     m, k = x.shape
-    s32 = s.to(torch.float32).reshape(()).contiguous()
     q = torch.empty((m, k), dtype=fp8_dtype(fmt), device=dev)
     sexp = torch.empty((m, k // MICRO), dtype=torch.int8, device=dev)
-    if m:
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            code = library().mx_quant_launch(
-                x.data_ptr(), s32.data_ptr(), q.data_ptr(), sexp.data_ptr(),
-                m * (k // MICRO), int(x.dtype == torch.bfloat16),
-                int(fmt == "e5m2"), fp8_max(fmt), INV_LN2_F32, stream)
-        check(code, "mx_quant")
-        counter.hit()
+    launch(x, s, q, sexp, fmt)
     return q, sexp
+
+
+def launch(x: torch.Tensor, s: torch.Tensor, q: torch.Tensor,
+           sexp: torch.Tensor, fmt: str) -> None:
+    """The kernel into ``q`` and ``sexp``, on checked CUDA operands (x
+    contiguous and 16-byte aligned; also ``mx_fused``'s M > 32
+    quantizer)."""
+    m, k = x.shape
+    if not m:
+        return
+    dev = x.device
+    s32 = s.to(torch.float32).reshape(()).contiguous()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = library().mx_quant_launch(
+            x.data_ptr(), s32.data_ptr(), q.data_ptr(), sexp.data_ptr(),
+            m * (k // MICRO), int(x.dtype == torch.bfloat16),
+            int(fmt == "e5m2"), fp8_max(fmt), INV_LN2_F32, stream)
+    check(code, "mx_quant")
+    counter.hit()

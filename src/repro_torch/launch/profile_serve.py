@@ -40,8 +40,8 @@ from repro_torch.serving import Engine, Request
 GPU_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 SPANS = ("decode_step", "prefill_chunk", "prefill", "verify_step")
 # the port's own kernels (csrc/*.cu), by the name the trace gives them
-PORT_KERNELS = ("mx_gemm_kernel", "fused_quant_gemm_kernel",
-                "fused_quant_gemm_tiled_kernel", "mx_dw_gemm_kernel",
+PORT_KERNELS = ("mx_gemm_kernel", "mx_gemm_tiled_kernel",
+                "fused_quant_gemm_kernel", "mx_dw_gemm_kernel",
                 "group_gemm_kernel", "mx_quant_kernel",
                 "decode_attn_kernel", "moe_gmm_kernel",
                 "moe_dw_gemm_kernel")

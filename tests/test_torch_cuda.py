@@ -23,10 +23,14 @@ pytestmark = pytest.mark.cuda
 
 GEMM_SHAPES = [(5, 96, 200), (16, 256, 72), (1, 32, 33), (4, 3072, 3072),
                (32, 3072, 8192)]
-# M > 32 takes the fused kernel's large tile: ragged M, N and a
+# M > 32 takes mx_quant then mx_gemm's wgmma tile: ragged M, N and a
 # single-group K
 LARGE_M_SHAPES = [(33, 96, 200), (130, 256, 72), (256, 32, 129),
                   (512, 4096, 256)]
+# M > 32 takes mx_gemm's wgmma tile: ragged M and N (N odd: byte loads),
+# K % 64 == 32, one K group, full 128 x 128 tiles
+TILED_SHAPES = [(33, 96, 200), (130, 96, 200), (256, 64, 136),
+                (200, 160, 129), (65, 32, 40), (512, 4096, 256)]
 DW_SHAPES = [(128, 256, 192), (256, 96, 200), (64, 4096, 130)]
 # (m, k, n): ragged M and N, one group, and olmo-7b's per_group forward
 # (M 2048, K 4096) and dW (K 11008 rows, 2048 tokens) at a cut N
@@ -81,6 +85,62 @@ def test_gemm_kernels_match_plain(cuda, fmt):
         xq = quant_mx(x, 32, fmt)
         _close(mx_gemm.mx_gemm(xq.q, xq.sexp, qw),
                mx_gemm.mx_gemm_plain(xq.q, xq.sexp, qw))
+
+
+@pytest.mark.parametrize("x_fmt", ["e4m3", "e5m2"])
+@pytest.mark.parametrize("w_fmt", ["e4m3", "e5m2"])
+def test_mx_gemm_tiled_matches_plain(cuda, x_fmt, w_fmt):
+    """The wgmma tile (M > 32) against the plain version in all four
+    operand formats, ragged shapes included; two calls agree bit for
+    bit (no split-K, no atomics)."""
+    for m, k, n in TILED_SHAPES:
+        xq = quant_mx(_x(m, k, m + n).to(cuda), 32, x_fmt)
+        w = torch.tensor(np.random.default_rng(n).standard_normal((k, n)),
+                         dtype=torch.float32) * 0.05
+        qw = quant_per_tensor(w, w_fmt).q.to(cuda)
+        before = mx_gemm.counter_tiled.count
+        got = mx_gemm.mx_gemm(xq.q, xq.sexp, qw)
+        again = mx_gemm.mx_gemm(xq.q, xq.sexp, qw)
+        assert mx_gemm.counter_tiled.count == before + 2
+        assert torch.isfinite(got).all()
+        _close(got, mx_gemm.mx_gemm_plain(xq.q, xq.sexp, qw))
+        assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+
+
+def test_mx_gemm_tiled_operands_are_bitwise(cuda):
+    """Against an identity weight every output is one operand value:
+    bf16(q * 2^e) bit for bit, at exponents down to -127 (bf16
+    subnormals) and up to 100, in both payload formats."""
+    m, k = 96, 128
+    rng = np.random.default_rng(7)
+    one = torch.eye(k).to(torch.float8_e4m3fn).to(cuda)
+    for fmt in ("e4m3", "e5m2"):
+        xq = quant_mx(torch.tensor(rng.standard_normal((m, k)),
+                                   dtype=torch.float32), 32, fmt)
+        sexp = torch.tensor(rng.integers(-127, 101, (m, k // 32)),
+                            dtype=torch.int8)
+        sexp[:8] = -127
+        q, sexp = xq.q.to(cuda), sexp.to(cuda)
+        got = mx_gemm.mx_gemm(q, sexp, one)
+        want = mx_gemm.mx_gemm_plain(q, sexp, one)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_mx_gemm_tile_switches_above_32_rows(cuda):
+    """M = 32 takes the 8-row tile, M = 33 the wgmma tile; both agree
+    with the plain version on the same rows."""
+    k, n = 256, 200
+    xq = quant_mx(_x(33, k, 5).to(cuda), 32, "e4m3")
+    qw = quant_per_tensor(torch.tensor(np.random.default_rng(5)
+                                       .standard_normal((k, n)),
+                                       dtype=torch.float32)).q.to(cuda)
+    for m, small, tiled in ((32, 1, 0), (33, 0, 1)):
+        counts = mx_gemm.counter.count, mx_gemm.counter_tiled.count
+        q, se = xq.q[:m].contiguous(), xq.sexp[:m].contiguous()
+        got = mx_gemm.mx_gemm(q, se, qw)
+        assert (mx_gemm.counter.count - counts[0],
+                mx_gemm.counter_tiled.count - counts[1]) == (small, tiled)
+        _close(got, mx_gemm.mx_gemm_plain(q, se, qw))
 
 
 @pytest.mark.parametrize("kv_dtype", ["fp8", "bf16"])
@@ -348,7 +408,11 @@ def test_fused_large_m_tile_matches_plain(cuda, fmt):
         qw = quant_per_tensor(w, "e4m3").q.to(cuda)
         for xin in (x, x.bfloat16()):
             s = dispatch.global_scale(xin, fmt)
+            counts = mx_quant.counter.count, mx_gemm.counter_tiled.count
             acc, q, se = mx_fused.fused_quant_gemm(xin, s, qw, fmt)
+            # two launches: the quantizer, then the wgmma tile
+            assert (mx_quant.counter.count - counts[0],
+                    mx_gemm.counter_tiled.count - counts[1]) == (1, 1)
             acc_p, q_p, se_p = mx_fused.fused_quant_gemm_plain(xin, s, qw,
                                                                fmt)
             assert torch.equal(q.view(torch.uint8), q_p.view(torch.uint8))

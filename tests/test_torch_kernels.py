@@ -23,9 +23,11 @@ from repro.kernels.decode_attn import decode_attn_paged_pallas
 
 from repro_torch import bridge
 from repro_torch.core.quant import PerTensorQ, quant_mx, quant_per_tensor
-from repro_torch.kernels import dispatch, mx_gemm
+from repro_torch.kernels import dispatch, mx_fused, mx_gemm, mx_quant
 
 GEMM_SHAPES = [(5, 96, 200), (16, 256, 72), (1, 32, 33)]
+# M > 32 (the wgmma tile on a card): ragged M and N, K % 64 == 32
+LARGE_M_SHAPES = [(130, 96, 200), (256, 64, 136)]
 
 
 def _x(m, k, seed, outliers=True):
@@ -68,7 +70,7 @@ def _jax(t: torch.Tensor):
     return jnp.asarray(t.numpy())
 
 
-@pytest.mark.parametrize("m,k,n", GEMM_SHAPES)
+@pytest.mark.parametrize("m,k,n", GEMM_SHAPES + LARGE_M_SHAPES)
 @pytest.mark.parametrize("fmt", ["e4m3", "e5m2"])
 def test_mx_gemm_plain_matches_pallas_and_ref(m, k, n, fmt):
     xq = quant_mx(torch.tensor(_x(m, k, m + n)), 32, fmt)
@@ -83,6 +85,34 @@ def test_mx_gemm_plain_matches_pallas_and_ref(m, k, n, fmt):
     assert got.shape == (m, n) and got.dtype == torch.float32
     _close(got, ref)
     _close(got, pallas)
+
+
+def test_mx_gemm_tile_choice():
+    """Up to 32 rows (decode and verify steps, prefill chunks) the 8-row
+    tile, above it the wgmma tile; the fused operator switches at the
+    same M."""
+    assert [mx_gemm.tile_for(m) for m in (1, 4, 16, 32, 33, 2048, 4160)] \
+        == ["small"] * 4 + ["tiled"] * 3
+    assert mx_fused.SMALL_M == mx_gemm.SMALL_M == 32
+
+
+@pytest.mark.parametrize("m,k,n", LARGE_M_SHAPES)
+@pytest.mark.parametrize("fmt,dtype", [("e4m3", torch.bfloat16),
+                                       ("e5m2", torch.float32)])
+def test_fused_quant_gemm_plain_is_quantizer_then_gemm(m, k, n, fmt, dtype):
+    """The decomposition of the M > 32 path: ``fused_quant_gemm_plain``
+    equals ``mx_quant_plain`` followed by ``mx_gemm_plain`` bit for bit
+    (payloads and sums), the forward (e4m3 on bf16) and dx (e5m2 on
+    f32) alike."""
+    x = torch.tensor(_x(m, k, m + k)).to(dtype)
+    qw = _w(k, n, n, "e4m3").q
+    s = dispatch.global_scale(x, fmt)
+    acc, q, sexp = mx_fused.fused_quant_gemm(x, s, qw, fmt)     # CPU: plain
+    q2, sexp2 = mx_quant.mx_quant(x, s, fmt)
+    acc2 = mx_gemm.mx_gemm(q2, sexp2, qw)
+    np.testing.assert_array_equal(bridge.bits(q), bridge.bits(q2))
+    np.testing.assert_array_equal(sexp.numpy(), sexp2.numpy())
+    np.testing.assert_array_equal(bridge.bits(acc), bridge.bits(acc2))
 
 
 @pytest.mark.parametrize("m,k,n", GEMM_SHAPES)
@@ -111,7 +141,7 @@ def test_fused_quant_gemm_plain_matches_pallas_and_ref(m, k, n, fmt):
 
 @pytest.mark.parametrize("m,k,n", [(96, 256, 96), (130, 64, 160)])
 def test_fused_quant_gemm_training_m_plain_matches_pallas(m, k, n):
-    """M > 32 (the kernel's large tile on a card): the forward in e4m3
+    """M > 32 (mx_quant then the wgmma tile on a card): the forward in e4m3
     on bf16 activations and dx in e5m2 on an f32 gradient against the
     transposed e4m3 weights, through dispatch.  Payloads bitwise against
     the reference's ``ref`` branch (its Pallas kernel differs from it on

@@ -6,9 +6,9 @@ dispatch entries, ``qmm_grouped``, the MoE block and the train step.
 Inputs are made from a seed with numpy, or are the reference's own
 weights and batches carried across by ``repro_torch.bridge``.  The
 Pallas kernels run in interpret mode in this process; the reference's
-``qmm_grouped``, MoE block and train steps come from one child process
-that compiles them with ``REFERENCE_XLA_FLAGS`` under
-``REPRO_KERNELS=ref`` (as tests/test_torch_train.py's child does).
+``qmm_grouped``, MoE block and train steps come from the child process
+of tests/test_torch_train.py, which compiles them with its
+``REFERENCE_XLA_FLAGS`` under ``REPRO_KERNELS=ref`` (``moe_reference``).
 
 Tolerances, with their reasons (the values measured on a CPU are in
 each test):
@@ -25,13 +25,6 @@ each test):
 - train steps: the limits of ``test_train_steps_match_reference``, and
   the per-(layer, expert) scale states across a refresh.
 """
-
-import fcntl
-import os
-import pickle
-import subprocess
-import sys
-from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -69,7 +62,6 @@ from repro_torch.train import steps as tsteps
 
 from test_torch_recipes import _jax, _same
 from test_torch_train import (
-    REFERENCE_XLA_FLAGS,
     TRAIN_HP,
     _close_max,
     _jax_state,
@@ -77,6 +69,7 @@ from test_torch_train import (
     _rel_l2,
     check_train_steps,
     recipe,
+    shared_reference,
 )
 
 ARCH = "phi3.5-moe-42b-a6.6b"
@@ -235,47 +228,29 @@ def _moe_train_runs(modes=("moss", "bf16"), steps=3, dense=False):
     return out
 
 
-def _reference_child(out: str) -> None:
-    ref = {"qmm_grouped": {m: _qmm_grouped_reference(m)
-                           for m in ("moss", "bf16")},
-           "block": {(dense, mode): _block_reference(dense, mode)
-                     for dense in (False, True)
-                     for mode in ("moss", "bf16")},
-           "block_vjp": {m: _block_vjp_reference(m)
-                         for m in ("moss", "bf16", "per_group",
-                                   "per_tensor")},
-           "train": _moe_train_runs(),
-           "per_group": _moe_train_runs(("per_group",), steps=1)}
-    with open(out, "wb") as f:
-        pickle.dump(ref, f)
+def moe_reference() -> dict:
+    """The reference's side of this module's tests, computed in the
+    shared child of tests/test_torch_train.py (compiled with its
+    ``REFERENCE_XLA_FLAGS`` under ``REPRO_KERNELS=ref``)."""
+    return {"qmm_grouped": {m: _qmm_grouped_reference(m)
+                            for m in ("moss", "bf16")},
+            "block": {(dense, mode): _block_reference(dense, mode)
+                      for dense in (False, True)
+                      for mode in ("moss", "bf16")},
+            "block_vjp": {m: _block_vjp_reference(m)
+                          for m in ("moss", "bf16", "per_group",
+                                    "per_tensor")},
+            "train": _moe_train_runs(),
+            "per_group": _moe_train_runs(("per_group",), steps=1)}
 
 
 @pytest.fixture(scope="module")
 def reference(tmp_path_factory):
-    """``_reference_child``'s results, from one child process per test
-    run, shared by pytest-xdist's workers through a file and a lock in
-    the run's common temporary directory."""
-    base = tmp_path_factory.getbasetemp()
-    if os.environ.get("PYTEST_XDIST_WORKER"):
-        base = base.parent
-    out = base / "torch_moe_reference.pkl"
-    with open(base / "torch_moe_reference.lock", "w") as lock:
-        fcntl.flock(lock, fcntl.LOCK_EX)
-        if not out.exists():
-            env = dict(os.environ)
-            env["XLA_FLAGS"] = (env.get("XLA_FLAGS", "") + " "
-                                + REFERENCE_XLA_FLAGS).strip()
-            env["JAX_PLATFORMS"] = "cpu"
-            env["REPRO_KERNELS"] = "ref"
-            env.pop("REPRO_MOE_EXPERTS", None)
-            src = str(Path(__file__).resolve().parent.parent / "src")
-            env["PYTHONPATH"] = src + os.pathsep + env.get("PYTHONPATH", "")
-            part = out.with_suffix(".part")
-            subprocess.run([sys.executable, __file__, str(part)], env=env,
-                           check=True, timeout=900)
-            os.replace(part, out)
-    with open(out, "rb") as f:
-        return pickle.load(f)
+    """``moe_reference``'s results, from the one child process that
+    tests/test_torch_train.py, test_torch_recipes.py and
+    test_torch_ring.py share (one per test run, through a file and a
+    lock under pytest-xdist)."""
+    return shared_reference(tmp_path_factory)["moe"]
 
 
 # --- the config --------------------------------------------------------------
@@ -736,7 +711,3 @@ def test_moe_remat_recomputes_the_same_routing():
     (l0, a0, g0), (l1, a1, g1) = outs
     assert (l0, a0) == (l1, a1)
     assert all(torch.equal(a, b) for a, b in zip(g0, g1))
-
-
-if __name__ == "__main__":
-    _reference_child(sys.argv[1])

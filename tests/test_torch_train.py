@@ -29,9 +29,11 @@ CPU beside them:
 
 The child also computes the reference's side of
 ``tests/test_torch_recipes.py`` (``qmm`` and the train steps in the
-per_group and per_tensor recipes) and of tests/test_torch_ring.py's
+per_group and per_tensor recipes), of tests/test_torch_ring.py's
 model tests (``h2o_reference``: the sliding-window forward and prefill
-step); the modules share its results (``reference``).
+step) and of tests/test_torch_moe.py (``moe_reference``: qmm_grouped,
+the MoE block and its VJP, the MoE train steps); the modules share its
+results (``reference``, ``shared_reference``).
 """
 
 import fcntl
@@ -138,23 +140,32 @@ REFERENCE_XLA_FLAGS = ("--xla_allow_excess_precision=false "
 
 def _reference_child(out: str) -> None:
     """What the reference computes for this module's tests and for
-    tests/test_torch_recipes.py, compiled with ``REFERENCE_XLA_FLAGS``
-    under ``REPRO_KERNELS=ref``, pickled."""
+    tests/test_torch_recipes.py, test_torch_ring.py and
+    test_torch_moe.py, compiled with ``REFERENCE_XLA_FLAGS`` under
+    ``REPRO_KERNELS=ref``, pickled."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from test_torch_moe import moe_reference
     from test_torch_ring import h2o_reference
 
-    ref = {"dw": {case: _dw_reference(*case) for case in DW_CASES},
-           "h2o": h2o_reference(),
-           "optimizer": _optimizer_reference(),
-           "train": _train_runs(),
-           "qmm": {(mode, i): _qmm_reference(mode, *shape)
-                   for mode in MODES
-                   for i, shape in enumerate(QMM_SHAPES)}}
+    # the MoE references (the longest part) in a second thread: XLA
+    # compiles and runs with the GIL released, and no builder touches
+    # global state, so the two halves overlap and give the same results
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        moe = pool.submit(moe_reference)
+        ref = {"dw": {case: _dw_reference(*case) for case in DW_CASES},
+               "h2o": h2o_reference(),
+               "optimizer": _optimizer_reference(),
+               "train": _train_runs(),
+               "qmm": {(mode, i): _qmm_reference(mode, *shape)
+                       for mode in MODES
+                       for i, shape in enumerate(QMM_SHAPES)}}
+        ref["moe"] = moe.result()
     with open(out, "wb") as f:
         pickle.dump(ref, f)
 
 
-@pytest.fixture(scope="module")
-def reference(tmp_path_factory):
+def shared_reference(tmp_path_factory) -> dict:
     """``_reference_child``'s results, from one child process per test
     run (the XLA flags take effect only before the backend starts).
     Under pytest-xdist the workers share it through the run's common
@@ -171,14 +182,21 @@ def reference(tmp_path_factory):
                                 + REFERENCE_XLA_FLAGS).strip()
             env["JAX_PLATFORMS"] = "cpu"
             env["REPRO_KERNELS"] = "ref"
+            env.pop("REPRO_MOE_EXPERTS", None)
             src = str(Path(__file__).resolve().parent.parent / "src")
             env["PYTHONPATH"] = src + os.pathsep + env.get("PYTHONPATH", "")
             part = out.with_suffix(".part")
             subprocess.run([sys.executable, __file__, str(part)], env=env,
-                           check=True, timeout=600)
+                           check=True, timeout=900)
             os.replace(part, out)
     with open(out, "rb") as f:
         return pickle.load(f)
+
+
+@pytest.fixture(scope="module")
+def reference(tmp_path_factory):
+    """``shared_reference``, once per module."""
+    return shared_reference(tmp_path_factory)
 
 
 # --- mx_dw_gemm ------------------------------------------------------------

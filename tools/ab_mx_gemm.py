@@ -1,0 +1,161 @@
+"""Compare the MOSS GEMMs of this checkout with another checkout's on one
+NVIDIA GPU: ``mx_gemm`` at M > 32 (the paper's Table 6 shapes and
+h2o-danube-3-4b's 4160-token prefill), ``fused_quant_gemm`` at olmo-7b's
+training M 2048 (the forward, e4m3 on bf16 activations, and dx, e5m2 on
+an f32 gradient against the transposed weights) and chip_smoke.py's
+olmo-7b moss training step (4 of 32 layers, 1 x 2048 tokens), on the
+same inputs from one seed.
+
+    python3 tools/ab_mx_gemm.py OTHER/src        # from this checkout
+
+Each checkout runs in its own process (both packages are named
+``repro_torch``; PYTHONPATH picks the one), in the order this, other,
+other, this, so that the speed-up is read on one card.  Kernel times
+are chip_smoke.py's ``Timer`` (cold L2, median of 20); the step time is
+the median of steps 1-3 of 4 (host clock around a synchronised step).
+The outputs of the two checkouts are compared: the fused payloads
+(q, sexp) bit for bit, the sums within 1e-5 * max|other| (the two may
+sum in different orders).
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+import tempfile
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+# mx_gemm (M, N, K): Table 6, then h2o-danube-3-4b's prefill qkv and down
+GEMM_MNK = [(2048, 7168, 4096), (4096, 2048, 7168), (4096, 4096, 8192),
+            (4160, 5760, 3840), (4160, 3840, 10240)]
+# fused_quant_gemm (what, fmt, M, K, N): olmo-7b's up forward and its dx
+FUSED = [("fwd", "e4m3", 2048, 4096, 11008), ("dx", "e5m2", 2048, 11008,
+                                               4096)]
+
+
+def _train_step_ms(torch) -> float:
+    """The moss step of chip_smoke.py's training phase, in ms."""
+    import chip_smoke as cs
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.launch.train import quant_from_name
+    from repro_torch.train.steps import (TrainHParams, init_train_state,
+                                         make_train_step)
+
+    hp = TrainHParams(peak_lr=3e-4, warmup_steps=0, total_steps=4)
+    cfg = cs._train_cfg(get_config, quant_from_name, "moss", smoke=False)
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=cs.TRAIN_M,
+                                  global_batch=1, seed=0))
+    state = init_train_state(cfg, hp, seed=0, device="cuda")
+    step = make_train_step(cfg, hp)
+    times = []
+    for i in range(4):
+        batch = data.batch_for_step(i)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        state, met = step(state, batch)
+        float(met["loss"])
+        torch.cuda.synchronize()
+        times.append((time.monotonic() - t0) * 1e3)
+    return statistics.median(times[1:])
+
+
+def measure(dst: str) -> None:
+    """Every case on this process's ``repro_torch``: the outputs to
+    ``dst``, the times to ``dst`` + ``.json``."""
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    from chip_smoke import Timer, _activations
+    from repro_torch.core.quant import quant_mx, quant_per_tensor
+    from repro_torch.kernels import dispatch, mx_fused, mx_gemm
+
+    timer = Timer(torch)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    outs, times = {}, {}
+    for m, n, k in GEMM_MNK:
+        xq = quant_mx(_activations(torch, gen, m, k))
+        w = torch.randn(k, n, device="cuda", generator=gen) / k ** 0.5
+        qw = quant_per_tensor(w).q
+        name = f"mx_gemm M={m} N={n} K={k}"
+        outs[name] = mx_gemm.mx_gemm(xq.q, xq.sexp, qw).cpu()
+        times[name] = timer.ms(lambda: mx_gemm.mx_gemm(xq.q, xq.sexp, qw))
+        del xq, w, qw
+    for what, fmt, m, k, n in FUSED:
+        x = _activations(torch, gen, m, k)
+        if what == "dx":
+            x = x.float() * 1e-3
+        w = torch.randn(k, n, device="cuda", generator=gen) / k ** 0.5
+        qw = quant_per_tensor(w).q
+        s = dispatch.global_scale(x, fmt)
+        name = f"fused_quant_gemm {what} {fmt} M={m} K={k} N={n}"
+        acc, q, se = mx_fused.fused_quant_gemm(x, s, qw, fmt)
+        outs[name] = acc.cpu()
+        outs[name + " q"] = q.view(torch.uint8).cpu()
+        outs[name + " sexp"] = se.cpu()
+        times[name] = timer.ms(lambda: mx_fused.fused_quant_gemm(x, s, qw,
+                                                                 fmt))
+        del x, w, qw, acc, q, se
+    del timer
+    torch.cuda.empty_cache()
+    times["moss step (olmo-7b, 4 layers, 1 x 2048)"] = _train_step_ms(torch)
+    torch.save(outs, dst)
+    Path(dst + ".json").write_text(json.dumps(times))
+
+
+def main(argv: list[str]) -> int:
+    if len(argv) == 3 and argv[1] == "--measure":
+        measure(argv[2])
+        return 0
+    if len(argv) != 2:
+        print(__doc__, file=sys.stderr)
+        return 2
+    import torch
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    print(f"card: {smi}")
+    trees = {"this": str(ROOT / "src"), "other": str(Path(argv[1]).resolve())}
+    with tempfile.TemporaryDirectory() as tmp:
+        runs, times = [], {"this": [], "other": []}
+        for i, tag in enumerate(("this", "other", "other", "this")):
+            dst = os.path.join(tmp, f"{i}.pt")
+            subprocess.run([sys.executable, __file__, "--measure", dst],
+                           env=dict(os.environ, PYTHONPATH=trees[tag]),
+                           check=True, timeout=900)
+            runs.append(dst)
+            t = json.loads(Path(dst + ".json").read_text())
+            times[tag].append(t)
+            print(f"{tag} ({trees[tag]}): " + ", ".join(
+                f"{k} {v:.4f} ms" for k, v in t.items()))
+        this, other = torch.load(runs[0]), torch.load(runs[1])
+    for key in times["this"][0]:
+        a = statistics.mean(t[key] for t in times["this"])
+        b = statistics.mean(t[key] for t in times["other"])
+        print(f"{key}: this {a:.4f} ms, other {b:.4f} ms, speed-up "
+              f"{b / a:.2f}x")
+    for key, want in other.items():
+        got = this[key]
+        if torch.equal(got, want):
+            print(f"{key}: bitwise")
+            continue
+        if got.dtype != torch.float32:
+            print(f"{key}: {int((got != want).sum())} of {got.numel()} "
+                  f"differ")
+            continue
+        err = float((got - want).abs().max())
+        scale = float(want.abs().max())
+        print(f"{key}: max err {err:.3g} (max|other| {scale:.3g}, "
+              f"{'within' if err <= 1e-5 * scale else 'OUTSIDE'} "
+              f"1e-5 * max|other|)")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv))
