@@ -22,9 +22,10 @@ Phases, each fatal on failure:
      type, 1979 TFLOP/s for fp8 and 989 for bf16, whichever is larger)
      and a PyTorch library call where one computes the same function;
      the baselines' kernels at the same
-     training shapes: group_gemm (the per_group forward, dx and dW, with
-     torch._scaled_mm beside it as well) and mx_quant (the standalone
-     quantizer); the contiguous (ring) decode attention at
+     training shapes: group_gemm (the per_group forward, dx and dW, on
+     the wgmma tile with the per-group rescale at its K-128 promotion,
+     with torch._scaled_mm beside it as well) and mx_quant (the
+     standalone quantizer); the contiguous (ring) decode attention at
      h2o-danube-3-4b's decode shape (two rows wrapped past C = 4096,
      two partial) and at recurrentgemma-2b's local-attention shape (G
      10, Dh 256), fp8 and bf16, beside SDPA on a bf16 cache, within 1e-5
@@ -55,7 +56,8 @@ Phases, each fatal on failure:
      its ring decode);
   5. the ablation (the paper's Table 6): the quantizer/GEMM entry points
      of kernels.ops at its three (M, N, K) shapes -- the MOSS GEMM
-     (mx_gemm's wgmma tile), the COAT GEMM (group_gemm), the port's
+     (mx_gemm's wgmma tile), the COAT GEMM (group_gemm: the same tile,
+     each K-128 partial sum rescaled by its row's group scale), the port's
      per-tensor GEMM (pt_matmul, f32 upcast product), TE's fp8 GEMM
      (torch._scaled_mm, cuBLASLt), bf16 torch.matmul, the fused MOSS
      linear layer (moss_linear: fused_quant_gemm at M > 32, the mx_quant
@@ -70,13 +72,15 @@ Phases, each fatal on failure:
      per_tensor on the card and on the CPU from the same initial state
      and batches, each device on its own trajectory;
   7. MoE training: phi3.5-moe-42b-a6.6b at full width, depth cut to 1
-     layer, batch 2 x 4096 (8192 tokens: the grouped route): moe_gmm and
-     moe_dw_gemm against their plain versions on layer 0's routing of the
-     first batch (up, down, dx, dW; an empty and a full expert), timed
-     beside bf16 torch.bmm; then 3 moss and 3 bf16 steps from the same
-     weights and batches, each moss step launching exactly its kernels,
-     none in bf16; the smoke-size MoE trains 3 moss steps on the grouped
-     route on the card and on the CPU (phase 6's check);
+     layer, batch 2 x 4096 (8192 tokens: the grouped route): moe_gmm (the
+     mx_quant kernel over the buffer, then the wgmma tile per row block,
+     column tile and expert) and moe_dw_gemm against their plain versions
+     on layer 0's routing of the first batch (up, down, dx, dW; an empty
+     and a full expert; moe_gmm's rows past each expert's size exactly
+     0), timed beside bf16 torch.bmm; then 3 moss and 3 bf16 steps from
+     the same weights and batches, each moss step launching exactly its
+     kernels, none in bf16; the smoke-size MoE trains 3 moss steps on the
+     grouped route on the card and on the CPU (phase 6's check);
   8. the kernels line (JSON), the card line, and the last line
      {"ok": true, "device": {...}}.
 
@@ -848,19 +852,18 @@ def phase_recipe_kernels(torch, timer) -> dict:
         t = timer.ms(lambda: group_gemm.group_gemm(xq.q, xq.s, qw))
         tp = timer.ms(lambda: group_gemm.group_gemm_plain(xq.q, xq.s, qw))
         tl = timer.ms(lambda: torch.matmul(xb, wb))
-        if xq.q.dtype == qw.dtype == torch.float8_e5m2:
-            ts = None
-        else:
-            ts = timer.ms(lambda: torch._scaled_mm(
-                xq.q, wc, scale_a=one, scale_b=one,
-                out_dtype=torch.float32, use_fast_accum=False))
+        ts = timer.ms(lambda: torch._scaled_mm(
+            xq.q, wc, scale_a=one, scale_b=one, out_dtype=torch.float32,
+            use_fast_accum=False))
         b, by = bound_ms(mm * kk + 4 * mm * (kk // 128) + kk * nn
                          + 4 * mm * nn, 2.0 * mm * nn * kk)
+        fl = 2.0 * mm * nn * kk / 1e9
         print(f"group_gemm {what} {xq.q.dtype} x {qw.dtype} M={mm} K={kk} "
               f"N={nn}: max_err {err:.3g} (max|ref| {scale:.3g}), "
-              f"{t:.4f} ms, plain {tp:.4f} ms, library {tl:.4f} ms "
-              f"(torch.matmul bf16), {ts if ts is None else round(ts, 4)} "
-              f"ms (torch._scaled_mm fp8), bound {b:.4f} ms ({by})")
+              f"{t:.4f} ms ({fl / t:.1f} TFLOP/s, the wgmma tile), plain "
+              f"{tp:.4f} ms, library {tl:.4f} ms (torch.matmul bf16, "
+              f"{fl / tl:.1f} TFLOP/s), {ts:.4f} ms (torch._scaled_mm fp8, "
+              f"{fl / ts:.1f} TFLOP/s), bound {b:.4f} ms ({by})")
         return dict(ms=t, plain_ms=tp, library_ms=tl, bound_ms=b,
                     bound_by=by)
 
@@ -983,7 +986,9 @@ def phase_table6(torch, timer) -> dict:
              "moss_linear"))
         print(f"table6 M={m} N={n} K={k}: " + ", ".join(
             f"{name} {ms:.4f} ms" for name, ms in t.items())
-            + f"; GEMM TFLOP/s {tflops}; rel L2 vs bf16 moss "
+            + f"; GEMM TFLOP/s {tflops}; COAT / MOSS GEMM time (both the "
+            f"wgmma tile) {t['coat_gemm'] / t['moss_gemm']:.3f}; rel L2 vs "
+            f"bf16 moss "
             f"{rel[0]:.3g}, coat {rel[1]:.3g}, pt {rel[2]:.3g}; "
             f"moss_linear vs plain max_err {err:.3g} (max|ref| {scale:.3g})")
         del x, w, xg, xt, wq, wc, xb, wb, q, sexp, outs, ref
@@ -1593,12 +1598,16 @@ def phase_moe_kernels(torch, timer, cfg, params, tokens) -> dict:
         e_mis = int((se != se_p).sum())
         err = float((acc - acc_p).abs().max())
         scale = float(acc_p.abs().max())
+        dead = ~(torch.arange(c, device="cuda")[None, :]
+                 < sz[:, None]).reshape(-1)
+        dead_nz = int((acc[dead] != 0).sum())
         print(f"moe_gmm {what} {fmt} E={e} C={c} K={xin.shape[1]} "
               f"N={qw.shape[2]} ({int(sz.sum())} routed rows): max_err "
               f"{err:.3g} (max|ref| {scale:.3g}), payload mismatches q "
-              f"{q_mis} / sexp {e_mis}")
-        if q_mis or e_mis or not (err <= 1e-5 * scale
-                                  and torch.isfinite(acc).all()):
+              f"{q_mis} / sexp {e_mis}, nonzero outputs past the sizes "
+              f"{dead_nz}")
+        if q_mis or e_mis or dead_nz or not (err <= 1e-5 * scale
+                                             and torch.isfinite(acc).all()):
             raise AssertionError(f"moe_gmm {what}")
         worst = max(worst, err)
         return q, se
@@ -1664,8 +1673,11 @@ def phase_moe_kernels(torch, timer, cfg, params, tokens) -> dict:
     b, by = bound_ms(2 * e * c * d + 4 + e * d * dff + 4 * e
                      + 4 * e * c * dff + e * c * d + e * c * d // 32,
                      2.0 * n_live * d * dff)
-    print(f"moe_gmm up fwd: {t:.4f} ms, plain {tp:.4f} ms, library "
-          f"{tl:.4f} ms (torch.bmm bf16 over the E x C slots), bound "
+    flops = 2.0 * n_live * d * dff
+    print(f"moe_gmm up fwd: {t:.4f} ms ({flops / t / 1e9:.1f} TFLOP/s of "
+          f"routed work; one mx_quant and one grouped wgmma tile), plain "
+          f"{tp:.4f} ms, library {tl:.4f} ms (torch.bmm bf16 over the E x C "
+          f"slots, {2.0 * e * c * d * dff / tl / 1e9:.1f} TFLOP/s), bound "
           f"{b:.4f} ms ({by}, {n_live} routed rows)")
     res["moe_gmm"].update(ms=t, plain_ms=tp, library_ms=tl, bound_ms=b,
                           bound_by=by)
@@ -1765,11 +1777,13 @@ def phase_moe_train(torch, np) -> tuple[dict, dict]:
     # in the remat recompute, and dx and dW at all 5; the experts' up,
     # gate and down take moe_gmm in the forward, the recompute and dx,
     # and moe_dw_gemm for dW; each fused call (M 8192) launches mx_quant
-    # and the wgmma tile
+    # and the wgmma tile (14 a step), each moe_gmm call mx_quant and the
+    # grouped tile (9 a step): 23 mx_quant a step, 69 in 3
     none = {c.name: 0 for c in counters}
     want = {"moss": {**none, "moe_gmm": 3 * 9, "moe_dw_gemm": 3 * 3,
-                     "fused_quant_gemm_tiled": 3 * 14, "mx_quant": 3 * 14,
-                     "mx_gemm_tiled": 3 * 14, "mx_dw_gemm": 3 * 5},
+                     "fused_quant_gemm_tiled": 3 * 14,
+                     "mx_quant": 3 * (14 + 9), "mx_gemm_tiled": 3 * 14,
+                     "mx_dw_gemm": 3 * 5},
             "bf16": none}
     for mode, got in launches.items():
         if got != want[mode]:

@@ -173,11 +173,10 @@ __device__ __forceinline__ void mx_tile_store(
 }
 
 // ---------------------------------------------------------------------------
-// The fused quantizer's lane routine, shared by fused_quant_gemm's M <= 32
-// kernel (mx_fused.cu) and the grouped-expert moe_gmm (moe_gmm.cu), so
-// that the forward quantizers cannot drift apart, and the CUDA-core
-// fused tile of moe_gmm.  (fused_quant_gemm at M > 32 is the mx_quant
-// kernel plus mx_gemm.cu's wgmma tile.)
+// The fused quantizer's lane routine of fused_quant_gemm's M <= 32 kernel
+// (mx_fused.cu).  (fused_quant_gemm at M > 32 and moe_gmm quantize with
+// the mx_quant kernel; all quantizers share e8m0_exponent and
+// mx_quant_value above, so that they cannot drift apart.)
 // ---------------------------------------------------------------------------
 
 // One lane's element of a 32-wide group (the warp is the group): the
@@ -202,90 +201,6 @@ __device__ __forceinline__ float load_x(const void* x, size_t at,
                                         bool x_bf16) {
   return x_bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(x)[at])
                 : static_cast<const float*>(x)[at];
-}
-
-namespace fqt {
-constexpr int BM = 128;               // output rows per block
-constexpr int BN = 128;               // output columns per block
-constexpr int KS = 32;                // K per step = one micro-group
-constexpr int THREADS = 256;
-constexpr int WARPS = THREADS / 32;
-constexpr int AST = BM + 4;           // padded row of the operand panel
-}  // namespace fqt
-
-// One BM x BN output tile of the fused quantize + MX GEMM: rows
-// [row0, row0 + rows) of x (M, K) against the (K, N) weight payload qw,
-// output columns [n0, n0 + BN).  Per 32-wide K step (one micro-group) the
-// block quantizes its rows into a transposed operand panel and upcasts a
-// 32 x BN weight panel, both in shared memory; each of the 256 threads
-// accumulates an 8 x 8 register tile (rows ty*4 + {0..3} and
-// 64 + ty*4 + {0..3}, likewise for columns) in fixed order.  With
-// `owner` the tile writes the payload (q, sexp) of its rows.  Without
-// `dot` it skips the weight panel and the products and writes zeros: a
-// quantize-only tile (and, without `owner` too, a store of zeros).
-__device__ __forceinline__ void fused_tile(
-    const void* __restrict__ x, size_t row0, int rows,
-    const uint8_t* __restrict__ qw, float* __restrict__ out,
-    uint8_t* __restrict__ q_out, int8_t* __restrict__ sexp_out, int n0,
-    int N, int K, bool x_bf16, bool e5m2, bool w_e5m2, bool vec, float s,
-    float fmax, float inv_ln2, bool owner, bool dot) {
-  // as[k][m]: the quantized x panel, transposed; bs[k][n]: the weights
-  __shared__ __align__(16) float as[fqt::KS][fqt::AST];
-  __shared__ __align__(16) float bs[fqt::KS][fqt::BN];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int kg = K / 32;
-  const int ty = tid / 16, tx = tid % 16;
-  float acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; (owner || dot) && k0 < K; k0 += fqt::KS) {
-    __syncthreads();                      // the last step's reads are done
-    for (int r = warp; r < fqt::BM; r += fqt::WARPS) {
-      const size_t row = row0 + r;
-      const size_t at = row * K + k0 + lane;
-      const float v = r < rows ? load_x(x, at, x_bf16) : 0.f;
-      as[lane][r] = quant_lane(v, s, fmax, inv_ln2, e5m2, owner && r < rows,
-                               q_out + at, sexp_out + row * kg + k0 / 32);
-    }
-    if (!dot) continue;
-    for (int i = tid; i < fqt::KS * (fqt::BN / 4); i += fqt::THREADS) {
-      const int kk = i / (fqt::BN / 4), c = 4 * (i % (fqt::BN / 4));
-      float w[4];
-      load_w4(qw + static_cast<size_t>(k0 + kk) * N, n0 + c, N,
-              vec && n0 + c + 3 < N, w_e5m2, w);
-      *reinterpret_cast<float4*>(&bs[kk][c]) =
-          make_float4(w[0], w[1], w[2], w[3]);
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int kk = 0; kk < fqt::KS; ++kk) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&as[kk][ty * 4]);
-      const float4 a1 =
-          *reinterpret_cast<const float4*>(&as[kk][64 + ty * 4]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&bs[kk][tx * 4]);
-      const float4 b1 =
-          *reinterpret_cast<const float4*>(&bs[kk][64 + tx * 4]);
-      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int m = i < 4 ? ty * 4 + i : 64 + ty * 4 + (i - 4);
-    if (m >= rows) continue;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int n = n0 + (j < 4 ? tx * 4 + j : 64 + tx * 4 + (j - 4));
-      if (n < N) out[(row0 + m) * N + n] = acc[i][j];
-    }
-  }
 }
 
 // ---------------------------------------------------------------------------

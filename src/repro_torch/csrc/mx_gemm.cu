@@ -26,8 +26,8 @@
 // (989 TFLOP/s), half the fp8 rate that bound_ms counts.  An fp8 wgmma
 // would need a per-row 2^e rescale of a partial sum every 32-wide K step
 // (the in-loop rescale MOSS argues against) and accumulates narrower
-// than f32.  The design (wgmma.cuh: mx_wgmma_tile): 128 x 128 output
-// tiles of 512 threads; two producer warpgroups convert the fp8 bytes
+// than f32.  The design (wgmma.cuh: wgmma_tile, MX policy): 128 x 128
+// output tiles of 512 threads; two producer warpgroups convert the fp8 bytes
 // into 128-byte-swizzled bf16 panels (q times 2^e for A, K-major; Qw as
 // it lies for B, MN-major, read transposed by the instruction) on the
 // integer pipe, a 3-deep mbarrier ring ahead of two consumer warpgroups
@@ -102,23 +102,9 @@ mx_gemm_tiled_kernel(const uint8_t* __restrict__ qx,
                      const uint8_t* __restrict__ qw, float* __restrict__ out,
                      int M, int N, int K) {
   extern __shared__ uint8_t smem[];
-  mx_wgmma_tile<XE5, WE5, VEC>(qx, sexp, qw, out, M, N, K,
-                               blockIdx.x * wgt::BM, blockIdx.y * wgt::BN,
-                               smem);
-}
-
-template <bool XE5, bool WE5, bool VEC>
-static cudaError_t launch_tiled(const uint8_t* qx, const int8_t* sexp,
-                                const uint8_t* qw, float* out, int M, int N,
-                                int K, cudaStream_t st) {
-  auto kernel = mx_gemm_tiled_kernel<XE5, WE5, VEC>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, wgt::SMEM_BYTES);
-  if (err != cudaSuccess) return err;
-  dim3 grid((M + wgt::BM - 1) / wgt::BM, (N + wgt::BN - 1) / wgt::BN);
-  kernel<<<grid, wgt::THREADS, wgt::SMEM_BYTES, st>>>(qx, sexp, qw, out, M,
-                                                       N, K);
-  return cudaGetLastError();
+  wgmma_tile<AScale::MX, XE5, WE5, VEC>(qx, sexp, nullptr, qw, out, M, N, K,
+                                        blockIdx.x * wgt::BM,
+                                        blockIdx.y * wgt::BN, smem);
 }
 
 // vec: qx and qw 16-byte aligned and N % 16 == 0 (16-byte loads).
@@ -126,20 +112,21 @@ extern "C" int mx_gemm_tiled_launch(const void* qx, const void* sexp,
                                     const void* qw, void* out, int M, int N,
                                     int K, int x_e5m2, int w_e5m2, int vec,
                                     void* stream) {
-  auto a = static_cast<const uint8_t*>(qx);
-  auto e = static_cast<const int8_t*>(sexp);
-  auto w = static_cast<const uint8_t*>(qw);
-  auto o = static_cast<float*>(out);
-  auto st = static_cast<cudaStream_t>(stream);
-  using Launch = cudaError_t (*)(const uint8_t*, const int8_t*,
-                                 const uint8_t*, float*, int, int, int,
-                                 cudaStream_t);
-  // indexed by x_e5m2 * 4 + w_e5m2 * 2 + vec
-  static const Launch launch[8] = {
-      launch_tiled<false, false, false>, launch_tiled<false, false, true>,
-      launch_tiled<false, true, false>,  launch_tiled<false, true, true>,
-      launch_tiled<true, false, false>,  launch_tiled<true, false, true>,
-      launch_tiled<true, true, false>,   launch_tiled<true, true, true>};
-  const int sel = (x_e5m2 ? 4 : 0) | (w_e5m2 ? 2 : 0) | (vec ? 1 : 0);
-  return static_cast<int>(launch[sel](a, e, w, o, M, N, K, st));
+  using Kernel = void (*)(const uint8_t*, const int8_t*, const uint8_t*,
+                          float*, int, int, int);
+  static const Kernel kernel[8] = {
+      mx_gemm_tiled_kernel<false, false, false>,
+      mx_gemm_tiled_kernel<false, false, true>,
+      mx_gemm_tiled_kernel<false, true, false>,
+      mx_gemm_tiled_kernel<false, true, true>,
+      mx_gemm_tiled_kernel<true, false, false>,
+      mx_gemm_tiled_kernel<true, false, true>,
+      mx_gemm_tiled_kernel<true, true, false>,
+      mx_gemm_tiled_kernel<true, true, true>};
+  dim3 grid((M + wgt::BM - 1) / wgt::BM, (N + wgt::BN - 1) / wgt::BN);
+  return static_cast<int>(launch_wgmma(
+      kernel[wgmma_instance(x_e5m2, w_e5m2, vec)], grid,
+      static_cast<cudaStream_t>(stream), static_cast<const uint8_t*>(qx),
+      static_cast<const int8_t*>(sexp), static_cast<const uint8_t*>(qw),
+      static_cast<float*>(out), M, N, K));
 }

@@ -1,7 +1,9 @@
-// Hopper tensor-core building blocks (sm_90a) for the port's MX GEMM
-// tile: shared-memory matrix descriptors, the bf16 warpgroup product
-// wgmma.mma_async m64n128k16 with f32 accumulators, and the exact
-// fp8 -> bf16 operand conversion into 128-byte-swizzled panels.
+// Hopper tensor-core building blocks (sm_90a) and the port's fp8 GEMM
+// tile built from them: shared-memory matrix descriptors, the bf16
+// warpgroup product wgmma.mma_async m64n128k16 with f32 accumulators,
+// the exact fp8 -> bf16 operand conversion into 128-byte-swizzled
+// panels, and one warp-specialised mainloop with two A-operand policies
+// (MX: mx_gemm.cu, moe_gmm.cu; GROUP: group_gemm.cu).
 //
 // Panel layouts (each 1024-byte aligned, 128-byte swizzle: the 16-byte
 // chunk c of a 128-byte line r lies at chunk c ^ (r % 8)):
@@ -259,17 +261,25 @@ __device__ __forceinline__ void setmaxnreg_dec() {
 }
 
 // ---------------------------------------------------------------------------
-// The MX GEMM tile on the tensor cores:
-//     out[m, n] = sum_k bf16(fp8(qx[m, k]) * 2^sexp[m, k/32]) * fp8(qw[k, n])
-// for the BM x BN output tile at (m0, n0), f32, unscaled.
+// The fp8 GEMM tile on the tensor cores, for the BM x BN output tile at
+// (m0, n0), f32, unscaled, with one of two A-operand policies:
+//   MX (MOSS; mx_gemm, fused_quant_gemm, moe_gmm): the exponent goes into
+//     the operand,
+//       out[m, n] = sum_k bf16(fp8(qx[m, k]) * 2^sexp[m, k/32])
+//                         * fp8(qw[k, n]);
+//   GROUP (COAT; group_gemm): each 128-wide K group's partial sum is
+//     rescaled by the row's f32 scale inside the K loop,
+//       out[m, n] = sum_g (sum_{k in g} fp8(qx[m, k]) * fp8(qw[k, n]))
+//                         * sx[m, g]
+//     (K a multiple of 128, sx (M, K/128)).
 //
 // Warp-specialised, 512 threads.  Two producer warpgroups stage each
 // 64-wide K step: a producer owns two 16-byte chunks of qx (with their
-// rows' exponents, read one step ahead) and two of qw, which cp.async
-// brings into its own slots of a 4-deep byte ring three steps ahead; it
-// converts them into the swizzled bf16 panels of a 3-deep ring and
-// arrives on the stage's `full` barrier.  Two consumer warpgroups wait
-// on it, issue four m64n128k16 products each on their 64 rows and
+// rows' exponents, read one step ahead, under MX) and two of qw, which
+// cp.async brings into its own slots of a 4-deep byte ring three steps
+// ahead; it converts them into the swizzled bf16 panels of a 3-deep ring
+// and arrives on the stage's `full` barrier.  Two consumer warpgroups
+// wait on it, issue four m64n128k16 products each on their 64 rows and
 // release the stage on its `empty` barrier once the products have read
 // it.  No block-wide barrier in the loop: the conversion of later steps
 // overlaps the products of earlier ones.  (Staging and products in
@@ -281,14 +291,23 @@ __device__ __forceinline__ void setmaxnreg_dec() {
 // drift by ~1e-5 * max|out| from a correctly rounded one.  So the
 // products of PROMOTE steps (K 128) accumulate in the tensor core, and
 // each such partial sum is then added to f32 registers in IEEE
-// arithmetic; the error then stays that of any f32 sum order.
+// arithmetic; the error then stays that of any f32 sum order.  That
+// promotion is where COAT rescales: under GROUP it is
+// acc = acc + part * sx[row, g], multiply and add rounded each on its
+// own (__fmul_rn, __fadd_rn: no contraction into an FMA), the order of
+// the reference's partial * sx then sum.  A consumer thread's rows'
+// scales come from global memory into registers one promotion ahead.
+// The producers are the same under both policies, but for the
+// exponents: GROUP converts A unscaled (exact).
 //
 // Ragged M, N and K (a multiple of 32) read as zeros; the epilogue
 // stores the f32 tile, masked.  No split-K, no atomics: two calls give
 // the same bits.
 // ---------------------------------------------------------------------------
-template <bool XE5, bool WE5, bool VEC>
-__device__ __forceinline__ void mx_wgmma_producer(
+enum class AScale { MX, GROUP };
+
+template <AScale P, bool XE5, bool WE5, bool VEC>
+__device__ __forceinline__ void wgmma_producer(
     const uint8_t* __restrict__ qx, const int8_t* __restrict__ sexp,
     const uint8_t* __restrict__ qw, int M, int N, int K, int m0, int n0,
     uint32_t base, int tid) {
@@ -325,8 +344,10 @@ __device__ __forceinline__ void mx_wgmma_producer(
     ok_b[j] = n < N;
     src_a[j] = qx + (ok_a[j] ? static_cast<size_t>(row) * K + 16 * a_kc[j]
                              : 0);
-    src_e[j] = sexp + (ok_a[j] ? static_cast<size_t>(row) * kg + a_kc[j] / 2
-                               : 0);
+    if constexpr (P == AScale::MX)
+      src_e[j] = sexp + (ok_a[j] ? static_cast<size_t>(row) * kg +
+                                       a_kc[j] / 2
+                                 : 0);
     src_b[j] = qw + (ok_b[j] ? static_cast<size_t>(b_kr[j]) * N + n : 0);
   }
 
@@ -355,9 +376,13 @@ __device__ __forceinline__ void mx_wgmma_producer(
   };
   auto exps = [&](int step, int (&e)[2]) {
 #pragma unroll
-    for (int j = 0; j < 2; ++j)
-      e[j] = ok_a[j] && step * wgt::BK + 16 * a_kc[j] < K
-                 ? src_e[j][2 * step] : 0;
+    for (int j = 0; j < 2; ++j) {
+      if constexpr (P == AScale::MX)
+        e[j] = ok_a[j] && step * wgt::BK + 16 * a_kc[j] < K
+                   ? src_e[j][2 * step] : 0;
+      else
+        e[j] = 0;
+    }
   };
 
   // one cp.async group per step, empty past the end, so that "step s
@@ -387,7 +412,7 @@ __device__ __forceinline__ void mx_wgmma_producer(
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
       uint4 lo, hi;
-      fp8x16_to_bf16<XE5, true>(raw[j], e_now[j], lo, hi);
+      fp8x16_to_bf16<XE5, P == AScale::MX>(raw[j], e_now[j], lo, hi);
       const int r = a_row[j], c = 2 * a_kc[j];
       st_shared16(pa + r * 128 + ((c ^ (r & 7)) << 4), lo);
       st_shared16(pa + r * 128 + (((c + 1) ^ (r & 7)) << 4), hi);
@@ -405,29 +430,75 @@ __device__ __forceinline__ void mx_wgmma_producer(
   cp_async_wait<0>();
 }
 
-__device__ __forceinline__ void mx_wgmma_consumer(float* __restrict__ out,
-                                                  int M, int N, int K,
-                                                  int m0, int n0,
-                                                  uint32_t base, int tid) {
+// GROUP: the f32 scales of group g of a consumer thread's two rows,
+// row and row + 8 (0 past M or past the last group).
+__device__ __forceinline__ void group_scales(const float* __restrict__ sx,
+                                             int row, int M, int groups,
+                                             int g, float (&s)[2]) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = row + 8 * h;
+    s[h] = r < M && g < groups
+               ? __ldg(sx + static_cast<size_t>(r) * groups + g) : 0.f;
+  }
+}
+
+// A complete partial sum into the f32 registers: acc += part (MX), or
+// acc = acc + part * s of the element's row (GROUP; d[i] lies in row
+// + 8 * ((i >> 1) & 1), see the consumer's epilogue).
+template <AScale P>
+__device__ __forceinline__ void promote(float (&acc)[64],
+                                        const float (&part)[64],
+                                        const float (&s)[2]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) {
+    if constexpr (P == AScale::MX)
+      acc[i] += part[i];
+    else
+      acc[i] = __fadd_rn(acc[i], __fmul_rn(part[i], s[(i >> 1) & 1]));
+  }
+}
+
+template <AScale P>
+__device__ __forceinline__ void wgmma_consumer(float* __restrict__ out,
+                                               const float* __restrict__ sx,
+                                               int M, int N, int K, int m0,
+                                               int n0, uint32_t base,
+                                               int tid) {
   const uint32_t full = base + wgt::BAR_OFFSET;
   const uint32_t empty = full + wgt::STAGES * 8;
   const int wg = tid / 128;
   const int steps = (K + wgt::BK - 1) / wgt::BK;
+  // d[4j + {0,1}] at (row, 8j + 2(lane % 4) + {0,1}), d[4j + {2,3}] at
+  // row + 8; row = 16 * warp + lane / 4 within the warpgroup's 64
+  const int t = tid % 128, lane = t % 32;
+  const int row = m0 + wg * 64 + (t / 32) * 16 + lane / 4;
   float acc[64], part[64];
 #pragma unroll
   for (int i = 0; i < 64; ++i) acc[i] = part[i] = 0.f;
+  // GROUP: the scales of the group in `part` (s_now) and the next one
+  const int groups = K / (wgt::PROMOTE * wgt::BK);
+  float s_now[2] = {0.f, 0.f}, s_next[2] = {0.f, 0.f};
+  if constexpr (P == AScale::GROUP) {
+    group_scales(sx, row, M, groups, 0, s_now);
+    group_scales(sx, row, M, groups, 1, s_next);
+  }
 
   for (int step = 0; step < steps; ++step) {
     const int stage = step % wgt::STAGES;
     mbar_wait(full + stage * 8, (step / wgt::STAGES) & 1);
     const bool fresh = step % wgt::PROMOTE == 0;
-    const bool promote = fresh && step > 0;
-    if (promote) {
-      // the last partial sum is complete: into the f32 registers
+    const bool promoting = fresh && step > 0;
+    if (promoting) {
+      // the last partial sum is complete
       wgmma_wait<0>();
       fence_acc(part);
-#pragma unroll
-      for (int i = 0; i < 64; ++i) acc[i] += part[i];
+      promote<P>(acc, part, s_now);
+      if constexpr (P == AScale::GROUP) {
+        s_now[0] = s_next[0];
+        s_now[1] = s_next[1];
+        group_scales(sx, row, M, groups, step / wgt::PROMOTE + 1, s_next);
+      }
       mbar_arrive(empty + ((step - 1) % wgt::STAGES) * 8);
     }
     const uint32_t pa = base + stage * wgt::STAGE_BYTES + wg * 64 * 128;
@@ -441,7 +512,7 @@ __device__ __forceinline__ void mx_wgmma_consumer(float* __restrict__ out,
                        !(fresh && kk == 0));
     wgmma_commit();
     fence_acc(part);
-    if (!promote && step > 0) {
+    if (!promoting && step > 0) {
       wgmma_wait<1>();          // step - 1's products have read their stage
       fence_acc(part);
       mbar_arrive(empty + ((step - 1) % wgt::STAGES) * 8);
@@ -449,13 +520,8 @@ __device__ __forceinline__ void mx_wgmma_consumer(float* __restrict__ out,
   }
   wgmma_wait<0>();
   fence_acc(part);
-#pragma unroll
-  for (int i = 0; i < 64; ++i) acc[i] += part[i];
+  promote<P>(acc, part, s_now);
 
-  // d[4j + {0,1}] at (row, 8j + 2(lane % 4) + {0,1}), d[4j + {2,3}] at
-  // row + 8; row = 16 * warp + lane / 4 within the warpgroup's 64
-  const int t = tid % 128, lane = t % 32;
-  const int row = m0 + wg * 64 + (t / 32) * 16 + lane / 4;
 #pragma unroll
   for (int j = 0; j < 16; ++j) {
     const int col = n0 + 8 * j + 2 * (lane % 4);
@@ -470,11 +536,13 @@ __device__ __forceinline__ void mx_wgmma_consumer(float* __restrict__ out,
   }
 }
 
-template <bool XE5, bool WE5, bool VEC>
-__device__ __forceinline__ void mx_wgmma_tile(
+// One output tile; `sexp` is read under MX, `sx` under GROUP.
+template <AScale P, bool XE5, bool WE5, bool VEC>
+__device__ __forceinline__ void wgmma_tile(
     const uint8_t* __restrict__ qx, const int8_t* __restrict__ sexp,
-    const uint8_t* __restrict__ qw, float* __restrict__ out, int M, int N,
-    int K, int m0, int n0, uint8_t* smem_raw) {
+    const float* __restrict__ sx, const uint8_t* __restrict__ qw,
+    float* __restrict__ out, int M, int N, int K, int m0, int n0,
+    uint8_t* smem_raw) {
   const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
   const uint32_t full = base + wgt::BAR_OFFSET;
   const int tid = threadIdx.x;
@@ -487,10 +555,28 @@ __device__ __forceinline__ void mx_wgmma_tile(
   __syncthreads();
   if (tid >= wgt::STAFF) {
     setmaxnreg_dec<wgt::PRODUCER_REGS>();
-    mx_wgmma_producer<XE5, WE5, VEC>(qx, sexp, qw, M, N, K, m0, n0, base,
+    wgmma_producer<P, XE5, WE5, VEC>(qx, sexp, qw, M, N, K, m0, n0, base,
                                      tid - wgt::STAFF);
   } else {
     setmaxnreg_inc<wgt::CONSUMER_REGS>();
-    mx_wgmma_consumer(out, M, N, K, m0, n0, base, tid);
+    wgmma_consumer<P>(out, sx, M, N, K, m0, n0, base, tid);
   }
+}
+
+// Launch a kernel of the tile: its dynamic shared memory opted in, one
+// block of THREADS per output tile of `grid`.
+template <typename... Params, typename... Args>
+cudaError_t launch_wgmma(void (*kernel)(Params...), dim3 grid,
+                         cudaStream_t stream, Args... args) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, wgt::SMEM_BYTES);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, wgt::THREADS, wgt::SMEM_BYTES, stream>>>(args...);
+  return cudaGetLastError();
+}
+
+// The index of a kernel's instance in a table of 8 ordered as
+// <XE5, WE5, VEC> in binary: x_e5m2 * 4 + w_e5m2 * 2 + vec.
+inline int wgmma_instance(int x_e5m2, int w_e5m2, int vec) {
+  return (x_e5m2 ? 4 : 0) | (w_e5m2 ? 2 : 0) | (vec ? 1 : 0);
 }

@@ -50,9 +50,8 @@ SIGNATURES = {
                         _FLOAT, _FLOAT, _VOID],
     "group_gemm_launch": [_VOID, _VOID, _VOID, _VOID, _INT, _INT, _INT,
                           _INT, _INT, _INT, _VOID],
-    "moe_gmm_launch": [_VOID, _VOID, _VOID, _VOID, _VOID, _VOID, _VOID,
-                       _INT, _INT, _INT, _INT, _INT, _INT, _INT, _INT,
-                       _FLOAT, _FLOAT, _VOID],
+    "moe_gmm_launch": [_VOID, _VOID, _VOID, _VOID, _VOID, _INT, _INT, _INT,
+                       _INT, _INT, _INT, _INT, _VOID],
     "moe_dw_gemm_launch": [_VOID, _VOID, _VOID, _VOID, _VOID, _VOID, _VOID,
                            _INT, _INT, _INT, _INT, _INT, _INT, _INT,
                            _FLOAT, _FLOAT, _VOID],

@@ -14,7 +14,10 @@ order.
 
 K is a multiple of 128 (the caller pads).  A CPU tensor takes the plain
 version.  A CUDA tensor launches the kernel, or raises: there is no
-fallback.
+fallback.  The kernel is the MOSS GEMM's 128 x 128 ``wgmma`` tile
+(``csrc/wgmma.cuh``) with the rescale at its K-128 promotion; it takes
+the operand formats the recipe multiplies: e4m3 x e4m3 (the forward),
+e5m2 x e4m3 (dx) and e4m3 x e5m2 (dW), not e5m2 x e5m2.
 """
 
 from __future__ import annotations
@@ -68,6 +71,9 @@ def group_gemm(qx: torch.Tensor, sx: torch.Tensor,
             and qw.is_contiguous()) or qx.data_ptr() % 16:
         raise ValueError("group_gemm: operands must be contiguous and qx "
                          "16-byte aligned")
+    if qx.dtype == qw.dtype == torch.float8_e5m2:
+        raise TypeError("group_gemm: the kernel takes no e5m2 x e5m2 "
+                        "product (no recipe multiplies two gradients)")
     m, k = qx.shape
     n = qw.shape[1]
     out = torch.empty((m, n), dtype=torch.float32, device=dev)

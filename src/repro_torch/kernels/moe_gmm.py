@@ -20,9 +20,14 @@ row, as the reference's oracles do, and take no sizes.
     against the per-expert transposed payloads (E, N, K): the caller
     transposes the stack once (``.transpose(1, 2).contiguous()``) and
     the kernel reads it row-major, as the forward reads its weights.
-    Replaces ``repro.kernels.moe_gmm.moe_gmm_pallas``; the plain version
-    is the reference dispatch's ``ref`` branch (``quant_mx`` with the
-    global scale, then ``ref.moe_gmm_ref``).
+    On the card a call is two launches into the same outputs, as
+    ``mx_fused`` takes M > 32: the ``mx_quant`` kernel over the whole
+    buffer, then the 128 x 128 ``wgmma`` tile of ``csrc/moe_gmm.cu`` per
+    (row block, column tile, expert); ``moe_gmm_plain`` equals
+    ``mx_quant_plain`` followed by ``mx_gemm_plain`` on each expert's
+    slot bit for bit.  Replaces ``repro.kernels.moe_gmm.moe_gmm_pallas``;
+    the plain version is the reference dispatch's ``ref`` branch
+    (``quant_mx`` with the global scale, then ``ref.moe_gmm_ref``).
 
 ``moe_dw_gemm(qx, sexp, qg, sizes, capacity, fmt)``
     The forward's residual (E·Cp, K) fp8 with its exponents and the
@@ -45,12 +50,13 @@ from repro_torch.core.formats import INV_LN2_F32, fp8_dtype, fp8_max, is_fp8
 from repro_torch.core.quant import mx_operand, quant_mx
 from repro_torch.core.runtime_flags import einsum, mm
 
+from . import mx_quant
 from ._build import LaunchCounter, check, library
 from .mx_bwd import requant_m
 
 MICRO = 32
 
-counter = LaunchCounter("moe_gmm")
+counter = LaunchCounter("moe_gmm")          # the grouped wgmma tile
 counter_dw = LaunchCounter("moe_dw_gemm")
 
 
@@ -98,15 +104,19 @@ def moe_gmm(x: torch.Tensor, s: torch.Tensor, qw_stack: torch.Tensor,
     acc = torch.empty((t, n), dtype=torch.float32, device=dev)
     q = torch.empty((t, k), dtype=fp8_dtype(fmt), device=dev)
     sexp = torch.empty((t, k // MICRO), dtype=torch.int8, device=dev)
-    vec = int(n % 4 == 0 and qw_stack.data_ptr() % 4 == 0)
+    if x.data_ptr() % 16:             # mx_quant reads 16-byte vectors
+        x = x.clone()
+    mx_quant.launch(x, s32, q, sexp, fmt)
+    if not (t and n):
+        return acc, q, sexp
+    vec = int(n % 16 == 0 and qw_stack.data_ptr() % 16 == 0)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = library().moe_gmm_launch(
-            x.data_ptr(), s32.data_ptr(), qw_stack.data_ptr(),
-            sizes.data_ptr(), acc.data_ptr(), q.data_ptr(), sexp.data_ptr(),
-            e, capacity, n, k, int(x.dtype == torch.bfloat16),
+            q.data_ptr(), sexp.data_ptr(), qw_stack.data_ptr(),
+            sizes.data_ptr(), acc.data_ptr(), e, capacity, n, k,
             int(fmt == "e5m2"), int(qw_stack.dtype == torch.float8_e5m2),
-            vec, fp8_max(fmt), INV_LN2_F32, stream)
+            vec, stream)
     check(code, "moe_gmm")
     counter.hit()
     return acc, q, sexp

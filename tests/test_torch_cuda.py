@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core.formats import fp8_dtype
 from repro_torch.core.quant import (PerTensorQ, quant_mx, quant_per_group,
                                     quant_per_tensor)
 from repro_torch.kernels import (decode_attn, dispatch, group_gemm, moe_gmm,
@@ -507,6 +508,109 @@ def test_group_gemm_matches_plain(cuda, fmt):
             want = group_gemm.group_gemm_plain(xq.q, xq.s, qw)
             assert got.shape == (m, n)
             _close(got, want)
+
+
+def _fp8_payload(shape, fmt, rng):
+    """Random finite fp8 bytes of ``fmt``, subnormals and zeros of both
+    signs among them (every byte but e4m3fn's NaN and e5m2's Inf and
+    NaN codes)."""
+    b = rng.integers(0, 256, shape).astype(np.uint8)
+    if fmt == "e4m3":
+        b[(b & 0x7F) == 0x7F] ^= 0x01
+    else:
+        b[(b & 0x7C) == 0x7C] &= 0xFB
+    return torch.tensor(b).view(fp8_dtype(fmt))
+
+
+def test_group_gemm_operands_are_bitwise(cuda):
+    """Against an identity weight (K = N) every output is one payload
+    value times its row's group scale, rounded once: q * sx bit for
+    bit, with subnormal payloads in both formats and scales over ~190
+    octaves (f32 subnormal products among them), in each operand
+    pairing the recipe multiplies; M ragged."""
+    m, k = 130, 384
+    rng = np.random.default_rng(11)
+    sx = np.ldexp(rng.uniform(1.0, 2.0, (m, k // 128)),
+                  rng.integers(-130, 60, (m, k // 128))).astype(np.float32)
+    sx = torch.tensor(sx, device=cuda)
+    for x_fmt, w_fmt in (("e4m3", "e4m3"), ("e5m2", "e4m3"),
+                         ("e4m3", "e5m2")):
+        q = _fp8_payload((m, k), x_fmt, rng).to(cuda)
+        one = torch.eye(k).to(fp8_dtype(w_fmt)).to(cuda)
+        got = group_gemm.group_gemm(q, sx, one)
+        want = group_gemm.group_gemm_plain(q, sx, one)
+        # (+ 0: a -0 payload sums to +0)
+        exact = q.float() * sx.repeat_interleave(128, dim=1) + 0.0
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+        assert torch.equal(got.view(torch.int32), exact.view(torch.int32))
+
+
+def test_moe_gmm_operands_are_bitwise(cuda):
+    """Against identity expert weights (K = N) every output is one
+    operand value bf16(q * 2^e) of the quantized buffer, bit for bit
+    against the plain version, with groups over many octaves (exponents
+    down to -127: bf16 subnormal operands); the sizes 0, 1, 127, 128,
+    129 and C = 200 in one buffer, rows past each size zero in and
+    out."""
+    sizes = torch.tensor([0, 1, 127, 128, 129, 200], dtype=torch.int32)
+    e, c, k = len(sizes), 200, 128
+    rng = np.random.default_rng(12)
+    x = rng.standard_normal((e * c, k // 32, 32)) * np.ldexp(
+        1.0, rng.integers(-100, 20, (e * c, k // 32, 1)))
+    x[::7, 1] = np.ldexp(rng.standard_normal((32,)), -110)
+    x = torch.tensor(x.reshape(e * c, k), dtype=torch.float32)
+    x = (x * _live(sizes, c)).to(cuda)
+    one = torch.eye(k).expand(e, k, k).contiguous().to(torch.float8_e4m3fn)
+    one = one.to(cuda)
+    for fmt in ("e4m3", "e5m2"):
+        s = dispatch.global_scale(x, fmt)
+        acc, q, se = moe_gmm.moe_gmm(x, s, one, sizes.to(cuda), c, fmt)
+        acc_p, q_p, se_p = moe_gmm.moe_gmm_plain(x, s, one, c, fmt)
+        assert int(se_p.min()) == -127
+        assert torch.equal(q.view(torch.uint8), q_p.view(torch.uint8))
+        assert torch.equal(se, se_p)
+        assert torch.equal(acc.view(torch.int32), acc_p.view(torch.int32))
+        assert bool((acc.cpu()[~_live(sizes, c)[:, 0]] == 0).all())
+
+
+def test_moe_gmm_is_one_quantizer_and_one_tile_and_repeats(cuda):
+    """One call launches the mx_quant kernel once and the grouped tile
+    once (never mx_gemm's own tiles); two calls give the same bits."""
+    e, c, k, n = 3, 136, 256, 200
+    sizes = torch.tensor([136, 5, 0], dtype=torch.int32, device=cuda)
+    x = (_x(e * c, k, 3) * _live(sizes, c)).to(cuda)
+    w = torch.tensor(np.random.default_rng(4).standard_normal((e, k, n)),
+                     dtype=torch.float32) * 0.05
+    qw = torch.stack([quant_per_tensor(wi).q for wi in w]).to(cuda)
+    s = dispatch.global_scale(x)
+    counters = (mx_quant.counter, moe_gmm.counter, mx_gemm.counter,
+                mx_gemm.counter_tiled)
+    before = [c_.count for c_ in counters]
+    acc, q, se = moe_gmm.moe_gmm(x, s, qw, sizes, c)
+    assert [c_.count - b for c_, b in zip(counters, before)] == [1, 1, 0, 0]
+    again, q2, se2 = moe_gmm.moe_gmm(x, s, qw, sizes, c)
+    assert torch.equal(acc.view(torch.int32), again.view(torch.int32))
+    assert torch.equal(q.view(torch.uint8), q2.view(torch.uint8))
+    assert torch.equal(se, se2)
+    _close(acc, moe_gmm.moe_gmm_plain(x, s, qw, c)[0])
+
+
+@pytest.mark.parametrize("k", [128, 10240])
+def test_group_gemm_one_group_and_long_chain(cuda, k):
+    """K 128 (one group: a single promotion) and K 10240 (80 groups: the
+    long promotion chain, where a sum kept in the tensor core would
+    drift) against the plain version; two calls give the same bits."""
+    m, n = 256, 384
+    xq = quant_per_group(_x(m, k, k).to(cuda), 128, "e4m3")
+    w = torch.tensor(np.random.default_rng(k).standard_normal((k, n)),
+                     dtype=torch.float32, device=cuda) / k ** 0.5
+    qw = quant_per_tensor(w).q
+    before = group_gemm.counter.count
+    got = group_gemm.group_gemm(xq.q, xq.s, qw)
+    again = group_gemm.group_gemm(xq.q, xq.s, qw)
+    assert group_gemm.counter.count == before + 2
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+    _close(got, group_gemm.group_gemm_plain(xq.q, xq.s, qw))
 
 
 @pytest.mark.parametrize("fmt", ["e4m3", "e5m2"])

@@ -23,11 +23,14 @@ from repro.kernels.decode_attn import decode_attn_paged_pallas
 
 from repro_torch import bridge
 from repro_torch.core.quant import PerTensorQ, quant_mx, quant_per_tensor
-from repro_torch.kernels import dispatch, mx_fused, mx_gemm, mx_quant
+from repro_torch.kernels import dispatch, moe_gmm, mx_fused, mx_gemm, mx_quant
 
 GEMM_SHAPES = [(5, 96, 200), (16, 256, 72), (1, 32, 33)]
 # M > 32 (the wgmma tile on a card): ragged M and N, K % 64 == 32
 LARGE_M_SHAPES = [(130, 96, 200), (256, 64, 136)]
+# grouped experts (E, C, K, N): C not a multiple of the 128-row tile,
+# ragged N, K % 64 == 32
+MOE_SHAPES = [(2, 130, 96, 72), (3, 48, 64, 200)]
 
 
 def _x(m, k, seed, outliers=True):
@@ -110,6 +113,34 @@ def test_fused_quant_gemm_plain_is_quantizer_then_gemm(m, k, n, fmt, dtype):
     acc, q, sexp = mx_fused.fused_quant_gemm(x, s, qw, fmt)     # CPU: plain
     q2, sexp2 = mx_quant.mx_quant(x, s, fmt)
     acc2 = mx_gemm.mx_gemm(q2, sexp2, qw)
+    np.testing.assert_array_equal(bridge.bits(q), bridge.bits(q2))
+    np.testing.assert_array_equal(sexp.numpy(), sexp2.numpy())
+    np.testing.assert_array_equal(bridge.bits(acc), bridge.bits(acc2))
+
+
+@pytest.mark.parametrize("e,c,k,n", MOE_SHAPES)
+@pytest.mark.parametrize("fmt,dtype", [("e4m3", torch.bfloat16),
+                                       ("e5m2", torch.float32)])
+def test_moe_gmm_plain_is_quantizer_then_gemm_per_expert(e, c, k, n, fmt,
+                                                         dtype):
+    """The decomposition of the grouped kernel's route: ``moe_gmm_plain``
+    equals ``mx_quant_plain`` over the whole (E·C, K) buffer followed by
+    ``mx_gemm_plain`` on each expert's slot against its weight, bit for
+    bit (payloads and sums; at these widths the CPU's batched and single
+    f32 products add in the same order), with zero rows past each
+    expert's size as the dispatch leaves them."""
+    x = torch.tensor(_x(e * c, k, e * c + k)).to(dtype)
+    for i, size in enumerate((c // 2, 0, c)[:e]):
+        x[i * c + size:(i + 1) * c] = 0
+    qw = torch.stack([_w(k, n, n + i, "e4m3").q for i in range(e)])
+    s = dispatch.global_scale(x, fmt)
+    acc, q, sexp = moe_gmm.moe_gmm(x, s, qw, torch.full((e,), c,
+                                                        dtype=torch.int32),
+                                   c, fmt)                      # CPU: plain
+    q2, sexp2 = mx_quant.mx_quant(x, s, fmt)
+    acc2 = torch.cat([mx_gemm.mx_gemm(q2[i * c:(i + 1) * c],
+                                      sexp2[i * c:(i + 1) * c], qw[i])
+                      for i in range(e)])
     np.testing.assert_array_equal(bridge.bits(q), bridge.bits(q2))
     np.testing.assert_array_equal(sexp.numpy(), sexp2.numpy())
     np.testing.assert_array_equal(bridge.bits(acc), bridge.bits(acc2))

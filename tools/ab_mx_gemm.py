@@ -1,21 +1,26 @@
-"""Compare the MOSS GEMMs of this checkout with another checkout's on one
-NVIDIA GPU: ``mx_gemm`` at M > 32 (the paper's Table 6 shapes and
+"""Compare the port's fp8 GEMMs of this checkout with another checkout's
+on one NVIDIA GPU: ``mx_gemm`` at M > 32 (the paper's Table 6 shapes and
 h2o-danube-3-4b's 4160-token prefill), ``fused_quant_gemm`` at olmo-7b's
 training M 2048 (the forward, e4m3 on bf16 activations, and dx, e5m2 on
-an f32 gradient against the transposed weights) and chip_smoke.py's
-olmo-7b moss training step (4 of 32 layers, 1 x 2048 tokens), on the
-same inputs from one seed.
+an f32 gradient against the transposed weights), ``group_gemm`` at
+chip_smoke.py's per_group forward, dx and dW shapes (olmo-7b's up
+projection, M 2048 tokens) and at Table 6's, ``moe_gmm`` at
+phi3.5-moe's up forward and its dx (E 16, C 1336, K 4096, N 6400; the
+expert sizes drawn from one seed, ~16k routed rows), and
+chip_smoke.py's training steps: olmo-7b (4 of 32 layers, 1 x 2048
+tokens) in moss and per_group, and phi3.5-moe (1 of 32 layers, 2 x 4096
+tokens) in moss, on the same inputs from one seed.
 
     python3 tools/ab_mx_gemm.py OTHER/src        # from this checkout
 
 Each checkout runs in its own process (both packages are named
 ``repro_torch``; PYTHONPATH picks the one), in the order this, other,
 other, this, so that the speed-up is read on one card.  Kernel times
-are chip_smoke.py's ``Timer`` (cold L2, median of 20); the step time is
+are chip_smoke.py's ``Timer`` (cold L2, median of 20); a step time is
 the median of steps 1-3 of 4 (host clock around a synchronised step).
-The outputs of the two checkouts are compared: the fused payloads
-(q, sexp) bit for bit, the sums within 1e-5 * max|other| (the two may
-sum in different orders).
+The outputs of the first two runs are compared: the fused and grouped
+payloads (q, sexp) bit for bit, the sums within 1e-5 * max|other| (the
+two may sum in different orders); ``bitwise`` where they are equal.
 """
 
 from __future__ import annotations
@@ -36,10 +41,20 @@ GEMM_MNK = [(2048, 7168, 4096), (4096, 2048, 7168), (4096, 4096, 8192),
 # fused_quant_gemm (what, fmt, M, K, N): olmo-7b's up forward and its dx
 FUSED = [("fwd", "e4m3", 2048, 4096, 11008), ("dx", "e5m2", 2048, 11008,
                                                4096)]
+# group_gemm (what, x fmt, w fmt, M, K, N): olmo-7b's up projection in
+# per_group (forward, dx, dW), then Table 6's (M, N, K)
+GROUP = [("fwd", "e4m3", "e4m3", 2048, 4096, 11008),
+         ("dx", "e5m2", "e4m3", 2048, 11008, 4096),
+         ("dW", "e4m3", "e5m2", 4096, 2048, 11008)] + [
+    ("table6", "e4m3", "e4m3", m, k, n) for m, n, k in GEMM_MNK[:3]]
+# moe_gmm (what, fmt, E, C, K, N): phi3.5-moe's up forward and its dx
+MOE = [("fwd", "e4m3", 16, 1336, 4096, 6400),
+       ("dx", "e5m2", 16, 1336, 6400, 4096)]
 
 
-def _train_step_ms(torch) -> float:
-    """The moss step of chip_smoke.py's training phase, in ms."""
+def _train_step_ms(torch, arch: str, mode: str) -> float:
+    """A step of chip_smoke.py's training phases (olmo-7b, or phi3.5-moe
+    with ``arch`` "moe"), in ms."""
     import chip_smoke as cs
     from repro_torch.configs.registry import get_config
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
@@ -48,9 +63,14 @@ def _train_step_ms(torch) -> float:
                                          make_train_step)
 
     hp = TrainHParams(peak_lr=3e-4, warmup_steps=0, total_steps=4)
-    cfg = cs._train_cfg(get_config, quant_from_name, "moss", smoke=False)
-    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=cs.TRAIN_M,
-                                  global_batch=1, seed=0))
+    if arch == "moe":
+        cfg = cs._moe_cfg(get_config, quant_from_name, mode, smoke=False)
+        seq, batch = cs.MOE_SEQ, cs.MOE_BATCH
+    else:
+        cfg = cs._train_cfg(get_config, quant_from_name, mode, smoke=False)
+        seq, batch = cs.TRAIN_M, 1
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=seq,
+                                  global_batch=batch, seed=0))
     state = init_train_state(cfg, hp, seed=0, device="cuda")
     step = make_train_step(cfg, hp)
     times = []
@@ -62,18 +82,23 @@ def _train_step_ms(torch) -> float:
         float(met["loss"])
         torch.cuda.synchronize()
         times.append((time.monotonic() - t0) * 1e3)
+    del state, step
+    torch.cuda.empty_cache()
     return statistics.median(times[1:])
 
 
-def measure(dst: str) -> None:
-    """Every case on this process's ``repro_torch``: the outputs to
-    ``dst``, the times to ``dst`` + ``.json``."""
+def measure(dst: str, keep: bool) -> None:
+    """Every case on this process's ``repro_torch``: the times to
+    ``dst`` + ``.json`` and, with ``keep``, the outputs to ``dst``."""
+    import numpy as np
     import torch
 
     sys.path.insert(0, str(ROOT))
     from chip_smoke import Timer, _activations
-    from repro_torch.core.quant import quant_mx, quant_per_tensor
-    from repro_torch.kernels import dispatch, mx_fused, mx_gemm
+    from repro_torch.core.quant import (quant_mx, quant_per_group,
+                                        quant_per_tensor)
+    from repro_torch.kernels import (dispatch, group_gemm, moe_gmm,
+                                     mx_fused, mx_gemm)
 
     timer = Timer(torch)
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -101,16 +126,55 @@ def measure(dst: str) -> None:
         times[name] = timer.ms(lambda: mx_fused.fused_quant_gemm(x, s, qw,
                                                                  fmt))
         del x, w, qw, acc, q, se
+    for what, x_fmt, w_fmt, m, k, n in GROUP:
+        x = _activations(torch, gen, m, k)
+        if what == "dx":
+            x = x.float() * 1e-3
+        xq = quant_per_group(x, 128, x_fmt)
+        w = torch.randn(k, n, device="cuda", generator=gen) / k ** 0.5
+        qw = quant_per_tensor(w, w_fmt).q
+        name = f"group_gemm {what} {x_fmt} x {w_fmt} M={m} K={k} N={n}"
+        outs[name] = group_gemm.group_gemm(xq.q, xq.s, qw).cpu()
+        times[name] = timer.ms(lambda: group_gemm.group_gemm(xq.q, xq.s,
+                                                             qw))
+        del x, xq, w, qw
+    for what, fmt, e, c, k, n in MOE:
+        sizes = np.random.default_rng(e * c).integers(c // 2, c + 1, e)
+        sizes = torch.tensor(sizes, dtype=torch.int32, device="cuda")
+        live = (torch.arange(c, device="cuda")[None, :]
+                < sizes[:, None]).reshape(-1, 1)
+        x = _activations(torch, gen, e * c, k) * live
+        if what == "dx":
+            x = x.float() * 1e-3
+        w = torch.randn(e, k, n, device="cuda", generator=gen) / k ** 0.5
+        qw = torch.stack([quant_per_tensor(wi).q for wi in w])
+        del w
+        s = dispatch.global_scale(x, fmt)
+        name = (f"moe_gmm {what} {fmt} E={e} C={c} K={k} N={n} "
+                f"({int(sizes.sum())} routed rows)")
+        acc, q, se = moe_gmm.moe_gmm(x, s, qw, sizes, c, fmt)
+        outs[name] = acc.cpu()
+        outs[name + " q"] = q.view(torch.uint8).cpu()
+        outs[name + " sexp"] = se.cpu()
+        times[name] = timer.ms(lambda: moe_gmm.moe_gmm(x, s, qw, sizes, c,
+                                                       fmt))
+        del x, qw, acc, q, se
     del timer
     torch.cuda.empty_cache()
-    times["moss step (olmo-7b, 4 layers, 1 x 2048)"] = _train_step_ms(torch)
-    torch.save(outs, dst)
+    for label, arch, mode in (
+            ("moss step (olmo-7b, 4 layers, 1 x 2048)", "olmo", "moss"),
+            ("per_group step (olmo-7b, 4 layers, 1 x 2048)", "olmo",
+             "per_group"),
+            ("moss step (phi3.5-moe, 1 layer, 2 x 4096)", "moe", "moss")):
+        times[label] = _train_step_ms(torch, arch, mode)
+    if keep:
+        torch.save(outs, dst)
     Path(dst + ".json").write_text(json.dumps(times))
 
 
 def main(argv: list[str]) -> int:
-    if len(argv) == 3 and argv[1] == "--measure":
-        measure(argv[2])
+    if len(argv) == 4 and argv[1] == "--measure":
+        measure(argv[2], argv[3] == "keep")
         return 0
     if len(argv) != 2:
         print(__doc__, file=sys.stderr)
@@ -126,7 +190,8 @@ def main(argv: list[str]) -> int:
         runs, times = [], {"this": [], "other": []}
         for i, tag in enumerate(("this", "other", "other", "this")):
             dst = os.path.join(tmp, f"{i}.pt")
-            subprocess.run([sys.executable, __file__, "--measure", dst],
+            subprocess.run([sys.executable, __file__, "--measure", dst,
+                            "keep" if i < 2 else "times"],
                            env=dict(os.environ, PYTHONPATH=trees[tag]),
                            check=True, timeout=900)
             runs.append(dst)
@@ -140,6 +205,7 @@ def main(argv: list[str]) -> int:
         b = statistics.mean(t[key] for t in times["other"])
         print(f"{key}: this {a:.4f} ms, other {b:.4f} ms, speed-up "
               f"{b / a:.2f}x")
+    bad = []
     for key, want in other.items():
         got = this[key]
         if torch.equal(got, want):
@@ -148,13 +214,18 @@ def main(argv: list[str]) -> int:
         if got.dtype != torch.float32:
             print(f"{key}: {int((got != want).sum())} of {got.numel()} "
                   f"differ")
+            bad.append(key)
             continue
         err = float((got - want).abs().max())
         scale = float(want.abs().max())
         print(f"{key}: max err {err:.3g} (max|other| {scale:.3g}, "
               f"{'within' if err <= 1e-5 * scale else 'OUTSIDE'} "
               f"1e-5 * max|other|)")
-    return 0
+        if err > 1e-5 * scale:
+            bad.append(key)
+    if bad:
+        print(f"outputs that differ beyond the limit: {bad}")
+    return 1 if bad else 0
 
 
 if __name__ == "__main__":
