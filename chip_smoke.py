@@ -15,7 +15,9 @@ Phases, each fatal on failure:
      olmo-7b training shapes (M = 2048 tokens) for
      fused_quant_gemm_tiled (fused_quant_gemm at M > 32, the mx_quant
      kernel then the wgmma tile: forward e4m3, dx e5m2 on the transposed
-     weights) and mx_dw_gemm -- with
+     weights) and mx_dw_gemm (the dw_requant pass, then the wgmma tile
+     on its payload; the payload bitwise, two calls bitwise equal, the
+     pass timed alone too) -- with
      its time (CUDA events, median of 20 cold-L2 launches; a call under
      0.1 ms in batches, see Timer), the plain version's, the bound
      (bytes over 3.35 TB/s or operations over the peak for the operands'
@@ -74,10 +76,12 @@ Phases, each fatal on failure:
   7. MoE training: phi3.5-moe-42b-a6.6b at full width, depth cut to 1
      layer, batch 2 x 4096 (8192 tokens: the grouped route): moe_gmm (the
      mx_quant kernel over the buffer, then the wgmma tile per row block,
-     column tile and expert) and moe_dw_gemm against their plain versions
-     on layer 0's routing of the first batch (up, down, dx, dW; an empty
-     and a full expert; moe_gmm's rows past each expert's size exactly
-     0), timed beside bf16 torch.bmm; then 3 moss and 3 bf16 steps from
+     column tile and expert) and moe_dw_gemm (the dw_requant pass, then
+     the wgmma tile per k tile, n tile and expert) against their plain
+     versions on layer 0's routing of the first batch (up, down, dx, dW;
+     an empty and a full expert; moe_gmm's rows past each expert's size
+     exactly 0; the dW twice bitwise, an empty expert's exactly 0),
+     timed beside bf16 torch.bmm; then 3 moss and 3 bf16 steps from
      the same weights and batches, each moss step launching exactly its
      kernels, none in bf16; the smoke-size MoE trains 3 moss steps on the
      grouped route on the card and on the CPU (phase 6's check);
@@ -162,6 +166,8 @@ REPLACES = {
     "decode_attn_paged_verify": "src/repro/kernels/decode_attn.py:408",
     "decode_attn_verify": "src/repro/kernels/decode_attn.py:222",
     "mx_dw_gemm": "src/repro/kernels/mx_bwd.py:104",
+    # the requant along tokens inside the TPU kernel's K loop
+    "dw_requant": "src/repro/kernels/mx_bwd.py:104",
     "group_gemm": "src/repro/kernels/group_gemm.py:61",
     "mx_quant": "src/repro/kernels/mx_quant.py:51",
     "moe_gmm": "src/repro/kernels/moe_gmm.py:129",
@@ -177,7 +183,9 @@ SOURCES = {
     "decode_attn": "src/repro_torch/csrc/decode_attn.cu",
     "decode_attn_paged_verify": "src/repro_torch/csrc/decode_attn.cu",
     "decode_attn_verify": "src/repro_torch/csrc/decode_attn.cu",
+    # the dw_requant pass, then the wgmma tile on its payload
     "mx_dw_gemm": "src/repro_torch/csrc/mx_dw_gemm.cu",
+    "dw_requant": "src/repro_torch/csrc/mx_dw_gemm.cu",
     "group_gemm": "src/repro_torch/csrc/group_gemm.cu",
     "mx_quant": "src/repro_torch/csrc/mx_quant.cu",
     "moe_gmm": "src/repro_torch/csrc/moe_gmm.cu",
@@ -726,7 +734,7 @@ def phase_train_kernels(torch, timer) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(2)
     m = TRAIN_M
     res = {}
-    worst_f = worst_d = 0.0
+    worst_f = worst_d = worst_r = 0.0
     for k, n in TRAIN_KN:
         w = torch.randn(k, n, device="cuda", generator=gen) / k ** 0.5
         qw = quant_per_tensor(w).q
@@ -773,39 +781,60 @@ def phase_train_kernels(torch, timer) -> dict:
             if what == "fwd":
                 xq_q, xq_e = q_p, se_p
             del opnd, wb, q_p, se_p
-        # dW against the forward's residual and the e5m2 gradient
+        # dW against the forward's residual and the e5m2 gradient: the
+        # dw_requant pass, then the wgmma tile on its payload
         gq = quant_per_tensor(g, "e5m2").q
         acc, qt, et = mx_bwd.mx_dw_gemm(xq_q, xq_e, gq, "e4m3", payload=True)
+        again = mx_bwd.mx_dw_gemm(xq_q, xq_e, gq, "e4m3")
         acc_p, qt_p, et_p = mx_bwd.mx_dw_gemm_plain(xq_q, xq_e, gq, "e4m3",
                                                     payload=True)
         q_mis = int((qt.view(torch.uint8) != qt_p.view(torch.uint8)).sum())
         e_mis = int((et != et_p).sum())
         err = float((acc - acc_p).abs().max())
         scale = float(acc_p.abs().max())
+        same = torch.equal(acc.view(torch.int32), again.view(torch.int32))
         print(f"mx_dw_gemm M={m} K={k} N={n}: max_err {err:.3g} (max|ref| "
               f"{scale:.3g}), requant payload mismatches q {q_mis} / sexp "
-              f"{e_mis}", end="")
-        if q_mis or e_mis or not (err <= 1e-5 * scale
+              f"{e_mis}, two calls bitwise {same}", end="")
+        if q_mis or e_mis or not (same and err <= 1e-5 * scale
                                   and torch.isfinite(acc).all()):
             print()
             raise AssertionError(f"mx_dw_gemm K={k} N={n}")
         worst_d = max(worst_d, err)
+        worst_r = max(worst_r, float((mx_operand(qt, et).float()
+                                      - mx_operand(qt_p, et_p).float())
+                                     .abs().max()))
         opnd, gb = mx_operand(qt_p, et_p), gq.to(torch.bfloat16)
-        del acc, acc_p, qt, et, qt_p, et_p
+        del acc, again, acc_p, qt, et, qt_p, et_p
         t = timer.ms(lambda: mx_bwd.mx_dw_gemm(xq_q, xq_e, gq))
         tp = timer.ms(lambda: mx_bwd.mx_dw_gemm_plain(xq_q, xq_e, gq))
         tl = timer.ms(lambda: torch.matmul(opnd, gb))
+        # the residual and its exponents read, q' and e' written and read
+        # once more by the tile, the gradient read, dW written
         b, by = bound_ms(m * k + m * k // 32 + m * n + 4 * k * n,
                          2.0 * m * n * k)
-        print(f", {t:.4f} ms, plain {tp:.4f} ms, library {tl:.4f} ms, "
+        flops = 2.0 * m * n * k
+        print(f", {t:.4f} ms ({flops / t / 1e9:.1f} TFLOP/s; the requant "
+              f"pass and the tile), plain {tp:.4f} ms, library {tl:.4f} ms, "
               f"bound {b:.4f} ms ({by})")
         if (k, n) == (4096, 11008):
             res["mx_dw_gemm"] = dict(ms=t, plain_ms=tp, library_ms=tl,
+                                     bound_ms=b, bound_by=by)
+            # the requant pass alone: the residual and its exponents read
+            # once, q' and e' written once
+            t = timer.ms(lambda: mx_bwd.dw_requant(xq_q, xq_e), batched=True)
+            tp = timer.ms(lambda: mx_bwd.requant_m(xq_q, xq_e))
+            b, by = bound_ms(2 * (m * k + m * k // 32), 0.0)
+            print(f"dw_requant M={m} K={k}: {t:.4f} ms (the wrapper), plain "
+                  f"{tp:.4f} ms, bound {b:.4f} ms ({by}), payload bitwise "
+                  "at every shape above")
+            res["dw_requant"] = dict(ms=t, plain_ms=tp, library_ms=None,
                                      bound_ms=b, bound_by=by)
         del x, g, qw, qwt, gq, xq_q, xq_e, opnd, gb
         torch.cuda.empty_cache()
     res["fused_quant_gemm_tiled"]["max_abs_err"] = worst_f
     res["mx_dw_gemm"]["max_abs_err"] = worst_d
+    res["dw_requant"]["max_abs_err"] = worst_r
     return res
 
 
@@ -1463,8 +1492,8 @@ def phase_train(torch, np) -> dict:
     n_params = sum(int(w.numel()) for w in tree_leaves(init))
     print(f"train: {n_params / 1e9:.3f}B parameters")
     counters = [mx_fused.counter, mx_fused.counter_tiled, mx_bwd.counter,
-                group_gemm.counter, mx_quant.counter, mx_gemm.counter,
-                mx_gemm.counter_tiled]
+                mx_bwd.counter_requant, group_gemm.counter, mx_quant.counter,
+                mx_gemm.counter, mx_gemm.counter_tiled]
     losses, launches = {}, {}
     for mode in TRAIN_MODES:
         cfg = _train_cfg(get_config, quant_from_name, mode, smoke=False)
@@ -1497,13 +1526,15 @@ def phase_train(torch, np) -> dict:
     # per step: the forward at every linear site (7 a layer + the head),
     # the remat recompute of the layers' sites, dx and dW at every site;
     # each fused_quant_gemm call (M 2048 > 32) launches mx_quant and the
-    # wgmma tile
+    # wgmma tile, each mx_dw_gemm call the dw_requant pass and the tile
+    # (counted on mx_dw_gemm, not mx_gemm_tiled)
     sites = 7 * TRAIN_LAYERS + 1
     fused = 3 * (2 * sites + 7 * TRAIN_LAYERS)
     none = {c.name: 0 for c in counters}
     want = {
         "moss": {**none, "fused_quant_gemm_tiled": fused, "mx_quant": fused,
-                 "mx_gemm_tiled": fused, "mx_dw_gemm": 3 * sites},
+                 "mx_gemm_tiled": fused, "mx_dw_gemm": 3 * sites,
+                 "dw_requant": 3 * sites},
         "bf16": none,
         "per_group": {**none,
                       "group_gemm": 3 * (3 * sites + 7 * TRAIN_LAYERS)},
@@ -1524,7 +1555,7 @@ def phase_train(torch, np) -> dict:
                                      f"bf16 {b}")
     return {name: launches["moss"][name] for name in
             ("fused_quant_gemm_tiled", "mx_quant", "mx_gemm_tiled",
-             "mx_dw_gemm")} | {
+             "mx_dw_gemm", "dw_requant")} | {
                  "group_gemm": launches["per_group"]["group_gemm"]}
 
 
@@ -1577,7 +1608,7 @@ def phase_moe_kernels(torch, timer, cfg, params, tokens) -> dict:
     import torch.nn.functional as F
     from repro_torch.core.quant import (mx_operand, pad_axis,
                                         prequant_weight, quant_per_tensor)
-    from repro_torch.kernels import dispatch, moe_gmm
+    from repro_torch.kernels import dispatch, moe_gmm, mx_bwd
 
     e, dff, d = cfg.n_experts, cfg.d_ff, cfg.d_model
     gen = torch.Generator(device="cuda").manual_seed(6)
@@ -1644,17 +1675,21 @@ def phase_moe_kernels(torch, timer, cfg, params, tokens) -> dict:
     qx, sx, qg = slots(xq_q), slots(xq_e), slots(gq)
     acc, qt, et = moe_gmm.moe_dw_gemm(qx, sx, qg, sizes, cp, "e4m3",
                                       payload=True)
+    same = torch.equal(acc.view(torch.int32), moe_gmm.moe_dw_gemm(
+        qx, sx, qg, sizes, cp, "e4m3").view(torch.int32))
     acc_p, qt_p, et_p = moe_gmm.moe_dw_gemm_plain(qx, sx, qg, cp, "e4m3",
                                                   payload=True)
     q_mis = int((qt.view(torch.uint8) != qt_p.view(torch.uint8)).sum())
     e_mis = int((et != et_p).sum())
     err = float((acc - acc_p).abs().max())
     scale = float(acc_p.abs().max())
+    empty_nz = int((acc[sizes == 0] != 0).sum())
     print(f"moe_dw_gemm E={e} Cp={cp} K={d} N={dff}: max_err {err:.3g} "
           f"(max|ref| {scale:.3g}), requant payload mismatches q {q_mis} / "
-          f"sexp {e_mis}")
-    if q_mis or e_mis or not (err <= 1e-5 * scale
-                              and torch.isfinite(acc).all()):
+          f"sexp {e_mis}, two calls bitwise {same}, nonzero dW of the "
+          f"{int((sizes == 0).sum())} empty experts {empty_nz}")
+    if q_mis or e_mis or empty_nz or not (same and err <= 1e-5 * scale
+                                          and torch.isfinite(acc).all()):
         raise AssertionError("moe_dw_gemm")
     res["moe_dw_gemm"] = {"max_abs_err": err}
     dw_opnd = torch.stack([mx_operand(q_, e_) for q_, e_ in zip(qt_p, et_p)])
@@ -1686,13 +1721,21 @@ def phase_moe_kernels(torch, timer, cfg, params, tokens) -> dict:
     t = timer.ms(lambda: moe_gmm.moe_dw_gemm(qx, sx, qg, sizes, cp))
     tp = timer.ms(lambda: moe_gmm.moe_dw_gemm_plain(qx, sx, qg, cp))
     tl = timer.ms(lambda: torch.bmm(dw_opnd, gb))
+    qt = torch.empty((e, d, cp), dtype=qx.dtype, device="cuda")
+    et = torch.empty((e, d, cp // 32), dtype=torch.int8, device="cuda")
+    tr = timer.ms(lambda: mx_bwd.launch_requant(qx, sx, qt, et, "e4m3",
+                                                sizes), batched=True)
+    del qt, et
     # the kernel reads each expert's rows up to its size rounded to 32
     rows = int(torch.clamp_max((sizes + 31) // 32 * 32, cp).sum())
     b, by = bound_ms(rows * (d + d // 32 + dff) + 4 * e + 4 * e * d * dff,
                      2.0 * n_live * d * dff)
-    print(f"moe_dw_gemm: {t:.4f} ms, plain {tp:.4f} ms, library {tl:.4f} "
-          f"ms (torch.bmm bf16 over the E x Cp slots), bound {b:.4f} ms "
-          f"({by}, {n_live} routed rows)")
+    # the pass reads the live groups and writes every group of q', e'
+    br, _ = bound_ms(rows * (d + d // 32) + e * cp * (d + d // 32), 0.0)
+    print(f"moe_dw_gemm: {t:.4f} ms (the dw_requant pass {tr:.4f} ms, "
+          f"bound {br:.4f} ms (bytes), and the grouped tile), plain "
+          f"{tp:.4f} ms, library {tl:.4f} ms (torch.bmm bf16 over the E x "
+          f"Cp slots), bound {b:.4f} ms ({by}, {n_live} routed rows)")
     res["moe_dw_gemm"].update(ms=t, plain_ms=tp, library_ms=tl, bound_ms=b,
                               bound_by=by)
     del dw_opnd, gb, qx, sx, qg, x, wq
@@ -1740,8 +1783,9 @@ def phase_moe_train(torch, np) -> tuple[dict, dict]:
     del timer
     print(f"moe kernel checks: {time.monotonic() - t0:.1f} s")
     counters = [moe_gmm.counter, moe_gmm.counter_dw, mx_fused.counter,
-                mx_fused.counter_tiled, mx_bwd.counter, group_gemm.counter,
-                mx_quant.counter, mx_gemm.counter, mx_gemm.counter_tiled]
+                mx_fused.counter_tiled, mx_bwd.counter, mx_bwd.counter_requant,
+                group_gemm.counter, mx_quant.counter, mx_gemm.counter,
+                mx_gemm.counter_tiled]
     losses, launches = {}, {}
     for mode in ("moss", "bf16"):
         cfg = _moe_cfg(get_config, quant_from_name, mode, smoke=False)
@@ -1778,12 +1822,13 @@ def phase_moe_train(torch, np) -> tuple[dict, dict]:
     # gate and down take moe_gmm in the forward, the recompute and dx,
     # and moe_dw_gemm for dW; each fused call (M 8192) launches mx_quant
     # and the wgmma tile (14 a step), each moe_gmm call mx_quant and the
-    # grouped tile (9 a step): 23 mx_quant a step, 69 in 3
+    # grouped tile (9 a step): 23 mx_quant a step, 69 in 3; each dW call
+    # (5 mx_dw_gemm, 3 moe_dw_gemm) one dw_requant pass: 8 a step
     none = {c.name: 0 for c in counters}
     want = {"moss": {**none, "moe_gmm": 3 * 9, "moe_dw_gemm": 3 * 3,
                      "fused_quant_gemm_tiled": 3 * 14,
                      "mx_quant": 3 * (14 + 9), "mx_gemm_tiled": 3 * 14,
-                     "mx_dw_gemm": 3 * 5},
+                     "mx_dw_gemm": 3 * 5, "dw_requant": 3 * (5 + 3)},
             "bf16": none}
     for mode, got in launches.items():
         if got != want[mode]:
@@ -1902,9 +1947,9 @@ def main() -> int:
     # of the calibration forward) from the engine, the verify forms from
     # the spec engine, decode_attn from the windowed engine,
     # fused_quant_gemm_tiled (calls at M > 32), the mx_quant and
-    # mx_gemm_tiled launches they make, and mx_dw_gemm from the moss
-    # steps, group_gemm from the per_group steps, moe_gmm and
-    # moe_dw_gemm from the MoE moss steps
+    # mx_gemm_tiled launches they make, and mx_dw_gemm with its
+    # dw_requant passes from the moss steps, group_gemm from the
+    # per_group steps, moe_gmm and moe_dw_gemm from the MoE moss steps
     launches.update(spec_launches)
     launches.update(train_launches)
     launches["decode_attn"] = ring_launches["decode_attn"]

@@ -202,118 +202,3 @@ __device__ __forceinline__ float load_x(const void* x, size_t at,
   return x_bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(x)[at])
                 : static_cast<const float*>(x)[at];
 }
-
-// ---------------------------------------------------------------------------
-// The dW tile, shared by mx_dw_gemm (mx_dw_gemm.cu) and the grouped-expert
-// moe_dw_gemm (moe_gmm.cu).
-// ---------------------------------------------------------------------------
-
-namespace dwt {
-constexpr int BK = 128;               // output rows (K) per block
-constexpr int BN = 128;               // output columns (N) per block
-constexpr int MS = 32;                // tokens per step = one requant group
-constexpr int THREADS = 256;
-constexpr int HALF = THREADS / BK;    // threads per column (2)
-constexpr int PER = MS / HALF;        // tokens per thread per step (16)
-}  // namespace dwt
-
-// One BK x BN tile (output rows [k0, k0 + BK), columns [n0, n0 + BN)) of
-//   dW[k, n] = sum_{m < m_end} requant_M(Qx * 2^sexp)[k, m] * Qg[m, n]
-// over a residual of M rows: qx (M, K) fp8, sexp (M, K/32), qg (M, N) fp8,
-// m_end a multiple of 32 (<= M).  The block walks the tokens in 32-token
-// steps, each exactly one requant group: per step a thread loads 16
-// residual bytes of one column (so it holds the column's values in
-// registers for the amax, shared with the other half of the column
-// through shared memory), requantizes them and stores the operand in
-// shared memory; the gradient tile is upcast beside it; each thread then
-// accumulates an 8 x 8 register tile in fixed order.  With
-// `write_payload` (and qt / et non-null) the tile writes the requant
-// payload q' (K, M) and e' (K, M/32) of its columns for the steps it
-// takes.  Ragged K and N are masked.
-__device__ __forceinline__ void dw_tile(
-    const uint8_t* __restrict__ qx, const int8_t* __restrict__ sexp,
-    const uint8_t* __restrict__ qg, float* __restrict__ out,
-    uint8_t* __restrict__ qt, int8_t* __restrict__ et, int M, int m_end,
-    int N, int K, int k0, int n0, bool x_e5m2, bool g_e5m2, bool e5m2,
-    float fmax, float inv_ln2, bool write_payload) {
-  __shared__ __align__(16) float as[dwt::MS][dwt::BK];
-  __shared__ __align__(16) float gs[dwt::MS][dwt::BN];
-  __shared__ float red[dwt::HALF][dwt::BK];
-  const int tid = threadIdx.x;
-  const int c = tid % dwt::BK, half = tid / dwt::BK;
-  const int kc = k0 + c;
-  const bool col_ok = kc < K;
-  const bool owner = write_payload && qt != nullptr && col_ok;
-  const int kg = K / 32;
-  const int ty = tid / 16, tx = tid % 16;
-  float acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-
-  for (int m0 = 0; m0 < m_end; m0 += dwt::MS) {
-    // 1. this thread's 16 tokens of column kc, dequantized (units of s_x)
-    float v[dwt::PER];
-    float amax = 0.f;
-#pragma unroll
-    for (int i = 0; i < dwt::PER; ++i) {
-      const int m = m0 + half + dwt::HALF * i;
-      v[i] = 0.f;
-      if (col_ok) {
-        const size_t at = static_cast<size_t>(m) * K + kc;
-        v[i] = fp8_to_float(qx[at], x_e5m2) *
-               exp2i(sexp[static_cast<size_t>(m) * kg + kc / 32]);
-      }
-      amax = fmaxf(amax, fabsf(v[i]));
-    }
-    red[half][c] = amax;
-    __syncthreads();      // also: the previous step's reads of as/gs are done
-    amax = fmaxf(red[0][c], red[1][c]);
-    // 2. the requant of the column's 32-token group
-    const int ei = e8m0_exponent(amax / fmax, inv_ln2);
-#pragma unroll
-    for (int i = 0; i < dwt::PER; ++i) {
-      const int ml = half + dwt::HALF * i;
-      const uint8_t qb = mx_quant_value(v[i], ei, 1.f, fmax, e5m2);
-      as[ml][c] = bf16_round(fp8_to_float(qb, e5m2) * exp2i(ei));
-      if (owner) qt[static_cast<size_t>(kc) * M + m0 + ml] = qb;
-    }
-    if (owner && half == 0)
-      et[static_cast<size_t>(kc) * (M / 32) + m0 / 32] =
-          static_cast<int8_t>(ei);
-    // 3. the gradient tile, upcast (ragged N reads as 0)
-    for (int i = tid; i < dwt::MS * dwt::BN; i += dwt::THREADS) {
-      const int ml = i / dwt::BN, nl = i % dwt::BN;
-      const int n = n0 + nl;
-      gs[ml][nl] = n < N ? fp8_to_float(
-                               qg[static_cast<size_t>(m0 + ml) * N + n], g_e5m2)
-                         : 0.f;
-    }
-    __syncthreads();
-    // 4. the 8 x 8 register tile over the 32 tokens
-#pragma unroll 4
-    for (int ml = 0; ml < dwt::MS; ++ml) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&as[ml][ty * 4]);
-      const float4 a1 = *reinterpret_cast<const float4*>(&as[ml][64 + ty * 4]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&gs[ml][tx * 4]);
-      const float4 b1 = *reinterpret_cast<const float4*>(&gs[ml][64 + tx * 4]);
-      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int k = k0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + (i - 4));
-    if (k >= K) continue;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int n = n0 + (j < 4 ? tx * 4 + j : 64 + tx * 4 + (j - 4));
-      if (n < N) out[static_cast<size_t>(k) * N + n] = acc[i][j];
-    }
-  }
-}

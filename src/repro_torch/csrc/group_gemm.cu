@@ -40,7 +40,7 @@ group_gemm_kernel(const uint8_t* __restrict__ qx,
                   int M, int N, int K) {
   extern __shared__ uint8_t smem[];
   wgmma_tile<AScale::GROUP, XE5, WE5, VEC>(qx, nullptr, sx, qw, out, M, N,
-                                           K, blockIdx.x * wgt::BM,
+                                           K, K, blockIdx.x * wgt::BM,
                                            blockIdx.y * wgt::BN, smem);
 }
 

@@ -103,7 +103,7 @@ mx_gemm_tiled_kernel(const uint8_t* __restrict__ qx,
                      int M, int N, int K) {
   extern __shared__ uint8_t smem[];
   wgmma_tile<AScale::MX, XE5, WE5, VEC>(qx, sexp, nullptr, qw, out, M, N, K,
-                                        blockIdx.x * wgt::BM,
+                                        K, blockIdx.x * wgt::BM,
                                         blockIdx.y * wgt::BN, smem);
 }
 

@@ -3,7 +3,9 @@
 // warpgroup product wgmma.mma_async m64n128k16 with f32 accumulators,
 // the exact fp8 -> bf16 operand conversion into 128-byte-swizzled
 // panels, and one warp-specialised mainloop with two A-operand policies
-// (MX: mx_gemm.cu, moe_gmm.cu; GROUP: group_gemm.cu).
+// (MX: mx_gemm.cu for rows 1-2 at M > 32, mx_dw_gemm.cu for row 5 on
+// its requant payload, moe_gmm.cu for rows 7 and 8; GROUP:
+// group_gemm.cu, row 6).
 //
 // Panel layouts (each 1024-byte aligned, 128-byte swizzle: the 16-byte
 // chunk c of a 128-byte line r lies at chunk c ^ (r % 8)):
@@ -263,8 +265,8 @@ __device__ __forceinline__ void setmaxnreg_dec() {
 // ---------------------------------------------------------------------------
 // The fp8 GEMM tile on the tensor cores, for the BM x BN output tile at
 // (m0, n0), f32, unscaled, with one of two A-operand policies:
-//   MX (MOSS; mx_gemm, fused_quant_gemm, moe_gmm): the exponent goes into
-//     the operand,
+//   MX (MOSS; mx_gemm, fused_quant_gemm, moe_gmm, and both dW GEMMs on
+//     their requant payload): the exponent goes into the operand,
 //       out[m, n] = sum_k bf16(fp8(qx[m, k]) * 2^sexp[m, k/32])
 //                         * fp8(qw[k, n]);
 //   GROUP (COAT; group_gemm): each 128-wide K group's partial sum is
@@ -300,22 +302,25 @@ __device__ __forceinline__ void setmaxnreg_dec() {
 // The producers are the same under both policies, but for the
 // exponents: GROUP converts A unscaled (exact).
 //
-// Ragged M, N and K (a multiple of 32) read as zeros; the epilogue
-// stores the f32 tile, masked.  No split-K, no atomics: two calls give
-// the same bits.
+// K is the row stride of qx (and K / 32 of sexp, K / 128 of sx); the
+// contraction stops at k_stop <= K, a multiple of 32 (the grouped dW
+// stops at its expert's token count; every other caller passes K).
+// Ragged M, N and k_stop read as zeros; the epilogue stores the f32
+// tile, masked.  No split-K, no atomics: two calls give the same
+// bits.
 // ---------------------------------------------------------------------------
 enum class AScale { MX, GROUP };
 
 template <AScale P, bool XE5, bool WE5, bool VEC>
 __device__ __forceinline__ void wgmma_producer(
     const uint8_t* __restrict__ qx, const int8_t* __restrict__ sexp,
-    const uint8_t* __restrict__ qw, int M, int N, int K, int m0, int n0,
-    uint32_t base, int tid) {
+    const uint8_t* __restrict__ qw, int M, int N, int K, int k_stop, int m0,
+    int n0, uint32_t base, int tid) {
   const uint32_t raw0 = base + wgt::STAGES * wgt::STAGE_BYTES;
   const uint32_t full = base + wgt::BAR_OFFSET;
   const uint32_t empty = full + wgt::STAGES * 8;
   const int kg = K / 32;
-  const int steps = (K + wgt::BK - 1) / wgt::BK;
+  const int steps = (k_stop + wgt::BK - 1) / wgt::BK;
 
   // this thread's chunks: A (row, 16-byte column) and B (k-line,
   // 16-column group), two of each; eight neighbouring threads store to
@@ -359,8 +364,8 @@ __device__ __forceinline__ void wgmma_producer(
     const int k0 = step * wgt::BK;
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
-      const bool ok = ok_a[j] && k0 + 16 * a_kc[j] < K;
-      const bool okb = ok_b[j] && k0 + b_kr[j] < K;
+      const bool ok = ok_a[j] && k0 + 16 * a_kc[j] < k_stop;
+      const bool okb = ok_b[j] && k0 + b_kr[j] < k_stop;
       const uint8_t* pa = ok ? src_a[j] + k0 : qx;
       const uint8_t* pb = okb ? src_b[j] + static_cast<size_t>(k0) * N : qw;
       const uint32_t da = slot + j * wgt::STAFF * 16;
@@ -378,7 +383,7 @@ __device__ __forceinline__ void wgmma_producer(
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
       if constexpr (P == AScale::MX)
-        e[j] = ok_a[j] && step * wgt::BK + 16 * a_kc[j] < K
+        e[j] = ok_a[j] && step * wgt::BK + 16 * a_kc[j] < k_stop
                    ? src_e[j][2 * step] : 0;
       else
         e[j] = 0;
@@ -462,13 +467,13 @@ __device__ __forceinline__ void promote(float (&acc)[64],
 template <AScale P>
 __device__ __forceinline__ void wgmma_consumer(float* __restrict__ out,
                                                const float* __restrict__ sx,
-                                               int M, int N, int K, int m0,
-                                               int n0, uint32_t base,
-                                               int tid) {
+                                               int M, int N, int K,
+                                               int k_stop, int m0, int n0,
+                                               uint32_t base, int tid) {
   const uint32_t full = base + wgt::BAR_OFFSET;
   const uint32_t empty = full + wgt::STAGES * 8;
   const int wg = tid / 128;
-  const int steps = (K + wgt::BK - 1) / wgt::BK;
+  const int steps = (k_stop + wgt::BK - 1) / wgt::BK;
   // d[4j + {0,1}] at (row, 8j + 2(lane % 4) + {0,1}), d[4j + {2,3}] at
   // row + 8; row = 16 * warp + lane / 4 within the warpgroup's 64
   const int t = tid % 128, lane = t % 32;
@@ -541,8 +546,8 @@ template <AScale P, bool XE5, bool WE5, bool VEC>
 __device__ __forceinline__ void wgmma_tile(
     const uint8_t* __restrict__ qx, const int8_t* __restrict__ sexp,
     const float* __restrict__ sx, const uint8_t* __restrict__ qw,
-    float* __restrict__ out, int M, int N, int K, int m0, int n0,
-    uint8_t* smem_raw) {
+    float* __restrict__ out, int M, int N, int K, int k_stop, int m0,
+    int n0, uint8_t* smem_raw) {
   const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
   const uint32_t full = base + wgt::BAR_OFFSET;
   const int tid = threadIdx.x;
@@ -555,11 +560,11 @@ __device__ __forceinline__ void wgmma_tile(
   __syncthreads();
   if (tid >= wgt::STAFF) {
     setmaxnreg_dec<wgt::PRODUCER_REGS>();
-    wgmma_producer<P, XE5, WE5, VEC>(qx, sexp, qw, M, N, K, m0, n0, base,
-                                     tid - wgt::STAFF);
+    wgmma_producer<P, XE5, WE5, VEC>(qx, sexp, qw, M, N, K, k_stop, m0, n0,
+                                     base, tid - wgt::STAFF);
   } else {
     setmaxnreg_inc<wgt::CONSUMER_REGS>();
-    wgmma_consumer<P>(out, sx, M, N, K, m0, n0, base, tid);
+    wgmma_consumer<P>(out, sx, M, N, K, k_stop, m0, n0, base, tid);
   }
 }
 

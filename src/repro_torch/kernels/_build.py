@@ -43,18 +43,18 @@ SIGNATURES = {
     "fused_quant_gemm_launch": [_VOID, _VOID, _VOID, _VOID, _VOID, _VOID,
                                 _INT, _INT, _INT, _INT, _INT, _INT, _INT,
                                 _FLOAT, _FLOAT, _VOID],
-    "mx_dw_gemm_launch": [_VOID, _VOID, _VOID, _VOID, _VOID, _VOID, _INT,
-                          _INT, _INT, _INT, _INT, _INT, _FLOAT, _FLOAT,
-                          _VOID],
+    "dw_requant_launch": [_VOID, _VOID, _VOID, _VOID, _VOID, _INT, _INT,
+                          _INT, _INT, _INT, _FLOAT, _FLOAT, _VOID],
+    "mx_dw_gemm_launch": [_VOID, _VOID, _VOID, _VOID, _INT, _INT, _INT,
+                          _INT, _INT, _INT, _VOID],
     "mx_quant_launch": [_VOID, _VOID, _VOID, _VOID, _LONG, _INT, _INT,
                         _FLOAT, _FLOAT, _VOID],
     "group_gemm_launch": [_VOID, _VOID, _VOID, _VOID, _INT, _INT, _INT,
                           _INT, _INT, _INT, _VOID],
     "moe_gmm_launch": [_VOID, _VOID, _VOID, _VOID, _VOID, _INT, _INT, _INT,
                        _INT, _INT, _INT, _INT, _VOID],
-    "moe_dw_gemm_launch": [_VOID, _VOID, _VOID, _VOID, _VOID, _VOID, _VOID,
-                           _INT, _INT, _INT, _INT, _INT, _INT, _INT,
-                           _FLOAT, _FLOAT, _VOID],
+    "moe_dw_gemm_launch": [_VOID, _VOID, _VOID, _VOID, _VOID, _INT, _INT,
+                           _INT, _INT, _INT, _INT, _INT, _VOID],
     "decode_attn_paged_launch": [_VOID, _VOID, _VOID, _VOID, _VOID, _VOID,
                                  _VOID, _VOID, _INT, _INT, _INT, _INT, _INT,
                                  _INT, _INT, _FLOAT, _INT, _VOID],

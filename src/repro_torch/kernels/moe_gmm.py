@@ -35,8 +35,14 @@ row, as the reference's oracles do, and take no sizes.
     the unscaled (E, K, N) f32 ``requant_M(Qx_e · 2^sexp_e)ᵀ @ Qg_e``
     per expert (``kernels.mx_bwd`` within each expert's Cp rows); the
     caller (``kernels.dispatch.moe_grouped_matmul_dw``) applies
-    ``s_x · s_g``.  Replaces ``repro.kernels.moe_gmm.moe_dw_gemm_pallas``;
-    the plain version is ``ref.moe_dw_ref``.
+    ``s_x · s_g``.  On the card a call is two launches: ``kernels.mx_bwd``'s
+    requant pass over the whole residual into q' (E, K, Cp) and e'
+    (E, K, Cp/32) (the groups at or past each expert's size written as
+    zero groups, unread), then the ``wgmma`` tile of ``csrc/moe_gmm.cu``
+    per (k tile, n tile, expert), its contraction stopping at
+    ``sizes[e]`` rounded up to 32.  Replaces
+    ``repro.kernels.moe_gmm.moe_dw_gemm_pallas``; the plain version is
+    ``ref.moe_dw_ref``.
 
 A CPU tensor takes the plain version.  A CUDA tensor launches the
 kernel, or raises: there is no fallback.
@@ -46,18 +52,18 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.formats import INV_LN2_F32, fp8_dtype, fp8_max, is_fp8
+from repro_torch.core.formats import fp8_dtype, is_fp8
 from repro_torch.core.quant import mx_operand, quant_mx
 from repro_torch.core.runtime_flags import einsum, mm
 
 from . import mx_quant
 from ._build import LaunchCounter, check, library
-from .mx_bwd import requant_m
+from .mx_bwd import launch_requant, requant_m
 
 MICRO = 32
 
 counter = LaunchCounter("moe_gmm")          # the grouped wgmma tile
-counter_dw = LaunchCounter("moe_dw_gemm")
+counter_dw = LaunchCounter("moe_dw_gemm")  # the grouped dW tile
 
 
 def moe_gmm_plain(x: torch.Tensor, s: torch.Tensor, qw_stack: torch.Tensor,
@@ -166,22 +172,18 @@ def moe_dw_gemm(qx: torch.Tensor, sexp: torch.Tensor, qg: torch.Tensor,
             and qg.is_contiguous() and sizes.is_contiguous()):
         raise ValueError("moe_dw_gemm: operands must be contiguous")
     acc = torch.empty((e, k, n), dtype=torch.float32, device=dev)
-    qt = et = None
-    if payload:
-        # the kernel writes the requant groups it takes (up to sizes[e]
-        # rounded to 32); the rest are zero groups: q 0, exponent -127
-        qt = torch.zeros((e, k, capacity), dtype=fp8_dtype(fmt), device=dev)
-        et = torch.full((e, k, capacity // MICRO), -127, dtype=torch.int8,
-                        device=dev)
+    qt = torch.empty((e, k, capacity), dtype=fp8_dtype(fmt), device=dev)
+    et = torch.empty((e, k, capacity // MICRO), dtype=torch.int8,
+                     device=dev)
+    launch_requant(qx, sexp, qt, et, fmt, sizes)
+    vec = int(n % 16 == 0 and qt.data_ptr() % 16 == 0
+              and qg.data_ptr() % 16 == 0)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = library().moe_dw_gemm_launch(
-            qx.data_ptr(), sexp.data_ptr(), qg.data_ptr(), sizes.data_ptr(),
-            acc.data_ptr(), None if qt is None else qt.data_ptr(),
-            None if et is None else et.data_ptr(), e, capacity, n, k,
-            int(qx.dtype == torch.float8_e5m2),
-            int(qg.dtype == torch.float8_e5m2), int(fmt == "e5m2"),
-            fp8_max(fmt), INV_LN2_F32, stream)
+            qt.data_ptr(), et.data_ptr(), qg.data_ptr(), sizes.data_ptr(),
+            acc.data_ptr(), e, capacity, n, k, int(fmt == "e5m2"),
+            int(qg.dtype == torch.float8_e5m2), vec, stream)
     check(code, "moe_dw_gemm")
     counter_dw.hit()
     return (acc, qt, et) if payload else acc

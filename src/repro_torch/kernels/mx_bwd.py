@@ -13,8 +13,14 @@ plain version follows the reference dispatch's ``ref`` branch
 (``quant_mx(x_unit.T, 32, fmt, global_scale=1)``, then the MX GEMM).
 
 M is a multiple of 32 (the caller pads).  A CPU tensor takes the plain
-version.  A CUDA tensor launches the kernel, or raises: there is no
-fallback.
+version.  A CUDA tensor launches the kernels, or raises: there is no
+fallback.  On the card a call is two launches: ``csrc/mx_dw_gemm.cu``'s
+requant pass (``dw_requant``, counter ``dw_requant``) writes the
+payload q' (K, M) and e' (K, M/32) of ``requant_m``, then the 128 x
+128 ``wgmma`` tile of ``mx_gemm``'s M > 32 route (``csrc/wgmma.cuh``,
+its own instance) computes ``(q' · 2^e') @ Qg`` from it: the call
+counts on ``mx_dw_gemm``, not on ``mx_gemm_tiled``.  The grouped dW
+(``kernels.moe_gmm.moe_dw_gemm``) runs the same pass.
 """
 
 from __future__ import annotations
@@ -29,7 +35,8 @@ from ._build import LaunchCounter, check, library
 
 MICRO = 32
 
-counter = LaunchCounter("mx_dw_gemm")
+counter = LaunchCounter("mx_dw_gemm")           # the tile on q', e'
+counter_requant = LaunchCounter("dw_requant")  # the requant pass (both dWs)
 
 
 def requant_m(qx: torch.Tensor, sexp: torch.Tensor,
@@ -49,49 +56,89 @@ def mx_dw_gemm_plain(qx: torch.Tensor, sexp: torch.Tensor,
     return (acc, xt.q, xt.sexp) if payload else acc
 
 
-def _check(qx, sexp, qg, fmt):
+def _check(name, qx, sexp, qg, fmt):
     m, k = qx.shape
-    if not (is_fp8(qx) and is_fp8(qg)) or sexp.dtype != torch.int8:
-        raise TypeError(f"mx_dw_gemm: dtypes {qx.dtype}, {sexp.dtype}, "
-                        f"{qg.dtype}")
+    if not is_fp8(qx) or sexp.dtype != torch.int8 or \
+            (qg is not None and not is_fp8(qg)):
+        raise TypeError(f"{name}: dtypes {qx.dtype}, {sexp.dtype}, "
+                        f"{None if qg is None else qg.dtype}")
     if m % MICRO or k % MICRO or sexp.shape != (m, k // MICRO) or \
-            qg.dim() != 2 or qg.shape[0] != m:
-        raise ValueError(f"mx_dw_gemm: shapes {tuple(qx.shape)}, "
-                         f"{tuple(sexp.shape)}, {tuple(qg.shape)}")
+            (qg is not None and (qg.dim() != 2 or qg.shape[0] != m)):
+        raise ValueError(f"{name}: shapes {tuple(qx.shape)}, "
+                         f"{tuple(sexp.shape)}, "
+                         f"{None if qg is None else tuple(qg.shape)}")
     if fmt not in ("e4m3", "e5m2"):
-        raise ValueError(f"mx_dw_gemm: fmt {fmt!r}")
+        raise ValueError(f"{name}: fmt {fmt!r}")
+
+
+def _on_card(name, *ts):
+    dev = ts[0].device
+    if dev.type != "cuda" or any(t.device != dev for t in ts):
+        raise ValueError(f"{name}: devices {[str(t.device) for t in ts]}")
+    if not all(t.is_contiguous() for t in ts):
+        raise ValueError(f"{name}: operands must be contiguous")
+
+
+def launch_requant(qx: torch.Tensor, sexp: torch.Tensor, qt: torch.Tensor,
+                   et: torch.Tensor, fmt: str,
+                   sizes: torch.Tensor | None = None) -> None:
+    """The requant pass into ``qt`` (E, K, Cp) and ``et`` (E, K, Cp/32),
+    on checked contiguous CUDA operands: the residual ``qx`` (E·Cp, K)
+    with ``sexp``, each slot of Cp rows requantized on its own; with
+    ``sizes`` (E,) int32 the groups at or past ``sizes[e]`` are written
+    as zero groups (q' 0, e' -127) unread."""
+    e, k, cp = qt.shape
+    if not qt.numel():
+        return
+    if qx.data_ptr() % 16:            # the pass reads 16-byte vectors
+        qx = qx.clone()
+    with torch.cuda.device(qx.device):
+        stream = torch.cuda.current_stream(qx.device).cuda_stream
+        code = library().dw_requant_launch(
+            qx.data_ptr(), sexp.data_ptr(),
+            None if sizes is None else sizes.data_ptr(), qt.data_ptr(),
+            et.data_ptr(), e, cp, k, int(qx.dtype == torch.float8_e5m2),
+            int(fmt == "e5m2"), fp8_max(fmt), INV_LN2_F32, stream)
+    check(code, "dw_requant")
+    counter_requant.hit()
+
+
+def dw_requant(qx: torch.Tensor, sexp: torch.Tensor, fmt: str = "e4m3"):
+    """The requant pass alone: ``requant_m``'s (q' fp8 (K, M),
+    e' int8 (K, M/32))."""
+    _check("dw_requant", qx, sexp, None, fmt)
+    if qx.device.type == "cpu":
+        xt = requant_m(qx, sexp, fmt)
+        return xt.q, xt.sexp
+    _on_card("dw_requant", qx, sexp)
+    m, k = qx.shape
+    qt = torch.empty((k, m), dtype=fp8_dtype(fmt), device=qx.device)
+    et = torch.empty((k, m // MICRO), dtype=torch.int8, device=qx.device)
+    launch_requant(qx, sexp, qt.view(1, k, m), et.view(1, k, m // MICRO),
+                   fmt)
+    return qt, et
 
 
 def mx_dw_gemm(qx: torch.Tensor, sexp: torch.Tensor, qg: torch.Tensor,
                fmt: str = "e4m3", payload: bool = False):
     """acc f32 (K, N); with ``payload`` also the requant's fp8 q (K, M)
     and int8 exponents (K, M/32)."""
-    _check(qx, sexp, qg, fmt)
+    _check("mx_dw_gemm", qx, sexp, qg, fmt)
     if qx.device.type == "cpu":
         return mx_dw_gemm_plain(qx, sexp, qg, fmt, payload)
-    dev = qx.device
-    if dev.type != "cuda" or sexp.device != dev or qg.device != dev:
-        raise ValueError(f"mx_dw_gemm: devices {qx.device}, {sexp.device}, "
-                         f"{qg.device}")
-    if not (qx.is_contiguous() and sexp.is_contiguous()
-            and qg.is_contiguous()):
-        raise ValueError("mx_dw_gemm: operands must be contiguous")
+    _on_card("mx_dw_gemm", qx, sexp, qg)
+    qt, et = dw_requant(qx, sexp, fmt)
     m, k = qx.shape
     n = qg.shape[1]
-    acc = torch.empty((k, n), dtype=torch.float32, device=dev)
-    qt = et = None
-    if payload:
-        qt = torch.empty((k, m), dtype=fp8_dtype(fmt), device=dev)
-        et = torch.empty((k, m // MICRO), dtype=torch.int8, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+    acc = torch.empty((k, n), dtype=torch.float32, device=qx.device)
+    vec = int(n % 16 == 0 and qt.data_ptr() % 16 == 0
+              and qg.data_ptr() % 16 == 0)
+    with torch.cuda.device(qx.device):
+        stream = torch.cuda.current_stream(qx.device).cuda_stream
         code = library().mx_dw_gemm_launch(
-            qx.data_ptr(), sexp.data_ptr(), qg.data_ptr(), acc.data_ptr(),
-            None if qt is None else qt.data_ptr(),
-            None if et is None else et.data_ptr(), m, n, k,
-            int(qx.dtype == torch.float8_e5m2),
-            int(qg.dtype == torch.float8_e5m2), int(fmt == "e5m2"),
-            fp8_max(fmt), INV_LN2_F32, stream)
+            qt.data_ptr(), et.data_ptr(), qg.data_ptr(), acc.data_ptr(), m,
+            n, k, int(fmt == "e5m2"), int(qg.dtype == torch.float8_e5m2),
+            vec, stream)
     check(code, "mx_dw_gemm")
     counter.hit()
     return (acc, qt, et) if payload else acc

@@ -44,7 +44,7 @@ PORT_KERNELS = ("mx_gemm_kernel", "mx_gemm_tiled_kernel",
                 "fused_quant_gemm_kernel", "mx_dw_gemm_kernel",
                 "group_gemm_kernel", "mx_quant_kernel",
                 "decode_attn_kernel", "moe_gmm_kernel",
-                "moe_dw_gemm_kernel")
+                "moe_dw_gemm_kernel", "dw_requant_kernel")
 
 
 def _short(name: str) -> str:

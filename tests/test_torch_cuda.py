@@ -32,7 +32,11 @@ LARGE_M_SHAPES = [(33, 96, 200), (130, 256, 72), (256, 32, 129),
 # K % 64 == 32, one K group, full 128 x 128 tiles
 TILED_SHAPES = [(33, 96, 200), (130, 96, 200), (256, 64, 136),
                 (200, 160, 129), (65, 32, 40), (512, 4096, 256)]
-DW_SHAPES = [(128, 256, 192), (256, 96, 200), (64, 4096, 130)]
+# dW (M tokens, K, N): the tile's rows are K, its contraction M.  K not
+# a multiple of 128 (ragged tile rows), M % 64 == 32 (a half step), N
+# not a multiple of 16 (byte loads), and olmo-7b's 2048 tokens at a cut N
+DW_SHAPES = [(128, 256, 192), (256, 96, 200), (64, 4096, 130),
+             (96, 352, 144), (224, 4128, 33), (2048, 4096, 1024)]
 # (m, k, n): ragged M and N, one group, and olmo-7b's per_group forward
 # (M 2048, K 4096) and dW (K 11008 rows, 2048 tokens) at a cut N
 GROUP_SHAPES = [(5, 256, 72), (130, 384, 200), (64, 128, 33),
@@ -42,8 +46,11 @@ QUANT_SHAPES = [(1, 32), (5, 96), (33, 4096), (2048, 11008)]
 # (the ragged last block of each slot), ragged N, one K group
 MOE_SHAPES = [(4, 200, 256, 200), (3, 48, 96, 72), (2, 130, 4096, 256),
               (16, 136, 32, 129)]
-# grouped dW (E, Cp, K, N): Cp a multiple of 32
-MOE_DW_SHAPES = [(4, 224, 256, 200), (2, 32, 96, 72), (3, 1344, 128, 130)]
+# grouped dW (E, Cp, K, N): Cp a multiple of 32; _moe_sizes gives
+# contractions (m_end) that are multiples of 32 but not of 64 (17 -> 32,
+# 96, 160, 224), K not a multiple of 128, N not a multiple of 16
+MOE_DW_SHAPES = [(4, 224, 256, 200), (2, 32, 96, 72), (3, 1344, 128, 130),
+                 (5, 96, 352, 144), (3, 160, 128, 33)]
 
 
 @pytest.fixture
@@ -436,6 +443,99 @@ def test_dw_gemm_matches_plain(cuda, fmt):
         assert torch.equal(et, et_p)
         _close(acc, acc_p)
         _close(mx_bwd.mx_dw_gemm(xq.q, xq.sexp, gq.q, fmt), acc_p)
+
+
+def _boundary_residual(m, k, fmt, seed):
+    """A residual (q, sexp) whose 32-token groups along M, per column,
+    have their amax at fp8 mantissa 1.75 (FP8_MAX's, so the requant
+    ratio amax / FP8_MAX is exactly a power of two, where log2(r) - 1e-6
+    lies within an ulp of an integer) and at the mantissas on each side
+    of it (1.625 and 1.875 in e4m3, 1.5 and 2 in e5m2), over exponents
+    from 2^-126 to 2^7; the group's other tokens lie below.  A few groups sit
+    at the 2^-149 floor and one column is all zero."""
+    rng = np.random.default_rng(seed)
+    kg = k // 32
+    sexp = rng.integers(-120, 1, (m // 32, kg))            # per token group
+    tops = [1.625, 1.75, 1.875] if fmt == "e4m3" else [1.5, 1.75, 2.0]
+    top = rng.choice(tops, (m // 32, k))
+    scale = np.ldexp(1.0, rng.integers(-6, 8, (m // 32, k)))
+    x = rng.uniform(-1.45, 1.45, (m // 32, 32, k)) * scale[:, None, :]
+    at = rng.integers(0, 32, (m // 32, k))
+    sign = rng.choice([-1.0, 1.0], (m // 32, k))
+    np.put_along_axis(x, at[:, None, :], (sign * top * scale)[:, None, :],
+                      axis=1)
+    x[:, :, 5] = 0.0                                       # a zero column
+    q = torch.tensor(x.reshape(m, k), dtype=torch.float32).to(fp8_dtype(fmt))
+    se = np.repeat(sexp, 32, axis=0)
+    se[:32, :2] = -127                                     # the floor
+    return q, torch.tensor(se, dtype=torch.int8)
+
+
+@pytest.mark.parametrize("x_fmt", ["e4m3", "e5m2"])
+def test_dw_requant_exponent_boundaries_match_plain(cuda, x_fmt):
+    """The requant pass alone (``mx_bwd.dw_requant``) against
+    ``requant_m``, bitwise, at group maxima on each side of a power of
+    two (``test_fused_exponent_boundaries_match_plain``'s hazard: a
+    contracted multiply-add would move the ceil) and at the 2^-149
+    floor, in both requant formats, with ragged column blocks (K 4128)
+    and two column blocks of 128."""
+    for m, k in ((256, 4128), (96, 256)):
+        q, se = _boundary_residual(m, k, x_fmt, m + k)
+        q, se = q.to(cuda), se.to(cuda)
+        for fmt in ("e4m3", "e5m2"):
+            before = mx_bwd.counter_requant.count
+            qt, et = mx_bwd.dw_requant(q, se, fmt)
+            assert mx_bwd.counter_requant.count == before + 1
+            want = mx_bwd.requant_m(q, se, fmt)
+            assert qt.shape == (k, m) and et.shape == (k, m // 32)
+            assert torch.equal(et, want.sexp)
+            assert torch.equal(qt.view(torch.uint8),
+                               want.q.view(torch.uint8))
+            assert int(want.sexp.min()) == -127
+            assert int(want.sexp.max()) - int(want.sexp.min()) > 100
+
+
+def test_dw_gemms_launch_the_requant_then_the_tile_and_repeat(cuda):
+    """One ``mx_dw_gemm`` call is one ``dw_requant`` launch and one
+    tile launch (counted on ``mx_dw_gemm``, never on ``mx_gemm``'s own
+    counters); one ``moe_dw_gemm`` call one ``dw_requant`` launch and
+    one grouped tile.  Two calls of each return the same bits."""
+    m, k, n = 224, 352, 200
+    xq = quant_mx(_x(m, k, 11).to(cuda), 32, "e4m3")
+    g = torch.tensor(np.random.default_rng(12).standard_normal((m, n)),
+                     dtype=torch.float32, device=cuda)
+    gq = quant_per_tensor(g, "e5m2").q
+    counters = (mx_bwd.counter_requant, mx_bwd.counter, moe_gmm.counter_dw,
+                mx_gemm.counter, mx_gemm.counter_tiled, mx_quant.counter)
+    before = [c.count for c in counters]
+    acc, qt, et = mx_bwd.mx_dw_gemm(xq.q, xq.sexp, gq, payload=True)
+    assert [c.count - b for c, b in zip(counters, before)] == \
+        [1, 1, 0, 0, 0, 0]
+    again, qt2, et2 = mx_bwd.mx_dw_gemm(xq.q, xq.sexp, gq, payload=True)
+    assert torch.equal(acc.view(torch.int32), again.view(torch.int32))
+    assert torch.equal(qt.view(torch.uint8), qt2.view(torch.uint8))
+    assert torch.equal(et, et2)
+
+    e, cp = 3, 96
+    sizes = torch.tensor([96, 33, 0], dtype=torch.int32)
+    live = _live(sizes, cp)
+    xq = quant_mx((_x(e * cp, k, 13) * live).to(cuda), 32, "e4m3")
+    g = torch.tensor(np.random.default_rng(14).standard_normal(
+        (e * cp, n)), dtype=torch.float32) * live
+    gq = quant_per_tensor(g.to(cuda), "e5m2").q
+    sizes = sizes.to(cuda)
+    before = [c.count for c in counters]
+    acc, qt, et = moe_gmm.moe_dw_gemm(xq.q, xq.sexp, gq, sizes, cp,
+                                      payload=True)
+    assert [c.count - b for c, b in zip(counters, before)] == \
+        [1, 0, 1, 0, 0, 0]
+    again, qt2, et2 = moe_gmm.moe_dw_gemm(xq.q, xq.sexp, gq, sizes, cp,
+                                          payload=True)
+    assert torch.equal(acc.view(torch.int32), again.view(torch.int32))
+    assert torch.equal(qt.view(torch.uint8), qt2.view(torch.uint8))
+    assert torch.equal(et, et2)
+    assert bool((acc[2] == 0).all())
+    _close(acc, moe_gmm.moe_dw_gemm_plain(xq.q, xq.sexp, gq, cp))
 
 
 def test_decode_attn_dispatch_passes_true_group_rows(cuda, monkeypatch):

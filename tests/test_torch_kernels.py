@@ -23,7 +23,8 @@ from repro.kernels.decode_attn import decode_attn_paged_pallas
 
 from repro_torch import bridge
 from repro_torch.core.quant import PerTensorQ, quant_mx, quant_per_tensor
-from repro_torch.kernels import dispatch, moe_gmm, mx_fused, mx_gemm, mx_quant
+from repro_torch.kernels import (dispatch, moe_gmm, mx_bwd, mx_fused, mx_gemm,
+                                 mx_quant)
 
 GEMM_SHAPES = [(5, 96, 200), (16, 256, 72), (1, 32, 33)]
 # M > 32 (the wgmma tile on a card): ragged M and N, K % 64 == 32
@@ -31,6 +32,8 @@ LARGE_M_SHAPES = [(130, 96, 200), (256, 64, 136)]
 # grouped experts (E, C, K, N): C not a multiple of the 128-row tile,
 # ragged N, K % 64 == 32
 MOE_SHAPES = [(2, 130, 96, 72), (3, 48, 64, 200)]
+# dW (M tokens, K, N): M % 64 == 32, K not a multiple of 128, ragged N
+DW_SHAPES = [(96, 352, 72), (64, 96, 200)]
 
 
 def _x(m, k, seed, outliers=True):
@@ -144,6 +147,39 @@ def test_moe_gmm_plain_is_quantizer_then_gemm_per_expert(e, c, k, n, fmt,
     np.testing.assert_array_equal(bridge.bits(q), bridge.bits(q2))
     np.testing.assert_array_equal(sexp.numpy(), sexp2.numpy())
     np.testing.assert_array_equal(bridge.bits(acc), bridge.bits(acc2))
+
+
+@pytest.mark.parametrize("m,k,n", DW_SHAPES)
+@pytest.mark.parametrize("fmt", ["e4m3", "e5m2"])
+def test_dw_gemm_plain_is_requant_then_gemm(m, k, n, fmt):
+    """The decomposition of both dW routes: ``mx_dw_gemm_plain`` equals
+    the requant pass (``dw_requant``: q' (K, M), e' (K, M/32)) followed
+    by ``mx_gemm_plain`` of (q', e') against the gradient, bit for bit;
+    ``moe_dw_gemm_plain`` gives the same per slot, and a slot of zero
+    rows (an empty expert) zero groups (q' 0, e' -127) and a zero dW."""
+    xq = quant_mx(torch.tensor(_x(m, k, m + k)), 32, fmt)
+    gq = quant_per_tensor(torch.tensor(_x(m, n, n, outliers=False)),
+                          "e5m2").q
+    acc, qt, et = mx_bwd.mx_dw_gemm(xq.q, xq.sexp, gq, fmt,
+                                    payload=True)               # CPU: plain
+    qt2, et2 = mx_bwd.dw_requant(xq.q, xq.sexp, fmt)
+    acc2 = mx_gemm.mx_gemm(qt2, et2, gq)
+    assert qt.shape == (k, m) and et.shape == (k, m // 32)
+    np.testing.assert_array_equal(bridge.bits(qt), bridge.bits(qt2))
+    np.testing.assert_array_equal(et.numpy(), et2.numpy())
+    np.testing.assert_array_equal(bridge.bits(acc), bridge.bits(acc2))
+
+    zero = torch.zeros_like(xq.q)
+    acc_e, qt_e, et_e = moe_gmm.moe_dw_gemm(
+        torch.cat([xq.q, zero]),
+        torch.cat([xq.sexp, torch.full_like(xq.sexp, -127)]),
+        torch.cat([gq, torch.zeros_like(gq)]),
+        torch.tensor([m, 0], dtype=torch.int32), m, fmt, payload=True)
+    np.testing.assert_array_equal(bridge.bits(qt_e[0]), bridge.bits(qt))
+    np.testing.assert_array_equal(et_e[0].numpy(), et.numpy())
+    np.testing.assert_array_equal(bridge.bits(acc_e[0]), bridge.bits(acc))
+    assert not bool(qt_e[1].view(torch.uint8).any())
+    assert bool((et_e[1] == -127).all()) and not bool(acc_e[1].any())
 
 
 @pytest.mark.parametrize("m,k,n", GEMM_SHAPES)

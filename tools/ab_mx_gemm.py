@@ -6,7 +6,11 @@ an f32 gradient against the transposed weights), ``group_gemm`` at
 chip_smoke.py's per_group forward, dx and dW shapes (olmo-7b's up
 projection, M 2048 tokens) and at Table 6's, ``moe_gmm`` at
 phi3.5-moe's up forward and its dx (E 16, C 1336, K 4096, N 6400; the
-expert sizes drawn from one seed, ~16k routed rows), and
+expert sizes drawn from one seed, ~16k routed rows), ``mx_dw_gemm`` at
+olmo-7b's three dW shapes with 2048 tokens (the up and down projections
+and the head: K 4096 / N 11008, K 11008 / N 4096, K 4096 / N 50304),
+``moe_dw_gemm`` at phi3.5-moe's up dW (E 16, Cp 1344, K 4096, N 6400,
+the sizes as for ``moe_gmm``), and
 chip_smoke.py's training steps: olmo-7b (4 of 32 layers, 1 x 2048
 tokens) in moss and per_group, and phi3.5-moe (1 of 32 layers, 2 x 4096
 tokens) in moss, on the same inputs from one seed.
@@ -19,8 +23,9 @@ other, this, so that the speed-up is read on one card.  Kernel times
 are chip_smoke.py's ``Timer`` (cold L2, median of 20); a step time is
 the median of steps 1-3 of 4 (host clock around a synchronised step).
 The outputs of the first two runs are compared: the fused and grouped
-payloads (q, sexp) bit for bit, the sums within 1e-5 * max|other| (the
-two may sum in different orders); ``bitwise`` where they are equal.
+payloads (q, sexp) and the dW requant payloads (q', e') bit for bit,
+the sums within 1e-5 * max|other| (the two may sum in different
+orders); ``bitwise`` where they are equal.
 """
 
 from __future__ import annotations
@@ -50,6 +55,10 @@ GROUP = [("fwd", "e4m3", "e4m3", 2048, 4096, 11008),
 # moe_gmm (what, fmt, E, C, K, N): phi3.5-moe's up forward and its dx
 MOE = [("fwd", "e4m3", 16, 1336, 4096, 6400),
        ("dx", "e5m2", 16, 1336, 6400, 4096)]
+# mx_dw_gemm (M tokens, K, N): olmo-7b's up, down and head dW
+DW = [(2048, 4096, 11008), (2048, 11008, 4096), (2048, 4096, 50304)]
+# moe_dw_gemm (E, C, K, N): phi3.5-moe's up dW (Cp = C rounded up to 32)
+MOE_DW = [(16, 1336, 4096, 6400)]
 
 
 def _train_step_ms(torch, arch: str, mode: str) -> float:
@@ -97,7 +106,7 @@ def measure(dst: str, keep: bool) -> None:
     from chip_smoke import Timer, _activations
     from repro_torch.core.quant import (quant_mx, quant_per_group,
                                         quant_per_tensor)
-    from repro_torch.kernels import (dispatch, group_gemm, moe_gmm,
+    from repro_torch.kernels import (dispatch, group_gemm, moe_gmm, mx_bwd,
                                      mx_fused, mx_gemm)
 
     timer = Timer(torch)
@@ -159,6 +168,39 @@ def measure(dst: str, keep: bool) -> None:
         times[name] = timer.ms(lambda: moe_gmm.moe_gmm(x, s, qw, sizes, c,
                                                        fmt))
         del x, qw, acc, q, se
+    for m, k, n in DW:
+        xq = quant_mx(_activations(torch, gen, m, k))
+        gq = quant_per_tensor(torch.randn(m, n, device="cuda",
+                                          generator=gen) * 1e-3, "e5m2").q
+        name = f"mx_dw_gemm M={m} K={k} N={n}"
+        acc, qt, et = mx_bwd.mx_dw_gemm(xq.q, xq.sexp, gq, payload=True)
+        outs[name] = acc.cpu()
+        outs[name + " q'"] = qt.view(torch.uint8).cpu()
+        outs[name + " e'"] = et.cpu()
+        del acc, qt, et
+        times[name] = timer.ms(lambda: mx_bwd.mx_dw_gemm(xq.q, xq.sexp, gq))
+        del xq, gq
+    for e, c, k, n in MOE_DW:
+        cp = c + (-c) % 32
+        sizes = np.random.default_rng(e * c).integers(c // 2, c + 1, e)
+        sizes = torch.tensor(sizes, dtype=torch.int32, device="cuda")
+        live = (torch.arange(cp, device="cuda")[None, :]
+                < sizes[:, None]).reshape(-1, 1)
+        xq = quant_mx(_activations(torch, gen, e * cp, k) * live)
+        gq = quant_per_tensor(torch.randn(e * cp, n, device="cuda",
+                                          generator=gen) * 1e-3 * live,
+                              "e5m2").q
+        name = (f"moe_dw_gemm E={e} Cp={cp} K={k} N={n} "
+                f"({int(sizes.sum())} routed rows)")
+        acc, qt, et = moe_gmm.moe_dw_gemm(xq.q, xq.sexp, gq, sizes, cp,
+                                          payload=True)
+        outs[name] = acc.cpu()
+        outs[name + " q'"] = qt.view(torch.uint8).cpu()
+        outs[name + " e'"] = et.cpu()
+        del acc, qt, et
+        times[name] = timer.ms(lambda: moe_gmm.moe_dw_gemm(
+            xq.q, xq.sexp, gq, sizes, cp))
+        del xq, gq
     del timer
     torch.cuda.empty_cache()
     for label, arch, mode in (
