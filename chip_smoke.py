@@ -9,7 +9,9 @@ Phases, each fatal on failure:
   3. the kernels: each kernel against its plain PyTorch version at the
      shapes its path gives it -- full-width phi3-mini-3.8b serving
      shapes for mx_gemm, the calibration fused_quant_gemm and paged
-     decode attention; mx_gemm's wgmma tile (M > 32: mx_gemm_tiled) at
+     decode attention (4 pages a slot, within 1e-5, and 256 pages a
+     slot at ~4,000 live slots, within attn_limit); mx_gemm's wgmma
+     tile (M > 32: mx_gemm_tiled) at
      Table 6's shapes, h2o-danube-3-4b's 4160-token prefill and a ragged
      shape, in all four operand formats, two calls bitwise equal; and
      olmo-7b training shapes (M = 2048 tokens) for
@@ -37,7 +39,8 @@ Phases, each fatal on failure:
      ~4096 slots) and at h2o-danube-3-4b's widths (contiguous,
      unwrapped, S 4, G 4), within
      the same limit of the 5-D plain version and each draft row bitwise
-     the q_len = 1 kernel at that draft's limit;
+     the q_len = 1 kernel at that draft's limit; each decode line also
+     prints the kernel's share of its bound and its time over SDPA's;
   4. the engine: phi3-mini-3.8b at full width on random weights from a
      seed serves 8 requests through the paged engine; every serving
      kernel must have been launched on that path; a second run from the
@@ -127,6 +130,10 @@ RING_ARCH = "h2o-danube-3-4b"       # sliding window 4096: a ring cache
 # during decode, two that refill slots at other depths
 RING_PROMPTS = [4160, 4120, 4072, 4060, 512, 97]
 RING_MAX_NEW, RING_MAX_LEN = 48, 4352
+# paged decode attention, phi3-mini's (B 4, KV 32, G 1, Dh 96, pages of
+# 16): (pages a slot, n_valid) of the serving phase and of a long context
+PAGED_SHAPES = {"phi3": (4, [17, 64, 33, 5]),
+                "phi3-long": (256, [3000, 4096, 3517, 3999])}
 # contiguous decode attention (B, KV, G, Dh, C, n_valid): h2o-danube-3-4b's
 # decode (rows 0-1 wrapped, 2-3 partial), recurrentgemma-2b's local layer
 RING_SHAPES = {"h2o": (4, 8, 4, 120, 4096, [4100, 4200, 300, 97]),
@@ -206,6 +213,13 @@ def bound_ms(nbytes: float, flops: float,
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def against(ms: float, bound: float, library: float) -> str:
+    """A decode line's tail: the kernel's share of its bound and its
+    time over SDPA's."""
+    return (f", {bound / ms:.1%} of the bound, {ms / library:.3f}x "
+            f"SDPA's time")
 
 
 class Timer:
@@ -370,57 +384,71 @@ def phase_kernels(torch, timer) -> dict:
                                                bound_by=by)
     res["fused_quant_gemm"]["max_abs_err"] = worst
 
-    # -- decode_attn_paged: B=4, KV=32, Dh=96, T=16, 4 pages a slot ----
+    # -- decode_attn_paged: B=4, KV=32, Dh=96, T=16 -------------------
     # (the G = 1 query row of each (slot, kv-head), as dispatch passes it)
-    b_, kvh, dh, t_, n_p = 4, 32, 96, 16, 4
-    pool = b_ * n_p + 1
+    # at the serving phase's 4 pages a slot, and at a long context of 256
+    # pages a slot; the kernels line reports the first
+    b_, kvh, dh, t_ = 4, 32, 96, 16
     worst = 0.0
-    for kv_dtype in ("fp8", "bf16"):
-        q = torch.randn(b_, kvh, 1, dh, device="cuda", generator=gen)
+    for name, (n_p, nv_list) in PAGED_SHAPES.items():
+        pool = b_ * n_p + 1
         kf = torch.randn(pool, kvh, t_, dh, device="cuda", generator=gen)
         vf = torch.randn(pool, kvh, t_, dh, device="cuda", generator=gen)
-        if kv_dtype == "fp8":
-            (k, ks), (v, vs) = _quant_kv(kf), _quant_kv(vf)
-        else:
-            k, v, ks, vs = kf.bfloat16(), vf.bfloat16(), None, None
         bt = torch.randperm(pool - 1, device="cuda", generator=gen)[
             :b_ * n_p].reshape(b_, n_p).to(torch.int32)
-        nv = torch.tensor([17, 64, 33, 5], dtype=torch.int32, device="cuda")
-        args = (q, k, v, ks, vs, nv, bt)
+        nv = torch.tensor(nv_list, dtype=torch.int32, device="cuda")
         sm = dh ** -0.5
-        if kv_dtype == "fp8":
-            # SDPA on the slots' pages gathered into a bf16 cache, with
-            # the slot mask
-            tl = timer.ms(sdpa_on_pages(torch, F, q, kf, vf, bt, nv, sm))
-        got = decode_attn.decode_attn_paged(*args, sm_scale=sm)
-        want = decode_attn.decode_attn_paged_plain(*args, sm_scale=sm)
-        err = float((got - want).abs().max())
-        if not err <= 1e-5:
-            raise AssertionError(f"decode_attn_paged {kv_dtype}: max err "
-                                 f"{err} > 1e-5")
-        worst = max(worst, err)
-        t = timer.ms(lambda: decode_attn.decode_attn_paged(*args,
-                                                           sm_scale=sm))
-        tp = timer.ms(lambda: decode_attn.decode_attn_paged_plain(
-            *args, sm_scale=sm))
-        # the function's work: the G = 1 query row of each (b, kv-head)
-        live = int(nv.sum())
-        elt = 1 if kv_dtype == "fp8" else 2
-        nbytes = (b_ * kvh * dh * (2 + 4)               # q (bf16), out f32
-                  + 2 * live * kvh * dh * elt           # live K and V
-                  + (2 * live * kvh * 4 if ks is not None else 0)
-                  + 4 * b_ + 4 * b_ * n_p)              # n_valid, table
-        b, by = bound_ms(nbytes, 4.0 * live * kvh * dh,
-                         FP8_FLOPS if kv_dtype == "fp8" else BF16_FLOPS)
-        print(f"decode_attn_paged {kv_dtype} B={b_} KV={kvh} G=1 Dh={dh} "
-              f"T={t_} "
-              f"n_valid={nv.tolist()}: max_err {err:.3g}, {t:.4f} ms, plain "
-              f"{tp:.4f} ms, library {tl:.4f} ms (SDPA, gathered bf16 "
-              f"cache), bound {b * 1e3:.2f} us ({by})")
-        if kv_dtype == "fp8":
-            res["decode_attn_paged"] = dict(ms=t, plain_ms=tp,
-                                            library_ms=tl, bound_ms=b,
-                                            bound_by=by)
+        for kv_dtype in ("fp8", "bf16"):
+            q = torch.randn(b_, kvh, 1, dh, device="cuda", generator=gen)
+            if kv_dtype == "fp8":
+                (k, ks), (v, vs) = _quant_kv(kf), _quant_kv(vf)
+            else:
+                k, v, ks, vs = kf.bfloat16(), vf.bfloat16(), None, None
+            args = (q, k, v, ks, vs, nv, bt)
+            if kv_dtype == "fp8":
+                # SDPA on the slots' pages gathered into a bf16 cache,
+                # with the slot mask
+                tl = timer.ms(sdpa_on_pages(torch, F, q, kf, vf, bt, nv, sm))
+            got = decode_attn.decode_attn_paged(*args, sm_scale=sm)
+            want = decode_attn.decode_attn_paged_plain(*args, sm_scale=sm)
+            if n_p == 4:
+                err, lim = float((got - want).abs().max()), 1e-5
+                gate = ""
+            else:
+                cont = [None if x is None else decode_attn.gather_pages(
+                    x, bt) for x in (k, v, ks, vs)]
+                err, own, lim = attn_limit(torch, got, want, decode_attn_f64(
+                    torch, q, *cont, nv, sm))
+                gate = f" (plain vs f64 {own:.3g}, limit {lim:.3g})"
+                del cont
+            if not (err <= lim and torch.isfinite(got).all()):
+                raise AssertionError(f"decode_attn_paged {name} {kv_dtype}: "
+                                     f"max err {err} > {lim}")
+            worst = max(worst, err)
+            t = timer.ms(lambda: decode_attn.decode_attn_paged(
+                *args, sm_scale=sm))
+            tp = timer.ms(lambda: decode_attn.decode_attn_paged_plain(
+                *args, sm_scale=sm))
+            # the function's work: the G = 1 query row of each (b, kv-head)
+            live = int(torch.clamp_max(nv, n_p * t_).sum())
+            elt = 1 if kv_dtype == "fp8" else 2
+            nbytes = (b_ * kvh * dh * (2 + 4)               # q (bf16), out
+                      + 2 * live * kvh * dh * elt           # live K and V
+                      + (2 * live * kvh * 4 if ks is not None else 0)
+                      + 4 * b_ + 4 * b_ * n_p)              # n_valid, table
+            b, by = bound_ms(nbytes, 4.0 * live * kvh * dh,
+                             FP8_FLOPS if kv_dtype == "fp8" else BF16_FLOPS)
+            print(f"decode_attn_paged {name} {kv_dtype} B={b_} KV={kvh} G=1 "
+                  f"Dh={dh} T={t_} NP={n_p} n_valid={nv.tolist()}: max_err "
+                  f"{err:.3g}{gate}, {t:.4f} ms, plain {tp:.4f} ms, library "
+                  f"{tl:.4f} ms (SDPA, gathered bf16 cache), bound "
+                  f"{b * 1e3:.2f} us ({by}){against(t, b, tl)}")
+            if kv_dtype == "fp8" and n_p == 4:
+                res["decode_attn_paged"] = dict(ms=t, plain_ms=tp,
+                                                library_ms=tl, bound_ms=b,
+                                                bound_by=by)
+            del k, v, ks, vs, got, want
+        del kf, vf
     res["decode_attn_paged"]["max_abs_err"] = worst
     return res
 
@@ -611,7 +639,7 @@ def phase_ring_kernels(torch, timer) -> dict:
                   f"{err:.3g} (plain vs f64 {own:.3g}, limit {lim:.3g}), "
                   f"{t:.4f} ms, plain {tp:.4f} ms, library "
                   f"{tl:.4f} ms (SDPA, bf16 cache), bound {b * 1e3:.2f} us "
-                  f"({by})")
+                  f"({by}){against(t, b, tl)}")
             if (name, kv_dtype) == ("h2o", "fp8"):
                 res["decode_attn"] = dict(ms=t, plain_ms=tp, library_ms=tl,
                                           bound_ms=b, bound_by=by)
@@ -712,7 +740,8 @@ def phase_verify_kernels(torch, timer) -> dict:
                   f"{lim:.3g}), drafts bitwise the q_len=1 kernel, "
                   f"{t:.4f} ms (the wrapper with its depth check "
                   f"{tw:.4f} ms), plain {tp:.4f} ms, library {tl:.4f} ms "
-                  f"(SDPA, bf16 cache), bound {b * 1e3:.2f} us ({by})")
+                  f"(SDPA, bf16 cache), bound {b * 1e3:.2f} us ({by})"
+                  f"{against(t, b, tl)}")
             if VERIFY_REPORTED.get(key) == name and kv_dtype == "fp8":
                 res[key] = dict(ms=t, plain_ms=tp, library_ms=tl,
                                 bound_ms=b, bound_by=by)

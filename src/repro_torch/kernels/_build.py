@@ -56,11 +56,11 @@ SIGNATURES = {
     "moe_dw_gemm_launch": [_VOID, _VOID, _VOID, _VOID, _VOID, _INT, _INT,
                            _INT, _INT, _INT, _INT, _INT, _VOID],
     "decode_attn_paged_launch": [_VOID, _VOID, _VOID, _VOID, _VOID, _VOID,
-                                 _VOID, _VOID, _INT, _INT, _INT, _INT, _INT,
-                                 _INT, _INT, _FLOAT, _INT, _VOID],
+                                 _VOID, _VOID, _VOID, _INT, _INT, _INT, _INT,
+                                 _INT, _INT, _INT, _FLOAT, _INT, _VOID],
     "decode_attn_launch": [_VOID, _VOID, _VOID, _VOID, _VOID, _VOID, _VOID,
-                           _INT, _INT, _INT, _INT, _INT, _INT, _FLOAT, _INT,
-                           _VOID],
+                           _VOID, _INT, _INT, _INT, _INT, _INT, _INT, _FLOAT,
+                           _INT, _VOID],
 }
 
 _LIB: ctypes.CDLL | None = None

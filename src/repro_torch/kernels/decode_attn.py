@@ -25,8 +25,12 @@ n_valid is (B,) int32 with every entry >= q_len; with q_len > 1 the
 cache must be unwrapped, every entry <= C (both wrappers check, on
 either device).  Dh is at most 256.  Returns (B, KV, R, Dh) f32.  One
 kernel serves both layouts (only the slot address differs), so the same
-bytes give the same bits through either; draft j's rows are bitwise a
-q_len = 1 launch at that draft's limit.  The plain versions take the
+bytes give the same bits through either, and through caches of another
+capacity; draft j's rows are bitwise a q_len = 1 launch at that draft's
+limit.  The kernel is one launch of a cluster of ``CLUSTER`` CTAs per
+(b, kv head) that split the slots in chunks of ``CHUNK``; past
+``SCORES_SMEM_MAX`` bytes of scores a CTA it takes a scratch buffer
+(``_scratch``).  The plain versions take the
 reference's 5-D form, q (B, KV, S, G, Dh) with S = q_len.
 
 A CPU tensor takes the plain version.  A CUDA tensor launches the
@@ -43,6 +47,10 @@ from ._build import LaunchCounter, check, library
 
 NEG_INF = -1e30
 MAX_DH = 256
+# the kernel's split (csrc/decode_attn.cu, namespace da): CTAs per
+# cluster, slots per chunk, and the bytes of scores a CTA keeps in shared
+# memory; past them its scores go to a scratch buffer passed here
+CLUSTER, CHUNK, SCORES_SMEM_MAX = 8, 32, 96 * 1024
 
 counter = LaunchCounter("decode_attn_paged")
 counter_contiguous = LaunchCounter("decode_attn")
@@ -153,6 +161,20 @@ def _plain(fn, q, q_len, *args, sm_scale):
     return out.reshape(b, kvh, rows, dh)
 
 
+def _scratch(q, rows, cap):
+    """The scores' scratch buffer of a launch whose CTAs cannot keep
+    their rows' scores in shared memory (a capacity past 10,752 slots
+    at 16 rows), else None: per CTA, R + 2 rows (the scores, each
+    slot's row index and V scale) of its local slots, f32."""
+    chunks = -(-cap // CHUNK)
+    local = -(-chunks // CLUSTER) * CHUNK
+    if (rows + 2) * local * 4 <= SCORES_SMEM_MAX:
+        return None
+    b, kvh = q.shape[:2]
+    return torch.empty(b * kvh * CLUSTER * (rows + 2) * local,
+                       dtype=torch.float32, device=q.device)
+
+
 def _launch_checks(name, q, tensors):
     dev = q.device
     if dev.type != "cuda" or any(x.device != dev for x in tensors):
@@ -194,14 +216,16 @@ def launch(q, k, v, k_scale, v_scale, n_valid, *, sm_scale: float,
     qf = q.to(torch.float32).contiguous()
     out = torch.empty((b, kvh, rows, dh), dtype=torch.float32,
                       device=q.device)
+    scratch = _scratch(q, rows, k.shape[2])
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         code = library().decode_attn_launch(
             qf.data_ptr(), k.data_ptr(), v.data_ptr(),
             k_scale.data_ptr() if fp8 else None,
             v_scale.data_ptr() if fp8 else None,
-            n_valid.data_ptr(), out.data_ptr(), b, kvh, rows, q_len, dh,
-            k.shape[2], float(sm_scale), int(fp8), stream)
+            n_valid.data_ptr(), out.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), b, kvh, rows,
+            q_len, dh, k.shape[2], float(sm_scale), int(fp8), stream)
     check(code, "decode_attn")
     (counter_contiguous if q_len == 1 else counter_contiguous_verify).hit()
     return out
@@ -237,6 +261,7 @@ def launch_paged(q, k, v, k_scale, v_scale, n_valid, block_table, *,
     qf = q.to(torch.float32).contiguous()
     out = torch.empty((b, kvh, rows, dh), dtype=torch.float32,
                       device=q.device)
+    scratch = _scratch(q, rows, k.shape[2] * block_table.shape[1])
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         code = library().decode_attn_paged_launch(
@@ -244,6 +269,7 @@ def launch_paged(q, k, v, k_scale, v_scale, n_valid, block_table, *,
             k_scale.data_ptr() if fp8 else None,
             v_scale.data_ptr() if fp8 else None,
             n_valid.data_ptr(), block_table.data_ptr(), out.data_ptr(),
+            None if scratch is None else scratch.data_ptr(),
             b, kvh, rows, q_len, dh, k.shape[2], block_table.shape[1],
             float(sm_scale), int(fp8), stream)
     check(code, "decode_attn_paged")

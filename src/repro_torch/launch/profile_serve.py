@@ -40,6 +40,8 @@ from repro_torch.serving import Engine, Request
 GPU_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 SPANS = ("decode_step", "prefill_chunk", "prefill", "verify_step")
 # the port's own kernels (csrc/*.cu), by the name the trace gives them
+# (decode attention is one launch: its cluster holds the split over the
+# slots and the combine)
 PORT_KERNELS = ("mx_gemm_kernel", "mx_gemm_tiled_kernel",
                 "fused_quant_gemm_kernel", "mx_dw_gemm_kernel",
                 "group_gemm_kernel", "mx_quant_kernel",

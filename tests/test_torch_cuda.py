@@ -407,6 +407,257 @@ def test_decode_attn_verify_ignores_nan_past_the_limits(cuda, kv_dtype):
         assert torch.equal(out[:, :, first], ref[:, :, first])
 
 
+def _kv_cache(rng, shape, kv_dtype, device):
+    """k, v, k_scale, v_scale of a (B, KV, C, Dh) cache (scales None in
+    bf16), from the standard normal."""
+    k = torch.tensor(rng.standard_normal(shape), dtype=torch.float32)
+    v = torch.tensor(rng.standard_normal(shape), dtype=torch.float32)
+    if kv_dtype == "fp8":
+        (k, ks), (v, vs) = _quant_kv(k), _quant_kv(v)
+    else:
+        k, v, ks, vs = k.bfloat16(), v.bfloat16(), None, None
+    return [None if x is None else x.to(device) for x in (k, v, ks, vs)]
+
+
+def _raw(x):
+    return x.view(torch.uint8) if x.element_size() == 1 else x
+
+
+def _first_slots(cache, c):
+    """The first c slots of each (B, KV, C, ...) tensor, contiguous."""
+    return [None if x is None else
+            _raw(x)[:, :, :c].contiguous().view(x.dtype) for x in cache]
+
+
+def _paged(cache, t, rng):
+    """The (B, KV, C, ...) tensors cut into pages of t slots, scrambled
+    into one pool, and the block table (B, C / t)."""
+    b, kvh, c = cache[0].shape[:3]
+    n_p = c // t
+    perm = torch.tensor(rng.permutation(b * n_p), dtype=torch.int64)
+
+    def pool(x):
+        if x is None:
+            return None
+        p = _raw(x).reshape(b, kvh, n_p, t, *x.shape[3:]).movedim(2, 1)
+        p = p.reshape(b * n_p, kvh, t, *x.shape[3:])[perm.to(x.device)]
+        return p.contiguous().view(x.dtype)
+
+    bt = torch.argsort(perm).reshape(b, n_p).to(torch.int32)
+    return [pool(x) for x in cache], bt.to(cache[0].device)
+
+
+def _attn_limit(got, want, q, cache, nv, sm, q_len):
+    """(max |kernel - plain|, 1e-5 plus twice the plain version's own
+    error against float64), each draft of the verify form against the
+    float64 function at its own limit."""
+    b, kvh, rows, dh = q.shape
+    g = rows // q_len
+    own = 0.0
+    for j in range(q_len):
+        exact = _decode_attn_f64(q[:, :, j * g:(j + 1) * g], *cache,
+                                 nv - (q_len - 1 - j), sm)
+        own = max(own, float((want[:, :, j * g:(j + 1) * g].double()
+                              - exact).abs().max()))
+    return float((got - want).abs().max()), 1e-5 + 2 * own
+
+
+def _plain(q, cache, nv, sm, q_len):
+    """decode_attn_ref on the (B, KV, R, Dh) rows of a q_len-draft step."""
+    if q_len == 1:
+        return decode_attn.decode_attn_ref(q, *cache, nv, sm_scale=sm)
+    b, kvh, rows, dh = q.shape
+    q5 = q.reshape(b, kvh, q_len, rows // q_len, dh)
+    return decode_attn.decode_attn_ref(q5, *cache, nv, sm_scale=sm
+                                       ).reshape(q.shape)
+
+
+@pytest.mark.parametrize("q_len", [1, 4])
+@pytest.mark.parametrize("kv_dtype", ["fp8", "bf16"])
+def test_decode_attn_capacity_does_not_change_the_bits(cuda, kv_dtype,
+                                                       q_len):
+    """The same live bytes and limits in caches of another capacity give
+    the same bits: contiguous C 4096, 4160 and 12800 (at 16 rows the last
+    keeps its scores in the scratch buffer, the others in shared memory;
+    NaN bytes past slot 4096), and pages of 16, NP 4 against NP 8."""
+    rng = np.random.default_rng(21)
+    b, kvh, g, dh = 3, 2, 4, 120
+    sm = dh ** -0.5
+    q = torch.tensor(rng.standard_normal((b, kvh, q_len * g, dh)),
+                     dtype=torch.float32, device=cuda)
+    big = _kv_cache(rng, (b, kvh, 12800, dh), kv_dtype, cuda)
+    for x in big:
+        if x is not None:
+            _raw(x)[:, :, 4096:] = 0x7F if x.element_size() == 1 \
+                else float("nan")
+    assert decode_attn._scratch(q, q_len * g, 12800) is not None or \
+        q_len == 1
+    assert decode_attn._scratch(q, q_len * g, 4160) is None
+    nv = torch.tensor([4096, 4000, 2049], dtype=torch.int32, device=cuda)
+    outs = [decode_attn.decode_attn(q, *_first_slots(big, c), nv,
+                                    sm_scale=sm, q_len=q_len)
+            for c in (4096, 4160, 12800)]
+    assert bool(torch.isfinite(outs[0]).all())
+    assert torch.equal(outs[0], outs[1]) and torch.equal(outs[0], outs[2])
+    small = _kv_cache(rng, (b, kvh, 128, dh), kv_dtype, cuda)
+    nv = torch.tensor([64, 40, 33], dtype=torch.int32, device=cuda)
+    outs = []
+    for c in (64, 128):
+        cache = _first_slots(small, c)
+        pages, bt = _paged(cache, 16, rng)
+        outs.append(decode_attn.decode_attn(q, *cache, nv, sm_scale=sm,
+                                            q_len=q_len))
+        outs.append(decode_attn.decode_attn_paged(q, *pages, nv, bt,
+                                                  sm_scale=sm, q_len=q_len))
+    assert all(torch.equal(outs[0], o) for o in outs[1:])
+
+
+def _one_rounding(q, cache, nv, sm, q_len):
+    """The most one bf16 weight rounding the other way can move an
+    output: 2^-8 of the largest weight (float64, the V scale folded in)
+    times the largest |v| of its slot."""
+    k, v, ks, vs = cache
+    b, kvh, rows, dh = q.shape
+    g, c = rows // q_len, k.shape[2]
+    f = lambda t: t.float().to(torch.bfloat16).double()
+    q5 = q.reshape(b, kvh, q_len, g, dh)
+    s = torch.einsum("bksgd,bktd->bksgt", f(q5), f(k)) * sm
+    if ks is not None:
+        s = s * ks.double()[:, :, None, None, :]
+    back = torch.arange(q_len - 1, -1, -1, device=q.device)
+    lim = torch.clamp_max(nv.long()[:, None] - back[None], c)
+    live = torch.arange(c, device=q.device)[None, None] < lim[:, :, None]
+    s = s.masked_fill(~live[:, None, :, None, :], float("-inf"))
+    w = torch.softmax(s, dim=-1)
+    if vs is not None:
+        w = w * vs.double()[:, :, None, None, :]
+    vmax = f(v).abs().amax(dim=-1)[:, :, None, None, :]
+    return float((w * vmax).max()) * 2.0 ** -8
+
+
+@pytest.mark.parametrize("kv_dtype", ["fp8", "bf16"])
+def test_decode_attn_split_boundaries_match_plain(cuda, kv_dtype):
+    """n_valid on a chunk boundary (CHUNK, and CLUSTER · CHUNK where the
+    chunks come back to the first CTA), one past it, one before it, one
+    slot and a wrapped ring; then verify blocks whose rows' limits
+    straddle those boundaries.  With q = 0 every live slot weighs the
+    same and both versions round the same weights, so the kernel is
+    within 1e-6 of the plain version (a slot missed or counted twice
+    moves an output by ~1e-3); with random q within the attention limit
+    plus one bf16 weight rounding (``_one_rounding``: two f32
+    evaluations may round a weight near a bf16 tie apart).  Both layouts
+    bitwise equal; each draft bitwise the q_len = 1 launch at its
+    limit."""
+    ch, cl = decode_attn.CHUNK, decode_attn.CLUSTER
+    rng = np.random.default_rng(22)
+    b, kvh, g, dh, c = 7, 2, 4, 96, 640
+    sm = dh ** -0.5
+    cache = _kv_cache(rng, (b, kvh, c, dh), kv_dtype, cuda)
+    pages, bt = _paged(cache, 16, rng)
+    q = torch.tensor(rng.standard_normal((b, kvh, 4 * g, dh)),
+                     dtype=torch.float32, device=cuda)
+    nv1 = torch.tensor([ch * cl, ch * cl + 1, ch * cl - 1, 1, c + 100, ch,
+                        ch + 1], dtype=torch.int32, device=cuda)
+    # q_len 4: limits n-3 .. n straddle the boundary at 32, 256 and 512
+    nv4 = torch.tensor([ch + 2, ch * cl + 1, ch * cl + 3, 2 * ch * cl + 2,
+                        4, c, c - ch + 1], dtype=torch.int32, device=cuda)
+    for q_len, nv in ((1, nv1), (4, nv4)):
+        rows = q[:, :, :q_len * g].contiguous()
+        for qq in (torch.zeros_like(rows), rows):
+            got = decode_attn.decode_attn(qq, *cache, nv, sm_scale=sm,
+                                          q_len=q_len)
+            got_p = decode_attn.decode_attn_paged(qq, *pages, nv, bt,
+                                                  sm_scale=sm, q_len=q_len)
+            want = _plain(qq, cache, nv, sm, q_len)
+            assert torch.equal(got, got_p)
+            if not bool(qq.any()):
+                err = float((got - want).abs().max())
+                assert err <= 1e-6, (kv_dtype, q_len, err)
+                continue
+            err, lim = _attn_limit(got, want, qq, cache, nv, sm, q_len)
+            lim += _one_rounding(qq, cache, nv, sm, q_len)
+            assert err <= lim, (kv_dtype, q_len, err, lim)
+            for j in range(q_len if q_len > 1 else 0):
+                solo = decode_attn.decode_attn(
+                    qq[:, :, j * g:(j + 1) * g].contiguous(), *cache,
+                    nv - (q_len - 1 - j), sm_scale=sm)
+                assert torch.equal(got[:, :, j * g:(j + 1) * g], solo), j
+
+
+@pytest.mark.parametrize("q_len", [1, 4])
+@pytest.mark.parametrize("kv_dtype", ["fp8", "bf16"])
+def test_decode_attn_rows_do_not_depend_on_the_batch(cuda, kv_dtype, q_len):
+    """Each batch row of a launch at phi3-mini's widths (B 4 x KV 32,
+    rows at other depths) is bitwise its own B = 1 launch, and the two
+    layouts give the same bits: a row's sums never depend on the rest of
+    the batch."""
+    rng = np.random.default_rng(25)
+    b, kvh, dh, c = 4, 32, 96, 320
+    sm = dh ** -0.5
+    cache = _kv_cache(rng, (b, kvh, c, dh), kv_dtype, cuda)
+    pages, bt = _paged(cache, 16, rng)
+    q = torch.tensor(rng.standard_normal((b, kvh, q_len, dh)),
+                     dtype=torch.float32, device=cuda)
+    nv = torch.tensor([300, 4, 257, 33], dtype=torch.int32, device=cuda)
+    got = decode_attn.decode_attn(q, *cache, nv, sm_scale=sm, q_len=q_len)
+    got_p = decode_attn.decode_attn_paged(q, *pages, nv, bt, sm_scale=sm,
+                                          q_len=q_len)
+    assert torch.equal(got, got_p)
+    for i in range(b):
+        one = [None if x is None else _raw(x)[i:i + 1].contiguous().view(
+            x.dtype) for x in cache]
+        solo = decode_attn.decode_attn(q[i:i + 1].contiguous(), *one,
+                                       nv[i:i + 1].contiguous(),
+                                       sm_scale=sm, q_len=q_len)
+        assert torch.equal(got[i:i + 1], solo), i
+
+
+@pytest.mark.parametrize("kv_dtype", ["fp8", "bf16"])
+def test_decode_attn_scores_past_shared_memory_match_plain(cuda, kv_dtype):
+    """A verify step of 16 rows (S 4 x G 4, h2o-danube-3-4b's widths) on
+    a cache of 12800 slots, past the scores a CTA keeps in shared memory
+    (the scratch buffer), within the attention limit of the plain
+    version, and at q_len 1 (4 rows: in shared memory)."""
+    rng = np.random.default_rng(23)
+    b, kvh, g, dh, c = 3, 2, 4, 120, 12800
+    sm = dh ** -0.5
+    cache = _kv_cache(rng, (b, kvh, c, dh), kv_dtype, cuda)
+    q = torch.tensor(rng.standard_normal((b, kvh, 4 * g, dh)),
+                     dtype=torch.float32, device=cuda)
+    assert decode_attn._scratch(q, 4 * g, c) is not None
+    nv = torch.tensor([c, 12345, 6000], dtype=torch.int32, device=cuda)
+    for q_len in (4, 1):
+        rows = q if q_len == 4 else q[:, :, :g].contiguous()
+        got = decode_attn.decode_attn(rows, *cache, nv, sm_scale=sm,
+                                      q_len=q_len)
+        want = _plain(rows, cache, nv, sm, q_len)
+        err, lim = _attn_limit(got, want, rows, cache, nv, sm, q_len)
+        assert bool(torch.isfinite(got).all())
+        assert err <= lim, (kv_dtype, q_len, err, lim)
+
+
+@pytest.mark.parametrize("kv_dtype", ["fp8", "bf16"])
+def test_decode_attn_paged_long_context_matches_plain(cuda, kv_dtype):
+    """Row 3's q_len = 1 form at phi3-mini's long context (B 4, KV 32,
+    G 1, Dh 96, 256 pages of 16 a slot) within the attention limit of
+    the plain version."""
+    rng = np.random.default_rng(24)
+    b, kvh, dh, t, n_p = 4, 32, 96, 16, 256
+    sm = dh ** -0.5
+    cache = _kv_cache(rng, (b, kvh, n_p * t, dh), kv_dtype, cuda)
+    pages, bt = _paged(cache, t, rng)
+    q = torch.tensor(rng.standard_normal((b, kvh, 1, dh)),
+                     dtype=torch.float32, device=cuda)
+    nv = torch.tensor([3000, 4096, 3517, 3999], dtype=torch.int32,
+                      device=cuda)
+    got = decode_attn.decode_attn_paged(q, *pages, nv, bt, sm_scale=sm)
+    want = decode_attn.decode_attn_paged_plain(q, *pages, nv, bt,
+                                               sm_scale=sm)
+    err, lim = _attn_limit(got, want, q, cache, nv, sm, 1)
+    assert bool(torch.isfinite(got).all())
+    assert err <= lim, (kv_dtype, err, lim)
+
+
 @pytest.mark.parametrize("fmt", ["e4m3", "e5m2"])
 def test_fused_large_m_tile_matches_plain(cuda, fmt):
     for m, k, n in LARGE_M_SHAPES:
