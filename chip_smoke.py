@@ -7,10 +7,14 @@ Phases, each fatal on failure:
   1. the card: name and power limit, torch and CUDA versions;
   2. the build: compiles the Hopper kernels of src/repro_torch/csrc;
   3. the kernels: each kernel against its plain PyTorch version at the
-     shapes its path gives it -- full-width phi3-mini-3.8b serving
-     shapes for mx_gemm, the calibration fused_quant_gemm and paged
-     decode attention (4 pages a slot, within 1e-5, and 256 pages a
-     slot at ~4,000 live slots, within attn_limit); mx_gemm's wgmma
+     shapes its path gives it -- mx_gemm's weight-streaming tile (M <=
+     32) at M 4 (decode), 16 (verify) and 32 (prefill chunk) over
+     full-width phi3-mini-3.8b's and h2o-danube-3-4b's serving shapes,
+     the rows of the M 4 and M 16 calls bitwise those of the M 32 call;
+     the calibration fused_quant_gemm (the mx_quant kernel then that
+     tile) and paged decode attention (4 pages a slot, within 1e-5, and
+     256 pages a slot at ~4,000 live slots, within attn_limit); mx_gemm's
+     wgmma
      tile (M > 32: mx_gemm_tiled) at
      Table 6's shapes, h2o-danube-3-4b's 4160-token prefill and a ragged
      shape, in all four operand formats, two calls bitwise equal; and
@@ -43,7 +47,8 @@ Phases, each fatal on failure:
      prints the kernel's share of its bound and its time over SDPA's;
   4. the engine: phi3-mini-3.8b at full width on random weights from a
      seed serves 8 requests through the paged engine; every serving
-     kernel must have been launched on that path; a second run from the
+     kernel must have been launched on that path (the calibration's
+     fused_quant_gemm calls each one mx_quant launch); a second run from the
      same seed must give the same streams; under identity placement
      (REPRO_PAGED_PLACEMENT=identity) the streams equal the floating
      pages' token for token; the legacy Server (REPRO_SERVE_PAGED=0)
@@ -109,6 +114,13 @@ BF16_FLOPS = 989e12                 # dense bf16 tensor-core peak
 FP8_FLOPS = 1979e12                 # dense fp8 tensor-core peak
 ARCH = "phi3-mini-3.8b"
 GEMM_KN = [(3072, 3072), (3072, 8192), (8192, 3072), (3072, 32064)]
+# h2o-danube-3-4b's decode GEMMs (K, N): q and o, k and v, gate and up,
+# the head, down
+H2O_DECODE_KN = [(3840, 3840), (3840, 960), (3840, 10240), (3840, 32000),
+                 (10240, 3840)]
+# mx_gemm's M <= 32 tile: decode (batch 4), verify (4 x 4 drafts) and
+# prefill-chunk (32 tokens) rows
+SMALL_M = (4, 16, 32)
 TRAIN_ARCH = "olmo-7b"
 TRAIN_LAYERS = 4                    # of 32: f32 master + grads + moments
 TRAIN_M = 2048                      # batch 1 x seq 2048 (paper Table 8)
@@ -183,9 +195,11 @@ REPLACES = {
 SOURCES = {
     "mx_gemm": "src/repro_torch/csrc/mx_gemm.cu",
     "mx_gemm_tiled": "src/repro_torch/csrc/mx_gemm.cu",
-    "fused_quant_gemm": "src/repro_torch/csrc/mx_fused.cu",
-    # M > 32: the mx_quant kernel, then mx_gemm.cu's wgmma tile
-    "fused_quant_gemm_tiled": "src/repro_torch/csrc/mx_gemm.cu",
+    # the mx_quant kernel, then mx_gemm.cu's tile for M
+    "fused_quant_gemm": "src/repro_torch/csrc/mx_quant.cu + "
+                        "src/repro_torch/csrc/mx_gemm.cu",
+    "fused_quant_gemm_tiled": "src/repro_torch/csrc/mx_quant.cu + "
+                              "src/repro_torch/csrc/mx_gemm.cu",
     "decode_attn_paged": "src/repro_torch/csrc/decode_attn.cu",
     "decode_attn": "src/repro_torch/csrc/decode_attn.cu",
     "decode_attn_paged_verify": "src/repro_torch/csrc/decode_attn.cu",
@@ -306,7 +320,8 @@ def _activations(torch, gen, m, k):
 def phase_kernels(torch, timer) -> dict:
     import torch.nn.functional as F
     from repro_torch.core.quant import mx_operand, quant_mx, quant_per_tensor
-    from repro_torch.kernels import decode_attn, dispatch, mx_fused, mx_gemm
+    from repro_torch.kernels import (decode_attn, dispatch, mx_fused, mx_gemm,
+                                     mx_quant)
     from repro_torch.models.attention import _quant_kv
 
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -316,20 +331,37 @@ def phase_kernels(torch, timer) -> dict:
         w = torch.randn(k, n, device="cuda", generator=gen) / k ** 0.5
         weights[k, n] = quant_per_tensor(w).q
 
-    # -- mx_gemm: M in {4 (decode batch), 32 (prefill chunk)} ----------
+    # -- mx_gemm's M <= 32 tile: decode, verify and chunk rows ---------
+    # (each (K, N) at M 32 first; the M 4 and M 16 calls' rows must be
+    # the M 32 call's first rows bit for bit: a row's bits do not depend
+    # on the batch)
     worst = 0.0
-    for m in (4, 32):
-        for k, n in GEMM_KN:
-            qw = weights[k, n]
-            xq = quant_mx(_activations(torch, gen, m, k))
-            q, se = xq.q.contiguous(), xq.sexp.contiguous()
+    for k, n in GEMM_KN + H2O_DECODE_KN:
+        if (k, n) not in weights:
+            w = torch.randn(k, n, device="cuda", generator=gen) / k ** 0.5
+            weights[k, n] = quant_per_tensor(w).q
+        qw = weights[k, n]
+        xq = quant_mx(_activations(torch, gen, max(SMALL_M), k))
+        rows = {}
+        for m in sorted(SMALL_M, reverse=True):
+            q, se = xq.q[:m].contiguous(), xq.sexp[:m].contiguous()
+            before = mx_gemm.counter.count
             got = mx_gemm.mx_gemm(q, se, qw)
+            if mx_gemm.counter.count != before + 1:
+                raise AssertionError(f"mx_gemm M={m}: the M <= 32 tile "
+                                     "was not launched once")
             want = mx_gemm.mx_gemm_plain(q, se, qw)
             err = float((got - want).abs().max())
             scale = float(want.abs().max())
             if not (err <= 1e-5 * scale and torch.isfinite(got).all()):
                 raise AssertionError(f"mx_gemm M={m} K={k} N={n}: max err "
                                      f"{err} > 1e-5 * {scale}")
+            rows[m] = got
+            if not torch.equal(got.view(torch.int32),
+                               rows[max(SMALL_M)][:m].view(torch.int32)):
+                raise AssertionError(f"mx_gemm K={k} N={n}: the M={m} "
+                                     "rows differ from the same rows at "
+                                     f"M={max(SMALL_M)}")
             worst = max(worst, err)
             opnd = mx_operand(q, se)
             wb = qw.to(torch.bfloat16)
@@ -338,13 +370,17 @@ def phase_kernels(torch, timer) -> dict:
             tl = timer.ms(lambda: torch.matmul(opnd, wb))
             b, by = bound_ms(m * k + m * k // 32 + k * n + 4 * m * n,
                              2.0 * m * n * k)
-            print(f"mx_gemm M={m:2d} K={k} N={n}: max_err {err:.3g} "
-                  f"(max|ref| {scale:.3g}), no payload output, "
-                  f"{t:.4f} ms, plain {tp:.4f} ms, library {tl:.4f} ms, "
-                  f"bound {b * 1e3:.2f} us ({by})")
+            print(f"mx_gemm M={m:2d} K={k} N={n} split "
+                  f"{mx_gemm.small_split(k, n)}: max_err {err:.3g} (max|ref| "
+                  f"{scale:.3g}), no payload output, {t:.4f} ms, plain "
+                  f"{tp:.4f} ms, library {tl:.4f} ms, bound {b * 1e3:.2f} "
+                  f"us ({by}), {b / t:.1%} of the bound, {t / tl:.3f}x "
+                  "torch.matmul's time")
             if (m, k, n) == (4, 3072, 8192):
                 res["mx_gemm"] = dict(ms=t, plain_ms=tp, library_ms=tl,
                                       bound_ms=b, bound_by=by)
+        print(f"mx_gemm K={k} N={n}: rows at M "
+              f"{sorted(SMALL_M)[:-1]} bitwise the M={max(SMALL_M)} rows")
     res["mx_gemm"]["max_abs_err"] = worst
 
     # -- fused_quant_gemm: M = 32 (the calibration forward) -----------
@@ -354,7 +390,12 @@ def phase_kernels(torch, timer) -> dict:
             qw = weights[k, n]
             x = _activations(torch, gen, 32, k)
             s = dispatch.global_scale(x, fmt)
+            counts = (mx_quant.counter.count, mx_gemm.counter.count)
             acc, q, se = mx_fused.fused_quant_gemm(x, s, qw, fmt)
+            if (mx_quant.counter.count - counts[0],
+                    mx_gemm.counter.count - counts[1]) != (1, 1):
+                raise AssertionError("fused_quant_gemm M=32: not one "
+                                     "mx_quant and one mx_gemm launch")
             acc_p, q_p, se_p = mx_fused.fused_quant_gemm_plain(x, s, qw, fmt)
             q_mis = int((q.view(torch.uint8) != q_p.view(torch.uint8)).sum())
             e_mis = int((se != se_p).sum())
@@ -377,7 +418,8 @@ def phase_kernels(torch, timer) -> dict:
             b, by = bound_ms(2 * 32 * k + 4 + k * n + 4 * 32 * n + 32 * k
                              + 32 * k // 32, 2.0 * 32 * n * k)
             print(f", {t:.4f} ms, plain {tp:.4f} ms, library {tl:.4f} ms, "
-                  f"bound {b * 1e3:.2f} us ({by})")
+                  f"bound {b * 1e3:.2f} us ({by}), {b / t:.1%} of the "
+                  f"bound, {t / tl:.3f}x torch.matmul's time")
             if (fmt, k, n) == ("e4m3", 3072, 8192):
                 res["fused_quant_gemm"] = dict(ms=t, plain_ms=tp,
                                                library_ms=tl, bound_ms=b,
@@ -1054,7 +1096,7 @@ def phase_table6(torch, timer) -> dict:
     print(f"launches on the ablation path: {json.dumps(launches)}")
     # per shape: mx_quantize and moss_linear's quantizer launch mx_quant,
     # mx_matmul and moss_linear's GEMM the wgmma tile (M > 32), never the
-    # 8-row tile; coat_matmul launches group_gemm; moss_linear is one
+    # M <= 32 tile; coat_matmul launches group_gemm; moss_linear is one
     # fused_quant_gemm call
     n = len(TABLE6_MNK)
     want = {"mx_quant": 2 * n, "mx_gemm": 0, "mx_gemm_tiled": 2 * n,
@@ -1177,9 +1219,10 @@ def _legacy_server(torch, np):
 
 
 def phase_engine(torch, np) -> dict:
-    from repro_torch.kernels import decode_attn, mx_fused, mx_gemm
+    from repro_torch.kernels import decode_attn, mx_fused, mx_gemm, mx_quant
 
-    counters = [mx_gemm.counter, mx_fused.counter, decode_attn.counter]
+    counters = [mx_gemm.counter, mx_fused.counter, mx_quant.counter,
+                decode_attn.counter]
     for c in counters:
         c.reset()
     reqs, build_s, run_s, st = _serve_once(torch, np, seed=0)
@@ -1196,6 +1239,13 @@ def phase_engine(torch, np) -> dict:
         if n <= 0:
             raise AssertionError(f"kernel {name} was not launched on the "
                                  "main path")
+    # the calibration forward's fused_quant_gemm calls (M 32) are the
+    # serving path's only quantizer launches: one each, beside one launch
+    # of the M <= 32 tile (counted in mx_gemm with the decode steps')
+    if launches["mx_quant"] != launches["fused_quant_gemm"]:
+        raise AssertionError(f"mx_quant {launches['mx_quant']} launches, "
+                             f"{launches['fused_quant_gemm']} calibration "
+                             "calls")
     again, *_ = _serve_once(torch, np, seed=0)
     if [r.out for r in reqs] != [r.out for r in again]:
         raise AssertionError("two runs from the same seed differ")
@@ -1359,10 +1409,11 @@ def phase_engine_ring(torch, np) -> dict:
     rings wrapping; decode_attn and both mx_gemm tiles launched,
     decode_attn_paged not; a second run from the same seed gives the same
     streams."""
-    from repro_torch.kernels import decode_attn, mx_fused, mx_gemm
+    from repro_torch.kernels import decode_attn, mx_fused, mx_gemm, mx_quant
 
     counters = [mx_gemm.counter, mx_gemm.counter_tiled, mx_fused.counter,
-                decode_attn.counter_contiguous, decode_attn.counter]
+                mx_quant.counter, decode_attn.counter_contiguous,
+                decode_attn.counter]
     for c in counters:
         c.reset()
     reqs, build_s, run_s, st, wrapped = _serve_ring_once(torch, np, seed=0)
@@ -1377,13 +1428,17 @@ def phase_engine_ring(torch, np) -> dict:
     print(f"launches on the windowed path: {json.dumps(launches)}")
     if launches["decode_attn_paged"] != 0:
         raise AssertionError("the windowed path launched decode_attn_paged")
-    # decode steps take the 8-row tile, the whole-prompt prefills the
-    # wgmma tile
+    # decode steps and the calibration forward take the M <= 32 tile,
+    # the whole-prompt prefills the 128 x 128 tile; each calibration
+    # call one mx_quant launch
     for name in ("mx_gemm", "mx_gemm_tiled", "fused_quant_gemm",
-                 "decode_attn"):
+                 "mx_quant", "decode_attn"):
         if launches[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched on the "
                                  "windowed path")
+    if launches["mx_quant"] != launches["fused_quant_gemm"]:
+        raise AssertionError("windowed path: mx_quant launches differ "
+                             "from the calibration calls")
     if wrapped < 4:
         raise AssertionError(f"only {wrapped} rings wrapped")
     again, *_ = _serve_ring_once(torch, np, seed=0)
@@ -1972,8 +2027,9 @@ def main() -> int:
     print(f"phase small train vs CPU: {time.monotonic() - t0:.1f} s")
     res.update(moe_res)
     # each row's launches come from its path: the serving kernels'
-    # (mx_gemm is the M <= 32 tile, fused_quant_gemm the M <= 32 kernel
-    # of the calibration forward) from the engine, the verify forms from
+    # (mx_gemm is the M <= 32 tile, decode steps' and calibration's;
+    # fused_quant_gemm the calibration forward's calls, M 32, each one
+    # mx_quant and one mx_gemm launch) from the engine, the verify forms from
     # the spec engine, decode_attn from the windowed engine,
     # fused_quant_gemm_tiled (calls at M > 32), the mx_quant and
     # mx_gemm_tiled launches they make, and mx_dw_gemm with its

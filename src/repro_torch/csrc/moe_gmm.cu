@@ -26,7 +26,8 @@
 // transposed payloads (E, N, K), which the caller transposes once and
 // the tile reads as the forward reads its weights.  Quantizing inside
 // the tile would redo each row's 32-groups once per column tile (50
-// times at N 6400; mx_fused.cu says why that would set the pace).
+// times at N 6400; kernels/mx_fused.py says why that would set the
+// pace).
 //
 // moe_dw_gemm: the dense dW's two launches (mx_dw_gemm.cu) with an
 // expert grid dimension,

@@ -4,9 +4,10 @@
 // Given x (M, K) f32 or bf16 and the level-1 scale s (computed outside,
 // one global amax), it writes per 32-wide group of each row the E8M0
 // exponent e = e8m0_exponent(amax / FP8_MAX / s) and the saturating fp8
-// payload q = sat_fp8(x / d), d = ftz(ftz(2^e) * s), through the same
-// device routines as the fused quantizer of mx_fused.cu (common.cuh), so
-// the two quantizers cannot drift apart.  Payloads match the plain
+// payload q = sat_fp8(x / d), d = ftz(ftz(2^e) * s), through the device
+// routines every quantizer of the port shares (common.cuh), so that they
+// cannot drift apart.  It is the quantizing half of fused_quant_gemm at
+// every M (kernels/mx_fused.py) and of moe_gmm.  Payloads match the plain
 // version (quant_mx with the supplied s) bit for bit.
 //
 // What bounds it on the H100: the bytes, one read of x and one write of

@@ -1,11 +1,12 @@
 // Hopper tensor-core building blocks (sm_90a) and the port's fp8 GEMM
 // tile built from them: shared-memory matrix descriptors, the bf16
-// warpgroup product wgmma.mma_async m64n128k16 with f32 accumulators,
-// the exact fp8 -> bf16 operand conversion into 128-byte-swizzled
-// panels, and one warp-specialised mainloop with two A-operand policies
-// (MX: mx_gemm.cu for rows 1-2 at M > 32, mx_dw_gemm.cu for row 5 on
-// its requant payload, moe_gmm.cu for rows 7 and 8; GROUP:
-// group_gemm.cu, row 6).
+// warpgroup products wgmma.mma_async m64n128k16 and m64n32k16 with f32
+// accumulators, TMA loads behind mbarriers, the exact fp8 -> bf16
+// operand conversion into 128-byte-swizzled panels, and one
+// warp-specialised mainloop with two A-operand policies (MX: mx_gemm.cu
+// for rows 1-2 at M > 32, mx_dw_gemm.cu for row 5 on its requant
+// payload, moe_gmm.cu for rows 7 and 8; GROUP: group_gemm.cu, row 6).
+// (mx_gemm.cu's M <= 32 tile is built from the same blocks.)
 //
 // Panel layouts (each 1024-byte aligned, 128-byte swizzle: the 16-byte
 // chunk c of a 128-byte line r lies at chunk c ^ (r % 8)):
@@ -73,9 +74,10 @@ __device__ __forceinline__ void fence_proxy_async() {
 
 // Keep the compiler from moving accumulator reads or writes across a
 // wgmma wait.
-__device__ __forceinline__ void fence_acc(float (&d)[64]) {
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 // d = A (64 x 16, K-major) @ B (16 x 128, MN-major) (+ d if accumulate),
@@ -113,6 +115,28 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
         "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d = A (64 x 16, MN-major: read transposed, imm-trans-a 1) @ B (16 x
+// 32, K-major) (+ d if accumulate), f32 accumulation in the tensor core:
+// the operands of mx_gemm.cu's M <= 32 tile, where A is a strip of the
+// (K, N) weights as they lie and B the activation rows.
+__device__ __forceinline__ void wgmma_m64n32k16(float (&d)[16], uint64_t da,
+                                                uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15},"
+      " %16, %17, p, 1, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
@@ -239,16 +263,43 @@ __device__ __forceinline__ void mbar_arrive(uint32_t bar) {
                : "memory");
 }
 
-// Wait for the completion of the barrier's phase of this parity.
+// Wait for the completion of the barrier's phase of this parity; a wait
+// that outlasts ~2^22 polls traps (a launch error) rather than hang the
+// card.
 __device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  for (int i = 0;; ++i) {
+    uint32_t done;
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+    if (done) return;
+    if (i > (1 << 22)) __trap();
+  }
+}
+
+// This thread's arrival on the barrier, and the bytes of asynchronous
+// copies the barrier's phase waits for besides.
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar,
+                                                      uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+// One box of a 2-D tensor map (c0 the inner coordinate) into shared
+// memory by the TMA; its bytes complete on `bar`.  Out-of-bounds
+// elements arrive as zeros.
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const void* map,
+                                            uint32_t bar, int c0, int c1) {
   asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@!p bra WAIT;\n"
-      "}\n" ::"r"(bar),
-      "r"(parity)
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0),
+        "r"(c1)
       : "memory");
 }
 

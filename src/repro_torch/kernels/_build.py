@@ -37,12 +37,9 @@ _LONG = ctypes.c_longlong
 # cudaGetLastError() code of its launch)
 SIGNATURES = {
     "mx_gemm_launch": [_VOID, _VOID, _VOID, _VOID, _INT, _INT, _INT, _INT,
-                       _INT, _INT, _VOID],
+                       _INT, _INT, _INT, _VOID],
     "mx_gemm_tiled_launch": [_VOID, _VOID, _VOID, _VOID, _INT, _INT, _INT,
                              _INT, _INT, _INT, _VOID],
-    "fused_quant_gemm_launch": [_VOID, _VOID, _VOID, _VOID, _VOID, _VOID,
-                                _INT, _INT, _INT, _INT, _INT, _INT, _INT,
-                                _FLOAT, _FLOAT, _VOID],
     "dw_requant_launch": [_VOID, _VOID, _VOID, _VOID, _VOID, _INT, _INT,
                           _INT, _INT, _INT, _FLOAT, _FLOAT, _VOID],
     "mx_dw_gemm_launch": [_VOID, _VOID, _VOID, _VOID, _INT, _INT, _INT,

@@ -1,5 +1,5 @@
-"""Fused two-level quantize + MX GEMM: the wrapper of the Hopper
-kernel ``csrc/mx_fused.cu`` and its plain PyTorch version.
+"""Fused two-level quantize + MX GEMM: the quantizer kernel then the MX
+GEMM kernel, and its plain PyTorch version.
 
 Given x (M, K) f32/bf16, the level-1 scale ``s`` and the fp8 weight
 payload, returns ``(acc (M, N) f32 unscaled, q (M, K) fp8,
@@ -11,39 +11,40 @@ The caller (``kernels.dispatch.fused_quant_matmul``) computes ``s``
 follows ``repro.core.quant.quant_mx`` and ``mx_gemm``.
 
 A CPU tensor takes the plain version.  A CUDA tensor launches the
-kernel, or raises: there is no fallback.  Up to ``SMALL_M`` rows (the
-serving path's calibration forward) one fused kernel quantizes x into
-the staging of an 8-row tile that streams its weight strip once.  Above
-it (training: the forward, the remat recompute and dx) the call is two
-launches into the same outputs: the ``mx_quant`` kernel writes q and
-sexp once per element, then ``mx_gemm``'s 128 x 128 ``wgmma`` tile
-computes acc from them.  A quantizer inside a 128 x 128 GEMM tile
-re-quantizes its rows once per column tile (N/128 times), at ~60-100
-instructions an element against ~512 SM cycles of tensor-core products
-per 128 x 128 x 64 step, so it, not the GEMM, would set the pace; one
-pass costs a read of x and a write of the payload.  The payload and
-acc are what the fused kernel computes: the two quantizers share
-``csrc/common.cuh``'s routines, and ``fused_quant_gemm_plain`` equals
-``mx_quant_plain`` followed by ``mx_gemm_plain`` bit for bit.
+kernels, or raises: there is no fallback.  At every M the call is two
+launches into the same outputs: the ``mx_quant`` kernel
+(``csrc/mx_quant.cu``) writes q and sexp once per element, then
+``mx_gemm``'s tile for M (``csrc/mx_gemm.cu``: the weight-streaming
+tile up to 32 rows, the serving path's calibration forward; the
+128 x 128 tile above, training's forward, remat recompute and dx)
+computes acc from them.  A quantizer inside a GEMM tile would
+re-quantize its rows once per column tile (N/64 or N/128 times), at
+~60-100 instructions an element (a warp max, a logf, an IEEE
+division), against ~2 integer instructions an element for the tile's
+own operand conversion: it, not the GEMM, would set the pace; one pass
+costs a read of x and a write of the payload.  ``fused_quant_gemm_plain``
+equals ``mx_quant_plain`` followed by ``mx_gemm_plain`` bit for bit,
+and every quantizer of the port rounds through ``csrc/common.cuh``'s
+``e8m0_exponent`` and ``mx_quant_value``.
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.core.formats import INV_LN2_F32, fp8_dtype, fp8_max, is_fp8
+from repro_torch.core.formats import fp8_dtype, is_fp8
 from repro_torch.core.quant import mx_operand, quant_mx
 from repro_torch.core.runtime_flags import mm
 
 from . import mx_gemm, mx_quant
-from ._build import LaunchCounter, check, library
+from ._build import LaunchCounter
 
 MICRO = 32
-SMALL_M = mx_gemm.SMALL_M  # the largest M that takes the fused 8-row kernel
 
-counter = LaunchCounter("fused_quant_gemm")              # the M <= 32 kernel
-# calls at M > 32 (each launches mx_quant and mx_gemm_tiled, which count
-# their own launches)
+# calls, each one mx_quant launch plus one launch of mx_gemm's tile for
+# M (which count their own launches): at M <= 32 (the calibration
+# forward) and at M > 32 (training)
+counter = LaunchCounter("fused_quant_gemm")
 counter_tiled = LaunchCounter("fused_quant_gemm_tiled")
 
 
@@ -74,26 +75,16 @@ def fused_quant_gemm(x: torch.Tensor, s: torch.Tensor, qw: torch.Tensor,
     if not (x.is_contiguous() and qw.is_contiguous()):
         raise ValueError("fused_quant_gemm: operands must be contiguous")
     n = qw.shape[1]
-    s32 = s.to(torch.float32).reshape(()).contiguous()
     acc = torch.empty((m, n), dtype=torch.float32, device=dev)
     q = torch.empty((m, k), dtype=fp8_dtype(fmt), device=dev)
     sexp = torch.empty((m, k // MICRO), dtype=torch.int8, device=dev)
-    if m > SMALL_M:
-        if x.data_ptr() % 16:         # mx_quant reads 16-byte vectors
-            x = x.clone()
-        mx_quant.launch(x, s32, q, sexp, fmt)
+    if x.data_ptr() % 16:             # mx_quant reads 16-byte vectors
+        x = x.clone()
+    mx_quant.launch(x, s, q, sexp, fmt)
+    if mx_gemm.tile_for(m) == "tiled":
         mx_gemm.launch_tiled(q, sexp, qw, acc)
         counter_tiled.hit()
-        return acc, q, sexp
-    vec = int(n % 4 == 0 and qw.data_ptr() % 4 == 0)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        code = library().fused_quant_gemm_launch(
-            x.data_ptr(), s32.data_ptr(), qw.data_ptr(), acc.data_ptr(),
-            q.data_ptr(), sexp.data_ptr(), m, n, k,
-            int(x.dtype == torch.bfloat16), int(fmt == "e5m2"),
-            int(qw.dtype == torch.float8_e5m2), vec, fp8_max(fmt),
-            INV_LN2_F32, stream)
-    check(code, "fused_quant_gemm")
-    counter.hit()
+    else:
+        mx_gemm.launch_small(q, sexp, qw, acc)
+        counter.hit()
     return acc, q, sexp

@@ -7,12 +7,14 @@ TPU kernel ``repro.kernels.mx_gemm.mx_gemm_pallas``; the plain version
 follows ``repro.kernels.ref.mx_gemm_ref``.
 
 A CPU tensor takes the plain version.  A CUDA tensor launches the
-kernel, or raises: there is no fallback.  The kernel has two tiles,
-chosen from M (``tile_for``): up to ``SMALL_M`` rows (decode and verify
-steps, 32-token prefill chunks) the 8-row tile streams the weights on
-the CUDA cores; above it (whole-prompt prefill, Table 6, training
-behind ``mx_fused``) a 128 x 128 tile runs bf16 ``wgmma`` products on
-the tensor cores.
+kernel, or raises: there is no fallback.  The kernel has two tiles on
+the tensor cores, chosen from M (``tile_for``): up to ``SMALL_M`` rows
+(decode and verify steps, 32-token prefill chunks, the calibration
+forward behind ``mx_fused``) a weight-streaming tile reads each weight
+byte once for all rows, 64 output columns a CTA, its K split over a
+cluster where the columns are few (``small_split``, from K and N alone,
+so a row's bits never depend on M); above it (whole-prompt prefill,
+Table 6, training behind ``mx_fused``) a 128 x 128 tile.
 """
 
 from __future__ import annotations
@@ -26,16 +28,35 @@ from repro_torch.core.runtime_flags import mm
 from ._build import LaunchCounter, check, library
 
 MICRO = 32
-SMALL_M = 32          # the largest M that takes the 8-row tile
+SMALL_M = 32          # the largest M that takes the weight-streaming tile
+STRIP = 64            # its output columns per CTA
+STAGE_K = 128         # its K per pipeline stage (and per f32 promotion)
+MAX_SPLIT = 8         # its largest cluster along K
 
 counter = LaunchCounter("mx_gemm")              # the M <= 32 tile
 counter_tiled = LaunchCounter("mx_gemm_tiled")  # the M > 32 wgmma tile
 
 
 def tile_for(m: int) -> str:
-    """The tile that takes M rows on the card: "small" (8 rows on the
-    CUDA cores) or "tiled" (128 x 128 on the tensor cores)."""
+    """The tile that takes M rows on the card: "small" (the
+    weight-streaming tile, all rows in one pass) or "tiled" (128 x 128)."""
     return "small" if m <= SMALL_M else "tiled"
+
+
+def small_split(k: int, n: int) -> int:
+    """The CTAs that share one 64-column strip's K in the M <= 32 tile
+    (a cluster; their partial sums are added in rank order).  It depends
+    on K and N alone, never on M, so that a row gives the same bits in a
+    decode, verify or chunk step: doubled while the strips fill fewer
+    than 120 of the H100's 132 SMs and each CTA keeps two 128-deep
+    stages or more, at most ``MAX_SPLIT``."""
+    strips = -(-n // STRIP)
+    stages = -(-k // STAGE_K)
+    split = 1
+    while (split < MAX_SPLIT and strips * split < 120
+           and stages >= 4 * split):
+        split *= 2
+    return split
 
 
 def mx_gemm_plain(qx: torch.Tensor, sexp: torch.Tensor,
@@ -72,17 +93,33 @@ def mx_gemm(qx: torch.Tensor, sexp: torch.Tensor,
     out = torch.empty((m, n), dtype=torch.float32, device=dev)
     if tile_for(m) == "tiled":
         launch_tiled(qx, sexp, qw, out)
-        return out
-    vec = int(n % 4 == 0 and qw.data_ptr() % 4 == 0)
+    else:
+        launch_small(qx, sexp, qw, out)
+    return out
+
+
+def launch_small(qx: torch.Tensor, sexp: torch.Tensor, qw: torch.Tensor,
+                 out: torch.Tensor) -> None:
+    """The weight-streaming tile (1 <= M <= 32) into ``out`` (M, N) f32,
+    on checked contiguous CUDA operands (also ``mx_fused``'s GEMM at
+    M <= 32).  The TMA brings the operands where N % 16 == 0 and both
+    payloads are 16-byte aligned, byte loads elsewhere."""
+    m, k = qx.shape
+    n = qw.shape[1]
+    if not (m and n):
+        return
+    tma = int(k > 0 and n % 16 == 0 and qx.data_ptr() % 16 == 0
+              and qw.data_ptr() % 16 == 0)
+    dev = qx.device
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = library().mx_gemm_launch(
             qx.data_ptr(), sexp.data_ptr(), qw.data_ptr(), out.data_ptr(),
             m, n, k, int(qx.dtype == torch.float8_e5m2),
-            int(qw.dtype == torch.float8_e5m2), vec, stream)
+            int(qw.dtype == torch.float8_e5m2), tma, small_split(k, n),
+            stream)
     check(code, "mx_gemm")
     counter.hit()
-    return out
 
 
 def launch_tiled(qx: torch.Tensor, sexp: torch.Tensor, qw: torch.Tensor,

@@ -43,8 +43,7 @@ SPANS = ("decode_step", "prefill_chunk", "prefill", "verify_step")
 # (decode attention is one launch: its cluster holds the split over the
 # slots and the combine)
 PORT_KERNELS = ("mx_gemm_kernel", "mx_gemm_tiled_kernel",
-                "fused_quant_gemm_kernel", "mx_dw_gemm_kernel",
-                "group_gemm_kernel", "mx_quant_kernel",
+                "mx_dw_gemm_kernel", "group_gemm_kernel", "mx_quant_kernel",
                 "decode_attn_kernel", "moe_gmm_kernel",
                 "moe_dw_gemm_kernel", "dw_requant_kernel")
 

@@ -28,6 +28,14 @@ GEMM_SHAPES = [(5, 96, 200), (16, 256, 72), (1, 32, 33), (4, 3072, 3072),
 # single-group K
 LARGE_M_SHAPES = [(33, 96, 200), (130, 256, 72), (256, 32, 129),
                   (512, 4096, 256)]
+# M <= 32 takes mx_gemm's weight-streaming tile (M, K, N): M 1-32; K
+# split over a cluster (1056 and 8192: 4, 10240 x 3840: 2, 3840 x 960:
+# 8); ragged N by TMA (208) and by byte loads (33, 200, 72); K % 64 == 32
+# (96, 1056)
+SMALL_SHAPES = [(1, 32, 33), (4, 96, 200), (8, 256, 72), (16, 1056, 208),
+                (20, 1056, 200), (32, 96, 64), (4, 8192, 3072),
+                (16, 10240, 3840), (32, 3840, 960), (1, 3840, 960),
+                (20, 3072, 8192)]
 # M > 32 takes mx_gemm's wgmma tile: ragged M and N (N odd: byte loads),
 # K % 64 == 32, one K group, full 128 x 128 tiles
 TILED_SHAPES = [(33, 96, 200), (130, 96, 200), (256, 64, 136),
@@ -135,8 +143,8 @@ def test_mx_gemm_tiled_operands_are_bitwise(cuda):
 
 
 def test_mx_gemm_tile_switches_above_32_rows(cuda):
-    """M = 32 takes the 8-row tile, M = 33 the wgmma tile; both agree
-    with the plain version on the same rows."""
+    """M = 32 takes the weight-streaming tile, M = 33 the 128 x 128 tile;
+    both agree with the plain version on the same rows."""
     k, n = 256, 200
     xq = quant_mx(_x(33, k, 5).to(cuda), 32, "e4m3")
     qw = quant_per_tensor(torch.tensor(np.random.default_rng(5)
@@ -149,6 +157,94 @@ def test_mx_gemm_tile_switches_above_32_rows(cuda):
         assert (mx_gemm.counter.count - counts[0],
                 mx_gemm.counter_tiled.count - counts[1]) == (small, tiled)
         _close(got, mx_gemm.mx_gemm_plain(q, se, qw))
+
+
+def _small_operands(cuda, m, k, n, x_fmt, w_fmt, seed):
+    xq = quant_mx(_x(m, k, seed).to(cuda), 32, x_fmt)
+    w = torch.tensor(np.random.default_rng(n + seed).standard_normal((k, n)),
+                     dtype=torch.float32) * 0.05
+    return xq.q, xq.sexp, quant_per_tensor(w, w_fmt).q.to(cuda)
+
+
+@pytest.mark.parametrize("x_fmt", ["e4m3", "e5m2"])
+@pytest.mark.parametrize("w_fmt", ["e4m3", "e5m2"])
+def test_mx_gemm_small_matches_plain(cuda, x_fmt, w_fmt):
+    """The weight-streaming tile (M <= 32) against the plain version in
+    all four operand formats: M 1-32, the K splits over a cluster,
+    ragged N by TMA and by byte loads, K % 64 == 32; two calls agree bit
+    for bit (the split's sums are added in rank order, no atomics)."""
+    for m, k, n in SMALL_SHAPES:
+        q, se, qw = _small_operands(cuda, m, k, n, x_fmt, w_fmt, m + n)
+        before = mx_gemm.counter.count
+        got = mx_gemm.mx_gemm(q, se, qw)
+        again = mx_gemm.mx_gemm(q, se, qw)
+        assert mx_gemm.counter.count == before + 2
+        assert torch.isfinite(got).all()
+        _close(got, mx_gemm.mx_gemm_plain(q, se, qw))
+        assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+
+
+@pytest.mark.parametrize("k,n", [(3072, 3072), (3072, 8192), (1056, 200),
+                                 (3840, 960)])
+def test_mx_gemm_small_rows_do_not_depend_on_the_batch(cuda, k, n):
+    """A row gives the same bits in a decode (M 4), verify (M 16) or
+    chunk (M 32) step, at any position: the rows of an M 4 call equal
+    the same rows placed at other positions of M 16 and M 32 calls, bit
+    for bit, with and without a K split and with byte loads (N 200).
+    The serving stream checks (identity vs floating pages, speculative
+    vs plain) rely on it."""
+    q, se, qw = _small_operands(cuda, 32, k, n, "e4m3", "e4m3", k + n)
+    four = mx_gemm.mx_gemm(q[:4].contiguous(), se[:4].contiguous(), qw)
+    for m, at in ((16, 9), (16, 12), (32, 27), (32, 0)):
+        rows = (torch.arange(m, device=cuda) + 4) % 32
+        rows[at:at + 4] = torch.arange(4, device=cuda)
+        got = mx_gemm.mx_gemm(q[rows].contiguous(), se[rows].contiguous(),
+                              qw)
+        assert torch.equal(got[at:at + 4].view(torch.int32),
+                           four.view(torch.int32)), (m, at)
+
+
+def test_mx_gemm_small_operands_are_bitwise(cuda):
+    """Against an identity weight every output of the M <= 32 tile is one
+    operand value: bf16(q * 2^e) bit for bit, at exponents down to -127
+    (bf16 subnormals) and up to 100, in both payload formats, with one
+    CTA per strip (K 128) and with K split over four (K 1024)."""
+    rng = np.random.default_rng(11)
+    for k in (128, 1024):
+        one = torch.eye(k).to(torch.float8_e4m3fn).to(cuda)
+        for fmt in ("e4m3", "e5m2"):
+            xq = quant_mx(torch.tensor(rng.standard_normal((20, k)),
+                                       dtype=torch.float32), 32, fmt)
+            sexp = torch.tensor(rng.integers(-127, 101, (20, k // 32)),
+                                dtype=torch.int8)
+            sexp[:3] = -127
+            q, sexp = xq.q.to(cuda), sexp.to(cuda)
+            got = mx_gemm.mx_gemm(q, sexp, one)
+            want = mx_gemm.mx_gemm_plain(q, sexp, one)
+            assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("m,k,n", [(32, 3072, 8192), (5, 96, 200)])
+def test_fused_quant_gemm_small_is_one_quantizer_and_one_tile(cuda, m, k, n):
+    """fused_quant_gemm at M <= 32 is one mx_quant launch and one launch
+    of the weight-streaming tile (by TMA, and by byte loads at N 200):
+    payloads bitwise the plain version's, sums within 1e-5 * max|plain|."""
+    x = _x(m, k, m + k).to(cuda)
+    w = torch.tensor(np.random.default_rng(n).standard_normal((k, n)),
+                     dtype=torch.float32) * 0.05
+    qw = quant_per_tensor(w, "e4m3").q.to(cuda)
+    for fmt in ("e4m3", "e5m2"):
+        s = dispatch.global_scale(x, fmt)
+        counters = (mx_quant.counter, mx_gemm.counter, mx_gemm.counter_tiled,
+                    mx_fused.counter, mx_fused.counter_tiled)
+        before = [c.count for c in counters]
+        acc, q, se = mx_fused.fused_quant_gemm(x, s, qw, fmt)
+        assert [c.count - b for c, b in zip(counters, before)] \
+            == [1, 1, 0, 1, 0]
+        acc_p, q_p, se_p = mx_fused.fused_quant_gemm_plain(x, s, qw, fmt)
+        assert torch.equal(q.view(torch.uint8), q_p.view(torch.uint8))
+        assert torch.equal(se, se_p)
+        _close(acc, acc_p)
 
 
 @pytest.mark.parametrize("kv_dtype", ["fp8", "bf16"])

@@ -94,22 +94,52 @@ def test_mx_gemm_plain_matches_pallas_and_ref(m, k, n, fmt):
 
 
 def test_mx_gemm_tile_choice():
-    """Up to 32 rows (decode and verify steps, prefill chunks) the 8-row
-    tile, above it the wgmma tile; the fused operator switches at the
-    same M."""
+    """Up to 32 rows (decode and verify steps, prefill chunks, the
+    calibration forward) the weight-streaming tile, above it the 128 x
+    128 tile; ``fused_quant_gemm`` has no threshold of its own: its GEMM
+    is ``mx_gemm``'s tile for M, behind the ``mx_quant`` kernel."""
     assert [mx_gemm.tile_for(m) for m in (1, 4, 16, 32, 33, 2048, 4160)] \
         == ["small"] * 4 + ["tiled"] * 3
-    assert mx_fused.SMALL_M == mx_gemm.SMALL_M == 32
+    assert mx_gemm.SMALL_M == 32
+    assert not hasattr(mx_fused, "SMALL_M")
 
 
-@pytest.mark.parametrize("m,k,n", LARGE_M_SHAPES)
+# (K, N, split): phi3-mini-3.8b's q/k/v/o and gate/up, down and head;
+# h2o-danube-3-4b's q/o, k/v, gate/up, down and head; a K that gives
+# each CTA fewer than two stages past one split; a test shape
+SPLITS = [(3072, 3072, 4), (3072, 8192, 1), (8192, 3072, 4),
+          (3072, 32064, 1), (3840, 3840, 2), (3840, 960, 8),
+          (3840, 10240, 1), (10240, 3840, 2), (3840, 32000, 1),
+          (1056, 200, 4), (256, 72, 1)]
+
+
+@pytest.mark.parametrize("k,n,split", SPLITS)
+def test_small_tile_split_depends_on_k_and_n_only(k, n, split):
+    """The M <= 32 tile's K split over a cluster: what ``small_split``
+    picks from K and N (it takes no M, so a row's bits do not depend on
+    the batch), a power of two up to 8 that leaves each CTA two 128-deep
+    stages or more, and enough 64-column strips x split to cover most
+    of the H100's 132 SMs where N alone does not."""
+    got = mx_gemm.small_split(k, n)
+    assert got == split
+    stages = -(-k // mx_gemm.STAGE_K)
+    strips = -(-n // mx_gemm.STRIP)
+    assert got in (1, 2, 4, 8)
+    assert got == 1 or stages >= 2 * got
+    assert (strips * got >= 120 or got == mx_gemm.MAX_SPLIT
+            or stages < 4 * got)
+
+
+@pytest.mark.parametrize("m,k,n", GEMM_SHAPES + [(32, 256, 72)]
+                         + LARGE_M_SHAPES)
 @pytest.mark.parametrize("fmt,dtype", [("e4m3", torch.bfloat16),
                                        ("e5m2", torch.float32)])
 def test_fused_quant_gemm_plain_is_quantizer_then_gemm(m, k, n, fmt, dtype):
-    """The decomposition of the M > 32 path: ``fused_quant_gemm_plain``
-    equals ``mx_quant_plain`` followed by ``mx_gemm_plain`` bit for bit
-    (payloads and sums), the forward (e4m3 on bf16) and dx (e5m2 on
-    f32) alike."""
+    """The decomposition of the card's path at every M:
+    ``fused_quant_gemm_plain`` equals ``mx_quant_plain`` followed by
+    ``mx_gemm_plain`` bit for bit (payloads and sums), the forward (e4m3
+    on bf16) and dx (e5m2 on f32) alike, at M <= 32 (the calibration
+    forward) and above."""
     x = torch.tensor(_x(m, k, m + k)).to(dtype)
     qw = _w(k, n, n, "e4m3").q
     s = dispatch.global_scale(x, fmt)

@@ -1,5 +1,8 @@
 """Compare the port's fp8 GEMMs of this checkout with another checkout's
-on one NVIDIA GPU: ``mx_gemm`` at M > 32 (the paper's Table 6 shapes and
+on one NVIDIA GPU: ``mx_gemm`` at M <= 32 (decode M 4, verify M 16 and
+prefill-chunk M 32 rows over phi3-mini-3.8b's and h2o-danube-3-4b's
+decode shapes) and ``fused_quant_gemm`` at M 32 (the calibration
+forward), ``mx_gemm`` at M > 32 (the paper's Table 6 shapes and
 h2o-danube-3-4b's 4160-token prefill), ``fused_quant_gemm`` at olmo-7b's
 training M 2048 (the forward, e4m3 on bf16 activations, and dx, e5m2 on
 an f32 gradient against the transposed weights), ``group_gemm`` at
@@ -16,6 +19,10 @@ tokens) in moss and per_group, and phi3.5-moe (1 of 32 layers, 2 x 4096
 tokens) in moss, on the same inputs from one seed.
 
     python3 tools/ab_mx_gemm.py OTHER/src        # from this checkout
+    python3 tools/ab_mx_gemm.py OTHER/src --small    # the M <= 32 cases
+
+At M <= 32 it also takes the host's time to issue one ``mx_gemm`` call
+(" host"): the decode step is host-bound.
 
 Each checkout runs in its own process (both packages are named
 ``repro_torch``; PYTHONPATH picks the one), in the order this, other,
@@ -40,6 +47,15 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
+# mx_gemm at M <= 32 (M, N, K): phi3-mini-3.8b's q/k/v/o, gate/up, down
+# and head, then h2o-danube-3-4b's q/o, k/v, gate/up, head and down, at
+# the decode, verify and prefill-chunk rows
+SMALL_MNK = [(m, n, k) for m in (4, 16, 32) for k, n in (
+    (3072, 3072), (3072, 8192), (8192, 3072), (3072, 32064), (3840, 3840),
+    (3840, 960), (3840, 10240), (3840, 32000), (10240, 3840))]
+# fused_quant_gemm at M 32 (what, fmt, M, K, N): the calibration forward
+SMALL_FUSED = [("calibration", "e4m3", 32, 3072, 8192),
+               ("calibration", "e4m3", 32, 8192, 3072)]
 # mx_gemm (M, N, K): Table 6, then h2o-danube-3-4b's prefill qkv and down
 GEMM_MNK = [(2048, 7168, 4096), (4096, 2048, 7168), (4096, 4096, 8192),
             (4160, 5760, 3840), (4160, 3840, 10240)]
@@ -96,9 +112,26 @@ def _train_step_ms(torch, arch: str, mode: str) -> float:
     return statistics.median(times[1:])
 
 
-def measure(dst: str, keep: bool) -> None:
-    """Every case on this process's ``repro_torch``: the times to
-    ``dst`` + ``.json`` and, with ``keep``, the outputs to ``dst``."""
+def _host_ms(torch, fn, n: int = 50) -> float:
+    """The host's time to issue one call (the wrapper's checks, its
+    allocation and its launch), in ms: the median over 5 rounds of n
+    calls issued back to back, each round started on an idle card; what
+    a host-bound decode step pays per linear layer."""
+    rounds = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        rounds.append((time.perf_counter() - t0) / n * 1e3)
+    torch.cuda.synchronize()
+    return statistics.median(rounds)
+
+
+def measure(dst: str, keep: bool, small_only: bool = False) -> None:
+    """Every case (with ``small_only``, the M <= 32 ones) on this
+    process's ``repro_torch``: the times to ``dst`` + ``.json`` and, with
+    ``keep``, the outputs to ``dst``."""
     import numpy as np
     import torch
 
@@ -112,15 +145,17 @@ def measure(dst: str, keep: bool) -> None:
     timer = Timer(torch)
     gen = torch.Generator(device="cuda").manual_seed(1)
     outs, times = {}, {}
-    for m, n, k in GEMM_MNK:
+    for m, n, k in SMALL_MNK:
         xq = quant_mx(_activations(torch, gen, m, k))
         w = torch.randn(k, n, device="cuda", generator=gen) / k ** 0.5
         qw = quant_per_tensor(w).q
         name = f"mx_gemm M={m} N={n} K={k}"
         outs[name] = mx_gemm.mx_gemm(xq.q, xq.sexp, qw).cpu()
         times[name] = timer.ms(lambda: mx_gemm.mx_gemm(xq.q, xq.sexp, qw))
+        times[name + " host"] = _host_ms(
+            torch, lambda: mx_gemm.mx_gemm(xq.q, xq.sexp, qw))
         del xq, w, qw
-    for what, fmt, m, k, n in FUSED:
+    for what, fmt, m, k, n in SMALL_FUSED + ([] if small_only else FUSED):
         x = _activations(torch, gen, m, k)
         if what == "dx":
             x = x.float() * 1e-3
@@ -135,6 +170,19 @@ def measure(dst: str, keep: bool) -> None:
         times[name] = timer.ms(lambda: mx_fused.fused_quant_gemm(x, s, qw,
                                                                  fmt))
         del x, w, qw, acc, q, se
+    if small_only:
+        if keep:
+            torch.save(outs, dst)
+        Path(dst + ".json").write_text(json.dumps(times))
+        return
+    for m, n, k in GEMM_MNK:
+        xq = quant_mx(_activations(torch, gen, m, k))
+        w = torch.randn(k, n, device="cuda", generator=gen) / k ** 0.5
+        qw = quant_per_tensor(w).q
+        name = f"mx_gemm M={m} N={n} K={k}"
+        outs[name] = mx_gemm.mx_gemm(xq.q, xq.sexp, qw).cpu()
+        times[name] = timer.ms(lambda: mx_gemm.mx_gemm(xq.q, xq.sexp, qw))
+        del xq, w, qw
     for what, x_fmt, w_fmt, m, k, n in GROUP:
         x = _activations(torch, gen, m, k)
         if what == "dx":
@@ -215,10 +263,11 @@ def measure(dst: str, keep: bool) -> None:
 
 
 def main(argv: list[str]) -> int:
-    if len(argv) == 4 and argv[1] == "--measure":
-        measure(argv[2], argv[3] == "keep")
+    if len(argv) in (4, 5) and argv[1] == "--measure":
+        measure(argv[2], argv[3] == "keep", argv[4:] == ["--small"])
         return 0
-    if len(argv) != 2:
+    small = argv[2:] == ["--small"]
+    if len(argv) != 2 and not small:
         print(__doc__, file=sys.stderr)
         return 2
     import torch
@@ -233,7 +282,8 @@ def main(argv: list[str]) -> int:
         for i, tag in enumerate(("this", "other", "other", "this")):
             dst = os.path.join(tmp, f"{i}.pt")
             subprocess.run([sys.executable, __file__, "--measure", dst,
-                            "keep" if i < 2 else "times"],
+                            "keep" if i < 2 else "times"]
+                           + (["--small"] if small else []),
                            env=dict(os.environ, PYTHONPATH=trees[tag]),
                            check=True, timeout=900)
             runs.append(dst)
