@@ -32,8 +32,11 @@ Phases, each fatal on failure:
      the baselines' kernels at the same
      training shapes: group_gemm (the per_group forward, dx and dW, on
      the wgmma tile with the per-group rescale at its K-128 promotion,
-     with torch._scaled_mm beside it as well) and mx_quant (the
-     standalone quantizer); the contiguous (ring) decode attention at
+     with torch._scaled_mm beside it as well), mx_quant (the
+     quantizer's group pass) and global_amax (its level-1 scale, one
+     pass over x; bitwise its plain version on the training inputs and
+     on NaN, inf, zero, subnormal and ragged inputs), each timed alone
+     and the two as the linear layers call them; the contiguous (ring) decode attention at
      h2o-danube-3-4b's decode shape (two rows wrapped past C = 4096,
      two partial) and at recurrentgemma-2b's local-attention shape (G
      10, Dh 256), fp8 and bf16, beside SDPA on a bf16 cache, within 1e-5
@@ -48,7 +51,8 @@ Phases, each fatal on failure:
   4. the engine: phi3-mini-3.8b at full width on random weights from a
      seed serves 8 requests through the paged engine; every serving
      kernel must have been launched on that path (the calibration's
-     fused_quant_gemm calls each one mx_quant launch); a second run from the
+     fused_quant_gemm calls each one global_amax and one mx_quant
+     launch); a second run from the
      same seed must give the same streams; under identity placement
      (REPRO_PAGED_PLACEMENT=identity) the streams equal the floating
      pages' token for token; the legacy Server (REPRO_SERVE_PAGED=0)
@@ -125,6 +129,11 @@ TRAIN_ARCH = "olmo-7b"
 TRAIN_LAYERS = 4                    # of 32: f32 master + grads + moments
 TRAIN_M = 2048                      # batch 1 x seq 2048 (paper Table 8)
 TRAIN_KN = [(4096, 4096), (4096, 11008), (11008, 4096), (4096, 50304)]
+# the quantizer's timed shapes ((M, K), fmt, x dtype): olmo-7b's forward
+# input (bf16 activations, e4m3) and its down projection's dx input (the
+# f32 gradient, e5m2); the first is the kernels line's entry
+QUANT_TIMED = [((TRAIN_M, 4096), "e4m3", "bfloat16"),
+               ((TRAIN_M, 11008), "e5m2", "float32")]
 # the paper's Table 6 GEMM shapes (M, N, K), as benchmarks/run.py has them
 TABLE6_MNK = [(2048, 7168, 4096), (4096, 2048, 7168), (4096, 4096, 8192)]
 # mx_gemm's wgmma tile (M > 32) at (M, N, K): Table 6; h2o-danube-3-4b's
@@ -189,6 +198,8 @@ REPLACES = {
     "dw_requant": "src/repro/kernels/mx_bwd.py:104",
     "group_gemm": "src/repro/kernels/group_gemm.py:61",
     "mx_quant": "src/repro/kernels/mx_quant.py:51",
+    # the level-1 scale, computed outside the Pallas quantizer
+    "global_amax": "src/repro/kernels/ref.py:167",
     "moe_gmm": "src/repro/kernels/moe_gmm.py:129",
     "moe_dw_gemm": "src/repro/kernels/moe_gmm.py:232",
 }
@@ -209,6 +220,7 @@ SOURCES = {
     "dw_requant": "src/repro_torch/csrc/mx_dw_gemm.cu",
     "group_gemm": "src/repro_torch/csrc/group_gemm.cu",
     "mx_quant": "src/repro_torch/csrc/mx_quant.cu",
+    "global_amax": "src/repro_torch/csrc/mx_quant.cu",
     "moe_gmm": "src/repro_torch/csrc/moe_gmm.cu",
     "moe_dw_gemm": "src/repro_torch/csrc/moe_gmm.cu",
 }
@@ -389,13 +401,17 @@ def phase_kernels(torch, timer) -> dict:
         for k, n in GEMM_KN:
             qw = weights[k, n]
             x = _activations(torch, gen, 32, k)
+            # the call as dispatch.fused_quant_matmul makes it: the
+            # level-1 scale, the quantizer, the M <= 32 tile
+            counters = (mx_quant.counter_amax, mx_quant.counter,
+                        mx_gemm.counter)
+            counts = [c.count for c in counters]
             s = dispatch.global_scale(x, fmt)
-            counts = (mx_quant.counter.count, mx_gemm.counter.count)
             acc, q, se = mx_fused.fused_quant_gemm(x, s, qw, fmt)
-            if (mx_quant.counter.count - counts[0],
-                    mx_gemm.counter.count - counts[1]) != (1, 1):
+            if [c.count - n for c, n in zip(counters, counts)] != [1] * 3:
                 raise AssertionError("fused_quant_gemm M=32: not one "
-                                     "mx_quant and one mx_gemm launch")
+                                     "global_amax, one mx_quant and one "
+                                     "mx_gemm launch")
             acc_p, q_p, se_p = mx_fused.fused_quant_gemm_plain(x, s, qw, fmt)
             q_mis = int((q.view(torch.uint8) != q_p.view(torch.uint8)).sum())
             e_mis = int((se != se_p).sum())
@@ -800,7 +816,8 @@ def phase_train_kernels(torch, timer) -> dict:
     the f32 gradient against the transposed weights) and mx_dw_gemm at
     olmo-7b training shapes."""
     from repro_torch.core.quant import mx_operand, quant_per_tensor
-    from repro_torch.kernels import dispatch, mx_bwd, mx_fused
+    from repro_torch.kernels import (dispatch, mx_bwd, mx_fused, mx_gemm,
+                                     mx_quant)
 
     gen = torch.Generator(device="cuda").manual_seed(2)
     m = TRAIN_M
@@ -816,8 +833,17 @@ def phase_train_kernels(torch, timer) -> dict:
         for what, xin, wq, fmt in (("fwd", x, qw, "e4m3"),
                                    ("dx", g, qwt, "e5m2")):
             kk, nn = wq.shape
+            # the call as dispatch.fused_quant_matmul makes it: the
+            # level-1 scale, the quantizer, the wgmma tile
+            counters = (mx_quant.counter_amax, mx_quant.counter,
+                        mx_gemm.counter_tiled)
+            counts = [c.count for c in counters]
             s = dispatch.global_scale(xin, fmt)
             acc, q, se = mx_fused.fused_quant_gemm(xin, s, wq, fmt)
+            if [c.count - n for c, n in zip(counters, counts)] != [1] * 3:
+                raise AssertionError(f"fused_quant_gemm {what} M={m}: not "
+                                     "one global_amax, one mx_quant and "
+                                     "one mx_gemm_tiled launch")
             acc_p, q_p, se_p = mx_fused.fused_quant_gemm_plain(xin, s, wq,
                                                                fmt)
             q_mis = int((q.view(torch.uint8) != q_p.view(torch.uint8))
@@ -920,8 +946,12 @@ def phase_recipe_kernels(torch, timer) -> dict:
     (e4m3 activations per 128 along K against the e4m3 weights), dx
     (the e5m2 gradient per 128 along N against Wᵀ) and dW (the
     residual's transpose requantized per 128 tokens against the e5m2
-    gradient); mx_quant at (2048, 4096) e4m3 on bf16 input and (2048,
-    11008) e5m2 on f32 input."""
+    gradient); the level-1 scale (global_amax) bitwise its plain version
+    on the quantizer's inputs and on edge cases (NaN, inf, zeros,
+    subnormals, ragged sizes, the head's (2048, 50304) gradient); then
+    mx_quant and global_amax at (2048, 4096) e4m3 on bf16 input and
+    (2048, 11008) e5m2 on f32 input, each timed, and the two as the
+    linear layers call them (dispatch.mx_quantize)."""
     from repro_torch.core.quant import quant_per_group, quant_per_tensor
     from repro_torch.kernels import dispatch, group_gemm, mx_quant
 
@@ -987,9 +1017,25 @@ def phase_recipe_kernels(torch, timer) -> dict:
         torch.cuda.empty_cache()
     res["group_gemm"]["max_abs_err"] = worst
 
-    for (mm, kk), fmt, dt in (((m, 4096), "e4m3", torch.bfloat16),
-                              ((m, 11008), "e5m2", torch.float32)):
-        x = _activations(torch, gen, mm, kk).to(dt)
+    # the level-1 scale: the global_amax kernel bitwise its plain version
+    # on the two training inputs below and on the edge cases (NaN
+    # propagates, inf gives inf, zeros and subnormals give TINY / FP8_MAX,
+    # ragged sizes take the kernel's scalar tail, a shape of many blocks)
+    worst_s = 0.0
+    for label, x, fmt in _amax_cases(torch, gen):
+        got = mx_quant.global_amax(x, fmt)
+        want = mx_quant.global_scale_plain(x, fmt)
+        same = _same_scale(torch, got, want)
+        print(f"global_amax {label} {x.dtype} {tuple(x.shape)} {fmt}: "
+              f"{float(got):.6g}, plain {float(want):.6g}, bitwise {same}")
+        if not same:
+            raise AssertionError(f"global_amax {label}")
+        if torch.isfinite(want):
+            worst_s = max(worst_s, float((got - want).abs()))
+        del x
+
+    for (mm, kk), fmt, dt in QUANT_TIMED:
+        x = _activations(torch, gen, mm, kk).to(getattr(torch, dt))
         s = dispatch.global_scale(x, fmt)
         q, se = mx_quant.mx_quant(x, s, fmt)
         q_p, se_p = mx_quant.mx_quant_plain(x, s, fmt)
@@ -1005,13 +1051,72 @@ def phase_recipe_kernels(torch, timer) -> dict:
         tp = timer.ms(lambda: mx_quant.mx_quant_plain(x, s, fmt))
         b, by = bound_ms(x.element_size() * mm * kk + 4 + mm * kk
                          + mm * kk // 32, 0.0)
-        print(f", {t:.4f} ms, plain {tp:.4f} ms, library none, bound "
-              f"{b:.4f} ms ({by})")
+        print(f", {t:.4f} ms ({b / t:.1%} of the bound), plain {tp:.4f} "
+              f"ms, library none, bound {b:.4f} ms ({by})")
+        # the level-1 scale alone: x read once, s written
+        ta = timer.ms(lambda: mx_quant.global_amax(x, fmt))
+        tap = timer.ms(lambda: mx_quant.global_scale_plain(x, fmt))
+        tal = timer.ms(lambda: torch.linalg.vector_norm(x, float("inf")))
+        ba, bya = bound_ms(x.element_size() * mm * kk + 4, 0.0)
+        print(f"global_amax {dt} M={mm} K={kk}: {ta:.4f} ms ({ba / ta:.1%} "
+              f"of the bound), plain {tap:.4f} ms, library {tal:.4f} ms "
+              f"(torch.linalg.vector_norm(x, inf): the amax alone), bound "
+              f"{ba:.4f} ms ({bya})")
+        # the quantizer as the linear layers call it: the level-1 scale,
+        # then the group pass (dispatch.mx_quantize; x cold, then from L2)
+        tc = timer.ms(lambda: dispatch.mx_quantize(x, fmt))
+        tcp = timer.ms(lambda: mx_quant.mx_quant_plain(
+            x, mx_quant.global_scale_plain(x, fmt), fmt))
+        print(f"quantizer as called (global_amax + mx_quant) {fmt} {dt} "
+              f"M={mm} K={kk}: {tc:.4f} ms, plain {tcp:.4f} ms, bound "
+              f"{ba + b:.4f} ms (both passes' bytes)")
         if fmt == "e4m3":
             res["mx_quant"] = dict(ms=t, plain_ms=tp, library_ms=None,
                                    bound_ms=b, bound_by=by, max_abs_err=0.0)
+            res["global_amax"] = dict(ms=ta, plain_ms=tap, library_ms=tal,
+                                      bound_ms=ba, bound_by=bya,
+                                      max_abs_err=worst_s)
         del x, q, se, q_p, se_p
     return res
+
+
+def _same_scale(torch, got, want) -> bool:
+    """Two level-1 scales bit for bit (a NaN equal to any NaN)."""
+    if bool(torch.isnan(want)):
+        return bool(torch.isnan(got))
+    return torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def _amax_cases(torch, gen):
+    """(label, x, fmt) for the global_amax gate: the two training inputs
+    of the quantizer timings, then the edge cases."""
+    m = TRAIN_M
+    out = []
+    for (mm, kk), fmt, dt in QUANT_TIMED:
+        out.append(("training", _activations(torch, gen, mm, kk).to(
+            getattr(torch, dt)), fmt))
+    big = torch.randn(m, 4096, device="cuda", generator=gen)
+    nan, inf = big.clone(), big.clone()
+    nan[1000, 17] = float("nan")
+    inf[7, 4095] = -float("inf")
+    for dt in (torch.float32, torch.bfloat16):
+        out += [("all-zero", torch.zeros(33, 4096, device="cuda", dtype=dt),
+                 "e4m3"),
+                ("with a NaN", nan.to(dt), "e4m3"),
+                ("with an inf", inf.to(dt), "e5m2"),
+                ("ragged (scalar tail)", torch.randn(
+                    3, 37, device="cuda", generator=gen).to(dt), "e4m3"),
+                ("one group", torch.randn(1, 32, device="cuda",
+                                          generator=gen).to(dt), "e5m2")]
+    out.append(("all-subnormal", torch.full((5, 96), 1e-40, device="cuda"),
+                "e4m3"))
+    out.append(("all-subnormal", torch.full((5, 96), -1e-40, device="cuda")
+                .to(torch.bfloat16), "e5m2"))
+    # the head's dx gradient: (2048, 50304) f32, more blocks than one wave
+    head = torch.randn(m, 50304, device="cuda", generator=gen) * 1e-3
+    head[m - 1, 50303] = 7.5
+    out.append(("head gradient", head, "e5m2"))
+    return out
 
 
 def phase_table6(torch, timer) -> dict:
@@ -1029,8 +1134,9 @@ def phase_table6(torch, timer) -> dict:
     from repro_torch.kernels import (dispatch, group_gemm, mx_fused,
                                      mx_gemm, mx_quant, ops)
 
-    counters = [mx_quant.counter, mx_gemm.counter, mx_gemm.counter_tiled,
-                group_gemm.counter, mx_fused.counter_tiled]
+    counters = [mx_quant.counter, mx_quant.counter_amax, mx_gemm.counter,
+                mx_gemm.counter_tiled, group_gemm.counter,
+                mx_fused.counter_tiled]
     gen = torch.Generator(device="cuda").manual_seed(4)
     launches = {c.name: 0 for c in counters}
     for m, n, k in TABLE6_MNK:
@@ -1094,12 +1200,13 @@ def phase_table6(torch, timer) -> dict:
         del x, w, xg, xt, wq, wc, xb, wb, q, sexp, outs, ref
         torch.cuda.empty_cache()
     print(f"launches on the ablation path: {json.dumps(launches)}")
-    # per shape: mx_quantize and moss_linear's quantizer launch mx_quant,
-    # mx_matmul and moss_linear's GEMM the wgmma tile (M > 32), never the
-    # M <= 32 tile; coat_matmul launches group_gemm; moss_linear is one
-    # fused_quant_gemm call
+    # per shape: mx_quantize and moss_linear's quantizer launch
+    # global_amax and mx_quant, mx_matmul and moss_linear's GEMM the
+    # wgmma tile (M > 32), never the M <= 32 tile; coat_matmul launches
+    # group_gemm; moss_linear is one fused_quant_gemm call
     n = len(TABLE6_MNK)
-    want = {"mx_quant": 2 * n, "mx_gemm": 0, "mx_gemm_tiled": 2 * n,
+    want = {"mx_quant": 2 * n, "global_amax": 2 * n, "mx_gemm": 0,
+            "mx_gemm_tiled": 2 * n,
             "group_gemm": n, "fused_quant_gemm_tiled": n}
     if launches != want:
         raise AssertionError(f"ablation path: launches {launches}, "
@@ -1222,7 +1329,7 @@ def phase_engine(torch, np) -> dict:
     from repro_torch.kernels import decode_attn, mx_fused, mx_gemm, mx_quant
 
     counters = [mx_gemm.counter, mx_fused.counter, mx_quant.counter,
-                decode_attn.counter]
+                mx_quant.counter_amax, decode_attn.counter]
     for c in counters:
         c.reset()
     reqs, build_s, run_s, st = _serve_once(torch, np, seed=0)
@@ -1240,12 +1347,14 @@ def phase_engine(torch, np) -> dict:
             raise AssertionError(f"kernel {name} was not launched on the "
                                  "main path")
     # the calibration forward's fused_quant_gemm calls (M 32) are the
-    # serving path's only quantizer launches: one each, beside one launch
-    # of the M <= 32 tile (counted in mx_gemm with the decode steps')
-    if launches["mx_quant"] != launches["fused_quant_gemm"]:
-        raise AssertionError(f"mx_quant {launches['mx_quant']} launches, "
-                             f"{launches['fused_quant_gemm']} calibration "
-                             "calls")
+    # serving path's only quantizer launches: one global_amax and one
+    # mx_quant each, beside one launch of the M <= 32 tile (counted in
+    # mx_gemm with the decode steps')
+    for name in ("mx_quant", "global_amax"):
+        if launches[name] != launches["fused_quant_gemm"]:
+            raise AssertionError(f"{name} {launches[name]} launches, "
+                                 f"{launches['fused_quant_gemm']} "
+                                 "calibration calls")
     again, *_ = _serve_once(torch, np, seed=0)
     if [r.out for r in reqs] != [r.out for r in again]:
         raise AssertionError("two runs from the same seed differ")
@@ -1412,8 +1521,8 @@ def phase_engine_ring(torch, np) -> dict:
     from repro_torch.kernels import decode_attn, mx_fused, mx_gemm, mx_quant
 
     counters = [mx_gemm.counter, mx_gemm.counter_tiled, mx_fused.counter,
-                mx_quant.counter, decode_attn.counter_contiguous,
-                decode_attn.counter]
+                mx_quant.counter, mx_quant.counter_amax,
+                decode_attn.counter_contiguous, decode_attn.counter]
     for c in counters:
         c.reset()
     reqs, build_s, run_s, st, wrapped = _serve_ring_once(torch, np, seed=0)
@@ -1436,9 +1545,10 @@ def phase_engine_ring(torch, np) -> dict:
         if launches[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched on the "
                                  "windowed path")
-    if launches["mx_quant"] != launches["fused_quant_gemm"]:
-        raise AssertionError("windowed path: mx_quant launches differ "
-                             "from the calibration calls")
+    for name in ("mx_quant", "global_amax"):
+        if launches[name] != launches["fused_quant_gemm"]:
+            raise AssertionError(f"windowed path: {name} launches differ "
+                                 "from the calibration calls")
     if wrapped < 4:
         raise AssertionError(f"only {wrapped} rings wrapped")
     again, *_ = _serve_ring_once(torch, np, seed=0)
@@ -1577,7 +1687,7 @@ def phase_train(torch, np) -> dict:
     print(f"train: {n_params / 1e9:.3f}B parameters")
     counters = [mx_fused.counter, mx_fused.counter_tiled, mx_bwd.counter,
                 mx_bwd.counter_requant, group_gemm.counter, mx_quant.counter,
-                mx_gemm.counter, mx_gemm.counter_tiled]
+                mx_quant.counter_amax, mx_gemm.counter, mx_gemm.counter_tiled]
     losses, launches = {}, {}
     for mode in TRAIN_MODES:
         cfg = _train_cfg(get_config, quant_from_name, mode, smoke=False)
@@ -1609,16 +1719,16 @@ def phase_train(torch, np) -> dict:
         torch.cuda.empty_cache()
     # per step: the forward at every linear site (7 a layer + the head),
     # the remat recompute of the layers' sites, dx and dW at every site;
-    # each fused_quant_gemm call (M 2048 > 32) launches mx_quant and the
-    # wgmma tile, each mx_dw_gemm call the dw_requant pass and the tile
-    # (counted on mx_dw_gemm, not mx_gemm_tiled)
+    # each fused_quant_gemm call (M 2048 > 32) launches global_amax,
+    # mx_quant and the wgmma tile, each mx_dw_gemm call the dw_requant
+    # pass and the tile (counted on mx_dw_gemm, not mx_gemm_tiled)
     sites = 7 * TRAIN_LAYERS + 1
     fused = 3 * (2 * sites + 7 * TRAIN_LAYERS)
     none = {c.name: 0 for c in counters}
     want = {
         "moss": {**none, "fused_quant_gemm_tiled": fused, "mx_quant": fused,
-                 "mx_gemm_tiled": fused, "mx_dw_gemm": 3 * sites,
-                 "dw_requant": 3 * sites},
+                 "global_amax": fused, "mx_gemm_tiled": fused,
+                 "mx_dw_gemm": 3 * sites, "dw_requant": 3 * sites},
         "bf16": none,
         "per_group": {**none,
                       "group_gemm": 3 * (3 * sites + 7 * TRAIN_LAYERS)},
@@ -1638,8 +1748,8 @@ def phase_train(torch, np) -> dict:
                 raise AssertionError(f"train step {i}: {mode} {a} vs "
                                      f"bf16 {b}")
     return {name: launches["moss"][name] for name in
-            ("fused_quant_gemm_tiled", "mx_quant", "mx_gemm_tiled",
-             "mx_dw_gemm", "dw_requant")} | {
+            ("fused_quant_gemm_tiled", "mx_quant", "global_amax",
+             "mx_gemm_tiled", "mx_dw_gemm", "dw_requant")} | {
                  "group_gemm": launches["per_group"]["group_gemm"]}
 
 
@@ -1868,8 +1978,8 @@ def phase_moe_train(torch, np) -> tuple[dict, dict]:
     print(f"moe kernel checks: {time.monotonic() - t0:.1f} s")
     counters = [moe_gmm.counter, moe_gmm.counter_dw, mx_fused.counter,
                 mx_fused.counter_tiled, mx_bwd.counter, mx_bwd.counter_requant,
-                group_gemm.counter, mx_quant.counter, mx_gemm.counter,
-                mx_gemm.counter_tiled]
+                group_gemm.counter, mx_quant.counter, mx_quant.counter_amax,
+                mx_gemm.counter, mx_gemm.counter_tiled]
     losses, launches = {}, {}
     for mode in ("moss", "bf16"):
         cfg = _moe_cfg(get_config, quant_from_name, mode, smoke=False)
@@ -1906,12 +2016,14 @@ def phase_moe_train(torch, np) -> tuple[dict, dict]:
     # gate and down take moe_gmm in the forward, the recompute and dx,
     # and moe_dw_gemm for dW; each fused call (M 8192) launches mx_quant
     # and the wgmma tile (14 a step), each moe_gmm call mx_quant and the
-    # grouped tile (9 a step): 23 mx_quant a step, 69 in 3; each dW call
+    # grouped tile (9 a step): 23 mx_quant a step, 69 in 3, each behind
+    # one global_amax; each dW call
     # (5 mx_dw_gemm, 3 moe_dw_gemm) one dw_requant pass: 8 a step
     none = {c.name: 0 for c in counters}
     want = {"moss": {**none, "moe_gmm": 3 * 9, "moe_dw_gemm": 3 * 3,
                      "fused_quant_gemm_tiled": 3 * 14,
-                     "mx_quant": 3 * (14 + 9), "mx_gemm_tiled": 3 * 14,
+                     "mx_quant": 3 * (14 + 9), "global_amax": 3 * (14 + 9),
+                     "mx_gemm_tiled": 3 * 14,
                      "mx_dw_gemm": 3 * 5, "dw_requant": 3 * (5 + 3)},
             "bf16": none}
     for mode, got in launches.items():
@@ -2031,8 +2143,8 @@ def main() -> int:
     # fused_quant_gemm the calibration forward's calls, M 32, each one
     # mx_quant and one mx_gemm launch) from the engine, the verify forms from
     # the spec engine, decode_attn from the windowed engine,
-    # fused_quant_gemm_tiled (calls at M > 32), the mx_quant and
-    # mx_gemm_tiled launches they make, and mx_dw_gemm with its
+    # fused_quant_gemm_tiled (calls at M > 32), the global_amax,
+    # mx_quant and mx_gemm_tiled launches they make, and mx_dw_gemm with its
     # dw_requant passes from the moss steps, group_gemm from the
     # per_group steps, moe_gmm and moe_dw_gemm from the MoE moss steps
     launches.update(spec_launches)

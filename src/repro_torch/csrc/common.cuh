@@ -57,14 +57,34 @@ __device__ __forceinline__ int e8m0_exponent(float r, float inv_ln2) {
   return static_cast<int>(e);
 }
 
+// A group's effective scale d = ftz(ftz(2^e) * s), as quant_mx divides
+// by it.
+__device__ __forceinline__ float mx_denom(int e, float s) {
+  return ftz(ftz(exp2i(e)) * s);
+}
+
+// One element's quotient v / d (an IEEE division; 0 where d is 0),
+// clamped to +-FP8_MAX: what the fp8 cast then rounds.
+__device__ __forceinline__ float mx_scaled(float v, float denom,
+                                           float fmax) {
+  const float qv = denom > 0.f ? v / denom : 0.f;
+  return fminf(fmaxf(qv, -fmax), fmax);
+}
+
 // One element's saturating fp8 payload against its group's effective
-// scale d = ftz(ftz(2^e) * s), as quant_mx computes it (0 where d is 0).
+// scale, as quant_mx computes it.
 __device__ __forceinline__ uint8_t mx_quant_value(float v, int e, float s,
                                                   float fmax, bool e5m2) {
-  const float denom = ftz(ftz(exp2i(e)) * s);
-  float qv = denom > 0.f ? v / denom : 0.f;
-  qv = fminf(fmaxf(qv, -fmax), fmax);
-  return float_to_fp8(qv, e5m2);
+  return float_to_fp8(mx_scaled(v, mx_denom(e, s), fmax), e5m2);
+}
+
+// Two clamped quotients -> two fp8 bytes (a in the low byte) in one
+// cvt.rn.satfinite.{e4m3,e5m2}x2.f32: the rounding of float_to_fp8,
+// which converts one value with the same instruction.
+template <bool E5M2>
+__device__ __forceinline__ uint32_t float2_to_fp8x2(float a, float b) {
+  return static_cast<uint32_t>(__nv_cvt_float2_to_fp8x2(
+      make_float2(a, b), __NV_SATFINITE, E5M2 ? __NV_E5M2 : __NV_E4M3));
 }
 
 __device__ __forceinline__ float bf16_round(float v) {

@@ -46,6 +46,8 @@ SIGNATURES = {
                           _INT, _INT, _INT, _VOID],
     "mx_quant_launch": [_VOID, _VOID, _VOID, _VOID, _LONG, _INT, _INT,
                         _FLOAT, _FLOAT, _VOID],
+    "global_amax_launch": [_VOID, _LONG, _INT, _VOID, _INT, _VOID, _FLOAT,
+                           _VOID],
     "group_gemm_launch": [_VOID, _VOID, _VOID, _VOID, _INT, _INT, _INT,
                           _INT, _INT, _INT, _VOID],
     "moe_gmm_launch": [_VOID, _VOID, _VOID, _VOID, _VOID, _INT, _INT, _INT,

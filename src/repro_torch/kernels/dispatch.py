@@ -4,7 +4,8 @@ and contiguous).
 
 Counterpart of ``repro.kernels.dispatch``.  What the reference keeps
 here stays here: the single global amax of the two-level quantizers'
-level-1 scale, the f32 epilogues (``acc · s_x · s_w``, ``acc · s_w``
+level-1 scale (on the card one launch of ``kernels.mx_quant``'s
+``global_amax`` kernel), the f32 epilogues (``acc · s_x · s_w``, ``acc · s_w``
 after the per-group GEMM, and ``acc · s_x · s_g`` for dW with its
 ``out_rows`` slice), and on the plain path the padding of the GQA group
 rows to 8 and the slice back.  The reference pads M and N to its Pallas
@@ -30,7 +31,6 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.formats import TINY, div_c, fp8_max
 from repro_torch.core.quant import (MxQ, PerGroupQ, PerTensorQ, pad_axis,
                                     pt_gemm)
 
@@ -40,7 +40,7 @@ from .moe_gmm import moe_dw_gemm, moe_gmm
 from .mx_bwd import mx_dw_gemm
 from .mx_fused import fused_quant_gemm
 from .mx_gemm import mx_gemm
-from .mx_quant import mx_quant
+from .mx_quant import global_amax, mx_quant
 
 MICRO = 32
 
@@ -51,9 +51,10 @@ def _ceil_to(v: int, mult: int) -> int:
 
 def global_scale(x: torch.Tensor, fmt: str = "e4m3") -> torch.Tensor:
     """Level-1 scale: max(amax|x|, TINY) / FP8_MAX (as
-    ``repro.kernels.ref.global_scale_ref``)."""
-    amax = x.to(torch.float32).abs().amax()
-    return div_c(torch.clamp_min(amax, TINY), fp8_max(fmt))
+    ``repro.kernels.ref.global_scale_ref``): one launch of the
+    ``global_amax`` kernel on the card, its plain version on the CPU
+    (``kernels.mx_quant``)."""
+    return global_amax(x.contiguous(), fmt)
 
 
 def mx_quantize(x2d: torch.Tensor, fmt: str = "e4m3",
@@ -65,8 +66,9 @@ def mx_quantize(x2d: torch.Tensor, fmt: str = "e4m3",
                          f"micro_group={micro_group}")
     if micro_group != MICRO:
         raise NotImplementedError(f"micro_group={micro_group}")
+    x2d = x2d.contiguous()
     s = global_scale(x2d, fmt)
-    q, sexp = mx_quant(x2d.contiguous(), s, fmt)
+    q, sexp = mx_quant(x2d, s, fmt)
     return MxQ(q=q, sexp=sexp, s=s)
 
 
@@ -93,8 +95,9 @@ def fused_quant_matmul(x2d: torch.Tensor, wq: PerTensorQ,
                          f"micro_group={micro_group}")
     if micro_group != MICRO:
         raise NotImplementedError(f"micro_group={micro_group}")
+    x2d = x2d.contiguous()
     s = global_scale(x2d, fmt)
-    acc, q, sexp = fused_quant_gemm(x2d.contiguous(), s, wq.q, fmt)
+    acc, q, sexp = fused_quant_gemm(x2d, s, wq.q, fmt)
     y = (acc * (s * wq.s)).to(out_dtype)
     return y, MxQ(q=q, sexp=sexp, s=s)
 
@@ -137,8 +140,9 @@ def moe_grouped_matmul(x2d: torch.Tensor, group_sizes: torch.Tensor,
                          f"micro_group={micro_group}")
     if micro_group != MICRO:
         raise NotImplementedError(f"micro_group={micro_group}")
+    x2d = x2d.contiguous()
     s = global_scale(x2d, fmt)
-    acc, q, sexp = moe_gmm(x2d.contiguous(), s, qw_stack.contiguous(),
+    acc, q, sexp = moe_gmm(x2d, s, qw_stack.contiguous(),
                            group_sizes.to(torch.int32).contiguous(),
                            capacity, fmt)
     row_scale = s * w_scales.to(torch.float32).repeat_interleave(capacity)

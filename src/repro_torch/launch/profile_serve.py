@@ -10,8 +10,9 @@ serves one untraced warm-up trace, then serves a second trace under
 ``REPRO_SPEC_DECODE=1``, ``verify_step`` span.  From the profiler's Chrome trace it reports,
 per kind of step: the host span of the step function, the card's busy
 time for the work launched in it (the union of its kernels' and copies'
-intervals), the launches, and the card time by kernel; and for the
-whole traced run the card's idle share.
+intervals), the launches, the card time by kernel, the port kernels'
+launches and the PyTorch ops issued (the ten most frequent, and
+``WATCHED_OPS``); and for the whole traced run the card's idle share.
 
   PYTHONPATH=src python -m repro_torch.launch.profile_serve \\
       --trace build/serve_trace.json
@@ -44,8 +45,11 @@ SPANS = ("decode_step", "prefill_chunk", "prefill", "verify_step")
 # slots and the combine)
 PORT_KERNELS = ("mx_gemm_kernel", "mx_gemm_tiled_kernel",
                 "mx_dw_gemm_kernel", "group_gemm_kernel", "mx_quant_kernel",
-                "decode_attn_kernel", "moe_gmm_kernel",
+                "global_amax_kernel", "decode_attn_kernel", "moe_gmm_kernel",
                 "moe_dw_gemm_kernel", "dw_requant_kernel")
+# PyTorch ops counted per step beside the most frequent ones: the plain
+# torch of a level-1 scale (abs, amax) that global_amax_kernel replaces
+WATCHED_OPS = ("aten::abs", "aten::amax")
 
 
 def _short(name: str) -> str:
@@ -80,6 +84,12 @@ def summarize(trace: dict, kinds=SPANS) -> dict:
         i = bisect.bisect_right(starts, ts) - 1 if ts is not None else -1
         if i >= 0 and ts <= spans[i][1]:
             per_span[i].append(g)
+    ops_in = collections.defaultdict(collections.Counter)
+    for e in ev:
+        if e.get("cat") == "cpu_op":
+            i = bisect.bisect_right(starts, e["ts"]) - 1
+            if i >= 0 and e["ts"] <= spans[i][1]:
+                ops_in[i][e["name"]] += 1
     out = {}
     for kind in kinds:
         idx = [i for i, s in enumerate(spans) if s[2] == kind]
@@ -91,6 +101,7 @@ def summarize(trace: dict, kinds=SPANS) -> dict:
                 by_kernel[_short(g["name"])] += g["dur"]
         port = sum(v for k, v in by_kernel.items()
                    if k.startswith(PORT_KERNELS))
+        ops = sum((ops_in[i] for i in idx), collections.Counter())
         n = len(idx)
         out[kind] = {
             "steps": n,
@@ -108,6 +119,12 @@ def summarize(trace: dict, kinds=SPANS) -> dict:
             "card_ms_by_port_kernel": {
                 k: v / n / 1e3 for k, v in by_kernel.most_common()
                 if k.startswith(PORT_KERNELS)},
+            "launches_by_port_kernel": {
+                k: c / n for k, c in collections.Counter(
+                    _short(g["name"]) for i in idx for g in per_span[i]
+                    if _short(g["name"]).startswith(PORT_KERNELS)).items()},
+            "ops_per_step": {k: ops[k] / n for k in dict.fromkeys(
+                [k for k, _ in ops.most_common(10)] + list(WATCHED_OPS))},
         }
     t0 = spans[0][0] if spans else 0.0
     t1 = max([spans[-1][1]] + [g["ts"] + g["dur"] for g in gpu

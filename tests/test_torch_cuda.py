@@ -1092,6 +1092,111 @@ def test_mx_quant_exponent_boundaries_match_plain(cuda):
         assert torch.equal(q.view(torch.uint8), q_p.view(torch.uint8))
 
 
+def _same_scale(got, want):
+    """Two level-1 scales bit for bit, a NaN equal to any NaN (the card
+    returns its canonical NaN from a division)."""
+    if bool(torch.isnan(want)):
+        return bool(torch.isnan(got))
+    return torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def _scale_case(case, dev):
+    x = _x(64, 4096, 5)
+    if case == "all_zero":
+        x[:] = 0.0
+    elif case == "all_subnormal":
+        x = torch.where(x < 0, -1e-40, 3e-39)
+    elif case == "inf":
+        x[63, 4095] = float("inf")
+    elif case == "nan":
+        x[0, 1] = float("nan")
+    elif case == "nan_and_inf":
+        x[5, 7] = -float("inf")
+        x[60, 70] = float("nan")
+    elif case == "ragged":
+        x = x.reshape(-1)[:4099].reshape(1, 4099)
+    return x.to(dev)
+
+
+@pytest.mark.parametrize("fmt", ["e4m3", "e5m2"])
+def test_global_amax_matches_plain(cuda, fmt):
+    """The level-1 scale kernel bit for bit its plain version on the
+    quantizer's shapes, f32 and bf16, each a single launch."""
+    for m, k in QUANT_SHAPES:
+        x = _x(m, k, m + k).to(cuda)
+        for xin in (x, x.bfloat16()):
+            before = mx_quant.counter_amax.count
+            got = mx_quant.global_amax(xin, fmt)
+            assert mx_quant.counter_amax.count == before + 1
+            assert got.shape == () and got.device == xin.device
+            assert _same_scale(got, mx_quant.global_scale_plain(xin, fmt))
+
+
+@pytest.mark.parametrize("case", ["all_zero", "all_subnormal", "inf", "nan",
+                                  "nan_and_inf", "ragged"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_global_amax_edge_cases_match_plain(cuda, case, dtype):
+    """NaN propagates (as torch.amax), inf gives an inf scale, zeros and
+    subnormals give TINY / FP8_MAX, a size that is no multiple of a
+    16-byte vector takes the scalar tail; an unaligned view too."""
+    x = _scale_case(case, cuda).to(dtype)
+    for fmt in ("e4m3", "e5m2"):
+        assert _same_scale(mx_quant.global_amax(x, fmt),
+                           mx_quant.global_scale_plain(x, fmt))
+    view = x.reshape(-1)[1:]
+    assert view.data_ptr() % 16
+    assert _same_scale(mx_quant.global_amax(view),
+                       mx_quant.global_scale_plain(view))
+
+
+def test_global_amax_many_blocks_and_calls_in_a_row(cuda):
+    """The head's dx input (2048, 50304) f32 needs more blocks than one
+    wave; calls in a row, a larger maximum and then a smaller one, each
+    find the block counter back at 0 and give the plain version's bits."""
+    big = torch.randn(2048, 50304, device=cuda,
+                      generator=torch.Generator(cuda).manual_seed(0))
+    big[2047, 50303] = 123.0
+    small = _x(33, 4096, 1).to(cuda)
+    for x in (big, big, small, big.bfloat16(), small.bfloat16(), small):
+        assert _same_scale(mx_quant.global_amax(x, "e5m2"),
+                           mx_quant.global_scale_plain(x, "e5m2"))
+
+
+@pytest.mark.parametrize("k", [3072, 8192])
+@pytest.mark.parametrize("m", [1, 4, 32])
+def test_mx_quant_small_m_matches_plain(cuda, m, k):
+    """The serving rows (decode M 1 and 4, the calibration's M 32): the
+    group pass bit for bit the plain version in both formats."""
+    x = _x(m, k, m * k).to(cuda)
+    for xin in (x, x.bfloat16()):
+        for fmt in ("e4m3", "e5m2"):
+            s = dispatch.global_scale(xin, fmt)
+            q, se = mx_quant.mx_quant(xin, s, fmt)
+            q_p, se_p = mx_quant.mx_quant_plain(xin, s, fmt)
+            assert torch.equal(q.view(torch.uint8), q_p.view(torch.uint8))
+            assert torch.equal(se, se_p)
+
+
+@pytest.mark.parametrize("m", [5, 256])
+def test_fused_call_is_one_scale_one_quantizer_one_tile(cuda, m):
+    """dispatch.fused_quant_matmul is one global_amax launch, one
+    mx_quant launch and one launch of the tile for M, and nothing of
+    plain torch's amax: its scale equals the plain version's."""
+    k, n = 256, 200
+    x = _x(m, k, m).to(cuda).bfloat16()
+    w = torch.tensor(np.random.default_rng(n).standard_normal((k, n)),
+                     dtype=torch.float32) * 0.05
+    wq = quant_per_tensor(w, "e4m3")
+    wq = PerTensorQ(q=wq.q.to(cuda), s=wq.s.to(cuda))
+    counters = (mx_quant.counter_amax, mx_quant.counter, mx_gemm.counter,
+                mx_gemm.counter_tiled)
+    before = [c.count for c in counters]
+    _, xq = dispatch.fused_quant_matmul(x, wq)
+    tile = [1, 0] if m <= 32 else [0, 1]
+    assert [c.count - b for c, b in zip(counters, before)] == [1, 1] + tile
+    assert _same_scale(xq.s, mx_quant.global_scale_plain(x))
+
+
 # pt_matmul on the card against the CPU's plain upcast product: both
 # multiply the exact fp8 values and add in f32, so only the order of the
 # f32 sum differs, in every pairing of the two formats.

@@ -150,6 +150,71 @@ def test_mx_quant_plain_matches_pallas(m, k, fmt, kind, blocks):
     _same(jref.global_scale_ref(_jax(tx), fmt), s)
 
 
+def _scale_input(case: str, shape) -> np.ndarray:
+    rng = np.random.default_rng(shape[0] * shape[1])
+    x = rng.standard_normal(shape).astype(np.float32)
+    if case == "all_zero":
+        x[:] = 0.0
+    elif case == "all_subnormal":
+        x = np.where(x < 0, -1e-40, 3e-39).astype(np.float32)
+    elif case == "inf":
+        x.flat[x.size // 2] = -np.inf
+    elif case == "nan":
+        x.flat[x.size - 1] = np.nan
+    return x
+
+
+@pytest.mark.parametrize("shape", [(1, 32), (5, 96), (33, 4096)])
+@pytest.mark.parametrize("case", ["random", "all_zero", "all_subnormal",
+                                  "inf", "nan"])
+@pytest.mark.parametrize("fmt", ["e4m3", "e5m2"])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_global_scale_matches_reference(dtype, fmt, case, shape):
+    """The level-1 scale max(amax|x|, TINY) / FP8_MAX on the CPU (the
+    plain version of the global_amax kernel) bit for bit the
+    reference's: a NaN propagates, an inf gives an inf scale, zeros and
+    subnormals give TINY / FP8_MAX."""
+    tx = torch.tensor(_scale_input(case, shape))
+    if dtype == "bf16":
+        tx = tx.bfloat16()
+    s = dispatch.global_scale(tx, fmt)
+    want = jref.global_scale_ref(_jax(tx), fmt)
+    assert s.shape == () and s.dtype == torch.float32
+    if case == "nan":
+        assert bool(torch.isnan(s)) and bool(jnp.isnan(want))
+        return
+    _same(want, s)
+    if case in ("all_zero", "all_subnormal"):
+        assert float(s) == float(np.float32(tformats.TINY)
+                                 / np.float32(tformats.fp8_max(fmt)))
+    if case == "inf":
+        assert float(s) == np.inf
+
+
+@pytest.mark.parametrize("call,args,error", [
+    ("global_amax", (torch.zeros(4, 32, dtype=torch.int32),), TypeError),
+    ("global_amax", (torch.zeros(0, 32),), ValueError),
+    ("global_amax", (torch.zeros(4, 32), "e3m4"), ValueError),
+    ("global_amax", (torch.zeros(4, 32, device="meta"),), ValueError),
+    ("global_scale", (torch.zeros(4, 32, dtype=torch.float16),), TypeError),
+    ("mx_quant", (torch.zeros(4, 32, dtype=torch.int32), torch.ones(())),
+     TypeError),
+    ("mx_quant", (torch.zeros(4, 48), torch.ones(())), ValueError),
+    ("mx_quant", (torch.zeros(2, 4, 32), torch.ones(())), ValueError),
+    ("mx_quant", (torch.zeros(4, 32), torch.ones(2)), ValueError),
+    ("mx_quant", (torch.zeros(4, 32), torch.ones(()), "e3m4"), ValueError),
+    ("mx_quant", (torch.zeros(4, 32, device="meta"), torch.ones(())),
+     ValueError),
+])
+def test_quantizer_wrappers_reject_bad_arguments(call, args, error):
+    """The quantizer's wrappers refuse what neither kernel takes, on any
+    device, before they reach a kernel or a plain version."""
+    fn = dispatch.global_scale if call == "global_scale" else \
+        getattr(mx_quant, call)
+    with pytest.raises(error):
+        fn(*args)
+
+
 @pytest.mark.parametrize("bk", [128, 256])
 def test_group_gemm_plain_matches_pallas(bk):
     m, k, n = 128, 512, 256

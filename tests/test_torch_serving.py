@@ -666,3 +666,38 @@ def test_profile_summary_attributes_card_time_to_steps():
     assert run["wall_ms"] == pytest.approx(0.4)
     assert run["card_busy_ms"] == pytest.approx(0.18)
     assert run["card_idle_share"] == pytest.approx(0.55)
+
+
+def test_profile_summary_counts_port_launches_and_watched_ops():
+    """Per step: each port kernel's launches, and the PyTorch ops issued
+    inside the span (the most frequent, and the watched abs and amax of
+    a plain level-1 scale, 0 when absent)."""
+    from repro_torch.launch.profile_serve import summarize
+
+    def x(cat, name, ts, dur, corr=None):
+        e = {"ph": "X", "cat": cat, "name": name, "ts": ts, "dur": dur}
+        if corr is not None:
+            e["args"] = {"correlation": corr}
+        return e
+
+    trace = {"traceEvents": [
+        x("user_annotation", "train_step", 0.0, 100.0),
+        x("user_annotation", "train_step", 200.0, 100.0),
+        x("cpu_op", "aten::mul", 1.0, 1.0),
+        x("cpu_op", "aten::abs", 2.0, 1.0),
+        x("cpu_op", "aten::mul", 201.0, 1.0),
+        x("cpu_op", "aten::abs", 150.0, 1.0),          # between steps
+        x("cuda_runtime", "cudaLaunchKernel", 5.0, 1.0, 1),
+        x("cuda_runtime", "cudaLaunchKernel", 6.0, 1.0, 2),
+        x("cuda_runtime", "cudaLaunchKernel", 205.0, 1.0, 3),
+        x("kernel", "void global_amax_kernel<true>(args)", 10.0, 5.0, 1),
+        x("kernel", "void mx_quant_kernel<8, false>(args)", 20.0, 9.0, 2),
+        x("kernel", "void global_amax_kernel<true>(args)", 210.0, 5.0, 3),
+    ]}
+    s = summarize(trace, ("train_step",))["train_step"]
+    assert s["launches_by_port_kernel"] == {
+        "global_amax_kernel<true>(args)": 1.0,
+        "mx_quant_kernel<8, false>(args)": 0.5}
+    assert s["ops_per_step"] == {"aten::mul": 1.0, "aten::abs": 0.5,
+                                 "aten::amax": 0.0}
+    assert s["card_ms_port_kernels"] == pytest.approx(0.0095)
