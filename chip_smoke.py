@@ -9,11 +9,13 @@ Phases, each fatal on failure:
   3. the kernels: each kernel against its plain PyTorch version at the
      shapes its path gives it -- mx_gemm's weight-streaming tile (M <=
      32) at M 4 (decode), 16 (verify) and 32 (prefill chunk) over
-     full-width phi3-mini-3.8b's and h2o-danube-3-4b's serving shapes,
-     the rows of the M 4 and M 16 calls bitwise those of the M 32 call;
-     the calibration fused_quant_gemm (the mx_quant kernel then that
-     tile) and paged decode attention (4 pages a slot, within 1e-5, and
-     256 pages a slot at ~4,000 live slots, within attn_limit); mx_gemm's
+     full-width phi3-mini-3.8b's, h2o-danube-3-4b's and phi3.5-moe-42b-
+     a6.6b's serving shapes, the rows of the M 4 and M 16 calls bitwise
+     those of the M 32 call; the calibration fused_quant_gemm (the
+     mx_quant kernel then that tile; phi3-mini's shapes at M 32, the
+     MoE's at M 4, 16 and 32) and paged decode attention (phi3-mini's 4
+     pages a slot and the MoE's GQA 8 x 4, Dh 128, within 1e-5, and 256
+     pages a slot at ~4,000 live slots, within attn_limit); mx_gemm's
      wgmma
      tile (M > 32: mx_gemm_tiled) at
      Table 6's shapes, h2o-danube-3-4b's 4160-token prefill and a ragged
@@ -43,8 +45,8 @@ Phases, each fatal on failure:
      plus twice the plain version's own error against float64 (see
      attn_limit); the verify (q_len > 1) form of both decode kernels at
      phi3-mini's verify step (S 4, G 1; paged and contiguous, 64 and
-     ~4096 slots) and at h2o-danube-3-4b's widths (contiguous,
-     unwrapped, S 4, G 4), within
+     ~4096 slots), at h2o-danube-3-4b's widths (contiguous,
+     unwrapped, S 4, G 4) and at the MoE's (paged, S 4, G 4), within
      the same limit of the 5-D plain version and each draft row bitwise
      the q_len = 1 kernel at that draft's limit; each decode line also
      prints the kernel's share of its bound and its time over SDPA's;
@@ -60,14 +62,28 @@ Phases, each fatal on failure:
      them with the n-gram draft, an oracle draft of the plain streams and
      the oracle under identity placement, each stream equal to the plain
      one, launching the verify forms; 2 prompts of ~4000 tokens give the
-     same streams plainly and with the oracle draft; then
+     same streams plainly and with the oracle draft; the reference's
+     three serving switches, each for one run (REPRO_SERVE_PREQUANT=0:
+     no mx_quant launch but the calibration's, streams phase 4's up to
+     a tie; REPRO_SERVE_DELAYED_ACT=0: fused_quant_gemm at every
+     quantized site of every decode step; REPRO_DECODE_ATTN=einsum: no
+     decode_attn launch, and every attention call of a second run within
+     attn_limit of the kernel on the same rows); phi3.5-moe-
+     42b-a6.6b at full width, depth cut to 4 layers, serving 8 requests
+     on floating pages through the masked dense combine (each decode
+     step's launches as counted from the code: 3 expert GEMMs per
+     expert per layer, the attention's 4 and the head's; the
+     calibration's fused_quant_gemm per (layer, expert) site), equal
+     streams on a second run, on identity rows and with speculative
+     verify (oracle draft); then
      h2o-danube-3-4b (sliding window 4096) at full
      width and depth serves 6 requests whose rings wrap, through
      identity rows and the whole-prompt prefill, launching decode_attn
      and not decode_attn_paged, with equal streams on a second run; the
      port on the card must agree with the port on the CPU on smoke-size
-     models (phi3-mini's chunked step, h2o's prefill past the window and
-     its ring decode);
+     models (phi3-mini's chunked step, also under the two scale
+     switches, phi3.5-moe's steps and its engine's streams, h2o's
+     prefill past the window and its ring decode);
   5. the ablation (the paper's Table 6): the quantizer/GEMM entry points
      of kernels.ops at its three (M, N, K) shapes -- the MOSS GEMM
      (mx_gemm's wgmma tile), the COAT GEMM (group_gemm: the same tile,
@@ -81,10 +97,13 @@ Phases, each fatal on failure:
   6. training: olmo-7b at full width, depth cut to 4 layers, takes 3
      moss, 3 bf16, 3 per_group and 3 per_tensor steps of batch 1 x 2048
      tokens from the same weights and batches; each quantized recipe
-     must launch exactly its kernels the counted number of times; the
-     smoke-size olmo-7b trains 3 steps in moss, per_group and
-     per_tensor on the card and on the CPU from the same initial state
-     and batches, each device on its own trajectory;
+     must launch exactly its kernels the counted number of times;
+     llama2-7b (RMSNorm) at full width, 4 layers, 3 moss and 3 bf16
+     steps of 1 x 4096 tokens under the same gates; the smoke-size
+     olmo-7b trains 3 steps in moss, per_group and per_tensor, and the
+     smoke-size llama2-7b in moss, on the card and on the CPU from the
+     same initial state and batches, each device on its own
+     trajectory;
   7. MoE training: phi3.5-moe-42b-a6.6b at full width, depth cut to 1
      layer, batch 2 x 4096 (8192 tokens: the grouped route): moe_gmm (the
      mx_quant kernel over the buffer, then the wgmma tile per row block,
@@ -99,6 +118,8 @@ Phases, each fatal on failure:
      grouped route on the card and on the CPU (phase 6's check);
   8. the kernels line (JSON), the card line, and the last line
      {"ok": true, "device": {...}}.
+
+Each phase prints its wall seconds, and the script its total.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -122,6 +143,10 @@ GEMM_KN = [(3072, 3072), (3072, 8192), (8192, 3072), (3072, 32064)]
 # the head, down
 H2O_DECODE_KN = [(3840, 3840), (3840, 960), (3840, 10240), (3840, 32000),
                  (10240, 3840)]
+# phi3.5-moe-42b-a6.6b's decode GEMMs (K, N): q and o, k and v, each
+# expert's up and gate, its down, the head
+MOE_DECODE_KN = [(4096, 4096), (4096, 1024), (4096, 6400), (6400, 4096),
+                 (4096, 32064)]
 # mx_gemm's M <= 32 tile: decode (batch 4), verify (4 x 4 drafts) and
 # prefill-chunk (32 tokens) rows
 SMALL_M = (4, 16, 32)
@@ -146,15 +171,24 @@ TILED_MNK = TABLE6_MNK + [(4160, 5760, 3840), (4160, 3840, 3840),
 MOE_ARCH = "phi3.5-moe-42b-a6.6b"
 MOE_LAYERS = 1                      # of 32: f32 master + grads + moments
 MOE_BATCH, MOE_SEQ = 2, 4096        # 8192 tokens > 4096: the grouped route
+# of 32: 32 layers are ~84 GB in bf16 (launch/profile_serve.py's
+# MOE_SERVE_LAYERS must equal it)
+MOE_SERVE_LAYERS = 4
+LLAMA_ARCH = "llama2-7b"
+LLAMA_LAYERS = 4                    # of 32: f32 master + grads + moments
+LLAMA_M = 4096                      # batch 1 x seq 4096 (paper Table 8)
+TIE = 1e-3                          # a top-two logit gap <= TIE * max|logit|
 RING_ARCH = "h2o-danube-3-4b"       # sliding window 4096: a ring cache
 # prompts at or past the window (the keep-last-C prefill), two that wrap
 # during decode, two that refill slots at other depths
 RING_PROMPTS = [4160, 4120, 4072, 4060, 512, 97]
 RING_MAX_NEW, RING_MAX_LEN = 48, 4352
-# paged decode attention, phi3-mini's (B 4, KV 32, G 1, Dh 96, pages of
-# 16): (pages a slot, n_valid) of the serving phase and of a long context
-PAGED_SHAPES = {"phi3": (4, [17, 64, 33, 5]),
-                "phi3-long": (256, [3000, 4096, 3517, 3999])}
+# paged decode attention, pages of 16 (B, KV, G, Dh, pages a slot,
+# n_valid): phi3-mini's serving phase and a long context, and the MoE
+# serving phase's (phi3.5-moe: GQA 8 x 4, Dh 128)
+PAGED_SHAPES = {"phi3": (4, 32, 1, 96, 4, [17, 64, 33, 5]),
+                "phi3-long": (4, 32, 1, 96, 256, [3000, 4096, 3517, 3999]),
+                "phi3.5-moe": (4, 8, 4, 128, 4, [17, 64, 33, 5])}
 # contiguous decode attention (B, KV, G, Dh, C, n_valid): h2o-danube-3-4b's
 # decode (rows 0-1 wrapped, 2-3 partial), recurrentgemma-2b's local layer
 RING_SHAPES = {"h2o": (4, 8, 4, 120, 4096, [4100, 4200, 300, 97]),
@@ -166,7 +200,8 @@ RING_SHAPES = {"h2o": (4, 8, 4, 120, 4096, [4100, 4200, 300, 97]),
 # under identity placement its contiguous rows of max_len 64), phi3-mini
 # at a long context (256 pages a slot; identity rows of 4160 slots) and
 # h2o-danube-3-4b's widths on an unwrapped contiguous cache (S 4 x G 4:
-# two blocks a kv head)
+# two blocks a kv head), and the MoE serving phase's verify step (4
+# drafts x G 4 = 16 rows a kv head on pages)
 VERIFY_SHAPES = {
     "phi3": ("paged", 4, 32, 4, 1, 96, 16, 4, [17, 64, 33, 5]),
     "phi3-long": ("paged", 4, 32, 4, 1, 96, 16, 256,
@@ -176,7 +211,12 @@ VERIFY_SHAPES = {
     "phi3-identity-long": ("contiguous", 4, 32, 4, 1, 96, 4160, 1,
                            [3000, 4096, 3517, 3999]),
     "h2o": ("contiguous", 4, 8, 4, 4, 120, 4096, 1, [4096, 4000, 300, 97]),
+    "phi3.5-moe": ("paged", 4, 8, 4, 4, 128, 16, 4, [17, 64, 33, 5]),
 }
+# the kernel checks at the MoE serving phase's shapes, reported in the
+# kernels line under "moe_serving" beside each kernel's own entry
+MOE_CHECKED = ("mx_gemm", "fused_quant_gemm", "decode_attn_paged",
+               "decode_attn_paged_verify")
 # the verify entries of the kernels line: the shapes of the spec engine
 # phase's launches
 VERIFY_REPORTED = {"decode_attn_paged_verify": "phi3",
@@ -347,8 +387,8 @@ def phase_kernels(torch, timer) -> dict:
     # (each (K, N) at M 32 first; the M 4 and M 16 calls' rows must be
     # the M 32 call's first rows bit for bit: a row's bits do not depend
     # on the batch)
-    worst = 0.0
-    for k, n in GEMM_KN + H2O_DECODE_KN:
+    worst, moe_worst = 0.0, 0.0
+    for k, n in GEMM_KN + H2O_DECODE_KN + MOE_DECODE_KN:
         if (k, n) not in weights:
             w = torch.randn(k, n, device="cuda", generator=gen) / k ** 0.5
             weights[k, n] = quant_per_tensor(w).q
@@ -375,6 +415,8 @@ def phase_kernels(torch, timer) -> dict:
                                      "rows differ from the same rows at "
                                      f"M={max(SMALL_M)}")
             worst = max(worst, err)
+            if (k, n) in MOE_DECODE_KN:
+                moe_worst = max(moe_worst, err)
             opnd = mx_operand(q, se)
             wb = qw.to(torch.bfloat16)
             t = timer.ms(lambda: mx_gemm.mx_gemm(q, se, qw))
@@ -394,61 +436,72 @@ def phase_kernels(torch, timer) -> dict:
         print(f"mx_gemm K={k} N={n}: rows at M "
               f"{sorted(SMALL_M)[:-1]} bitwise the M={max(SMALL_M)} rows")
     res["mx_gemm"]["max_abs_err"] = worst
+    res["mx_gemm"]["moe_serving"] = dict(
+        kn=MOE_DECODE_KN, m=list(SMALL_M), max_abs_err=moe_worst)
 
     # -- fused_quant_gemm: M = 32 (the calibration forward) -----------
-    worst = 0.0
-    for fmt in ("e4m3", "e5m2"):
-        for k, n in GEMM_KN:
-            qw = weights[k, n]
-            x = _activations(torch, gen, 32, k)
-            # the call as dispatch.fused_quant_matmul makes it: the
-            # level-1 scale, the quantizer, the M <= 32 tile
-            counters = (mx_quant.counter_amax, mx_quant.counter,
-                        mx_gemm.counter)
-            counts = [c.count for c in counters]
-            s = dispatch.global_scale(x, fmt)
-            acc, q, se = mx_fused.fused_quant_gemm(x, s, qw, fmt)
-            if [c.count - n for c, n in zip(counters, counts)] != [1] * 3:
-                raise AssertionError("fused_quant_gemm M=32: not one "
-                                     "global_amax, one mx_quant and one "
-                                     "mx_gemm launch")
-            acc_p, q_p, se_p = mx_fused.fused_quant_gemm_plain(x, s, qw, fmt)
-            q_mis = int((q.view(torch.uint8) != q_p.view(torch.uint8)).sum())
-            e_mis = int((se != se_p).sum())
-            err = float((acc - acc_p).abs().max())
-            scale = float(acc_p.abs().max())
-            print(f"fused_quant_gemm {fmt} M=32 K={k} N={n}: max_err "
-                  f"{err:.3g} (max|ref| {scale:.3g}), payload mismatches "
-                  f"q {q_mis} / sexp {e_mis} (of {q.numel()} / "
-                  f"{se.numel()})", end="")
-            if q_mis or e_mis or not err <= 1e-5 * scale:
-                print()
-                raise AssertionError(f"fused_quant_gemm {fmt} K={k} N={n}")
-            worst = max(worst, err)
-            opnd = mx_operand(q_p, se_p)
-            wb = qw.to(torch.bfloat16)
-            t = timer.ms(lambda: mx_fused.fused_quant_gemm(x, s, qw, fmt))
-            tp = timer.ms(lambda: mx_fused.fused_quant_gemm_plain(
-                x, s, qw, fmt))
-            tl = timer.ms(lambda: torch.matmul(opnd, wb))
-            b, by = bound_ms(2 * 32 * k + 4 + k * n + 4 * 32 * n + 32 * k
-                             + 32 * k // 32, 2.0 * 32 * n * k)
-            print(f", {t:.4f} ms, plain {tp:.4f} ms, library {tl:.4f} ms, "
-                  f"bound {b * 1e3:.2f} us ({by}), {b / t:.1%} of the "
-                  f"bound, {t / tl:.3f}x torch.matmul's time")
-            if (fmt, k, n) == ("e4m3", 3072, 8192):
-                res["fused_quant_gemm"] = dict(ms=t, plain_ms=tp,
-                                               library_ms=tl, bound_ms=b,
-                                               bound_by=by)
+    # and at the MoE serving phase's shapes, M 4, 16 and 32 (its
+    # calibration forward and, under REPRO_SERVE_DELAYED_ACT=0, its decode
+    # and chunk rows)
+    worst, moe_worst = 0.0, 0.0
+    cases = [(fmt, 32, k, n) for fmt in ("e4m3", "e5m2") for k, n in GEMM_KN]
+    cases += [("e4m3", m, k, n) for k, n in MOE_DECODE_KN for m in SMALL_M]
+    for fmt, m, k, n in cases:
+        qw = weights[k, n]
+        x = _activations(torch, gen, m, k)
+        # the call as dispatch.fused_quant_matmul makes it: the
+        # level-1 scale, the quantizer, the M <= 32 tile
+        counters = (mx_quant.counter_amax, mx_quant.counter,
+                    mx_gemm.counter)
+        counts = [c.count for c in counters]
+        s = dispatch.global_scale(x, fmt)
+        acc, q, se = mx_fused.fused_quant_gemm(x, s, qw, fmt)
+        if [c.count - n for c, n in zip(counters, counts)] != [1] * 3:
+            raise AssertionError(f"fused_quant_gemm M={m}: not one "
+                                 "global_amax, one mx_quant and one "
+                                 "mx_gemm launch")
+        acc_p, q_p, se_p = mx_fused.fused_quant_gemm_plain(x, s, qw, fmt)
+        q_mis = int((q.view(torch.uint8) != q_p.view(torch.uint8)).sum())
+        e_mis = int((se != se_p).sum())
+        err = float((acc - acc_p).abs().max())
+        scale = float(acc_p.abs().max())
+        print(f"fused_quant_gemm {fmt} M={m} K={k} N={n}: max_err "
+              f"{err:.3g} (max|ref| {scale:.3g}), payload mismatches "
+              f"q {q_mis} / sexp {e_mis} (of {q.numel()} / "
+              f"{se.numel()})", end="")
+        if q_mis or e_mis or not err <= 1e-5 * scale:
+            print()
+            raise AssertionError(f"fused_quant_gemm {fmt} M={m} K={k} "
+                                 f"N={n}")
+        worst = max(worst, err)
+        if (k, n) in MOE_DECODE_KN:
+            moe_worst = max(moe_worst, err)
+        opnd = mx_operand(q_p, se_p)
+        wb = qw.to(torch.bfloat16)
+        t = timer.ms(lambda: mx_fused.fused_quant_gemm(x, s, qw, fmt))
+        tp = timer.ms(lambda: mx_fused.fused_quant_gemm_plain(
+            x, s, qw, fmt))
+        tl = timer.ms(lambda: torch.matmul(opnd, wb))
+        b, by = bound_ms(2 * m * k + 4 + k * n + 4 * m * n + m * k
+                         + m * k // 32, 2.0 * m * n * k)
+        print(f", {t:.4f} ms, plain {tp:.4f} ms, library {tl:.4f} ms, "
+              f"bound {b * 1e3:.2f} us ({by}), {b / t:.1%} of the "
+              f"bound, {t / tl:.3f}x torch.matmul's time")
+        if (fmt, m, k, n) == ("e4m3", 32, 3072, 8192):
+            res["fused_quant_gemm"] = dict(ms=t, plain_ms=tp,
+                                           library_ms=tl, bound_ms=b,
+                                           bound_by=by)
     res["fused_quant_gemm"]["max_abs_err"] = worst
+    res["fused_quant_gemm"]["moe_serving"] = dict(
+        kn=MOE_DECODE_KN, m=list(SMALL_M), max_abs_err=moe_worst)
 
-    # -- decode_attn_paged: B=4, KV=32, Dh=96, T=16 -------------------
-    # (the G = 1 query row of each (slot, kv-head), as dispatch passes it)
-    # at the serving phase's 4 pages a slot, and at a long context of 256
-    # pages a slot; the kernels line reports the first
-    b_, kvh, dh, t_ = 4, 32, 96, 16
-    worst = 0.0
-    for name, (n_p, nv_list) in PAGED_SHAPES.items():
+    # -- decode_attn_paged: pages of 16 ------------------------------
+    # (the G query rows of each (slot, kv-head), as dispatch passes them)
+    # at PAGED_SHAPES; the kernels line reports phi3-mini's serving
+    # shape, and the MoE's under "moe_serving"
+    t_ = 16
+    worst, moe = 0.0, {}
+    for name, (b_, kvh, g, dh, n_p, nv_list) in PAGED_SHAPES.items():
         pool = b_ * n_p + 1
         kf = torch.randn(pool, kvh, t_, dh, device="cuda", generator=gen)
         vf = torch.randn(pool, kvh, t_, dh, device="cuda", generator=gen)
@@ -457,7 +510,7 @@ def phase_kernels(torch, timer) -> dict:
         nv = torch.tensor(nv_list, dtype=torch.int32, device="cuda")
         sm = dh ** -0.5
         for kv_dtype in ("fp8", "bf16"):
-            q = torch.randn(b_, kvh, 1, dh, device="cuda", generator=gen)
+            q = torch.randn(b_, kvh, g, dh, device="cuda", generator=gen)
             if kv_dtype == "fp8":
                 (k, ks), (v, vs) = _quant_kv(kf), _quant_kv(vf)
             else:
@@ -487,26 +540,30 @@ def phase_kernels(torch, timer) -> dict:
                 *args, sm_scale=sm))
             tp = timer.ms(lambda: decode_attn.decode_attn_paged_plain(
                 *args, sm_scale=sm))
-            # the function's work: the G = 1 query row of each (b, kv-head)
+            # the function's work: the G query rows of each (b, kv-head)
             live = int(torch.clamp_max(nv, n_p * t_).sum())
             elt = 1 if kv_dtype == "fp8" else 2
-            nbytes = (b_ * kvh * dh * (2 + 4)               # q (bf16), out
+            nbytes = (b_ * kvh * g * dh * (2 + 4)           # q (bf16), out
                       + 2 * live * kvh * dh * elt           # live K and V
                       + (2 * live * kvh * 4 if ks is not None else 0)
                       + 4 * b_ + 4 * b_ * n_p)              # n_valid, table
-            b, by = bound_ms(nbytes, 4.0 * live * kvh * dh,
+            b, by = bound_ms(nbytes, 4.0 * live * kvh * g * dh,
                              FP8_FLOPS if kv_dtype == "fp8" else BF16_FLOPS)
-            print(f"decode_attn_paged {name} {kv_dtype} B={b_} KV={kvh} G=1 "
-                  f"Dh={dh} T={t_} NP={n_p} n_valid={nv.tolist()}: max_err "
-                  f"{err:.3g}{gate}, {t:.4f} ms, plain {tp:.4f} ms, library "
-                  f"{tl:.4f} ms (SDPA, gathered bf16 cache), bound "
+            print(f"decode_attn_paged {name} {kv_dtype} B={b_} KV={kvh} "
+                  f"G={g} Dh={dh} T={t_} NP={n_p} n_valid={nv.tolist()}: "
+                  f"max_err {err:.3g}{gate}, {t:.4f} ms, plain {tp:.4f} ms, "
+                  f"library {tl:.4f} ms (SDPA, gathered bf16 cache), bound "
                   f"{b * 1e3:.2f} us ({by}){against(t, b, tl)}")
-            if kv_dtype == "fp8" and n_p == 4:
+            if kv_dtype == "fp8" and name == "phi3":
                 res["decode_attn_paged"] = dict(ms=t, plain_ms=tp,
                                                 library_ms=tl, bound_ms=b,
                                                 bound_by=by)
+            if name == "phi3.5-moe":
+                moe = dict(shape=[b_, kvh, g, dh, n_p], n_valid=nv_list,
+                           max_abs_err=max(moe.get("max_abs_err", 0.0), err))
             del k, v, ks, vs, got, want
         del kf, vf
+    res["decode_attn_paged"]["moe_serving"] = moe
     res["decode_attn_paged"]["max_abs_err"] = worst
     return res
 
@@ -602,12 +659,14 @@ def sdpa_on_cache(torch, F, q, kb, vb, nv, sm):
                                                   attn_mask=mask, scale=sm)
 
 
-def decode_attn_f64(torch, q, k, v, ks, vs, nv, sm):
+def decode_attn_f64(torch, q, k, v, ks, vs, nv, sm, flips: bool = False):
     """decode_attn_ref's function evaluated in float64 (bf16 q and K,
     the weights rounded to bf16 as there): the yardstick of the f32
     round-off of the plain version and the kernel.  q (B, KV, G, Dh), or
     the verify form (B, KV, S, G, Dh) whose draft j sees the slots below
-    n_valid - (S-1-j)."""
+    n_valid - (S-1-j).  ``flips`` also returns, per output, what moving
+    every weight's bf16 rounding by one ulp moves it by at the most:
+    sum over slots of ulp(w) * |v|."""
     c = k.shape[2]
     f = lambda t: t.float().to(torch.bfloat16).double()
     q5 = q if q.dim() == 5 else q[:, :, None]
@@ -622,9 +681,15 @@ def decode_attn_f64(torch, q, k, v, ks, vs, nv, sm):
     w = p / p.sum(dim=-1, keepdim=True)
     if vs is not None:
         w = w * vs.double()[:, :, None, None, :]
-    out = torch.einsum("bksgt,bktd->bksgd", w.to(torch.bfloat16).double(),
-                       f(v))
-    return out if q.dim() == 5 else out[:, :, 0]
+    wb = w.to(torch.bfloat16).double()
+    out = torch.einsum("bksgt,bktd->bksgd", wb, f(v))
+    if not flips:
+        return out if q.dim() == 5 else out[:, :, 0]
+    # a bf16 weight m * 2^e (m in [0.5, 1)) has an ulp of 2^(e - 8)
+    ulp = torch.where(wb != 0, torch.exp2(
+        torch.frexp(wb).exponent.double() - 8), 0.0)
+    bound = torch.einsum("bksgt,bktd->bksgd", ulp, f(v).abs())
+    return (out, bound) if q.dim() == 5 else (out[:, :, 0], bound[:, :, 0])
 
 
 def attn_limit(torch, got, want, exact) -> tuple[float, float, float]:
@@ -720,7 +785,7 @@ def phase_verify_kernels(torch, timer) -> dict:
     from repro_torch.models.attention import _quant_kv
 
     gen = torch.Generator(device="cuda").manual_seed(7)
-    res, worst = {}, {}
+    res, worst, moe = {}, {}, {}
     for name, (layout, b_, kvh, s_len, g, dh, t_, n_p, nv) in \
             VERIFY_SHAPES.items():
         paged = layout == "paged"
@@ -803,10 +868,15 @@ def phase_verify_kernels(torch, timer) -> dict:
             if VERIFY_REPORTED.get(key) == name and kv_dtype == "fp8":
                 res[key] = dict(ms=t, plain_ms=tp, library_ms=tl,
                                 bound_ms=b, bound_by=by)
+            if name == "phi3.5-moe":
+                moe = dict(shape=[b_, kvh, s_len, g, dh, n_p],
+                           n_valid=nv.tolist(),
+                           max_abs_err=max(moe.get("max_abs_err", 0.0), err))
             del k, v, ks, vs, got, want, cont
         del q, kf, vf, rows
     for key, err in worst.items():
         res[key]["max_abs_err"] = err
+    res["decode_attn_paged_verify"]["moe_serving"] = moe
     torch.cuda.empty_cache()
     return res
 
@@ -1231,16 +1301,90 @@ def _checked(torch, fn, finite):
     return step
 
 
+def _record_gaps(torch, eng, gaps: dict):
+    """For every token ``eng`` emits, record in ``gaps[rid]`` the gap
+    between the top two logits it was sampled from and max|logit| (one
+    host read a step: for the untimed runs only)."""
+    step, on_token, last = eng.decode, eng.sched.on_token, {}
+
+    def decode(params, caches, toks):
+        logits, caches = step(params, caches, toks)
+        if toks.shape[1] == 1:
+            lg, rows = logits[:, 0], list(eng.kv.rows)
+        else:                     # a prefill chunk: its last real token
+            st = eng._staging
+            n_real = min(toks.shape[1], st.req.prompt_len - st.pos)
+            lg, rows = logits[:, n_real - 1], [st.req.rid]
+        top = torch.topk(lg.float(), 2, dim=-1).values
+        last.update(rows={rid: i for i, rid in enumerate(rows)},
+                    gap=(top[:, 0] - top[:, 1]).cpu().tolist(),
+                    big=lg.float().abs().amax(-1).cpu().tolist())
+        return logits, caches
+
+    def rec(req, token):
+        i = last["rows"][req.rid]
+        gaps.setdefault(req.rid, []).append((last["gap"][i], last["big"][i]))
+        return on_token(req, token)
+
+    eng.decode, eng.sched.on_token = decode, rec
+
+
+def _divergence(got: list, want: list, gaps: dict) -> list:
+    """(request, token, gap) for each stream of ``got`` that leaves
+    ``want``: the first token that differs and the top-two gap of the
+    logits ``want``'s run sampled it from, over max|logit| (``gaps``:
+    ``_record_gaps`` of that run)."""
+    out = []
+    for rid, (a, b) in enumerate(zip(got, want)):
+        if a != b:
+            t = next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
+            gap, big = gaps[rid][t]
+            out.append((rid, t, gap / big))
+    return out
+
+
+def _divergence_line(div: list, n: int) -> str:
+    return ("streams equal phase 4's" if not div else
+            f"{len(div)} of {n} streams leave phase 4's: " + ", ".join(
+                f"request {rid} at token {t} (top-two gap {g:.3g} of "
+                "max|logit|)" for rid, t, g in div))
+
+
+def _step_deltas(eng, counters, log: list):
+    """Record in ``log`` each decode step's (B, 1) launches by counter."""
+    step = eng.decode
+
+    def decode(params, caches, toks):
+        before = [c.count for c in counters]
+        out = step(params, caches, toks)
+        if toks.shape[1] == 1:
+            log.append({c.name: c.count - b
+                        for c, b in zip(counters, before)})
+        return out
+
+    eng.decode = decode
+
+
 def _serve_once(torch, np, seed: int, float_pages: bool = True,
-                reqs=None, max_len: int = 64, **engine_kw):
+                reqs=None, max_len: int = 64, arch: str = ARCH,
+                layers: int | None = None, gaps: dict | None = None,
+                step_log: tuple | None = None, wrap_decode=None,
+                **engine_kw):
     """Serve ``reqs`` (phase 4's 8 requests by default) through a
-    full-width phi3-mini engine on weights from ``seed``; returns the
-    requests, the build and serve seconds and the engine's stats."""
+    full-width engine of ``arch`` (depth cut to ``layers`` if given) on
+    weights from ``seed``; with ``gaps`` records each token's top-two
+    logit gap, with ``step_log`` ((counters, list)) each decode step's
+    launches; ``wrap_decode(eng)`` wraps the engine's own step first.
+    Returns the requests, the build and serve seconds and the engine's
+    stats (with the run's peak memory)."""
     from repro_torch.configs.registry import get_config
     from repro_torch.launch.serve import random_params
     from repro_torch.serving import Engine, Request
 
-    cfg = get_config(ARCH)
+    cfg = get_config(arch)
+    if layers is not None:
+        cfg = cfg.replace(n_layers=layers)
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.monotonic()
     eng = Engine(cfg, random_params(cfg, seed, "cuda"), num_slots=4,
                  max_len=max_len, page_size=16, device="cuda", **engine_kw)
@@ -1251,10 +1395,16 @@ def _serve_once(torch, np, seed: int, float_pages: bool = True,
                              f"chunked={eng.chunked}")
     if eng.spec != bool(engine_kw.get("spec_decode")):
         raise AssertionError(f"engine took spec={eng.spec}")
+    if wrap_decode is not None:
+        wrap_decode(eng)
     finite = []
     eng.decode = _checked(torch, eng.decode, finite)
     if eng.spec:
         eng.verify = _checked(torch, eng.verify, finite)
+    if step_log is not None:
+        _step_deltas(eng, *step_log)
+    if gaps is not None:
+        _record_gaps(torch, eng, gaps)
     if reqs is None:
         reqs = _requests(Request, np, cfg, seed)
     t0 = time.monotonic()
@@ -1266,9 +1416,67 @@ def _serve_once(torch, np, seed: int, float_pages: bool = True,
     if not bool(torch.stack(finite).all()):
         raise AssertionError("non-finite logits on the main path")
     st = eng.stats()
+    st["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
     del eng
     torch.cuda.empty_cache()
     return reqs, build_s, run_s, st
+
+
+def _beside_kernels(torch, eng, name: str, rel: list, attn: list):
+    """Wrap ``eng``'s decode step, run under ``name``=einsum, and the
+    einsum path (``dispatch.decode_attention_plain``) for that run.
+    Before each decode step, the same step with the decode kernels
+    (``name`` unset) on the same cache and tokens; ``rel`` gets max|d
+    logit| / max|logit| of the two (a tensor a step).  Each writes the
+    step's K and V at the same depth in every layer before it reads
+    them, so the einsum step reads the cache its own run holds.  Every
+    einsum attention call also runs the kernel on the same rows; ``attn``
+    gets ``attn_limit``'s (error, own error, limit) against the float64
+    evaluation and whether each output is within that limit plus twice
+    what one bf16 ulp of every weight moves it by (each version rounds a
+    weight to bf16, either of them may land one ulp from the other).
+    Returns the function that puts dispatch back."""
+    import os
+
+    from repro_torch.kernels import decode_attn, dispatch
+
+    step, plain = eng.decode, dispatch.decode_attention_plain
+
+    def decode(params, caches, toks):
+        if toks.shape[1] == 1:
+            value = os.environ.pop(name)
+            try:
+                ref, _ = step(params, caches, toks)
+            finally:
+                os.environ[name] = value
+        logits, caches = step(params, caches, toks)
+        if toks.shape[1] == 1:
+            ref = ref.float()
+            rel.append((logits.float() - ref).abs().amax()
+                       / ref.abs().amax())
+        return logits, caches
+
+    def both(q, k, v, ks, vs, n_valid, block_table=None, *, sm_scale):
+        out = plain(q, k, v, ks, vs, n_valid, block_table, sm_scale=sm_scale)
+        if block_table is None:
+            got = dispatch.decode_attention(q, k, v, ks, vs, n_valid,
+                                            sm_scale=sm_scale)
+            cont = (k, v, ks, vs)
+        else:
+            got = dispatch.decode_attention_paged(
+                q, k, v, ks, vs, n_valid, block_table, sm_scale=sm_scale)
+            cont = [None if x is None else decode_attn.gather_pages(
+                x, block_table) for x in (k, v, ks, vs)]
+        exact, flip = decode_attn_f64(torch, q, *cont,
+                                      n_valid.expand(q.shape[0]), sm_scale,
+                                      flips=True)
+        err, own, lim = attn_limit(torch, got, out, exact)
+        ok = bool(((got - out).abs().double() <= lim + 2 * flip).all())
+        attn.append((err, own, lim, ok))
+        return out
+
+    eng.decode, dispatch.decode_attention_plain = decode, both
+    return lambda: setattr(dispatch, "decode_attention_plain", plain)
 
 
 def _with_env(name: str, value: str, fn):
@@ -1355,7 +1563,8 @@ def phase_engine(torch, np) -> dict:
             raise AssertionError(f"{name} {launches[name]} launches, "
                                  f"{launches['fused_quant_gemm']} "
                                  "calibration calls")
-    again, *_ = _serve_once(torch, np, seed=0)
+    gaps = {}
+    again, *_ = _serve_once(torch, np, seed=0, gaps=gaps)
     if [r.out for r in reqs] != [r.out for r in again]:
         raise AssertionError("two runs from the same seed differ")
     print("second run from the same seed: identical streams")
@@ -1368,7 +1577,7 @@ def phase_engine(torch, np) -> dict:
     print(f"identity placement: streams equal the floating pages' (serve "
           f"{run_i:.2f} s)")
     _legacy_server(torch, np)
-    return launches, [list(r.out) for r in reqs]
+    return launches, [list(r.out) for r in reqs], gaps
 
 
 class Oracle:
@@ -1558,26 +1767,236 @@ def phase_engine_ring(torch, np) -> dict:
     return launches
 
 
-def phase_small_reference(torch, np):
-    """The port on the card against the port on the CPU (plain
-    versions) on a smoke-size model, fed the same tokens: one
-    chunked-prefill step and three decode steps; logits within
-    2e-2 * max|logit| (f32 sums in another order, then bf16 roundings)."""
+def _serve_line(label, reqs, run_s, st):
+    toks = sum(len(r.out) for r in reqs)
+    print(f"{label}: {len(reqs)} requests, {toks} tokens, serve "
+          f"{run_s:.2f} s = {toks / run_s:.1f} tok/s, {st['decode_steps']} "
+          f"decode steps, mean decode step "
+          f"{1e3 * st['mean_decode_step_s']:.2f} ms, "
+          f"{st['chunk_prefill_steps']} prefill chunks, peak memory "
+          f"{st['peak_gib']:.2f} GiB")
+
+
+def _check_steps(label, log: list, want: dict):
+    """Every decode step of ``log`` launched exactly ``want``."""
+    if not log:
+        raise AssertionError(f"{label}: no decode step")
+    for i, got in enumerate(log):
+        if got != want:
+            raise AssertionError(f"{label}: decode step {i} launched "
+                                 f"{got}, expected {want}")
+    print(f"{label}: each of {len(log)} decode steps launched "
+          f"{json.dumps(want)}")
+
+
+def _serving_counters():
+    from repro_torch.kernels import decode_attn, mx_fused, mx_gemm, mx_quant
+
+    return [mx_gemm.counter, mx_gemm.counter_tiled, mx_fused.counter,
+            mx_quant.counter, mx_quant.counter_amax, decode_attn.counter,
+            decode_attn.counter_contiguous, decode_attn.counter_verify,
+            decode_attn.counter_contiguous_verify]
+
+
+def phase_engine_hatch(torch, np, plain: list, gaps: dict):
+    """The reference's three serving switches on full-width phi3-mini,
+    phase 4's requests and weights, each set for its run only:
+    REPRO_SERVE_PREQUANT=0 (the bf16 tree quantized in every step
+    against its build-time scales: no mx_quant launch but the
+    calibration's, streams phase 4's up to a tie), REPRO_SERVE_DELAYED_
+    ACT=0 (just-in-time activation scales: fused_quant_gemm at every
+    quantized site of every decode step, each one global_amax, one
+    mx_quant and one mx_gemm launch) and REPRO_DECODE_ATTN=einsum (the
+    decode kernels' plain versions: no decode_attn launch of any form;
+    then, untimed, every attention call within ``attn_limit`` of the
+    kernel on the same rows: ``_einsum_beside_kernels``).  Each reports
+    where its streams leave phase 4's."""
     from repro_torch.configs.registry import get_config
-    from repro_torch.core.actscale import calibrate_act_scales
+
+    cfg = get_config(ARCH)
+    sites = 7 * cfg.n_layers + 1            # q k v o up gate down, head
+    counters = _serving_counters()
+    zero = {c.name: 0 for c in counters}
+    runs = [
+        ("REPRO_SERVE_PREQUANT", "0",
+         {**zero, "mx_gemm": sites, "decode_attn_paged": cfg.n_layers}),
+        ("REPRO_SERVE_DELAYED_ACT", "0",
+         {**zero, "mx_gemm": sites, "fused_quant_gemm": sites,
+          "mx_quant": sites, "global_amax": sites,
+          "decode_attn_paged": cfg.n_layers}),
+        ("REPRO_DECODE_ATTN", "einsum", {**zero, "mx_gemm": sites}),
+    ]
+    for name, value, want in runs:
+        for c in counters:
+            c.reset()
+        log = []
+        reqs, _, run_s, st = _with_env(name, value, lambda: _serve_once(
+            torch, np, seed=0, step_log=(counters, log)))
+        total = {c.name: c.count for c in counters}
+        label = f"hatch {name}={value}"
+        _serve_line(label, reqs, run_s, st)
+        _check_steps(label, log, want)
+        if name == "REPRO_SERVE_DELAYED_ACT":
+            # no calibration: every quantizer launch is a site's, in a
+            # decode step or a prefill chunk
+            calls = sites * (st["decode_steps"] + st["chunk_prefill_steps"])
+            if total["fused_quant_gemm"] != calls:
+                raise AssertionError(f"{label}: {total['fused_quant_gemm']}"
+                                     f" fused calls, expected {calls}")
+            # other activation scales: other streams, reported
+            div = _divergence([list(r.out) for r in reqs], plain, gaps)
+            print(f"{label}: {_divergence_line(div, len(reqs))}")
+            continue
+        # the only quantizer launches are the calibration's
+        if total["mx_quant"] != total["fused_quant_gemm"] or \
+                total["fused_quant_gemm"] != sites:
+            raise AssertionError(f"{label}: {total['mx_quant']} mx_quant "
+                                 f"launches, {total['fused_quant_gemm']} "
+                                 f"calibration calls of {sites} sites")
+        div = _divergence([list(r.out) for r in reqs], plain, gaps)
+        print(f"{label}: {_divergence_line(div, len(reqs))}")
+        if name == "REPRO_DECODE_ATTN":
+            _einsum_beside_kernels(torch, np, name, value)
+        # the same weights' bits: equal streams up to a tie.  (The einsum
+        # path is gated call by call above; its streams are reported.)
+        if name == "REPRO_SERVE_PREQUANT" and any(g > TIE for *_, g in div):
+            raise AssertionError(f"{label}: a stream leaves phase 4's at a "
+                                 f"top-two gap above {TIE} of max|logit|")
+
+
+def _einsum_beside_kernels(torch, np, name, value):
+    """Phase 4's run again under ``name``=``value`` (untimed), beside the
+    kernels (``_beside_kernels``): every einsum attention call within
+    ``attn_limit`` of the kernel on the same rows, or where not, within
+    one bf16 rounding of the weights of it; each decode step's logits
+    against the kernels' step on the same cache, reported.  A flipped
+    bf16 attention output that moves one fp8 rounding of the next GEMM's
+    input moves this random-weight model's logits by percents; a step
+    without one gives the kernels' logits bit for bit."""
+    rel, attn, restore = [], [], []
+    try:
+        _with_env(name, value, lambda: _serve_once(
+            torch, np, seed=0, wrap_decode=lambda eng: restore.append(
+                _beside_kernels(torch, eng, name, rel, attn))))
+    finally:
+        for fn in restore:
+            fn()
+    label = f"hatch {name}={value}"
+    past = [a for a in attn if not a[0] <= a[2]]
+    worst = max(attn, key=lambda a: a[0])
+    over = ", ".join(f"{e:.3g} > {lim:.3g}" for e, _, lim, _ in past)
+    print(f"{label}: {len(attn)} attention calls beside the kernel on the "
+          f"same rows: max |einsum - kernel| {worst[0]:.3g} (plain vs f64 "
+          f"{worst[1]:.3g}, limit {worst[2]:.3g}); {len(past)} past "
+          f"attn_limit ({over}), {sum(not a[3] for a in past)} of them "
+          "past one bf16 rounding of the weights")
+    bad = [i for i, a in enumerate(attn) if not a[3]]
+    if bad:
+        raise AssertionError(f"{label}: attention call {bad[0]}: einsum vs "
+                             f"kernel {attn[bad[0]][0]} past attn_limit "
+                             "and one bf16 rounding of the weights")
+    rel = torch.stack(rel).cpu().tolist()
+    print(f"{label}: {len(rel)} decode steps beside the kernels' on the "
+          f"same cache: logits bitwise equal in {rel.count(0.0)}, max|d "
+          f"logit| / max|logit| {', '.join(f'{r:.3g}' for r in rel)}")
+
+
+def phase_engine_moe(torch, np) -> dict:
+    """phi3.5-moe-42b-a6.6b at full width (d 4096, 16 experts top-2, d_ff
+    6400, GQA kv 8), 4 of its 32 layers (the engine builds from the
+    seeded f32 tree, 41.6 GiB at the peak with 4 layers; all 32 would
+    be ~84 GB even in bf16), on weights from a seed,
+    serves phase 4's kind of 8 requests on floating pages.  Every
+    decode step runs each layer's masked dense combine (3 expert GEMMs
+    for each of the 16 experts, mx_gemm's M <= 32 tile, each against
+    its expert's scales), the layer's 4 attention GEMMs and paged
+    decode attention, and the head; the calibration runs fused_quant_
+    gemm (global_amax, mx_quant, the tile) per (layer, expert) site.
+    A second run from the same seed, identity rows, and speculative
+    verify (k 4, an oracle draft of the plain streams) give the same
+    streams."""
+    from repro_torch.configs.registry import get_config
+
+    cfg = get_config(MOE_ARCH).replace(n_layers=MOE_SERVE_LAYERS)
+    print(f"engine {MOE_ARCH}: full width (d {cfg.d_model}, {cfg.n_heads} "
+          f"heads, {cfg.n_kv} kv heads, {cfg.n_experts} experts top-"
+          f"{cfg.top_k}, d_ff {cfg.d_ff}, vocab {cfg.vocab}), depth cut "
+          f"from 32 to {MOE_SERVE_LAYERS} layers")
+    counters = _serving_counters()
+    for c in counters:
+        c.reset()
+    log = []
+    kw = dict(seed=0, arch=MOE_ARCH, layers=MOE_SERVE_LAYERS)
+    reqs, build_s, run_s, st = _serve_once(torch, np, step_log=(counters,
+                                                                  log), **kw)
+    launches = {c.name: c.count for c in counters}
+    _serve_line(f"engine {MOE_ARCH} ({MOE_SERVE_LAYERS} layers, build "
+                f"{build_s:.2f} s)", reqs, run_s, st)
+    print(f"launches on the MoE serving path: {json.dumps(launches)}")
+    for name in ("mx_gemm", "fused_quant_gemm", "global_amax", "mx_quant",
+                 "decode_attn_paged"):
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the "
+                                 "MoE serving path")
+    # calibration: one fused call per quantized site of every layer and
+    # expert (q k v o, 3 per expert) and the head
+    sites = MOE_SERVE_LAYERS * (4 + 3 * cfg.n_experts) + 1
+    for name in ("fused_quant_gemm", "mx_quant", "global_amax"):
+        if launches[name] != sites:
+            raise AssertionError(f"MoE: {launches[name]} {name} launches, "
+                                 f"{sites} calibration sites")
+    zero = {c.name: 0 for c in counters}
+    _check_steps("MoE decode", log, {**zero, "mx_gemm": sites,
+                                      "decode_attn_paged": MOE_SERVE_LAYERS})
+    plain = [list(r.out) for r in reqs]
+    again, *_ = _serve_once(torch, np, **kw)
+    if [list(r.out) for r in again] != plain:
+        raise AssertionError("MoE: two runs from the same seed differ")
+    print("MoE second run from the same seed: identical streams")
+    ident, _, run_i, st_i = _with_env(
+        "REPRO_PAGED_PLACEMENT", "identity",
+        lambda: _serve_once(torch, np, float_pages=False, **kw))
+    if [list(r.out) for r in ident] != plain:
+        raise AssertionError("MoE: identity rows' streams differ from the "
+                             "floating pages'")
+    _serve_line("MoE identity rows (streams equal the floating pages')",
+                ident, run_i, st_i)
+    for c in counters:
+        c.reset()
+    spec, _, run_s, st = _serve_once(
+        torch, np, spec_decode=True, spec_k=SPEC_K,
+        draft=Oracle(dict(enumerate(plain))), **kw)
+    n_verify = {c.name: c.count for c in counters}[
+        "decode_attn_paged_verify"]
+    if [list(r.out) for r in spec] != plain:
+        raise AssertionError("MoE spec: streams differ from the plain run's")
+    if st["spec_verify_steps"] <= 0 or n_verify <= 0:
+        raise AssertionError("MoE spec: no verify step")
+    _spec_line("MoE oracle draft (streams equal the plain run's)", spec,
+               run_s, st, {"decode_attn_paged_verify": n_verify})
+    return launches
+
+
+def _small_steps(torch, np, cfg, label):
+    """``cfg`` (a smoke-size model) on the card against the CPU (plain
+    versions), built as the engine builds it (``prepare_weights``,
+    ``calibrate_serving``: the switches in the environment apply), fed
+    the same tokens: one chunked-prefill step and three decode steps;
+    logits within 2e-2 * max|logit| (f32 sums in another order, then
+    bf16 roundings)."""
     from repro_torch.launch.serve import random_params
     from repro_torch.models.transformer import init_paged_pools
-    from repro_torch.serving.engine import prepare_weights, to_device
+    from repro_torch.serving.engine import (calibrate_serving,
+                                            prepare_weights, to_device)
     from repro_torch.train.steps import make_decode_step
 
-    cfg = get_config(ARCH, smoke=True)
     params = random_params(cfg, 0, "cpu")
     prompt = np.random.default_rng(5).integers(0, cfg.vocab, 13)
     outs = {}
     for dev in ("cpu", "cuda"):
         with torch.inference_mode():
             qw, sc = prepare_weights(cfg, to_device(params, dev))
-            act = calibrate_act_scales(cfg, qw, sc)
+            act = calibrate_serving(cfg, qw, sc)
         step = make_decode_step(cfg, scales=sc, act_scales=act)
         pools = init_paged_pools(cfg, 64, 4, 16, dev)
         bt = torch.tensor([[2, 0, 3, 1]], dtype=torch.int32, device=dev)
@@ -1596,14 +2015,78 @@ def phase_small_reference(torch, np):
             src = logs if dev == "cpu" else outs["cpu"]
             feed = np.array([[int(src[i][-1].argmax())]], np.int32)
         outs[dev] = logs
-    for i, (a, b) in enumerate(zip(outs["cpu"], outs["cuda"])):
+    _close_logits(np, f"smoke {label} step", outs["cpu"], outs["cuda"])
+
+
+def _close_logits(np, label, cpu: list, card: list):
+    if len(cpu) != len(card):
+        raise AssertionError(f"{label}: {len(card)} steps on the card, "
+                             f"{len(cpu)} on the CPU")
+    for i, (a, b) in enumerate(zip(cpu, card)):
         tol = 2e-2 * float(np.abs(a).max())
         err = float(np.abs(a - b).max())
         if not (np.isfinite(b).all() and err <= tol):
-            raise AssertionError(f"smoke step {i}: card vs CPU logits "
+            raise AssertionError(f"{label} {i}: card vs CPU logits "
                                  f"{err} > {tol}")
-        print(f"smoke step {i}: card vs CPU max |d logit| {err:.3g} "
+        print(f"{label} {i}: card vs CPU max |d logit| {err:.3g} "
               f"(limit {tol:.3g})")
+
+
+def _small_moe_engine(torch, np):
+    """phi3.5-moe's smoke model served by the paged engine on the CPU and
+    on the card from the same weights: 5 requests of 5-31 prompt tokens,
+    8 new tokens each, a pinned chunk budget (latency targets no run can
+    miss, so both devices take the same steps); equal streams, and each
+    step's logits within 2e-2 * max|logit|."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.serve import random_params
+    from repro_torch.serving import Engine, Request, SLOTargets
+
+    cfg = get_config(MOE_ARCH, smoke=True)
+    params = random_params(cfg, 0, "cpu")
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32)
+               for n in (5, 16, 23, 9, 31)]
+    streams, logs = {}, {}
+    for dev in ("cpu", "cuda"):
+        eng = Engine(cfg, params, num_slots=3, max_len=48, chunk_tokens=16,
+                     slo=SLOTargets(ttft_s=1e9, tpot_s=1e9), device=dev)
+        step, logs[dev] = eng.decode, []
+
+        def logged(p, caches, toks, step=step, out=logs[dev]):
+            logits, caches = step(p, caches, toks)
+            out.append(logits.float().cpu().numpy())
+            return logits, caches
+
+        eng.decode = logged
+        reqs = [Request(rid=i, prompt=p, max_new=8)
+                for i, p in enumerate(prompts)]
+        eng.run(reqs, log=None)
+        streams[dev] = [list(r.out) for r in reqs]
+    if streams["cuda"] != streams["cpu"]:
+        raise AssertionError(f"smoke {MOE_ARCH} engine: card streams "
+                             f"{streams['cuda']} != CPU {streams['cpu']}")
+    print(f"smoke {MOE_ARCH} engine: card streams equal the CPU's "
+          f"({len(logs['cpu'])} steps)")
+    _close_logits(np, f"smoke {MOE_ARCH} engine step", logs["cpu"],
+                  logs["cuda"])
+
+
+def phase_small_reference(torch, np):
+    """The port on the card against the port on the CPU (plain
+    versions) on smoke-size models: phi3-mini's serving steps (as built
+    by default, under REPRO_SERVE_PREQUANT=0 and under
+    REPRO_SERVE_DELAYED_ACT=0), phi3.5-moe's serving steps and its
+    engine's streams, and h2o's ring."""
+    from repro_torch.configs.registry import get_config
+
+    cfg = get_config(ARCH, smoke=True)
+    _small_steps(torch, np, cfg, ARCH)
+    for name in ("REPRO_SERVE_PREQUANT", "REPRO_SERVE_DELAYED_ACT"):
+        _with_env(name, "0", lambda: _small_steps(
+            torch, np, cfg, f"{ARCH} {name}=0"))
+    _small_steps(torch, np, get_config(MOE_ARCH, smoke=True), MOE_ARCH)
+    _small_moe_engine(torch, np)
     _small_ring_reference(torch, np)
 
 
@@ -1637,14 +2120,7 @@ def _small_ring_reference(torch, np):
             logits, caches = dec(qw, caches, feed)
             logs.append(logits[0].float().cpu().numpy())
         outs[dev] = logs
-    for i, (a, b) in enumerate(zip(outs["cpu"], outs["cuda"])):
-        tol = 2e-2 * float(np.abs(a).max())
-        err = float(np.abs(a - b).max())
-        if not (np.isfinite(b).all() and err <= tol):
-            raise AssertionError(f"smoke ring step {i}: card vs CPU logits "
-                                 f"{err} > {tol}")
-        print(f"smoke ring step {i}: card vs CPU max |d logit| {err:.3g} "
-              f"(limit {tol:.3g})")
+    _close_logits(np, "smoke ring step", outs["cpu"], outs["cuda"])
 
 
 def _train_cfg(get_config, quant_from_name, mode, smoke, interval=500):
@@ -1656,41 +2132,57 @@ def _train_cfg(get_config, quant_from_name, mode, smoke, interval=500):
 TRAIN_MODES = ("moss", "bf16", "per_group", "per_tensor")
 
 
-def phase_train(torch, np) -> dict:
-    """olmo-7b at full width, 4 of its 32 layers (f32 master weights,
-    gradients and AdamW moments of all 32 would need ~110 GB), batch
-    1 x 2048: 3 steps in each recipe (moss, bf16, per_group,
-    per_tensor) from the same weights on the same batches, the
-    baselines with just-in-time weight scales as the training CLI sets
-    them.  Returns the launches of the training kernels on their
-    paths."""
-    from repro_torch.configs.registry import get_config
-    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+def _dense_launches(counters, layers: int) -> dict:
+    """The training kernels' launches in 3 steps of a dense model of
+    ``layers`` layers, per recipe.  Per step: the forward at every
+    linear site (7 a layer + the head), the remat recompute of the
+    layers' sites, dx and dW at every site; each fused_quant_gemm call
+    (M > 32) launches global_amax, mx_quant and the wgmma tile, each
+    mx_dw_gemm call the dw_requant pass and the tile (counted on
+    mx_dw_gemm, not mx_gemm_tiled)."""
+    sites = 7 * layers + 1
+    fused = 3 * (2 * sites + 7 * layers)
+    none = {c.name: 0 for c in counters}
+    return {
+        "moss": {**none, "fused_quant_gemm_tiled": fused, "mx_quant": fused,
+                 "global_amax": fused, "mx_gemm_tiled": fused,
+                 "mx_dw_gemm": 3 * sites, "dw_requant": 3 * sites},
+        "bf16": none,
+        "per_group": {**none, "group_gemm": 3 * (3 * sites + 7 * layers)},
+        "per_tensor": none,                # pt_matmul: no kernel of its own
+    }
+
+
+def _train_modes(torch, np, arch, cfg_of, modes, m: int, label: str):
+    """3 steps of batch 1 x ``m`` in each recipe of ``modes`` from the
+    same weights on the same batches (``cfg_of(mode)`` the config);
+    launches gated by ``_dense_launches``, every quantized recipe's
+    losses within 1e-2 of bf16's.  Returns the launches by recipe."""
     from repro_torch.core.tree import tree_leaves
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.kernels import (group_gemm, mx_bwd, mx_fused, mx_gemm,
                                      mx_quant)
-    from repro_torch.launch.train import quant_from_name
     from repro_torch.train.steps import (TrainHParams, init_train_state,
                                          make_train_step)
 
     hp = TrainHParams(peak_lr=3e-4, warmup_steps=0, total_steps=3)
-    base = _train_cfg(get_config, quant_from_name, "moss", smoke=False)
-    print(f"train {TRAIN_ARCH}: full width (d {base.d_model}, {base.n_heads} "
+    base = cfg_of(modes[0])
+    print(f"train {arch}: full width (d {base.d_model}, {base.n_heads} "
           f"heads, Dh {base.head_dim}, d_ff {base.d_ff}, vocab {base.vocab}, "
           f"{base.norm}, remat {base.remat}), depth cut from 32 to "
-          f"{TRAIN_LAYERS} layers, batch 1 x {TRAIN_M}")
-    data = SyntheticLM(DataConfig(vocab=base.vocab, seq_len=TRAIN_M,
+          f"{base.n_layers} layers, batch 1 x {m}")
+    data = SyntheticLM(DataConfig(vocab=base.vocab, seq_len=m,
                                   global_batch=1, seed=0))
     batches = [data.batch_for_step(i) for i in range(3)]
     init = init_train_state(base, hp, seed=0, device="cuda").params
     n_params = sum(int(w.numel()) for w in tree_leaves(init))
-    print(f"train: {n_params / 1e9:.3f}B parameters")
+    print(f"train {arch}: {n_params / 1e9:.3f}B parameters")
     counters = [mx_fused.counter, mx_fused.counter_tiled, mx_bwd.counter,
                 mx_bwd.counter_requant, group_gemm.counter, mx_quant.counter,
                 mx_quant.counter_amax, mx_gemm.counter, mx_gemm.counter_tiled]
     losses, launches = {}, {}
-    for mode in TRAIN_MODES:
-        cfg = _train_cfg(get_config, quant_from_name, mode, smoke=False)
+    for mode in modes:
+        cfg = cfg_of(mode)
         state = init_train_state(cfg, hp, params=init, device="cuda")
         step = make_train_step(cfg, hp)
         torch.cuda.synchronize()
@@ -1706,47 +2198,59 @@ def phase_train(torch, np) -> dict:
             torch.cuda.synchronize()
             dt = time.monotonic() - t0
             losses[mode].append(loss)
-            print(f"train {mode} step {i}: loss {loss:.5f} grad_norm "
+            print(f"{label} {mode} step {i}: loss {loss:.5f} grad_norm "
                   f"{gnorm:.4f} lr {float(met['lr']):.3e} step "
-                  f"{dt * 1e3:.1f} ms = {TRAIN_M / dt:.0f} tok/s")
+                  f"{dt * 1e3:.1f} ms = {m / dt:.0f} tok/s")
             if not (np.isfinite(loss) and np.isfinite(gnorm)):
-                raise AssertionError(f"train {mode} step {i}: non-finite")
+                raise AssertionError(f"{label} {mode} step {i}: non-finite")
         launches[mode] = {c.name: c.count for c in counters}
-        print(f"train {mode}: peak memory "
+        print(f"{label} {mode}: peak memory "
               f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB, "
               f"launches {json.dumps(launches[mode])}")
         del state, step
         torch.cuda.empty_cache()
-    # per step: the forward at every linear site (7 a layer + the head),
-    # the remat recompute of the layers' sites, dx and dW at every site;
-    # each fused_quant_gemm call (M 2048 > 32) launches global_amax,
-    # mx_quant and the wgmma tile, each mx_dw_gemm call the dw_requant
-    # pass and the tile (counted on mx_dw_gemm, not mx_gemm_tiled)
-    sites = 7 * TRAIN_LAYERS + 1
-    fused = 3 * (2 * sites + 7 * TRAIN_LAYERS)
-    none = {c.name: 0 for c in counters}
-    want = {
-        "moss": {**none, "fused_quant_gemm_tiled": fused, "mx_quant": fused,
-                 "global_amax": fused, "mx_gemm_tiled": fused,
-                 "mx_dw_gemm": 3 * sites, "dw_requant": 3 * sites},
-        "bf16": none,
-        "per_group": {**none,
-                      "group_gemm": 3 * (3 * sites + 7 * TRAIN_LAYERS)},
-        "per_tensor": none,                # pt_matmul: no kernel of its own
-    }
-    for mode in TRAIN_MODES:
+    want = _dense_launches(counters, base.n_layers)
+    for mode in modes:
         if launches[mode] != want[mode]:
-            raise AssertionError(f"{mode} launches {launches[mode]}, "
-                                 f"expected {want[mode]} (forward, remat "
+            raise AssertionError(f"{label} {mode} launches {launches[mode]},"
+                                 f" expected {want[mode]} (forward, remat "
                                  "recompute, dx, dW)")
-    for mode in ("moss", "per_group", "per_tensor"):
+    for mode in modes:
+        if mode == "bf16":
+            continue
         for i, (a, b) in enumerate(zip(losses[mode], losses["bf16"])):
             rel = abs(a - b) / abs(b)
-            print(f"train step {i}: {mode} vs bf16 loss rel {rel:.3g} "
+            print(f"{label} step {i}: {mode} vs bf16 loss rel {rel:.3g} "
                   "(limit 1e-2)")
             if not rel <= 1e-2:
-                raise AssertionError(f"train step {i}: {mode} {a} vs "
+                raise AssertionError(f"{label} step {i}: {mode} {a} vs "
                                      f"bf16 {b}")
+    del init
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_train(torch, np) -> dict:
+    """olmo-7b at full width, 4 of its 32 layers (f32 master weights,
+    gradients and AdamW moments of all 32 would need ~110 GB), batch
+    1 x 2048: 3 steps in each recipe (moss, bf16, per_group,
+    per_tensor) from the same weights on the same batches, the
+    baselines with just-in-time weight scales as the training CLI sets
+    them; then llama2-7b (RMSNorm) at full width, 4 of its 32 layers,
+    batch 1 x 4096 (paper Table 8's sequence), in moss and bf16.
+    Returns the launches of olmo's training kernels on their paths."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.train import quant_from_name
+
+    launches = _train_modes(
+        torch, np, TRAIN_ARCH,
+        lambda mode: _train_cfg(get_config, quant_from_name, mode,
+                                smoke=False), TRAIN_MODES, TRAIN_M, "train")
+    _train_modes(
+        torch, np, LLAMA_ARCH,
+        lambda mode: get_config(LLAMA_ARCH).replace(
+            n_layers=LLAMA_LAYERS, quant=quant_from_name(mode)),
+        ("moss", "bf16"), LLAMA_M, "train llama2")
     return {name: launches["moss"][name] for name in
             ("fused_quant_gemm_tiled", "mx_quant", "global_amax",
              "mx_gemm_tiled", "mx_dw_gemm", "dw_requant")} | {
@@ -2045,8 +2549,8 @@ def phase_small_train_reference(torch, np):
     """The smoke-size olmo-7b trains 3 steps of batch 2 x 64 on the card
     and on the CPU from the same initial state and batches, each device
     on its own trajectory, in moss (rescale_interval 2, so a refresh
-    happens), per_group and per_tensor, and so does the smoke-size
-    phi3.5-moe in moss on the grouped route (moe_decode_dense off, so
+    happens), per_group and per_tensor; so do the smoke-size llama2-7b
+    in moss and the smoke-size phi3.5-moe in moss on the grouped route (moe_decode_dense off, so
     its 128 tokens take the grouped kernels): losses within 1e-2
     relative and equal scale_t at every step (f32 sums in another order
     and the rare fp8 rounding flip they cause)."""
@@ -2061,6 +2565,8 @@ def phase_small_train_reference(torch, np):
     runs = [(TRAIN_ARCH, mode, _train_cfg(get_config, quant_from_name,
                                           mode, smoke=True, interval=2))
             for mode in ("moss", "per_group", "per_tensor")]
+    runs.append((LLAMA_ARCH, "moss", get_config(LLAMA_ARCH, smoke=True)
+                 .replace(quant=quant_from_name("moss", 2))))
     runs.append((MOE_ARCH, "moss", _moe_cfg(get_config, quant_from_name,
                                             "moss", smoke=True, interval=2)))
     for arch, mode, cfg in runs:
@@ -2101,8 +2607,11 @@ def main() -> int:
     if not torch.cuda.is_available():
         return fail("torch.cuda.is_available() is False: this script "
                     "drives the port on an NVIDIA GPU")
+    t_start = time.monotonic()
     smi = phase_card(torch)
+    t0 = time.monotonic()
     phase_build()
+    print(f"phase build: {time.monotonic() - t0:.1f} s")
     timer = Timer(torch)
     t0 = time.monotonic()
     res = phase_kernels(torch, timer)
@@ -2113,11 +2622,17 @@ def main() -> int:
     res.update(phase_verify_kernels(torch, timer))
     print(f"phase kernels: {time.monotonic() - t0:.1f} s")
     t0 = time.monotonic()
-    launches, plain = phase_engine(torch, np)
+    launches, plain, gaps = phase_engine(torch, np)
     print(f"phase engine: {time.monotonic() - t0:.1f} s")
     t0 = time.monotonic()
     spec_launches = phase_engine_spec(torch, np, plain)
     print(f"phase engine spec: {time.monotonic() - t0:.1f} s")
+    t0 = time.monotonic()
+    phase_engine_hatch(torch, np, plain, gaps)
+    print(f"phase engine hatch: {time.monotonic() - t0:.1f} s")
+    t0 = time.monotonic()
+    phase_engine_moe(torch, np)
+    print(f"phase engine moe: {time.monotonic() - t0:.1f} s")
     t0 = time.monotonic()
     ring_launches = phase_engine_ring(torch, np)
     print(f"phase engine ring: {time.monotonic() - t0:.1f} s")
@@ -2156,8 +2671,11 @@ def main() -> int:
                     replaces=REPLACES[name], launches=launches[name],
                     **{k: res[name][k] for k in
                        ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                        "bound_by", "library_ms")})
+                        "bound_by", "library_ms")},
+                    **({"moe_serving": res[name]["moe_serving"]}
+                       if name in MOE_CHECKED else {}))
                for name in REPLACES]
+    print(f"chip_smoke: {time.monotonic() - t_start:.1f} s in all")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

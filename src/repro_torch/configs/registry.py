@@ -9,13 +9,13 @@ from .base import ModelConfig
 ARCHS: dict[str, str] = {
     "phi3-mini-3.8b": "phi3_mini_38b",
     "olmo-7b": "olmo_7b",
+    "llama2-7b": "llama2_7b",
     "phi3.5-moe-42b-a6.6b": "phi35_moe_42b",
     "h2o-danube-3-4b": "h2o_danube3_4b",
 }
 
 # reference archs whose families or features the port does not have yet
 NOT_PORTED = {
-    "llama2-7b": "queue 1 item 11 (each arch held against the reference)",
     "deepseek-v2-lite-16b": "queue 1 item 10 (MLA, shared experts)",
     "stablelm-12b": "queue 1 item 11 (qk-norm, partial rotary)",
     "minitron-8b": "queue 1 item 11 (squared-ReLU, partial rotary)",

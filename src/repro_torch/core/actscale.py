@@ -6,12 +6,16 @@ prompt when the engine is built, recording every quantized GEMM site's
 per-micro-group activation amax; each site's statistics, times a
 safety margin, become an ``ActScale`` in a flat ``{site tag: ActScale}``
 dict keyed by the params-tree path (``"blocks/attn/wq"``), with the
-stacked layer dim leading.  The serving steps then quantize activations
-against these scales with no amax reduction (``linear._qmm_delayed``).
+stacked layer dim leading (then the expert dim of a MoE expert's site,
+``"blocks/moe/w_up"``: (L, E) scales).  The serving steps then quantize
+activations against these scales with no amax reduction
+(``linear._qmm_delayed``).
 
 The calibration forward is the same model code the serving steps run,
-in train mode, one layer at a time: each quantized ``QT`` carries its
-site tag in ``a`` and ``qlinear`` reports its input here.
+in train mode, one layer at a time (a MoE block takes its dense
+combine, one expert at a time under ``REC.sub_index``): each quantized
+``QT`` carries its site tag in ``a`` and ``qlinear`` reports its input
+here.
 """
 
 from __future__ import annotations
@@ -63,10 +67,17 @@ class _Recorder:
         finally:
             self.index = prev
 
+    @contextlib.contextmanager
+    def sub_index(self, i: int):
+        """Append ``i`` to the current index: a MoE expert's sites record
+        under (layer, expert)."""
+        with self.at_index(self.index + (int(i),)):
+            yield
+
     def record(self, tag: str, x: torch.Tensor, cfg: QuantConfig) -> None:
         """Accumulate the per-micro-group amax of activation ``x`` (the
         GEMM's left operand, inner dim last) for site ``tag`` at the
-        current layer index."""
+        current (layer[, expert]) index."""
         if cfg.mode != "moss":
             raise NotImplementedError(
                 f"calibration for {cfg.mode!r}: ROADMAP next slices, "
@@ -94,8 +105,8 @@ def path_tag(path) -> str:
 
 
 def _stack_site(per_idx: dict[tuple[int, ...], np.ndarray]) -> np.ndarray:
-    """{(layer,) index: stat array} -> one stacked array whose leading
-    dims mirror the site's stacked weight dims."""
+    """{(layer[, expert]) index: stat array} -> one stacked array whose
+    leading dims mirror the site's stacked weight dims."""
     idxs = sorted(per_idx)
     depth = len(idxs[0])
     if depth == 0:

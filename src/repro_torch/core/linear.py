@@ -231,7 +231,12 @@ def _quantize_w_stack(cfg: QuantConfig, w: torch.Tensor,
     """Per-expert per-tensor quantization of the (E, K, N) stack:
     ``_quantize_w`` for every expert slice, with the predicted
     per-expert scales ``w_scale`` (E,) under automatic scaling (no
-    max-reduction over the stack), the measured ones otherwise."""
+    max-reduction over the stack), the measured ones otherwise.  A
+    pre-quantized fp8 stack passes straight through with its build-time
+    scales (a MoE prompt past the dense combine's limit, served)."""
+    if _is_fp8(w):
+        return PerTensorQ(q=w, s=torch.as_tensor(
+            w_scale, dtype=torch.float32, device=w.device))
     if cfg.weight_cast_bf16:
         w = w.to(torch.bfloat16)
     q, s = prequant_weight(

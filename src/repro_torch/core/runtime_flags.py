@@ -15,17 +15,19 @@ Counterpart of ``repro.core.runtime_flags``.  Two things live here:
 
 Serving and training flags
     The reference reads ``REPRO_*`` environment variables.  The port
-    reads four of them as the reference does: ``REPRO_SERVE_PAGED``
+    reads seven of them as the reference does: ``REPRO_SERVE_PAGED``
     (the paged engine, or the legacy ``Server`` under 0),
     ``REPRO_PAGED_PLACEMENT`` (float or identity pages),
     ``REPRO_CHUNKED_PREFILL`` (chunked, or the whole-prompt prefill
-    under 0) and ``REPRO_SPEC_DECODE`` (speculative verify steps under
-    1).  For the others the port implements the reference's default
-    (pre-quantized fp8 weights, delayed activation scales, usage-based
-    admission with preemption, no quant-health taps, the decode
-    kernel), and ``check_serving_env``
-    refuses one set to another value, naming the ROADMAP entry that
-    will bring it.  The KV-cache dtype is the
+    under 0), ``REPRO_SPEC_DECODE`` (speculative verify steps under
+    1), ``REPRO_SERVE_PREQUANT`` (weights quantized in every step
+    against the build-time scales under 0), ``REPRO_SERVE_DELAYED_ACT``
+    (just-in-time activation scales under 0) and ``REPRO_DECODE_ATTN``
+    (``einsum``: the decode kernels' plain versions, on the card too).
+    For the other two the port implements the reference's default
+    (usage-based admission with preemption, no quant-health taps), and
+    ``check_serving_env`` refuses one set to another value, naming the
+    ROADMAP entry that will bring it.  The KV-cache dtype is the
     config's ``kv_cache_dtype`` alone: ``REPRO_KV_CACHE``, the
     reference's override of it, is refused whenever it is set, so that
     it cannot be silently ignored.  ``check_train_env`` does the same
@@ -41,16 +43,41 @@ import torch
 # reference switch -> (value the port implements, ROADMAP entry that
 # brings the others)
 _SERVING_ENV = {
-    "REPRO_SERVE_PREQUANT": ("1", "queue 1 item 7 (in-graph weight "
-                             "quantization for serving)"),
-    "REPRO_SERVE_DELAYED_ACT": ("1", "queue 1 item 7 (just-in-time "
-                                "activation scaling for serving)"),
-    "REPRO_PREEMPTION": ("1", "next slices: reservation admission with "
-                         "preemption swap"),
+    "REPRO_PREEMPTION": ("1", "queue 1 item 8 (reservation admission "
+                         "with preemption swap)"),
     "REPRO_QUANT_HEALTH": ("0", "queue 1 item 12 (observability)"),
-    "REPRO_DECODE_ATTN": ("kernel", "queue 1 item 7 (the einsum decode "
-                          "escape hatch)"),
 }
+
+
+def serve_prequant() -> bool:
+    """Whether the serving path pre-quantizes weights at build time
+    (else the bf16 tree is quantized in every step against the
+    build-time scales: ``REPRO_SERVE_PREQUANT=0``)."""
+    return os.environ.get("REPRO_SERVE_PREQUANT", "1").strip() != "0"
+
+
+def serve_delayed_act() -> bool:
+    """Whether serving consumes calibrated (delayed) activation scales
+    instead of measuring each activation in the step
+    (``REPRO_SERVE_DELAYED_ACT=0``: just in time)."""
+    return os.environ.get("REPRO_SERVE_DELAYED_ACT", "1").strip() != "0"
+
+
+# "kernel": the decode kernels (the default); "einsum": their plain
+# scale-folding einsum versions, on either device (the A/B hatch)
+DECODE_ATTN_PATHS = ("kernel", "einsum")
+
+
+def decode_attn_path() -> str:
+    """The decode-attention path: ``REPRO_DECODE_ATTN``, else the
+    kernel."""
+    env = os.environ.get("REPRO_DECODE_ATTN", "").strip()
+    if env:
+        if env not in DECODE_ATTN_PATHS:
+            raise ValueError(f"REPRO_DECODE_ATTN={env!r}: expected one of "
+                             f"{DECODE_ATTN_PATHS}")
+        return env
+    return "kernel"
 
 
 def serve_paged() -> bool:

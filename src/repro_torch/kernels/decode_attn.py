@@ -150,9 +150,9 @@ def _check(name, q, k, v, k_scale, v_scale, n_valid, slots_shape, q_len,
             torch._assert_async(ok)
 
 
-def _plain(fn, q, q_len, *args, sm_scale):
-    """The plain version on the 4-D rows: q_len > 1 runs the 5-D form
-    on (B, KV, q_len, R/q_len, Dh) and flattens the result back."""
+def plain_rows(fn, q, q_len, *args, sm_scale):
+    """The plain version ``fn`` on the 4-D rows: q_len > 1 runs the 5-D
+    form on (B, KV, q_len, R/q_len, Dh) and flattens the result back."""
     if q_len == 1:
         return fn(q, *args, sm_scale=sm_scale)
     b, kvh, rows, dh = q.shape
@@ -199,8 +199,8 @@ def decode_attn(q, k, v, k_scale, v_scale, n_valid, *,
         raise ValueError(f"decode_attn: q {tuple(q.shape)}, cache "
                          f"{tuple(k.shape)}")
     if q.device.type == "cpu":
-        return _plain(decode_attn_ref, q, q_len, k, v, k_scale, v_scale,
-                      n_valid, sm_scale=sm_scale)
+        return plain_rows(decode_attn_ref, q, q_len, k, v, k_scale,
+                          v_scale, n_valid, sm_scale=sm_scale)
     return launch(q, k, v, k_scale, v_scale, n_valid, sm_scale=sm_scale,
                   q_len=q_len)
 
@@ -243,8 +243,9 @@ def decode_attn_paged(q, k, v, k_scale, v_scale, n_valid, block_table, *,
            (k.shape[0], kvh, k.shape[2]), q_len,
            block_table.shape[1] * k.shape[2])
     if q.device.type == "cpu":
-        return _plain(decode_attn_paged_plain, q, q_len, k, v, k_scale,
-                      v_scale, n_valid, block_table, sm_scale=sm_scale)
+        return plain_rows(decode_attn_paged_plain, q, q_len, k, v,
+                          k_scale, v_scale, n_valid, block_table,
+                          sm_scale=sm_scale)
     return launch_paged(q, k, v, k_scale, v_scale, n_valid, block_table,
                         sm_scale=sm_scale, q_len=q_len)
 

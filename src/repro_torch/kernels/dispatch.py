@@ -34,7 +34,9 @@ import torch.nn.functional as F
 from repro_torch.core.quant import (MxQ, PerGroupQ, PerTensorQ, pad_axis,
                                     pt_gemm)
 
-from .decode_attn import decode_attn, decode_attn_paged
+from .decode_attn import (decode_attn, decode_attn_paged,
+                          decode_attn_paged_plain, decode_attn_ref,
+                          plain_rows)
 from .group_gemm import GROUP, group_gemm
 from .moe_gmm import moe_dw_gemm, moe_gmm
 from .mx_bwd import mx_dw_gemm
@@ -261,3 +263,20 @@ def decode_attention_paged(q, k, v, k_scale, v_scale, n_valid,
         qp, k, v, k_scale, v_scale, nv,
         block_table.to(torch.int32).contiguous(), sm_scale=sm,
         q_len=s_len))
+
+
+def decode_attention_plain(q, k, v, k_scale, v_scale, n_valid,
+                           block_table=None, *,
+                           sm_scale: float | None = None) -> torch.Tensor:
+    """The decode kernels' plain versions, on either device, on the rows
+    that ``decode_attention`` (``block_table`` None) or
+    ``decode_attention_paged`` hands its kernel: the reference's
+    ``REPRO_DECODE_ATTN=einsum`` path (``models.attention._attend``).
+    On the CPU it is what those two run, bit for bit."""
+    qp, nv, s_len, sm, unflatten = _decode_rows(q, n_valid, sm_scale)
+    if block_table is None:
+        return unflatten(plain_rows(decode_attn_ref, qp, s_len, k, v,
+                                    k_scale, v_scale, nv, sm_scale=sm))
+    return unflatten(plain_rows(
+        decode_attn_paged_plain, qp, s_len, k, v, k_scale, v_scale, nv,
+        block_table.to(torch.int32).contiguous(), sm_scale=sm))

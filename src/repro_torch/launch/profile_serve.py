@@ -1,9 +1,11 @@
 """Where a serving run's time goes on the card.
 
 Builds a full-width engine that ``chip_smoke.py`` serves with (phi3-mini
-on floating pages, or with ``--arch h2o-danube-3-4b`` the windowed model
-on identity rows with the whole-prompt prefill, its prompts at or past
-the 4096-token window so that every decode step reads a full ring),
+on floating pages; ``--arch phi3.5-moe-42b-a6.6b``, the MoE, the same
+way with its depth cut to ``MOE_SERVE_LAYERS``; or with ``--arch
+h2o-danube-3-4b`` the windowed model on identity rows with the
+whole-prompt prefill, its prompts at or past the 4096-token window so
+that every decode step reads a full ring),
 serves one untraced warm-up trace, then serves a second trace under
 ``torch.profiler`` with every model step inside a ``decode_step``,
 ``prefill_chunk``, ``prefill`` (whole-prompt) or, under
@@ -18,6 +20,8 @@ launches and the PyTorch ops issued (the ten most frequent, and
       --trace build/serve_trace.json
   PYTHONPATH=src python -m repro_torch.launch.profile_serve \\
       --arch h2o-danube-3-4b --trace build/ring_trace.json
+  PYTHONPATH=src python -m repro_torch.launch.profile_serve \\
+      --arch phi3.5-moe-42b-a6.6b --trace build/moe_serve_trace.json
 
 The profiler adds host time to every launch, so the traced steps are
 slower than the warm-up's; both mean decode (and verify) steps are
@@ -39,6 +43,10 @@ from repro_torch.launch.serve import make_requests, random_params
 from repro_torch.serving import Engine, Request
 
 GPU_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+# the MoE's depth (of 32): the engine builds from the seeded f32 tree,
+# and all 32 layers would be ~84 GB even in bf16.  Must equal
+# chip_smoke.py's MOE_SERVE_LAYERS, whose serving phase this profiles.
+MOE_SERVE_LAYERS = 4
 SPANS = ("decode_step", "prefill_chunk", "prefill", "verify_step")
 # the port's own kernels (csrc/*.cu), by the name the trace gives them
 # (decode attention is one launch: its cluster holds the split over the
@@ -149,7 +157,8 @@ def _ring_requests(cfg, n: int, max_new: int, seed: int) -> list[Request]:
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="phi3-mini-3.8b",
-                    choices=("phi3-mini-3.8b", "h2o-danube-3-4b"))
+                    choices=("phi3-mini-3.8b", "phi3.5-moe-42b-a6.6b",
+                             "h2o-danube-3-4b"))
     ap.add_argument("--trace", default="serve_trace.json",
                     help="where to write the Chrome trace")
     args = ap.parse_args(argv)
@@ -157,8 +166,10 @@ def main(argv=None):
         raise SystemExit("profile_serve measures the card: no CUDA device")
 
     cfg = get_config(args.arch)
+    if cfg.family == "moe":
+        cfg = cfg.replace(n_layers=MOE_SERVE_LAYERS)
     params = random_params(cfg, 0, "cuda")
-    if args.arch == "phi3-mini-3.8b":
+    if args.arch != "h2o-danube-3-4b":
         # chip_smoke.py's engine: 4 slots, 64-token slots of 16-token
         # pages, 8 requests of 16 new tokens (prompts here of 24-48)
         eng = Engine(cfg, params, 4, max_len=64, page_size=16,

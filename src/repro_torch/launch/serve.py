@@ -10,6 +10,11 @@ Usage:
       --smoke --device cpu --legacy
   REPRO_SPEC_DECODE=1 PYTHONPATH=src python -m repro_torch.launch.serve \\
       --smoke --device cpu             # speculative verify steps
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch phi3.5-moe-42b-a6.6b --layers 4   # the MoE at full width
+  REPRO_SERVE_PREQUANT=0 REPRO_SERVE_DELAYED_ACT=0 \\
+  REPRO_DECODE_ATTN=einsum PYTHONPATH=src \\
+      python -m repro_torch.launch.serve --smoke --device cpu   # switches
 """
 
 from __future__ import annotations
@@ -21,7 +26,6 @@ import numpy as np
 import torch
 
 from repro_torch.configs.registry import get_config
-from repro_torch.core.actscale import calibrate_act_scales
 from repro_torch.core.runtime_flags import (
     check_serving_env,
     paged_placement,
@@ -31,6 +35,7 @@ from repro_torch.models.layers import init_tree
 from repro_torch.models.transformer import init_caches, model_defs
 from repro_torch.serving import Engine, Request, greedy_sample
 from repro_torch.serving.engine import (
+    calibrate_serving,
     prepare_weights,
     resolve_device,
     to_device,
@@ -59,8 +64,8 @@ class Server:
         with torch.inference_mode():
             params = to_device(params, self.device)
             self.params, self.scales = prepare_weights(cfg, params)
-            self.act_scales = calibrate_act_scales(cfg, self.params,
-                                                   self.scales)
+            self.act_scales = calibrate_serving(cfg, self.params,
+                                                self.scales)
         self.prefill = make_prefill_step(cfg, max_len, scales=self.scales,
                                          act_scales=self.act_scales)
         self.decode = make_decode_step(cfg, scales=self.scales,
@@ -148,6 +153,10 @@ def main(argv=None):
     ap.add_argument("--arch", default="phi3-mini-3.8b")
     ap.add_argument("--smoke", action="store_true",
                     help="the arch's reduced smoke config")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the depth (the engine builds from the "
+                         "seeded f32 tree: phi3.5-moe's 32 layers would be "
+                         "~84 GB even in bf16)")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
@@ -163,6 +172,8 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch, smoke=args.smoke)
+    if args.layers is not None:
+        cfg = cfg.replace(n_layers=args.layers)
     device = torch.device(args.device)
     reqs = make_requests(cfg, args.requests, args.prompt_len,
                          args.max_new, args.seed)

@@ -32,7 +32,7 @@ import torch
 from repro_torch.core.formats import E4M3_MAX, TINY, QuantConfig, cast_fp8
 from repro_torch.core.formats import div_c
 from repro_torch.core.linear import QT, dense_general
-from repro_torch.core.runtime_flags import einsum
+from repro_torch.core.runtime_flags import decode_attn_path, einsum
 from repro_torch.kernels import dispatch
 from ._attn_core import NEG_INF, _window, chunked_attention
 from .layers import PDef, apply_rope
@@ -143,21 +143,28 @@ def _project_qkv(cfg, p, x, positions, qcfg: QuantConfig):
     return q, k, v
 
 
+def _attend(qg, cache: KVCache, n_valid):
+    """The grouped queries against the cache through the paged or the
+    contiguous decode kernel; ``REPRO_DECODE_ATTN=einsum`` takes their
+    plain versions, on the card too (the reference's A/B switch)."""
+    sm = qg.shape[-1] ** -0.5
+    args = (qg, cache.k, cache.v, cache.k_scale, cache.v_scale, n_valid)
+    if decode_attn_path() == "einsum":
+        return dispatch.decode_attention_plain(*args, cache.block_table,
+                                               sm_scale=sm)
+    if cache.block_table is not None:
+        return dispatch.decode_attention_paged(*args, cache.block_table,
+                                               sm_scale=sm)
+    return dispatch.decode_attention(*args, sm_scale=sm)
+
+
 def _decode_attention(cfg, q, cache: KVCache, n_valid):
     """q: (B, 1, H, Dh) against the cache, through the paged or the
     contiguous decode kernel (head h belongs to kv head h // G)."""
     b, _, h, dh = q.shape
     kvh = cache.k.shape[1]
     qg = q.reshape(b, kvh, h // kvh, dh)
-    if cache.block_table is not None:
-        out = dispatch.decode_attention_paged(
-            qg, cache.k, cache.v, cache.k_scale, cache.v_scale, n_valid,
-            cache.block_table, sm_scale=dh ** -0.5)
-    else:
-        out = dispatch.decode_attention(
-            qg, cache.k, cache.v, cache.k_scale, cache.v_scale, n_valid,
-            sm_scale=dh ** -0.5)
-    return out.reshape(b, 1, h, dh).to(q.dtype)
+    return _attend(qg, cache, n_valid).reshape(b, 1, h, dh).to(q.dtype)
 
 
 def _verify_attention(cfg, q, cache: KVCache, n_valid):
@@ -169,14 +176,7 @@ def _verify_attention(cfg, q, cache: KVCache, n_valid):
     b, s, h, dh = q.shape
     kvh = cache.k.shape[1]
     qg = q.reshape(b, s, kvh, h // kvh, dh).transpose(1, 2)
-    if cache.block_table is not None:
-        out = dispatch.decode_attention_paged(
-            qg, cache.k, cache.v, cache.k_scale, cache.v_scale, n_valid,
-            cache.block_table, sm_scale=dh ** -0.5)
-    else:
-        out = dispatch.decode_attention(
-            qg, cache.k, cache.v, cache.k_scale, cache.v_scale, n_valid,
-            sm_scale=dh ** -0.5)
+    out = _attend(qg, cache, n_valid)
     return out.transpose(1, 2).reshape(b, s, h, dh).to(q.dtype)
 
 

@@ -16,6 +16,7 @@ from typing import Any, NamedTuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import xla_cpu_numerics
 from repro_torch.core.formats import QuantConfig
 from repro_torch.core.linear import QT, qlinear
 
@@ -98,18 +99,31 @@ def wrap_qt_nojit(params, mask):
 # ---------------------------------------------------------------------------
 
 
+def _mean(xf: torch.Tensor) -> torch.Tensor:
+    """f32 mean over the last dim, keepdim; on the CPU in the
+    reference's order (``core.xla_cpu_numerics``)."""
+    if xf.device.type == "cpu":
+        return xla_cpu_numerics.mean(xf)
+    return xf.mean(dim=-1, keepdim=True)
+
+
+def _rsqrt(v: torch.Tensor) -> torch.Tensor:
+    if v.device.type == "cpu":
+        return xla_cpu_numerics.rsqrt(v)
+    return torch.rsqrt(v)
+
+
 def rmsnorm(x, scale, eps=1e-5):
     xf = x.to(torch.float32)
-    var = (xf * xf).mean(dim=-1, keepdim=True)
-    y = xf * torch.rsqrt(var + eps)
+    y = xf * _rsqrt(_mean(xf * xf) + eps)
     return (y * (1.0 + scale.to(torch.float32))).to(x.dtype)
 
 
 def layernorm(x, scale, bias, eps=1e-5):
     xf = x.to(torch.float32)
-    mu = xf.mean(dim=-1, keepdim=True)
-    var = torch.square(xf - mu).mean(dim=-1, keepdim=True)
-    y = (xf - mu) * torch.rsqrt(var + eps)
+    mu = _mean(xf)
+    var = _mean(torch.square(xf - mu))
+    y = (xf - mu) * _rsqrt(var + eps)
     return (y * scale.to(torch.float32)
             + bias.to(torch.float32)).to(x.dtype)
 
@@ -138,6 +152,14 @@ def rope_frequencies(dim: int, theta: float, device=None):
                                         device=device), exps)
 
 
+def _sin_cos(ang: torch.Tensor):
+    """sin and cos of the f32 angles; on the CPU as the reference's
+    backend computes them (``core.xla_cpu_numerics``)."""
+    if ang.device.type == "cpu":
+        return xla_cpu_numerics.sin_cos(ang)
+    return torch.sin(ang), torch.cos(ang)
+
+
 def apply_rope(x, positions, theta: float = 1e4, pct: float = 1.0):
     """x: (..., S, H, Dh); positions: (..., S) int.  Rotates the first
     ``pct`` fraction of head dims."""
@@ -149,8 +171,8 @@ def apply_rope(x, positions, theta: float = 1e4, pct: float = 1.0):
     xr, xp = x[..., :rot], x[..., rot:]
     freqs = rope_frequencies(rot, theta, x.device)
     ang = positions[..., None].to(torch.float32) * freqs
-    cos = torch.cos(ang)[..., None, :]
-    sin = torch.sin(ang)[..., None, :]
+    sin, cos = _sin_cos(ang)
+    cos, sin = cos[..., None, :], sin[..., None, :]
     x1, x2 = xr.to(torch.float32).chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return torch.cat([out.to(x.dtype), xp], dim=-1)

@@ -15,13 +15,23 @@ The router is f32 and unquantized.  Expert GEMMs are MOSS-quantized
 with per-expert weight scales (the ``experts`` dim of the stacked
 weights gets its own scale state).
 
+Serving (the reference's contract): the decode and verify modes and
+the calibration forward (``REC.recording``) always take the masked
+dense combine, so that a token's routing and arithmetic do not depend
+on the batch it rides in, and every expert is calibrated on every
+calibration token.  There each expert's sites run with their own
+weight scales and their own calibrated activation scales (``_experts``
+slices the stacked ``ActScale``), and each expert's calibration
+records under its (layer, expert) index (``REC.sub_index``).
+
 Not ported yet, and refused with ``NotImplementedError``: expert
 parallelism over a mesh (the reference's shard_map with two
-``all_to_all``), the calibration forward (``REC.recording``) and the
-decode and verify modes: MoE serving is a ROADMAP "next slices" entry.
+``all_to_all``).
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 import torch.nn.functional as F
@@ -53,22 +63,43 @@ def _expert_ffn(cfg, w_up: QT, w_gate: QT, w_down: QT, x, qcfg):
     return qlinear(h, w_down, qcfg)
 
 
+def _expert_act(a, e: int) -> list:
+    """A site's activation-scale state for each of ``e`` experts: a
+    calibrated ``ActScale`` stacked over the experts (``s`` (E,),
+    ``sub`` (E, K/micro)) split per expert; a calibration tag or None
+    as it is."""
+    from repro_torch.core.actscale import ActScale
+
+    if not isinstance(a, ActScale):
+        return [a] * e
+    subs = [None] * e if a.sub is None else list(a.sub.unbind(0))
+    return [ActScale(s, sub) for s, sub in zip(a.s.unbind(0), subs)]
+
+
 def _experts(wt: QT) -> list[QT]:
-    """A stacked (E, ...) weight -> one QT per expert (split once with
-    ``unbind``, so the backward stacks the expert gradients once)."""
+    """A stacked (E, ...) weight -> one QT per expert, each with its own
+    weight scale and activation scales (split once with ``unbind``, so
+    the backward stacks the expert gradients once)."""
     e = wt.w.shape[0]
     ss = [None] * e if wt.s is None else list(wt.s.unbind(0))
-    return [QT(w, s, wt.a) for w, s in zip(wt.w.unbind(0), ss)]
+    return [QT(w, s, a) for w, s, a in zip(wt.w.unbind(0), ss,
+                                           _expert_act(wt.a, e))]
 
 
 def _experts_vmapped(cfg, p, xs, qcfg):
     """xs: (E, C, d) (or a list of E (C, d) buffers) -> (E, C, d), one
-    expert at a time with its own weight scales (the reference's
-    ``jax.vmap`` over ``_expert_ffn``)."""
+    expert at a time with its own scales (the reference's ``jax.vmap``
+    over ``_expert_ffn``).  Under calibration each expert records under
+    its (layer, expert) index."""
+    from repro_torch.core.actscale import REC
+
     ups, gates, downs = (_experts(p[n]) for n in ("w_up", "w_gate",
                                                     "w_down"))
-    return torch.stack([_expert_ffn(cfg, u, g, dn, x, qcfg)
-                        for u, g, dn, x in zip(ups, gates, downs, xs)])
+    ys = []
+    for i, (u, g, dn, x) in enumerate(zip(ups, gates, downs, xs)):
+        with REC.sub_index(i) if REC.recording else contextlib.nullcontext():
+            ys.append(_expert_ffn(cfg, u, g, dn, x, qcfg))
+    return torch.stack(ys)
 
 
 def _experts_grouped(cfg, p, xs, sizes, qcfg):
@@ -188,15 +219,7 @@ def _dense_moe(cfg, p, x_flat, top_w, top_ids, qcfg):
     return y.to(x_flat.dtype)
 
 
-def _unsupported(mode: str) -> str | None:
-    from repro_torch.core.actscale import REC
-
-    if mode in ("decode", "verify"):
-        return (f"MoE {mode} (serving): ROADMAP next slices, MoE "
-                "serving")
-    if REC.recording:
-        return ("MoE calibration (delayed activation scales): ROADMAP "
-                "next slices, MoE serving")
+def _unsupported() -> str | None:
     dist = torch.distributed
     if dist.is_available() and dist.is_initialized() and \
             dist.get_world_size() > 1:
@@ -206,7 +229,9 @@ def _unsupported(mode: str) -> str | None:
 
 def moe_block(cfg, p, x, qcfg: QuantConfig, mode: str = "train"):
     """x: (B, S, d) -> (y, aux_loss)."""
-    bad = _unsupported(mode)
+    from repro_torch.core.actscale import REC
+
+    bad = _unsupported()
     if bad:
         raise NotImplementedError(bad)
     b, s, d = x.shape
@@ -214,7 +239,11 @@ def moe_block(cfg, p, x, qcfg: QuantConfig, mode: str = "train"):
     t = x_flat.shape[0]
     probs, top_w, top_ids = route(cfg, p, x_flat)
     aux = load_balance_loss(probs, top_ids, cfg.n_experts, cfg.top_k)
-    if cfg.moe_decode_dense and t <= DENSE_MAX_TOKENS:
+    # decode, verify and calibration always take the dense combine
+    # (the reference's moe_block): per-token routing independent of the
+    # batch, and no expert left with an empty calibration buffer
+    if mode in ("decode", "verify") or REC.recording or (
+            cfg.moe_decode_dense and t <= DENSE_MAX_TOKENS):
         y = _dense_moe(cfg, p, x_flat, top_w, top_ids, qcfg)
         return y.reshape(b, s, d), aux
     cap = _capacity(cfg, t)

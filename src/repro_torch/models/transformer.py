@@ -136,22 +136,11 @@ def init_caches(cfg, batch: int, max_len: int, per_slot: bool = False,
     return caches
 
 
-def _serving_family(cfg) -> bool:
-    """Whether ``cfg`` has per-head KV caches the port serves.  MoE
-    serving is not ported yet: a MoE config raises."""
-    if cfg.family == "moe":
-        raise NotImplementedError(
-            f"{cfg.name}: MoE serving (the dense combine under delayed "
-            "scales, calibration, the paged engine): ROADMAP next slices")
-    return cfg.family == "dense"
-
-
 def paged_decode_supported(cfg, max_len: int, page_size: int) -> bool:
     """Floating page pools need an unwrapped cache (no window ring: the
     pool append writes ``idx // T`` directly) of a whole number of
-    pages."""
-    if not _serving_family(cfg):
-        return False
+    pages.  Dense and MoE models alike: a MoE block's attention and its
+    caches are the dense ones."""
     c = attn_mod.cache_len(cfg, max_len)
     return c == max_len and c % page_size == 0
 
@@ -159,8 +148,6 @@ def paged_decode_supported(cfg, max_len: int, page_size: int) -> bool:
 def chunk_prefill_supported(cfg, max_len: int) -> bool:
     """Chunked prefill writes prompt chunks at absolute positions, so it
     needs an unwrapped cache (C == max_len)."""
-    if not _serving_family(cfg):
-        return False
     return attn_mod.cache_len(cfg, max_len) == max_len
 
 

@@ -29,16 +29,24 @@ windowed ring, whose cache is C = window < max_len slots).
 
 Weights are pre-quantized to fp8 at build and the activation scales are
 calibrated at build (one forward over a fixed prompt), as in the
-reference.  With chunked prefill on floating pages admission is
-usage-based (a request reserves its prompt plus one page); when growth
-finds the pool dry the reference preempts to host, which the port does
-not have yet: size the pool fully backed (the default) and it never
-happens.  Not yet ported, each raising ``NotImplementedError`` when
-reached: preemption swap-to-host and prefix-cache hits with
-copy-on-write (ROADMAP queue 1 item 8), quant-health telemetry (queue 1
-item 12).  Speculative decode needs the chunked path and an unwrapped
-cache (``spec_verify_supported``); elsewhere (a windowed ring, the v1
-prefill) the flag is inert, as in the reference.
+reference; ``REPRO_SERVE_PREQUANT=0`` quantizes the weights in every
+step against their build-time scales instead, and
+``REPRO_SERVE_DELAYED_ACT=0`` measures every activation in the step
+(``prepare_weights``, ``calibrate_serving``).  Dense and MoE models
+serve alike: a MoE block's decode, verify and chunk steps take the
+masked dense-experts combine, every expert on every token, each through
+its own weight and activation scales.  With chunked prefill on floating
+pages admission is usage-based (a request reserves its prompt plus one
+page); when growth finds the pool dry the reference preempts to host,
+which the port does not have yet: size the pool fully backed (the
+default) and it never happens.  Not yet ported, each raising
+``NotImplementedError`` when reached: preemption swap-to-host and
+prefix-cache hits with copy-on-write (ROADMAP queue 1 item 8),
+quant-health telemetry (queue 1 item 12).  Speculative decode needs the
+chunked path, an unwrapped cache (``spec_verify_supported``) and delayed
+activation scales (or bf16); elsewhere (a windowed ring, the v1
+prefill, ``REPRO_SERVE_DELAYED_ACT=0``) the flag is inert, as in the
+reference.
 
 The engine runs on ``device="cuda"`` unless the caller asks for the CPU;
 there it runs the kernels' plain versions.
@@ -58,6 +66,8 @@ from repro_torch.core.runtime_flags import (
     check_serving_env,
     chunked_prefill,
     paged_placement,
+    serve_delayed_act,
+    serve_prequant,
     spec_decode as spec_decode_flag,
 )
 from repro_torch.models.transformer import (
@@ -71,6 +81,7 @@ from repro_torch.train.steps import (
     make_prefill_step,
     make_verify_step,
     prequantize_params,
+    serve_weight_scales,
 )
 
 from .paged_cache import (
@@ -108,12 +119,30 @@ def to_device(tree, device):
 
 
 def prepare_weights(cfg, params):
-    """Build-time weight preparation: fp8 payloads and per-layer scales
-    (the raw tree and None in bf16 mode).  Returns (tree, scales)."""
+    """Build-time weight preparation shared by the engine, the legacy
+    Server and the serving profiler (the reference's): fp8 payloads and
+    per-(layer[, expert]) scales by default (the raw tree and None in
+    bf16 mode); under ``REPRO_SERVE_PREQUANT=0`` the raw tree and its
+    build-time scales (``serve_weight_scales``), which every step then
+    casts the weights against.  Returns (tree, scales)."""
+    if not serve_prequant():
+        return params, serve_weight_scales(cfg, params)
     prequant = prequantize_params(cfg, params)
     if prequant is None:
         return params, None
     return prequant.qweights, prequant.scales
+
+
+def calibrate_serving(cfg, params, scales):
+    """Build-time delayed activation scales shared by the engine, the
+    legacy Server and the serving profiler (the reference's): one
+    forward over the calibration prompt (``core.actscale``), or None
+    under ``REPRO_SERVE_DELAYED_ACT=0``, where every quantized site
+    measures its activation in the step (``dispatch.
+    fused_quant_matmul``)."""
+    if not serve_delayed_act():
+        return None
+    return calibrate_act_scales(cfg, params, scales)
 
 
 def greedy_sample(logits: torch.Tensor) -> torch.Tensor:
@@ -162,8 +191,8 @@ class Engine:
         with torch.inference_mode():
             params = to_device(params, self.device)
             self.params, self.scales = prepare_weights(cfg, params)
-            self.act_scales = calibrate_act_scales(cfg, self.params,
-                                                   self.scales)
+            self.act_scales = calibrate_serving(cfg, self.params,
+                                                self.scales)
         self.prefill = make_prefill_step(cfg, max_len, scales=self.scales,
                                          act_scales=self.act_scales)
         self.decode = make_decode_step(cfg, scales=self.scales,
@@ -193,7 +222,7 @@ class Engine:
         # unwrapped cache.  It also needs batch-independent activation
         # scales (delayed, or the bf16 pipeline): a just-in-time amax
         # over a (B, k) window would differ from the (B, 1) steps it
-        # replaces.  The port's serving scales are always delayed.
+        # replaces: under REPRO_SERVE_DELAYED_ACT=0 the flag is inert.
         self.spec = ((spec_decode if spec_decode is not None
                       else spec_decode_flag())
                      and self.chunked

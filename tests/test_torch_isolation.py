@@ -1,5 +1,6 @@
-"""The port stands alone: ``repro_torch`` and ``chip_smoke.py`` import
-neither JAX nor anything of ``repro``, and the port's entry points do
+"""The port stands alone: ``repro_torch``, ``chip_smoke.py`` and the
+port's example twins (``examples/*_torch.py``) import neither JAX nor
+anything of ``repro``, and the port's entry points do
 not fall back to the CPU when no card is there."""
 
 import os
@@ -46,6 +47,8 @@ _IMPORT = re.compile(r"^\s*(?:from|import)\s+(jax|jaxlib|repro)(?:[.\s,]|$)",
 
 @pytest.mark.parametrize("path", sorted(
     [str(p.relative_to(ROOT)) for p in PKG.rglob("*.py")]
+    + [str(p.relative_to(ROOT)) for p in (ROOT / "examples").glob(
+        "*_torch.py")]
     + ["chip_smoke.py"]))
 def test_source_imports_no_jax_or_reference(path):
     text = (ROOT / path).read_text()

@@ -228,6 +228,74 @@ def _moe_train_runs(modes=("moss", "bf16"), steps=3, dense=False):
     return out
 
 
+# the serving modes' block inputs: 3 decode rows (B 3, S 1) and 2 verify
+# rows of 4 drafts (B 2, S 4)
+SERVE_SHAPES = {"decode": (3, 1), "verify": (2, 4)}
+
+
+def _serve_act_scales(cfg, seed=7):
+    """Per-expert delayed activation scales (numpy) for the block's three
+    expert sites, different for every expert: ``s`` (E,) and ``sub``
+    (E, K/32) E8M0 exponents in [-3, 0]."""
+    rng = np.random.default_rng(seed)
+    e = cfg.n_experts
+    out = {}
+    for n, k in (("w_up", cfg.d_model), ("w_gate", cfg.d_model),
+                 ("w_down", cfg.d_ff)):
+        out[n] = (rng.uniform(0.004, 0.02, e).astype(np.float32),
+                  rng.integers(-3, 1, (e, -(-k // 32))).astype(np.int8))
+    return out
+
+
+def _serve_block_input(mode, seed=11):
+    b, s = SERVE_SHAPES[mode]
+    d = _smoke(True).d_model
+    return np.random.default_rng(seed).standard_normal(
+        (b, s, d)).astype(np.float32)
+
+
+def _serve_block_reference(mode, act):
+    """The reference's MoE block in a serving mode (the dense combine)
+    with per-expert weight scales and, for ``act="delayed"``, per-expert
+    calibrated activation scales (``ActScale`` stacked over the experts,
+    sliced by its ``jax.vmap``), as numpy (in the child)."""
+    from repro.core.actscale import ActScale as JActScale
+
+    jcfg = _smoke(True, jax_side=True)
+    p, scales, _ = _block_params()
+    acts = _serve_act_scales(jcfg) if act == "delayed" else {}
+
+    @jax.jit
+    def run(p, x):
+        pq = {n: (JQT(p[n], scales[n],
+                      JActScale(*map(jnp.asarray, acts[n]))
+                      if n in acts else None)
+                  if n in scales else p[n]) for n in p}
+        y, aux = jmoe.moe_block(jcfg, pq, x.astype(jnp.bfloat16),
+                                jcfg.quant, mode)
+        return y, aux
+
+    return [np.asarray(a) for a in run(p, _serve_block_input(mode))]
+
+
+def _serving_build_reference():
+    """The reference's build-time serving state of the phi3.5-moe smoke
+    model (weights from ``PRNGKey(0)``): ``prequantize_params``'
+    payloads and per-(layer, expert) scales, and ``calibrate_act_scales``
+    on them, as numpy (in the child)."""
+    from repro.core.actscale import calibrate_act_scales as jcalibrate
+
+    jcfg = jax_get_config(ARCH, smoke=True)
+    params = jlayers.init_tree(jtr.model_defs(jcfg), jax.random.PRNGKey(0))
+    pq = jsteps.prequantize_params(jcfg, params)
+    act = jcalibrate(jcfg, pq.qweights, pq.scales)
+    return {"params": jax.tree.map(np.asarray, params),
+            "qweights": jax.tree.map(np.asarray, pq.qweights),
+            "scales": jax.tree.map(np.asarray, pq.scales),
+            "act": {t: (np.asarray(a.s), np.asarray(a.sub))
+                    for t, a in act.items()}}
+
+
 def moe_reference() -> dict:
     """The reference's side of this module's tests, computed in the
     shared child of tests/test_torch_train.py (compiled with its
@@ -240,6 +308,10 @@ def moe_reference() -> dict:
             "block_vjp": {m: _block_vjp_reference(m)
                           for m in ("moss", "bf16", "per_group",
                                     "per_tensor")},
+            "serve_block": {(mode, act): _serve_block_reference(mode, act)
+                            for mode in SERVE_SHAPES
+                            for act in ("jit", "delayed")},
+            "serving_build": _serving_build_reference(),
             "train": _moe_train_runs(),
             "per_group": _moe_train_runs(("per_group",), steps=1)}
 
@@ -564,11 +636,125 @@ def test_moe_routes_agree_in_bf16():
     _close_max(ys[0], ys[1], rel=1e-2)
 
 
-def test_moe_serving_paths_raise(monkeypatch):
-    """MoE decode/verify, calibration, a mesh and the paged engine are
-    later slices; the training CLI refuses ``REPRO_MOE_EXPERTS`` other
-    than ``grouped``."""
-    from repro_torch.core.actscale import REC
+@pytest.mark.parametrize("mode", sorted(SERVE_SHAPES))
+@pytest.mark.parametrize("act", ["jit", "delayed"])
+def test_moe_block_serving_modes_match_reference(reference, mode, act):
+    """The MoE block in the serving modes (decode: 3 rows of 1 token;
+    verify: 2 rows of 4 drafts) takes the masked dense combine, as the
+    reference's does, every expert with its own weight scale and, with
+    ``act="delayed"``, its own slice of the site's stacked ``ActScale``
+    (``s`` (E,), ``sub`` (E, K/32)); ``jit`` measures each expert's
+    input in the step.  aux within 1e-6 relative; y within one bf16
+    step of its largest element and rel L2 1e-4, as the training
+    block's dense combine (``test_moe_block_matches_reference``): the
+    f32 router, GEMM and combine sums in another order flip bf16
+    roundings of single elements."""
+    from repro_torch.core.actscale import ActScale
+
+    y_ref, aux_ref = reference["serve_block"][mode, act]
+    cfg = _smoke(True)
+    p, scales, _ = _block_params()
+    acts = _serve_act_scales(cfg) if act == "delayed" else {}
+    pt = {n: (QT(torch.tensor(v), torch.tensor(scales[n]),
+                 ActScale(*map(torch.tensor, acts[n])) if n in acts
+                 else None)
+              if n in scales else torch.tensor(v)) for n, v in p.items()}
+    xb = torch.tensor(_serve_block_input(mode)).bfloat16()
+    with torch.inference_mode():
+        y, aux = tmoe.moe_block(cfg, pt, xb, cfg.quant, mode)
+    assert y.dtype == torch.bfloat16 and y.shape == xb.shape
+    np.testing.assert_allclose(float(aux), float(aux_ref), rtol=1e-6)
+    yr = y_ref.astype(np.float32)
+    _close_max(y.float(), yr, rel=2.0 ** -8)
+    assert _rel_l2(y.float(), yr) < 1e-4
+
+
+def test_grouped_forward_takes_a_prequantized_stack():
+    """A served MoE prompt past the dense combine's limit takes the
+    grouped route with the build-time fp8 stack: ``qlinear_grouped``
+    passes the payloads through with their per-expert scales and gives
+    bitwise what it gives on the f32 stack quantized against the same
+    scales."""
+    from repro_torch.core.quant import prequant_weight
+
+    x, w, _, s = _grouped_problem()
+    e, c, k, n = GROUPED
+    q, sw = prequant_weight(torch.tensor(w), 1, scale=torch.tensor(s))
+    cfg = QuantConfig(mode="moss")
+    with torch.inference_mode():
+        ys = [qlinear_grouped(torch.tensor(x), QT(wt, sw),
+                              torch.tensor(SIZES), c, cfg)
+              for wt in (q, torch.tensor(w))]
+    assert torch.equal(ys[0], ys[1])
+
+
+def test_moe_delayed_experts_take_their_own_scales():
+    """``_experts`` hands expert i its own weight scale and its own row
+    of the stacked ``ActScale``; a calibration tag and None pass as
+    they are."""
+    from repro_torch.core.actscale import ActScale
+
+    e, k, n = 3, 64, 8
+    w = torch.randn(e, k, n)
+    a = ActScale(torch.tensor([1.0, 2.0, 3.0]),
+                 torch.tensor([[0, -1], [-2, -3], [-1, 0]], dtype=torch.int8))
+    qts = tmoe._experts(QT(w, torch.tensor([4.0, 5.0, 6.0]), a))
+    for i, qt in enumerate(qts):
+        assert torch.equal(qt.w, w[i]) and float(qt.s) == 4.0 + i
+        assert float(qt.a.s) == 1.0 + i
+        assert torch.equal(qt.a.sub, a.sub[i])
+    assert [q.a for q in tmoe._experts(QT(w, None, "tag"))] == ["tag"] * e
+    assert [q.a for q in tmoe._experts(QT(w))] == [None] * e
+
+
+def test_moe_prequantized_weights_match_reference(reference):
+    """``prequantize_params`` on the phi3.5-moe smoke weights: every
+    payload and every per-(layer, expert) scale bitwise the
+    reference's (``_scale_dims`` gives the expert stacks (L, E)
+    scales)."""
+    ref = reference["serving_build"]
+    tp = tsteps.prequantize_params(
+        get_config(ARCH, smoke=True),
+        bridge.tree_to_torch(ref["params"], device="cpu"))
+    rq, rs = dict(_leaf_items(ref["qweights"])), dict(_leaf_items(
+        ref["scales"]))
+    tq, ts = dict(_leaf_items(tp.qweights)), dict(_leaf_items(tp.scales))
+    assert sorted(tq) == sorted(rq) and sorted(ts) == sorted(rs)
+    for name, want in rq.items():
+        _same(want, tq[name])
+    for name, want in rs.items():
+        np.testing.assert_array_equal(ts[name].numpy(), want)
+    assert ts["blocks/moe/w_up"].shape == (2, 8)
+
+
+def test_moe_calibration_matches_reference(reference):
+    """``calibrate_act_scales`` on the prequantized phi3.5-moe smoke
+    model: every site's ``ActScale`` bitwise the reference's, the
+    expert sites per (layer, expert): ``s`` (L, E) and ``sub`` (L, E,
+    K/32).  (The reference's calibration runs in the shared child with
+    its ``REFERENCE_XLA_FLAGS``, where it computes what the code says;
+    every expert sees every calibration token on the dense combine.)"""
+    from repro_torch.core.actscale import calibrate_act_scales
+
+    ref = reference["serving_build"]
+    cfg = get_config(ARCH, smoke=True)
+    tp = tsteps.prequantize_params(
+        cfg, bridge.tree_to_torch(ref["params"], device="cpu"))
+    act = calibrate_act_scales(cfg, tp.qweights, tp.scales)
+    assert sorted(act) == sorted(ref["act"])
+    for tag, (s, sub) in ref["act"].items():
+        np.testing.assert_array_equal(act[tag].s.numpy(), s, err_msg=tag)
+        np.testing.assert_array_equal(act[tag].sub.numpy(), sub,
+                                      err_msg=tag)
+    assert act["blocks/moe/w_down"].sub.shape == (2, cfg.n_experts,
+                                                  cfg.d_ff // 32)
+
+
+def test_moe_mesh_and_vmapped_experts_raise(monkeypatch):
+    """What stays refused of MoE: expert parallelism over a mesh (a
+    process group of more than one rank), in training and serving
+    alike, and ``REPRO_MOE_EXPERTS`` other than ``grouped`` in the
+    training CLI."""
     from repro_torch.launch import train as ttrain
 
     cfg = _smoke(True)
@@ -576,14 +762,13 @@ def test_moe_serving_paths_raise(monkeypatch):
     pt = {n: (QT(torch.tensor(v)) if n in scales else torch.tensor(v))
           for n, v in p.items()}
     xb = torch.tensor(x[:, :1]).bfloat16()
-    for mode in ("decode", "verify"):
+    monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
+    monkeypatch.setattr(torch.distributed, "get_world_size", lambda: 2)
+    for mode in ("train", "decode", "verify"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tmoe.moe_block(cfg, pt, xb, cfg.quant, mode)
-    with REC.calibrating():
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tmoe.moe_block(cfg, pt, xb, cfg.quant)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttr.paged_decode_supported(cfg, 64, 16)
+    monkeypatch.undo()
+    assert ttr.paged_decode_supported(cfg, 64, 16)
     monkeypatch.setenv("REPRO_MOE_EXPERTS", "vmapped")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ttrain.train(ARCH, steps=1, device="cpu")

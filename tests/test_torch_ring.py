@@ -130,14 +130,11 @@ def test_decode_attn_plain_matches_reference_and_pallas(kv_dtype, g, dh):
         jq, jk, jv, jks, jvs, jnp.int32(100), backend="ref"))
 
 
-def test_decode_attention_routes_agree_and_refuse():
-    """The contiguous route and the paged route over the same bytes (the
-    cache cut into scrambled pages) give the same bits, in the 4-D
-    (decode) and the 5-D (verify) form; a wrong n_valid length is
-    refused."""
+def _paged(seed):
+    """A scrambled block table of 16-slot pages over C, and the function
+    that cuts a (B, KV, C, ...) cache into its page pool."""
     t, n_p = 16, C // 16
-    q, k, v, ks, vs = _cache(7, 4, 120, "fp8")
-    bt = torch.tensor(np.random.default_rng(8).permutation(B * n_p)
+    bt = torch.tensor(np.random.default_rng(seed).permutation(B * n_p)
                       .reshape(B, n_p), dtype=torch.int32)
 
     def pages(x):
@@ -149,6 +146,16 @@ def test_decode_attention_routes_agree_and_refuse():
                 raw[bt[b, j]] = src[b, :, j * t:(j + 1) * t]
         return pool
 
+    return bt, pages
+
+
+def test_decode_attention_routes_agree_and_refuse():
+    """The contiguous route and the paged route over the same bytes (the
+    cache cut into scrambled pages) give the same bits, in the 4-D
+    (decode) and the 5-D (verify) form; a wrong n_valid length is
+    refused."""
+    q, k, v, ks, vs = _cache(7, 4, 120, "fp8")
+    bt, pages = _paged(8)
     nv = torch.tensor([37, 1, 48], dtype=torch.int32)
     got = dispatch.decode_attention(q, k, v, ks, vs, nv)
     paged = dispatch.decode_attention_paged(q, pages(k), pages(v),
@@ -165,6 +172,26 @@ def test_decode_attention_routes_agree_and_refuse():
     with pytest.raises(ValueError, match="n_valid"):
         dispatch.decode_attention(q, k, v, ks, vs, nv[:2])
 
+
+
+@pytest.mark.parametrize("kv_dtype", ["fp8", "bf16"])
+def test_einsum_path_is_the_kernel_route_on_the_cpu(kv_dtype):
+    """``dispatch.decode_attention_plain``, the ``REPRO_DECODE_ATTN=
+    einsum`` path, gives on CPU tensors the bits of the kernel wrappers'
+    route (which runs the same plain versions there): contiguous and
+    paged, in the 4-D (decode) and the 5-D (verify) form."""
+    q, k, v, ks, vs = _cache(9, 4, 120, kv_dtype)
+    bt, pages = _paged(10)
+    pool = [None if x is None else pages(x) for x in (k, v, ks, vs)]
+    q5 = torch.stack([q, q.flip(-1)], dim=2)
+    for qq, nv in ((q, [37, 1, 48]), (q5, [37, 2, 48])):
+        nv = torch.tensor(nv, dtype=torch.int32)
+        np.testing.assert_array_equal(
+            dispatch.decode_attention_plain(qq, k, v, ks, vs, nv).numpy(),
+            dispatch.decode_attention(qq, k, v, ks, vs, nv).numpy())
+        np.testing.assert_array_equal(
+            dispatch.decode_attention_plain(qq, *pool, nv, bt).numpy(),
+            dispatch.decode_attention_paged(qq, *pool, nv, bt).numpy())
 
 # --- the contiguous cache's writes ---------------------------------------
 

@@ -11,12 +11,20 @@ reference's top two logits lie within 1e-3 * max|logit| (a tie): there
 the comparison of that request stops, as tests/test_chunked_prefill.py
 does.
 
-The reference runs in a child process with XLA's excess precision off
-(``--xla_allow_excess_precision=false``).  With it on (XLA's default),
-the compiled steps may skip bf16 roundings the code asks for, which on
-this smoke model moves the reference's logits by up to ~10% of their
-range against its own op-by-op evaluation; the port implements the code
-as written.  The flag is set for the child only.
+The reference runs in a child process compiled with
+``REFERENCE_XLA_FLAGS`` (tests/test_torch_train.py): XLA's excess
+precision off and its algebraic simplifier's pass off.  With excess
+precision on (XLA's default), the compiled steps may skip bf16
+roundings the code asks for, which on this smoke model moves the
+reference's logits by up to ~10% of their range against its own
+op-by-op evaluation; with the simplifier on, its rewrites of the
+quantizers' arithmetic flip fp8 roundings wherever an activation scale
+is measured in the step (``REPRO_SERVE_DELAYED_ACT=0`` moved the
+reference's chunk logits by ~17% of their range).  Compiled with both
+off, the reference's steps give its op-by-op logits and the port's bit
+for bit.  The port implements the code as written.  The flags are set
+for the child only, where engines of one config and one set of switches
+share their compiled steps (``_share_steps``).
 """
 
 import json
@@ -28,6 +36,7 @@ from pathlib import Path
 import jax
 import numpy as np
 import pytest
+import torch
 
 from repro_torch import bridge
 from repro_torch.configs.registry import get_config
@@ -44,8 +53,10 @@ from repro_torch.serving import (
 )
 
 from test_torch_spec import Adversarial, HalfOracle, Oracle
+from test_torch_train import REFERENCE_XLA_FLAGS
 
 ARCH = "phi3-mini-3.8b"
+MOE = "phi3.5-moe-42b-a6.6b"
 LENS = [5, 16, 23, 9, 31]          # under, at and across 16-token chunks
 MAX_NEW, SLOTS, MAX_LEN, CHUNK, SEED = 8, 3, 48, 16, 0
 # the windowed arch at window 16 (a 16-slot ring under max_len 48): 12
@@ -63,7 +74,25 @@ RUNS = {
     "h2o-bf16": dict(arch=H2O, window=H2O_WINDOW, kv="bf16",
                      lens=H2O_LENS),
     "bf16-chunked": dict(kv="bf16"),
+    # the reference's three serving switches: weights quantized in the
+    # step against their build-time scales; just-in-time activation
+    # scales (whose amax spans the decode batch, so the chunk budget is
+    # pinned: no latency target can move a request between batches);
+    # the decode kernels' plain einsum versions
+    "prequant-off": dict(env={"REPRO_SERVE_PREQUANT": "0"}),
+    "jit-act": dict(env={"REPRO_SERVE_DELAYED_ACT": "0"}, pinned=True),
+    "einsum": dict(env={"REPRO_DECODE_ATTN": "einsum"}),
+    # MoE serving (the dense combine, per-(layer, expert) scales)
+    "moe-float": dict(arch=MOE),
+    "moe-identity": dict(arch=MOE, env={"REPRO_PAGED_PLACEMENT":
+                                        "identity"}),
 }
+# the reference switches the child resets between runs
+SWITCHES = ("REPRO_PAGED_PLACEMENT", "REPRO_CHUNKED_PREFILL",
+            "REPRO_SERVE_PREQUANT", "REPRO_SERVE_DELAYED_ACT",
+            "REPRO_DECODE_ATTN")
+# a chunk budget that reads no clock: latency targets no run can miss
+PINNED = dict(ttft_s=1e9, tpot_s=1e9)
 # speculative decode (``Engine(spec_decode=True)``) on both placements and
 # both cache dtypes, each with a draft source made from the streams of the
 # plain run named by ``truth`` (each package's drafts from its own run)
@@ -76,6 +105,7 @@ SPEC_RUNS = {
                             kv="bf16"),
     "spec-identity-bf16": dict(truth="bf16-chunked", draft="half2", k=4,
                                kv="bf16", env=IDENTITY),
+    "spec-moe": dict(arch=MOE, truth="moe-float", draft="oracle", k=4),
 }
 DRAFTS = {"oracle": Oracle, "adversarial": Adversarial, "half": HalfOracle,
           "half2": lambda truth: HalfOracle(truth, good=2)}
@@ -102,8 +132,8 @@ def reference(tmp_path_factory):
     (one child process)."""
     d = tmp_path_factory.mktemp("jax_engine")
     env = dict(os.environ)
-    env["XLA_FLAGS"] = (env.get("XLA_FLAGS", "") +
-                        " --xla_allow_excess_precision=false").strip()
+    env["XLA_FLAGS"] = (env.get("XLA_FLAGS", "") + " " +
+                        REFERENCE_XLA_FLAGS).strip()
     env["JAX_PLATFORMS"] = "cpu"
     src = str(Path(__file__).resolve().parent.parent / "src")
     env["PYTHONPATH"] = src + os.pathsep + env.get("PYTHONPATH", "")
@@ -161,9 +191,13 @@ def test_engine_streams_match_reference(reference):
 @pytest.mark.parametrize("name", sorted(RUNS))
 def test_serving_paths_match_reference(reference, monkeypatch, name):
     """Identity placement (chunked and whole-prompt), the whole-prompt
-    prefill on floating pages, the legacy Server, and the windowed arch
-    on its ring (identity and whole-prompt without being asked), in fp8
-    and bf16 caches.
+    prefill on floating pages, the legacy Server, the windowed arch on
+    its ring (identity and whole-prompt without being asked), in fp8
+    and bf16 caches; the reference's three serving switches
+    (``REPRO_SERVE_PREQUANT=0``, ``REPRO_SERVE_DELAYED_ACT=0`` against
+    the reference's own just-in-time streams, ``REPRO_DECODE_ATTN=
+    einsum``); and the phi3.5-moe smoke model on floating pages and
+    identity rows.
 
     On the ring the reference's streams can depend on the batch they
     were served in: in its fp8 run the request of 9 prompt tokens
@@ -184,8 +218,9 @@ def test_serving_paths_match_reference(reference, monkeypatch, name):
         Server(cfg, params, batch_slots=SLOTS, max_len=MAX_LEN,
                device="cpu").run(list(reqs), log=None)
     else:
+        slo = SLOTargets(**PINNED) if run.get("pinned") else None
         eng = Engine(cfg, params, num_slots=SLOTS, max_len=MAX_LEN,
-                     chunk_tokens=CHUNK, device="cpu")
+                     chunk_tokens=CHUNK, device="cpu", slo=slo)
         env = run.get("env", {})
         assert eng.float_pages == (
             env.get("REPRO_PAGED_PLACEMENT") != "identity"
@@ -201,7 +236,8 @@ def test_serving_paths_match_reference(reference, monkeypatch, name):
 @pytest.mark.parametrize("name", sorted(SPEC_RUNS))
 def test_spec_paths_match_reference(reference, monkeypatch, name):
     """Speculative verify on floating pages and identity rows, fp8 and
-    bf16 caches: the port's speculative streams equal its own plain
+    bf16 caches, and on the MoE smoke model: the port's speculative
+    streams equal its own plain
     streams token for token, and the reference's speculative streams
     (which equal the reference's plain ones) up to a reference tie.
     (How many verify steps a run takes depends on the wall clock: the
@@ -210,7 +246,7 @@ def test_spec_paths_match_reference(reference, monkeypatch, name):
     for k, v in run.get("env", {}).items():
         monkeypatch.setenv(k, v)
     cfg = _run_cfg(get_config, run)
-    params = _params()
+    params = _params(cfg.name)
 
     def serve(**kw):
         eng = Engine(cfg, params, num_slots=SLOTS, max_len=MAX_LEN,
@@ -263,6 +299,72 @@ def test_engine_refuses_unported_reference_switch(monkeypatch):
     monkeypatch.setenv("REPRO_PAGED_PLACEMENT", "floating")
     with pytest.raises(ValueError, match="REPRO_PAGED_PLACEMENT"):
         _port_engine()
+
+
+@pytest.mark.parametrize("arch", [ARCH, MOE])
+@pytest.mark.parametrize("act", ["delayed", "jit"])
+def test_prequant_off_logits_equal_prequant_on(arch, act):
+    """The reference's prequant-parity contract, on the port: the bf16
+    tree quantized in every step against the build-time scales
+    (``REPRO_SERVE_PREQUANT=0``) gives the prefill's and three decode
+    steps' logits bitwise those of the build-time fp8 payloads, with
+    calibrated activation scales (which calibrate bitwise alike from
+    either tree) and just in time; on phi3-mini and on the MoE (its
+    expert stacks scaled per (layer, expert))."""
+    from repro_torch.core.actscale import calibrate_act_scales
+    from repro_torch.train.steps import (make_decode_step,
+                                         make_prefill_step,
+                                         prequantize_params,
+                                         serve_weight_scales)
+
+    cfg = get_config(arch, smoke=True)
+    params = _params(arch)
+    pq = prequantize_params(cfg, params)
+    scales = serve_weight_scales(cfg, params)
+    trees = {"off": (params, scales), "on": (pq.qweights, pq.scales)}
+    acts = {k: (calibrate_act_scales(cfg, *t) if act == "delayed" else None)
+            for k, t in trees.items()}
+    if act == "delayed":
+        for tag, a in acts["on"].items():
+            assert torch.equal(a.s, acts["off"][tag].s), tag
+            assert torch.equal(a.sub, acts["off"][tag].sub), tag
+    toks = torch.from_numpy(np.stack(_prompts([8, 8])))
+    out = {}
+    for k, (tree, sc) in trees.items():
+        pre = make_prefill_step(cfg, 16, scales=sc, act_scales=acts[k])
+        dec = make_decode_step(cfg, scales=sc, act_scales=acts[k])
+        logits, caches = pre(tree, toks)
+        out[k] = [logits]
+        for i in range(3):
+            logits, caches = dec(tree, caches, toks[:, i:i + 1])
+            out[k].append(logits)
+    for i, (a, b) in enumerate(zip(out["off"], out["on"])):
+        assert torch.equal(a, b), (i, float((a - b).abs().max()))
+
+
+def test_serving_switches_read_like_the_reference(monkeypatch):
+    """``REPRO_SERVE_PREQUANT``, ``REPRO_SERVE_DELAYED_ACT`` and
+    ``REPRO_DECODE_ATTN`` with the reference's names, defaults and
+    errors; the engine builds from the bf16 tree and its build-time
+    scales under the first, without activation scales (and without
+    speculative verify) under the second."""
+    from repro_torch.core import runtime_flags as rf
+
+    assert rf.serve_prequant() and rf.serve_delayed_act()
+    assert rf.decode_attn_path() == "kernel"
+    monkeypatch.setenv("REPRO_DECODE_ATTN", "fused")
+    with pytest.raises(ValueError, match="REPRO_DECODE_ATTN"):
+        rf.decode_attn_path()
+    monkeypatch.setenv("REPRO_DECODE_ATTN", "einsum")
+    assert rf.decode_attn_path() == "einsum"
+    monkeypatch.setenv("REPRO_SERVE_PREQUANT", "0")
+    monkeypatch.setenv("REPRO_SERVE_DELAYED_ACT", "0")
+    assert not rf.serve_prequant() and not rf.serve_delayed_act()
+    eng = _port_engine(spec_decode=True)
+    assert eng.act_scales is None and not eng.spec
+    wq = eng.params["blocks"]["attn"]["wq"]
+    assert wq.dtype == torch.float32 and eng.scales["blocks"]["attn"][
+        "wq"].shape == (2,)
 
 
 def test_engine_refuses_kv_cache_env_override(monkeypatch):
@@ -533,6 +635,8 @@ def _reference_serve(cfg, params, run, prompts, slots=SLOTS):
     from repro.launch.serve import Server as JServer
     from repro.serving import Engine as JEngine, Request as JRequest
 
+    from repro.serving.scheduler import SLOTargets as JSLOTargets
+
     reqs = [JRequest(rid=i, prompt=p, max_new=MAX_NEW)
             for i, p in enumerate(prompts)]
     gaps = {r.rid: [] for r in reqs}
@@ -565,8 +669,9 @@ def _reference_serve(cfg, params, run, prompts, slots=SLOTS):
         srv._on_token = record(srv._on_token)
         srv.run(list(reqs), log=lambda *a: None)
     else:
+        slo = JSLOTargets(**PINNED) if run.get("pinned") else None
         eng = JEngine(cfg, params, num_slots=slots, max_len=MAX_LEN,
-                      chunk_tokens=CHUNK, prefix_cache=False)
+                      chunk_tokens=CHUNK, prefix_cache=False, slo=slo)
 
         def decode_rows():
             rows = list(eng.kv.rows)
@@ -586,15 +691,50 @@ def _reference_serve(cfg, params, run, prompts, slots=SLOTS):
             "gaps": [gaps[r.rid] for r in reqs]}
 
 
+# the switches a reference step reads while it is traced
+TRACED_SWITCHES = ("REPRO_SERVE_PREQUANT", "REPRO_SERVE_DELAYED_ACT",
+                   "REPRO_DECODE_ATTN")
+
+
+def _share_steps():
+    """In the child: the reference's engines and Server build their
+    steps through one cache, keyed by the config, the builder's
+    positional arguments and the switches read at trace time, so that
+    engines of one config share one jitted function per step and
+    compile each input shape once, not once per engine.  Every run's
+    weights come from ``SEED``, so their build-time scales, which the
+    steps close over, are equal within a key."""
+    import repro.launch.serve as jserve
+    import repro.serving.engine as jengine
+
+    built = {}
+
+    def shared(name, make):
+        def build(cfg, *args, **kw):
+            key = (name, cfg, args, tuple(os.environ.get(k)
+                                          for k in TRACED_SWITCHES))
+            if key not in built:
+                built[key] = make(cfg, *args, **kw)
+            return built[key]
+        return build
+
+    for mod in (jengine, jserve):
+        for name in ("make_prefill_step", "make_decode_step",
+                     "make_verify_step"):
+            if hasattr(mod, name):
+                setattr(mod, name, shared(name, getattr(mod, name)))
+
+
 def _reference_child(out: str) -> None:
     """The child process: every run's reference streams, into ``out``."""
     from repro.configs.registry import get_config as jax_get_config
     from repro.models.layers import init_tree
     from repro.models.transformer import model_defs
 
+    _share_steps()
     res = {}
     for name, run in [("default", {})] + sorted(RUNS.items()):
-        for k in ("REPRO_PAGED_PLACEMENT", "REPRO_CHUNKED_PREFILL"):
+        for k in SWITCHES:
             os.environ.pop(k, None)
         os.environ.update(run.get("env", {}))
         cfg = _run_cfg(jax_get_config, run)
@@ -606,7 +746,7 @@ def _reference_child(out: str) -> None:
             res[name + "-solo"] = _reference_serve(cfg, params, run,
                                                    prompts, slots=1)
     for name, run in sorted(SPEC_RUNS.items()):
-        for k in ("REPRO_PAGED_PLACEMENT", "REPRO_CHUNKED_PREFILL"):
+        for k in SWITCHES:
             os.environ.pop(k, None)
         os.environ.update(run.get("env", {}))
         cfg = _run_cfg(jax_get_config, run)

@@ -25,6 +25,8 @@ tests/test_spec_decode.py):
 tests/test_torch_cuda.py.)
 """
 
+import os
+
 import jax.numpy as jnp
 import ml_dtypes
 import numpy as np
@@ -295,10 +297,19 @@ class HalfOracle:
         return nxt
 
 
+_TRUTHS = {}
+
+
 def _truth(cfg, lens, max_new=10, eos=None):
-    out, eng = _serve(cfg, lens, spec=False, max_new=max_new, eos=eos)
-    assert eng.sched.verify_steps == 0
-    return out
+    """The plain streams of ``lens`` (served once per config, requests
+    and placement in this process: the engine is deterministic)."""
+    key = (cfg, repr(lens), max_new, eos,
+           os.environ.get("REPRO_PAGED_PLACEMENT"))
+    if key not in _TRUTHS:
+        out, eng = _serve(cfg, lens, spec=False, max_new=max_new, eos=eos)
+        assert eng.sched.verify_steps == 0
+        _TRUTHS[key] = out
+    return {rid: list(t) for rid, t in _TRUTHS[key].items()}
 
 
 @pytest.mark.parametrize("kv_dtype", ["fp8", "bf16"])

@@ -25,7 +25,8 @@ CPU beside them:
 - The olmo-7b smoke train step (2 layers, d 128), batch 2 x 64, three
   steps in moss and bf16 from the reference's ``init_train_state`` on
   the reference's batches, each held against the reference's step from
-  the same state: see ``test_train_steps_match_reference``.
+  the same state: see ``test_train_steps_match_reference``; the same
+  for llama2-7b's smoke config (RMSNorm), with the same limits.
 
 The child also computes the reference's side of
 ``tests/test_torch_recipes.py`` (``qmm`` and the train steps in the
@@ -81,6 +82,8 @@ from repro_torch.optim import schedule as tschedule
 from repro_torch.train import steps as tsteps
 
 ARCH = "olmo-7b"
+# the paper's other dense arch (RMSNorm where olmo-7b has LayerNorm)
+LLAMA2 = "llama2-7b"
 # the baseline recipes train with just-in-time weight scales
 # (``repro.launch.train.quant_from_name``)
 BASELINES = ("per_group", "per_tensor")
@@ -157,6 +160,7 @@ def _reference_child(out: str) -> None:
                "h2o": h2o_reference(),
                "optimizer": _optimizer_reference(),
                "train": _train_runs(),
+               "llama2": _train_runs(LLAMA2, ("moss", "bf16")),
                "qmm": {(mode, i): _qmm_reference(mode, *shape)
                        for mode in MODES
                        for i, shape in enumerate(QMM_SHAPES)}}
@@ -531,19 +535,19 @@ def _jax_state(ps):
         comm_residual=None, step=jnp.int32(ps.step))
 
 
-def _train_runs():
+def _train_runs(arch=ARCH, modes=MODES):
     """Per mode, from the reference's ``init_train_state``: three port
-    steps on the reference's batches, and before each the reference's
-    step from the same state on the same batch, as ``[(state before,
-    ref state after, ref metrics, port state after, port metrics)]``
-    with numpy leaves (in the child)."""
-    jcfg0 = jax_get_config(ARCH, smoke=True)
+    steps of ``arch``'s smoke config on the reference's batches, and
+    before each the reference's step from the same state on the same
+    batch, as ``[(state before, ref state after, ref metrics, port state
+    after, port metrics)]`` with numpy leaves (in the child)."""
+    jcfg0 = jax_get_config(arch, smoke=True)
     data = JSyntheticLM(JDataConfig(vocab=jcfg0.vocab, seq_len=64,
                                     global_batch=2, seed=0))
     batches = [jax.tree.map(np.asarray, data.batch_for_step(i))
                for i in range(3)]
     out = {}
-    for mode in MODES:
+    for mode in modes:
         jcfg = jcfg0.replace(quant=JQuantConfig(**recipe(mode),
                                                 rescale_interval=2))
         hp = jsteps.TrainHParams(**TRAIN_HP)
@@ -551,7 +555,7 @@ def _train_runs():
             jsteps.init_train_state, static_argnums=(0, 1))(
                 jcfg, hp, jax.random.PRNGKey(0)))
         jstep = jax.jit(jsteps.make_train_step(jcfg, hp))
-        tcfg = get_config(ARCH, smoke=True).replace(
+        tcfg = get_config(arch, smoke=True).replace(
             quant=QuantConfig(**recipe(mode), rescale_interval=2))
         tstep = tsteps.make_train_step(tcfg, tsteps.TrainHParams(**TRAIN_HP))
         tst = bridge.train_state_to_torch(init, device="cpu")
@@ -612,6 +616,19 @@ def test_train_steps_match_reference(reference, mode):
       the other way.  At most 5% of a leaf may be unsettled (measured
       at most 1.6% / 0.39%)."""
     print(mode, check_train_steps(reference["train"][mode]))
+
+
+@pytest.mark.parametrize("mode", ["moss", "bf16"])
+def test_llama2_train_steps_match_reference(reference, mode):
+    """llama2-7b smoke (2 layers, d 128, RMSNorm, vocab 512), as
+    ``test_train_steps_match_reference``: three port steps from the
+    reference's ``init_train_state`` on its batches, each held against
+    the reference's step from the same state, with the same limits
+    (``check_train_steps``, unchanged)."""
+    cfg = get_config(LLAMA2)
+    assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.d_ff, cfg.vocab,
+            cfg.norm) == (32, 4096, 32, 11008, 32000, "rmsnorm")
+    print(mode, check_train_steps(reference["llama2"][mode]))
 
 
 def check_train_steps(runs, grad_limit: float = 2e-2) -> dict:
