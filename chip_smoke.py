@@ -68,7 +68,25 @@ Phases, each fatal on failure:
      a tie; REPRO_SERVE_DELAYED_ACT=0: fused_quant_gemm at every
      quantized site of every decode step; REPRO_DECODE_ATTN=einsum: no
      decode_attn launch, and every attention call of a second run within
-     attn_limit of the kernel on the same rows); phi3.5-moe-
+     attn_limit of the kernel on the same rows); the prefix cache at
+     its default (Engine(num_slots=4, max_len=640): phase 4's requests,
+     then 6 requests sharing a 512-token system prompt and the prompt
+     alone: 6 hits, 5 · 512 + 511 prompt tokens skipped, a
+     copy-on-write that leaves the donor's pages byte for byte, the
+     wave's streams those of REPRO_PREFIX_CACHE=0 bit for bit, and in
+     a bf16-cache run at 4 layers the full hit's too); preemption to
+     the host (num_pages=12 where 32 back the slots: 8 requests of 64
+     new tokens preempt and swap back in, each victim's pages byte for
+     byte after its round trip, the streams those of a fully backed
+     pool; REPRO_PREEMPTION=0 at 4 layers the same, with no
+     preemption); the per_group and per_tensor recipes serving phase
+     4's requests (group_gemm at every quantized site of every decode
+     step and prefill chunk and of the calibration, none in
+     per_tensor; both recipes' steps on the card against the CPU, on
+     the smoke model and at full width, 2 layers, with the CPU's
+     calibrated scales; group_gemm at M 4, 16 and 32
+     over phi3-mini's decode shapes within 1e-5 of its plain
+     version); phi3.5-moe-
      42b-a6.6b at full width, depth cut to 4 layers, serving 8 requests
      on floating pages through the masked dense combine (each decode
      step's launches as counted from the code: 3 expert GEMMs per
@@ -116,7 +134,9 @@ Phases, each fatal on failure:
      the same weights and batches, each moss step launching exactly its
      kernels, none in bf16; the smoke-size MoE trains 3 moss steps on the
      grouped route on the card and on the CPU (phase 6's check);
-  8. the kernels line (JSON), the card line, and the last line
+  8. the kernels line (JSON; group_gemm with a "serving" entry: its
+     times at the serving rows, its launches the per_group steps' and
+     engine's), the card line, and the last line
      {"ok": true, "device": {...}}.
 
 Each phase prints its wall seconds, and the script its total.
@@ -224,6 +244,15 @@ VERIFY_REPORTED = {"decode_attn_paged_verify": "phi3",
 # the spec engine phase's long-context run: 2 prompts of ~4000 tokens
 SPEC_LONG_PROMPTS, SPEC_LONG_MAX_NEW, SPEC_LONG_MAX_LEN = [4000, 3968], 32, 4160
 SPEC_K = 4
+# the prefix phase: a 512-token system prompt (16 chunks of 32) shared
+# by a wave of 6 requests; its bf16-cache twin at this depth
+PREFIX_SYSTEM, PREFIX_MAX_LEN, PREFIX_BF16_LAYERS = 512, 640, 4
+# the preempt phase: 12 pages where 4 slots of 128 tokens need 32; the
+# reservation run (about one request at a time) at this depth
+PREEMPT_PAGES, PREEMPT_MAX_LEN, PREEMPT_MAX_NEW = 12, 128, 64
+PREEMPT_RESERVE_LAYERS = 4
+# the baselines' card-vs-CPU check at full width: this depth of phi3-mini
+BASELINE_CHECK_LAYERS = 2
 REPLACES = {
     "mx_gemm": "src/repro/kernels/mx_gemm.py:61",
     "mx_gemm_tiled": "src/repro/kernels/mx_gemm.py:61",
@@ -1365,29 +1394,44 @@ def _step_deltas(eng, counters, log: list):
     eng.decode = decode
 
 
-def _serve_once(torch, np, seed: int, float_pages: bool = True,
-                reqs=None, max_len: int = 64, arch: str = ARCH,
-                layers: int | None = None, gaps: dict | None = None,
-                step_log: tuple | None = None, wrap_decode=None,
-                **engine_kw):
-    """Serve ``reqs`` (phase 4's 8 requests by default) through a
-    full-width engine of ``arch`` (depth cut to ``layers`` if given) on
-    weights from ``seed``; with ``gaps`` records each token's top-two
-    logit gap, with ``step_log`` ((counters, list)) each decode step's
-    launches; ``wrap_decode(eng)`` wraps the engine's own step first.
-    Returns the requests, the build and serve seconds and the engine's
-    stats (with the run's peak memory)."""
+def _engine(seed: int = 0, arch: str = ARCH, layers: int | None = None,
+            over: dict | None = None, **engine_kw):
+    """A full-width engine of ``arch`` (depth cut to ``layers`` if
+    given, config fields replaced by ``over``) on weights from ``seed``,
+    4 slots, pages of 16, on the card."""
     from repro_torch.configs.registry import get_config
     from repro_torch.launch.serve import random_params
-    from repro_torch.serving import Engine, Request
+    from repro_torch.serving import Engine
 
     cfg = get_config(arch)
     if layers is not None:
         cfg = cfg.replace(n_layers=layers)
+    if over:
+        cfg = cfg.replace(**over)
+    return Engine(cfg, random_params(cfg, seed, "cuda"), num_slots=4,
+                  page_size=16, device="cuda", **engine_kw)
+
+
+def _serve_once(torch, np, seed: int, float_pages: bool = True,
+                reqs=None, max_len: int = 64, arch: str = ARCH,
+                layers: int | None = None, gaps: dict | None = None,
+                step_log: tuple | None = None, wrap_decode=None,
+                over: dict | None = None, **engine_kw):
+    """Serve ``reqs`` (phase 4's 8 requests by default) through a
+    full-width engine of ``arch`` (depth cut to ``layers`` if given,
+    config fields replaced by ``over``) on weights from ``seed``; with
+    ``gaps`` records each token's top-two logit gap, with ``step_log``
+    ((counters, list)) each decode step's launches; ``wrap_decode(eng)``
+    wraps the engine's own step first.  Returns the requests, the build
+    and serve seconds and the engine's stats (with the run's peak
+    memory)."""
+    from repro_torch.serving import Request
+
     torch.cuda.reset_peak_memory_stats()
     t0 = time.monotonic()
-    eng = Engine(cfg, random_params(cfg, seed, "cuda"), num_slots=4,
-                 max_len=max_len, page_size=16, device="cuda", **engine_kw)
+    eng = _engine(seed, arch=arch, layers=layers, over=over,
+                  max_len=max_len, **engine_kw)
+    cfg = eng.cfg
     torch.cuda.synchronize()
     build_s = time.monotonic() - t0
     if (eng.float_pages, eng.chunked) != (float_pages, True):
@@ -1901,6 +1945,424 @@ def _einsum_beside_kernels(torch, np, name, value):
           f"logit| / max|logit| {', '.join(f'{r:.3g}' for r in rel)}")
 
 
+def _drained(torch, eng, finite, reqs, label):
+    """Every request of ``reqs`` finished with its max_new tokens, every
+    step's logits finite, no row left and the pool all free."""
+    if not all(r.done and len(r.out) == r.max_new for r in reqs):
+        raise AssertionError(f"{label}: a request did not finish")
+    if not bool(torch.stack(finite).all()):
+        raise AssertionError(f"{label}: non-finite logits")
+    al = eng.kv.allocator
+    if eng.kv.rows or eng._preempted or al.free_pages != al.num_pages:
+        raise AssertionError(f"{label}: {len(eng.kv.rows)} rows, "
+                             f"{len(eng._preempted)} parked, "
+                             f"{al.free_pages} of {al.num_pages} pages free")
+
+
+def _timed_run(torch, eng, reqs):
+    t0 = time.monotonic()
+    eng.run(reqs, log=None)
+    torch.cuda.synchronize()
+    return time.monotonic() - t0
+
+
+def _pool_pages(torch, eng, pages) -> list:
+    """A copy of physical ``pages`` of every pool tensor, as bytes."""
+    from repro_torch.models.attention import _bytes
+    from repro_torch.serving.paged_cache import _leaves
+
+    idx = torch.tensor(pages, dtype=torch.int64, device="cuda")
+    return [_bytes(buf).index_select(1, idx).clone()
+            for pool in eng.kv.caches.values() for buf in _leaves(pool)]
+
+
+def _same_pages(torch, a: list, b: list) -> bool:
+    return len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def _launch_line(label, counters):
+    print(f"{label} launches: " + json.dumps(
+        {c.name: c.count for c in counters if c.count}))
+
+
+def _prefix_requests(Request, np, vocab):
+    """The prefix phase's wave: 6 requests sharing a PREFIX_SYSTEM-token
+    system prompt, each with its own 2-8-token suffix, and then the
+    system prompt alone (a full hit)."""
+    rng = np.random.default_rng(7)
+    system = rng.integers(0, vocab, PREFIX_SYSTEM, dtype=np.int32)
+    wave = [Request(rid=100 + i, prompt=np.concatenate(
+                [system, rng.integers(0, vocab, int(rng.integers(2, 9)),
+                                      dtype=np.int32)]), max_new=16)
+            for i in range(6)]
+    return system, wave, Request(rid=200, prompt=system.copy(), max_new=16)
+
+
+def _serve_prefix_wave(torch, np, layers=None, over=None, first=False,
+                       check_donor=False):
+    """Serve (phase 4's requests first if ``first``) the prefix wave and
+    its full hit on one engine with the prefix cache at its default.
+    With ``check_donor``, the donor's shared pages are held byte for
+    byte across the full hit's copy-on-write.  Returns the streams
+    (phase 4's, the wave's, the full hit's), the wave's mean TTFT and
+    the engine's stats."""
+    from repro_torch.serving import Request
+    from repro_torch.serving.paged_cache import page_keys
+
+    eng, finite = _engine(layers=layers, over=over,
+                          max_len=PREFIX_MAX_LEN), []
+    eng.decode = _checked(torch, eng.decode, finite)
+    label = f"prefix {'on' if eng.prefix_cache else 'off'}"
+    base = _requests(Request, np, eng.cfg, 0) if first else []
+    if base:
+        _timed_run(torch, eng, base)
+    system, wave, full = _prefix_requests(Request, np, eng.cfg.vocab)
+    wave_s = _timed_run(torch, eng, wave)
+    ttft = float(np.mean([r.ttft for r in wave]))
+    if check_donor:
+        pages = eng.kv.allocator.lookup(page_keys(system, eng.kv.page_size))
+        if len(pages) != PREFIX_SYSTEM // eng.kv.page_size:
+            raise AssertionError(f"{label}: {len(pages)} system-prompt "
+                                 "pages registered")
+        before = _pool_pages(torch, eng, pages)
+        cow0 = eng.kv.cow_copies
+    _timed_run(torch, eng, [full])
+    if check_donor:
+        if eng.kv.cow_copies <= cow0:
+            raise AssertionError(f"{label}: the full hit copied no page")
+        if not _same_pages(torch, before, _pool_pages(torch, eng, pages)):
+            raise AssertionError(f"{label}: the donor's shared pages "
+                                 "changed under the full hit's write")
+        print(f"{label}: the donor's {len(pages)} shared pages byte for "
+              f"byte unchanged across the full hit's copy-on-write")
+    _drained(torch, eng, finite, base + wave + [full], label)
+    st = eng.stats()
+    toks = sum(len(r.out) for r in wave)
+    print(f"{label} ({eng.cfg.kv_cache_dtype} cache, {eng.cfg.n_layers} "
+          f"layers): wave of {len(wave)} x {PREFIX_SYSTEM}+2..8 tokens in "
+          f"{wave_s:.2f} s ({toks / wave_s:.1f} tok/s), mean TTFT "
+          f"{1e3 * ttft:.1f} ms, prefix hits {st['prefix_hits']}, prefill "
+          f"tokens skipped {st['prefill_tokens_skipped']}, pages shared "
+          f"{st['pages_shared']}, CoW copies {st['cow_copies']}, "
+          f"{st['chunk_prefill_steps']} prefill chunks, peak pool pages "
+          f"{st['peak_pool_pages']}")
+    out = ([list(r.out) for r in base], [list(r.out) for r in wave],
+           list(full.out))
+    del eng
+    torch.cuda.empty_cache()
+    return out, ttft, st
+
+
+def phase_engine_prefix(torch, np, plain: list):
+    """The prefix cache at its default on full-width phi3-mini, all 32
+    layers, Engine(num_slots=4, max_len=640): phase 4's 8 requests (their
+    streams against phase 4's reported), then
+    a wave of 6 requests sharing a 512-token system prompt (16 chunks),
+    each with a 2-8-token suffix, then the system prompt alone.  The
+    first wave request registers the prompt's 32 pages; the other five
+    hit them (512 prompt tokens skipped each) and the last request hits
+    them all (511 skipped: its last prompt token chunks, writing into a
+    copy of the donor's last page).  Gates: 6 hits,
+    5 · 512 + 511 skipped tokens, a copy-on-write that leaves the
+    donor's pages byte for byte as they were, and the wave's streams
+    (the five partial hits and the miss) bit for bit those of a
+    REPRO_PREFIX_CACHE=0 serve.  The full hit reads positions 480-510
+    from the fp8 pool where a cold serve's chunk reads its own bf16
+    K/V, so its stream is held to the cold one in a bf16-cache run
+    (depth cut to PREFIX_BF16_LAYERS, full width), with the wave's."""
+    counters = _serving_counters()
+    for c in counters:
+        c.reset()
+    (base, wave, full), ttft_on, st = _serve_prefix_wave(
+        torch, np, first=True, check_donor=True)
+    _launch_line("prefix on", counters)
+    # the chunk attention sums over every slot of max_len (640 here, 64
+    # in phase 4), so phase 4's streams are reported, not gated
+    print(f"prefix on: phase 4's requests at max_len {PREFIX_MAX_LEN}: "
+          f"{sum(a == b for a, b in zip(base, plain))} of {len(plain)} "
+          "streams equal phase 4's")
+    skipped = 5 * PREFIX_SYSTEM + PREFIX_SYSTEM - 1
+    if (st["prefix_hits"], st["prefill_tokens_skipped"]) != (6, skipped):
+        raise AssertionError(f"prefix on: {st['prefix_hits']} hits, "
+                             f"{st['prefill_tokens_skipped']} skipped "
+                             f"tokens, expected 6 and {skipped}")
+    if st["cow_copies"] < 1 or st["prefix_hit_requests"] != 6:
+        raise AssertionError(f"prefix on: {st['cow_copies']} CoW copies, "
+                             f"{st['prefix_hit_requests']} hit requests")
+    (_, wave_off, full_off), ttft_off, st_off = _with_env(
+        "REPRO_PREFIX_CACHE", "0", lambda: _serve_prefix_wave(
+            torch, np, first=True))
+    if st_off["prefix_hits"] or st_off["pages_shared"]:
+        raise AssertionError("REPRO_PREFIX_CACHE=0 shared pages")
+    if wave != wave_off:
+        raise AssertionError("prefix on: the wave's streams differ from a "
+                             "REPRO_PREFIX_CACHE=0 serve")
+    print(f"prefix: the wave's 6 streams (5 partial hits) bit for bit "
+          f"those of REPRO_PREFIX_CACHE=0; mean TTFT {1e3 * ttft_on:.1f} "
+          f"ms with the cache, {1e3 * ttft_off:.1f} ms without; the full "
+          f"hit's fp8 stream {'equals' if full == full_off else 'leaves'} "
+          "the cold one")
+    bf16 = dict(kv_cache_dtype="bf16")
+    (_, wave_b, full_b), _, st_b = _serve_prefix_wave(
+        torch, np, layers=PREFIX_BF16_LAYERS, over=bf16)
+    (_, wave_bc, full_bc), _, _ = _with_env(
+        "REPRO_PREFIX_CACHE", "0", lambda: _serve_prefix_wave(
+            torch, np, layers=PREFIX_BF16_LAYERS, over=bf16))
+    if st_b["prefix_hits"] != 6 or wave_b != wave_bc or full_b != full_bc:
+        raise AssertionError(f"prefix bf16: {st_b['prefix_hits']} hits; "
+                             "the wave's or the full hit's stream differs "
+                             "from the cold serve's")
+    print(f"prefix bf16 ({PREFIX_BF16_LAYERS} layers): the wave's and the "
+          "full hit's streams bit for bit the cold serve's")
+
+
+def _preempt_requests(Request, np, vocab):
+    rng = np.random.default_rng(11)
+    return [Request(rid=i, prompt=rng.integers(0, vocab, int(n),
+                                               dtype=np.int32),
+                    max_new=PREEMPT_MAX_NEW)
+            for i, n in enumerate(rng.integers(16, 49, size=8))]
+
+
+def _watch_swaps(torch, eng, log: dict):
+    """Wrap ``eng``'s swaps: each victim's live pages are copied before
+    its swap-out and held byte for byte after its swap-in; ``log`` gets
+    the bytes moved out and each swap's seconds (synchronised around
+    it, so that the host-to-device and device-to-host copies count)."""
+    kv = eng.kv
+    out, back, held = kv.swap_out, kv.swap_in, {}
+
+    def swap_out(row):
+        owner = kv.rows[row]
+        n = -(-kv.lengths[row] // kv.page_size)
+        held[owner] = _pool_pages(
+            torch, eng, kv.allocator.table(owner).pages[:n])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bundle = out(row)
+        torch.cuda.synchronize()
+        log["out_s"].append(time.perf_counter() - t0)
+        log["bytes"] += sum(t.numel() * t.element_size()
+                            for ts in bundle["store"].values() for t in ts)
+        return bundle
+
+    def swap_in(bundle, total):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        row = back(bundle, total)
+        torch.cuda.synchronize()
+        log["in_s"].append(time.perf_counter() - t0)
+        owner = bundle["owner"]
+        pages = kv.allocator.table(owner).pages[:bundle["n_pages"]]
+        if not _same_pages(torch, held.pop(owner),
+                           _pool_pages(torch, eng, pages)):
+            raise AssertionError(f"request {owner}: its pages differ after "
+                                 "the swap round trip")
+        log["round_trips"] += 1
+        return row
+
+    kv.swap_out, kv.swap_in = swap_out, swap_in
+
+
+def _serve_preempt(torch, np, label, layers=None, swaps=None, **kw):
+    """The preempt phase's 8 requests on one engine (max_len
+    PREEMPT_MAX_LEN); returns the streams, the stats, tok/s and the
+    peak number of decode rows."""
+    from repro_torch.serving import Request
+
+    eng, finite = _engine(layers=layers, max_len=PREEMPT_MAX_LEN, **kw), []
+    eng.decode = _checked(torch, eng.decode, finite)
+    if swaps is not None:
+        _watch_swaps(torch, eng, swaps)
+    peak = [0]
+    step = eng.decode
+
+    def decode(params, caches, toks):
+        if toks.shape[1] == 1:
+            peak[0] = max(peak[0], toks.shape[0])
+        return step(params, caches, toks)
+
+    eng.decode = decode
+    reqs = _preempt_requests(Request, np, eng.cfg.vocab)
+    run_s = _timed_run(torch, eng, reqs)
+    _drained(torch, eng, finite, reqs, label)
+    st = eng.stats()
+    toks = sum(len(r.out) for r in reqs)
+    print(f"{label} ({eng.cfg.n_layers} layers, "
+          f"{eng.kv.allocator.num_pages} pages, "
+          f"{'usage' if eng.preemption else 'reservation'} admission): "
+          f"{toks} tokens in {run_s:.2f} s = {toks / run_s:.1f} tok/s, "
+          f"{st['decode_steps']} decode steps, peak decode rows {peak[0]}, "
+          f"preemptions {st['preemptions']}, swap-ins {st['swap_ins']}, "
+          f"peak pool pages {st['peak_pool_pages']}")
+    out = [list(r.out) for r in reqs]
+    del eng
+    torch.cuda.empty_cache()
+    return out, st
+
+
+def phase_engine_preempt(torch, np):
+    """Preemption to the host on full-width phi3-mini, all 32 layers:
+    Engine(num_slots=4, max_len=128, num_pages=12), where 32 pages would
+    back the slots fully, serves 8 requests of 16-48 prompt tokens and
+    64 new tokens.  Usage admission packs them until growth finds the
+    pool dry, and the engine swaps victims out and back in.  Gates:
+    preemptions > 0 and as many swap-ins, the pool free at the end,
+    every victim's pages byte for byte the same after its swap round
+    trip (every pool tensor), and the streams bit for bit those of the
+    same requests on a fully backed pool.  Then REPRO_PREEMPTION=0
+    (reservation admission: about one request at a time on this pool),
+    at PREEMPT_RESERVE_LAYERS layers beside its fully backed twin at
+    that depth: equal streams and no preemption."""
+    counters = _serving_counters()
+    for c in counters:
+        c.reset()
+    swaps = {"bytes": 0, "out_s": [], "in_s": [], "round_trips": 0}
+    small, st = _serve_preempt(torch, np, "preempt usage", swaps=swaps,
+                               num_pages=PREEMPT_PAGES)
+    _launch_line("preempt usage", counters)
+    if not (st["preemptions"] > 0
+            and st["swap_ins"] == st["preemptions"]
+            == swaps["round_trips"]):
+        raise AssertionError(f"preempt: {st['preemptions']} preemptions, "
+                             f"{st['swap_ins']} swap-ins, "
+                             f"{swaps['round_trips']} round trips")
+    n = st["preemptions"]
+    print(f"preempt: {n} swaps out and back, each victim's pages byte for "
+          f"byte after its round trip; {swaps['bytes'] / 2 ** 20:.2f} MiB "
+          f"to the host ({swaps['bytes'] / n / 2 ** 20:.2f} MiB a swap), "
+          f"swap-out {1e3 * statistics.mean(swaps['out_s']):.2f} ms, "
+          f"swap-in {1e3 * statistics.mean(swaps['in_s']):.2f} ms a swap")
+    full, _ = _serve_preempt(torch, np, "preempt fully backed")
+    if small != full:
+        raise AssertionError("preempt: streams differ from the fully "
+                             "backed pool's")
+    print("preempt: streams bit for bit the fully backed pool's")
+    res, st_r = _with_env("REPRO_PREEMPTION", "0", lambda: _serve_preempt(
+        torch, np, "reservation", layers=PREEMPT_RESERVE_LAYERS,
+        num_pages=PREEMPT_PAGES))
+    twin, _ = _serve_preempt(torch, np, "reservation fully backed",
+                             layers=PREEMPT_RESERVE_LAYERS)
+    if st_r["preemptions"] or res != twin:
+        raise AssertionError(f"REPRO_PREEMPTION=0: {st_r['preemptions']} "
+                             "preemptions, or streams differ from the fully "
+                             "backed pool's")
+    print("reservation admission: no preemption, streams bit for bit the "
+          "fully backed pool's")
+
+
+def _group_gemm_serving(torch, timer) -> dict:
+    """group_gemm (row 6) at the per_group serving rows, M 4 (decode),
+    16 and 32 (prefill chunk), over phi3-mini's decode (K, N): e4m3
+    activations per 128 along K against the e4m3 weight, within 1e-5 *
+    max|ref| of the plain version, timed beside it and beside bf16
+    torch.matmul.  Returns the kernels line's serving entry: the M 4
+    row at (3072, 8192), as mx_gemm's, and the largest error."""
+    from repro_torch.core.quant import quant_per_group, quant_per_tensor
+    from repro_torch.kernels import group_gemm
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    row, worst = {}, 0.0
+    for k, n in GEMM_KN:
+        w = torch.randn(k, n, device="cuda", generator=gen) / k ** 0.5
+        qw = quant_per_tensor(w).q
+        del w
+        for m in SMALL_M:
+            xq = quant_per_group(_activations(torch, gen, m, k), 128, "e4m3")
+            got = group_gemm.group_gemm(xq.q, xq.s, qw)
+            want = group_gemm.group_gemm_plain(xq.q, xq.s, qw)
+            err = float((got - want).abs().max())
+            scale = float(want.abs().max())
+            if not (err <= 1e-5 * scale and torch.isfinite(got).all()):
+                raise AssertionError(f"group_gemm serving M={m} K={k} "
+                                     f"N={n}: max err {err} > 1e-5 * {scale}")
+            worst = max(worst, err)
+            xb, wb = xq.q.to(torch.bfloat16), qw.to(torch.bfloat16)
+            t = timer.ms(lambda: group_gemm.group_gemm(xq.q, xq.s, qw))
+            tp = timer.ms(lambda: group_gemm.group_gemm_plain(xq.q, xq.s,
+                                                              qw))
+            tl = timer.ms(lambda: torch.matmul(xb, wb))
+            b, by = bound_ms(m * k + 4 * m * (k // 128) + k * n + 4 * m * n,
+                             2.0 * m * n * k)
+            print(f"group_gemm serving M={m:2d} K={k} N={n}: max_err "
+                  f"{err:.3g} (max|ref| {scale:.3g}), {t:.4f} ms, plain "
+                  f"{tp:.4f} ms, library {tl:.4f} ms (torch.matmul bf16), "
+                  f"bound {b * 1e3:.2f} us ({by}), {b / t:.1%} of the "
+                  f"bound, {t / tl:.3f}x torch.matmul's time")
+            if (m, k, n) == (4, 3072, 8192):
+                row = dict(m=m, k=k, n=n, ms=t, plain_ms=tp, library_ms=tl,
+                           bound_ms=b, bound_by=by)
+    row["max_abs_err"] = worst
+    row["checked_kn"], row["checked_m"] = GEMM_KN, list(SMALL_M)
+    return row
+
+
+def phase_engine_baselines(torch, np, timer) -> dict:
+    """The paper's baselines served on full-width phi3-mini, all 32
+    layers, phase 4's requests and weights: per_group (COAT: each site's
+    activation quantized per 128 along K against its calibrated group
+    scales, the GEMM group_gemm, row 6) and per_tensor (TE: one
+    calibrated scale, pt_matmul, no kernel of its own), weights
+    pre-quantized per layer against their own amax.  Gates: every
+    request finishes with finite logits; per decode step, per_group
+    launches group_gemm at each of the 7 · layers + 1 quantized sites
+    and decode_attn_paged once a layer, per_tensor only the latter; in
+    all, group_gemm = sites · (decode steps + prefill chunks + the
+    calibration forward).  Then each recipe's steps on the card
+    against the CPU (within 2e-2 * max|logit|): on the smoke model, and
+    at full width, 2 layers, with the CPU's calibrated activation
+    scales; and row 6 at the serving shapes.  Returns group_gemm's serving entry
+    and its launches."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.formats import PER_GROUP_CONFIG, PER_TENSOR_CONFIG
+    from repro_torch.kernels import group_gemm
+
+    cfg = get_config(ARCH)
+    sites = 7 * cfg.n_layers + 1            # q k v o up gate down, head
+    counters = _serving_counters() + [group_gemm.counter]
+    zero = {c.name: 0 for c in counters}
+    launches = 0
+    for mode, qcfg in (("per_group", PER_GROUP_CONFIG),
+                       ("per_tensor", PER_TENSOR_CONFIG)):
+        for c in counters:
+            c.reset()
+        log = []
+        per_step = {**zero, "decode_attn_paged": cfg.n_layers}
+        if mode == "per_group":
+            per_step["group_gemm"] = sites
+        reqs, build_s, run_s, st = _serve_once(
+            torch, np, seed=0, step_log=(counters, log),
+            over=dict(quant=qcfg))
+        total = {c.name: c.count for c in counters}
+        label = f"serve {mode}"
+        _serve_line(label, reqs, run_s, st)
+        print(f"{label}: build (weights, prequant, calibration) "
+              f"{build_s:.2f} s, launches {json.dumps(total)}")
+        _check_steps(label, log, per_step)
+        want = (sites * (st["decode_steps"] + st["chunk_prefill_steps"] + 1)
+                if mode == "per_group" else 0)
+        if total["group_gemm"] != want:
+            raise AssertionError(f"{label}: {total['group_gemm']} group_gemm "
+                                 f"launches, expected {want}")
+        launches += total["group_gemm"]
+    # on the card against the CPU: the smoke model as
+    # phase_small_reference checks it, and full width at 2 layers with
+    # the CPU's calibrated scales (the card's own norm and RoPE
+    # arithmetic move a few per_group group scales by up to ~1.6%, and
+    # every fp8 rounding of those groups with them: tools/card_vs_cpu.py)
+    small = get_config(ARCH, smoke=True)
+    wide = cfg.replace(n_layers=BASELINE_CHECK_LAYERS)
+    for mode, qcfg in (("per_group", PER_GROUP_CONFIG),
+                       ("per_tensor", PER_TENSOR_CONFIG)):
+        _small_steps(torch, np, small.replace(quant=qcfg),
+                     f"smoke {ARCH} {mode}")
+        _small_steps(torch, np, wide.replace(quant=qcfg),
+                     f"{ARCH} {mode} ({BASELINE_CHECK_LAYERS} layers, the "
+                     "CPU's activation scales)", cpu_scales=True)
+    return {"serving": _group_gemm_serving(torch, timer),
+            "launches": launches}
+
+
 def phase_engine_moe(torch, np) -> dict:
     """phi3.5-moe-42b-a6.6b at full width (d 4096, 16 experts top-2, d_ff
     6400, GQA kv 8), 4 of its 32 layers (the engine builds from the
@@ -1977,45 +2439,79 @@ def phase_engine_moe(torch, np) -> dict:
     return launches
 
 
-def _small_steps(torch, np, cfg, label):
-    """``cfg`` (a smoke-size model) on the card against the CPU (plain
-    versions), built as the engine builds it (``prepare_weights``,
-    ``calibrate_serving``: the switches in the environment apply), fed
-    the same tokens: one chunked-prefill step and three decode steps;
-    logits within 2e-2 * max|logit| (f32 sums in another order, then
-    bf16 roundings)."""
-    from repro_torch.launch.serve import random_params
-    from repro_torch.models.transformer import init_paged_pools
+def _build(torch, cfg, params, dev):
+    """``params`` on ``dev`` built as the engine builds them
+    (``prepare_weights``, ``calibrate_serving``: the switches in the
+    environment apply): (weights, weight scales, activation scales)."""
     from repro_torch.serving.engine import (calibrate_serving,
                                             prepare_weights, to_device)
+
+    with torch.inference_mode():
+        qw, sc = prepare_weights(cfg, to_device(params, dev))
+        return qw, sc, calibrate_serving(cfg, qw, sc)
+
+
+def _moved(act, dev):
+    """Calibrated activation scales moved to ``dev`` unchanged."""
+    return {k: a._replace(s=a.s.to(dev),
+                          sub=None if a.sub is None else a.sub.to(dev))
+            for k, a in act.items()}
+
+
+def _steps(torch, np, cfg, dev, built, prompt, feed_from=None):
+    """One chunked-prefill step of ``prompt`` (13 tokens, pages 2 0 3 1
+    of a 4-page pool) and three decode steps on ``dev`` with ``built``;
+    each step fed its own greedy token, or ``feed_from``'s.  Returns
+    each step's live logits on the host."""
+    from repro_torch.models.transformer import init_paged_pools
     from repro_torch.train.steps import make_decode_step
+
+    qw, sc, act = built
+    step = make_decode_step(cfg, scales=sc, act_scales=act)
+    pools = init_paged_pools(cfg, 64, 4, 16, dev)
+    bt = torch.tensor([[2, 0, 3, 1]], dtype=torch.int32, device=dev)
+    feed = np.zeros((1, 16), np.int32)
+    feed[0, :len(prompt)] = prompt
+    depth, logs = 0, []
+    for i in range(4):
+        idx = torch.tensor([depth], dtype=torch.int32, device=dev)
+        pools = {n: c._replace(idx=idx, block_table=bt)
+                 for n, c in pools.items()}
+        logits, pools = step(qw, pools, torch.from_numpy(feed).to(dev))
+        n_live = len(prompt) if i == 0 else 1
+        logs.append(logits[0, :n_live].float().cpu().numpy())
+        depth += n_live
+        src = logs if feed_from is None else feed_from
+        feed = np.array([[int(src[i][-1].argmax())]], np.int32)
+    return logs
+
+
+def _card_and_cpu(torch, np, cfg):
+    """``cfg``'s weights from seed 0 built on the CPU and on the card,
+    and the CPU's steps: (params, prompt, CPU build, CPU logits)."""
+    from repro_torch.launch.serve import random_params
 
     params = random_params(cfg, 0, "cpu")
     prompt = np.random.default_rng(5).integers(0, cfg.vocab, 13)
-    outs = {}
-    for dev in ("cpu", "cuda"):
-        with torch.inference_mode():
-            qw, sc = prepare_weights(cfg, to_device(params, dev))
-            act = calibrate_serving(cfg, qw, sc)
-        step = make_decode_step(cfg, scales=sc, act_scales=act)
-        pools = init_paged_pools(cfg, 64, 4, 16, dev)
-        bt = torch.tensor([[2, 0, 3, 1]], dtype=torch.int32, device=dev)
-        feed = np.zeros((1, 16), np.int32)
-        feed[0, :13] = prompt
-        depth, logs = 0, []
-        for i in range(4):
-            idx = torch.tensor([depth], dtype=torch.int32, device=dev)
-            pools = {n: c._replace(idx=idx, block_table=bt)
-                     for n, c in pools.items()}
-            logits, pools = step(qw, pools, torch.from_numpy(feed).to(dev))
-            n_live = 13 if i == 0 else 1
-            logs.append(logits[0, :n_live].float().cpu().numpy())
-            depth += n_live
-            # both devices are fed the CPU run's greedy tokens
-            src = logs if dev == "cpu" else outs["cpu"]
-            feed = np.array([[int(src[i][-1].argmax())]], np.int32)
-        outs[dev] = logs
-    _close_logits(np, f"smoke {label} step", outs["cpu"], outs["cuda"])
+    cpu = _build(torch, cfg, params, "cpu")
+    return params, prompt, cpu, _steps(torch, np, cfg, "cpu", cpu, prompt)
+
+
+def _small_steps(torch, np, cfg, label, cpu_scales=False):
+    """``cfg`` on the card against the CPU (plain versions), built as
+    the engine builds it, both devices fed the CPU's greedy tokens: one
+    chunked-prefill step and three decode steps; logits within 2e-2 *
+    max|logit| (f32 sums in another order, then bf16 roundings).  With
+    ``cpu_scales`` the card serves with the CPU's calibrated activation
+    scales, so that a calibration moved by the card's own norm and RoPE
+    arithmetic does not move every fp8 rounding of a group."""
+    params, prompt, cpu, logs = _card_and_cpu(torch, np, cfg)
+    qw, sc, act = _build(torch, cfg, params, "cuda")
+    if cpu_scales:
+        act = _moved(cpu[2], "cuda")
+    card = _steps(torch, np, cfg, "cuda", (qw, sc, act), prompt,
+                  feed_from=logs)
+    _close_logits(np, f"{label} step", logs, card)
 
 
 def _close_logits(np, label, cpu: list, card: list):
@@ -2081,11 +2577,12 @@ def phase_small_reference(torch, np):
     from repro_torch.configs.registry import get_config
 
     cfg = get_config(ARCH, smoke=True)
-    _small_steps(torch, np, cfg, ARCH)
+    _small_steps(torch, np, cfg, f"smoke {ARCH}")
     for name in ("REPRO_SERVE_PREQUANT", "REPRO_SERVE_DELAYED_ACT"):
         _with_env(name, "0", lambda: _small_steps(
             torch, np, cfg, f"{ARCH} {name}=0"))
-    _small_steps(torch, np, get_config(MOE_ARCH, smoke=True), MOE_ARCH)
+    _small_steps(torch, np, get_config(MOE_ARCH, smoke=True),
+                 f"smoke {MOE_ARCH}")
     _small_moe_engine(torch, np)
     _small_ring_reference(torch, np)
 
@@ -2631,6 +3128,15 @@ def main() -> int:
     phase_engine_hatch(torch, np, plain, gaps)
     print(f"phase engine hatch: {time.monotonic() - t0:.1f} s")
     t0 = time.monotonic()
+    phase_engine_prefix(torch, np, plain)
+    print(f"phase engine prefix: {time.monotonic() - t0:.1f} s")
+    t0 = time.monotonic()
+    phase_engine_preempt(torch, np)
+    print(f"phase engine preempt: {time.monotonic() - t0:.1f} s")
+    t0 = time.monotonic()
+    baselines = phase_engine_baselines(torch, np, timer)
+    print(f"phase engine baselines: {time.monotonic() - t0:.1f} s")
+    t0 = time.monotonic()
     phase_engine_moe(torch, np)
     print(f"phase engine moe: {time.monotonic() - t0:.1f} s")
     t0 = time.monotonic()
@@ -2661,9 +3167,13 @@ def main() -> int:
     # fused_quant_gemm_tiled (calls at M > 32), the global_amax,
     # mx_quant and mx_gemm_tiled launches they make, and mx_dw_gemm with its
     # dw_requant passes from the moss steps, group_gemm from the
-    # per_group steps, moe_gmm and moe_dw_gemm from the MoE moss steps
+    # per_group steps and the per_group engine (its decode steps, prefill
+    # chunks and calibration), moe_gmm and moe_dw_gemm from the MoE moss
+    # steps
     launches.update(spec_launches)
     launches.update(train_launches)
+    launches["group_gemm"] += baselines["launches"]
+    res["group_gemm"]["serving"] = baselines["serving"]
     launches["decode_attn"] = ring_launches["decode_attn"]
     launches["moe_gmm"] = moe_launches["moe_gmm"]
     launches["moe_dw_gemm"] = moe_launches["moe_dw_gemm"]
@@ -2673,7 +3183,9 @@ def main() -> int:
                        ("max_abs_err", "ms", "plain_ms", "bound_ms",
                         "bound_by", "library_ms")},
                     **({"moe_serving": res[name]["moe_serving"]}
-                       if name in MOE_CHECKED else {}))
+                       if name in MOE_CHECKED else {}),
+                    **({"serving": res[name]["serving"]}
+                       if "serving" in res[name] else {}))
                for name in REPLACES]
     print(f"chip_smoke: {time.monotonic() - t_start:.1f} s in all")
     print(json.dumps({"kernels": kernels}))

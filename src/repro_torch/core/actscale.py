@@ -34,9 +34,11 @@ _CAL_SEED = 0xAC5
 
 
 class ActScale(NamedTuple):
-    """One site's delayed activation scales (moss): ``s`` the f32
-    level-1 scale and ``sub`` the (K/micro,) int8 E8M0 exponents, each
-    with the site's stacked layer dim leading until sliced."""
+    """One site's delayed activation scales, each with the site's
+    stacked layer dim leading until sliced.  moss: ``s`` the f32
+    level-1 scale and ``sub`` the (K/micro,) int8 E8M0 exponents;
+    per_group: ``s`` the (K/128,) f32 group scales; per_tensor: ``s``
+    one f32 scale (``sub`` None for both)."""
 
     s: torch.Tensor
     sub: torch.Tensor | None = None
@@ -75,20 +77,21 @@ class _Recorder:
             yield
 
     def record(self, tag: str, x: torch.Tensor, cfg: QuantConfig) -> None:
-        """Accumulate the per-micro-group amax of activation ``x`` (the
-        GEMM's left operand, inner dim last) for site ``tag`` at the
-        current (layer[, expert]) index."""
-        if cfg.mode != "moss":
-            raise NotImplementedError(
-                f"calibration for {cfg.mode!r}: ROADMAP next slices, "
-                "serving the baselines")
+        """Accumulate the finest-granularity amax of activation ``x``
+        (the GEMM's left operand, inner dim last) for site ``tag`` at
+        the current (layer[, expert]) index: per 32-wide micro-group
+        (moss), per 128-wide group (per_group), or one (per_tensor)."""
         k = x.shape[-1]
-        g = cfg.micro_group
         xf = x.detach().to(torch.float32).abs().reshape(-1, k)
-        pad = (-k) % g
-        if pad:
-            xf = torch.nn.functional.pad(xf, (0, pad))
-        amax = xf.reshape(xf.shape[0], -1, g).amax(dim=(0, 2))
+        g = (cfg.group_size if cfg.mode == "per_group"
+             else cfg.micro_group if cfg.mode == "moss" else None)
+        if g is not None:
+            pad = (-k) % g
+            if pad:
+                xf = torch.nn.functional.pad(xf, (0, pad))
+            amax = xf.reshape(xf.shape[0], -1, g).amax(dim=(0, 2))
+        else:
+            amax = xf.amax()
         amax = amax.cpu().numpy()
         site = self.stats.setdefault(tag, {})
         prev = site.get(self.index)
@@ -121,11 +124,15 @@ def _stack_site(per_idx: dict[tuple[int, ...], np.ndarray]) -> np.ndarray:
 
 def _to_scales(amax: np.ndarray, cfg: QuantConfig, margin: float,
                device) -> ActScale:
-    """Calibrated amax statistics -> the moss ActScale: level-1 =
-    margin · max_g s_g, level-2 = ceil-encoded E8M0 ratios (rounding up:
-    never an underestimate)."""
+    """Calibrated amax statistics -> the recipe's ActScale: per_group
+    and per_tensor ``margin · s_g``; moss level-1 = margin · max_g s_g,
+    level-2 = ceil-encoded E8M0 ratios (rounding up: never an
+    underestimate)."""
     fmax = float(fp8_max(cfg.fwd_format))
     s_fine = (np.maximum(amax, TINY) / fmax).astype(np.float32)
+    if cfg.mode in ("per_tensor", "per_group"):
+        return ActScale(s=torch.as_tensor(
+            np.asarray(margin * s_fine, np.float32), device=device))
     s1 = margin * np.maximum(s_fine.max(axis=-1), TINY)
     ratio = (margin * s_fine) / s1[..., None]
     sexp = e8m0_encode(torch.from_numpy(np.asarray(ratio, np.float32)))

@@ -6,9 +6,11 @@
   moss,
   per_group,
   per_tensor  ``qmm``, the training GEMM with its own backward (below);
-              in moss, with a calibrated ``ActScale`` in ``a``, the
+              with a calibrated ``ActScale`` in ``a``, the
               reduction-free delayed-scale serving forward
-              ``_qmm_delayed`` through ``kernels.dispatch.mx_matmul``.
+              ``_qmm_delayed``: moss through ``kernels.dispatch.
+              mx_matmul``, per_group through ``dispatch.group_matmul``,
+              per_tensor through ``dispatch.pt_matmul``.
 
 ``qmm`` is a ``torch.autograd.Function`` (the reference's custom VJP).
 Its forward saves only the fp8 residuals of x (``MxQ``, ``PerGroupQ``
@@ -37,8 +39,7 @@ one global amax per buffer and the per-expert weight scales.
 The weight scale ``w_scale`` is the predicted one under automatic
 scaling (``core.autoscale``); it gets no gradient.  Weights may also
 arrive pre-quantized (fp8 payload + build-time scale) on the serving
-path.  Serving the per_group and per_tensor recipes (their delayed
-forward and calibration) is a later ROADMAP slice.
+path.
 """
 
 from __future__ import annotations
@@ -74,13 +75,6 @@ class QT(NamedTuple):
 
 def _is_fp8(w: torch.Tensor) -> bool:
     return is_fp8(w)
-
-
-def _unsupported(cfg: QuantConfig) -> None:
-    if cfg.mode != "moss":
-        raise NotImplementedError(
-            f"serving quant mode {cfg.mode!r} (delayed activation "
-            "scales): ROADMAP next slices, serving the baselines")
 
 
 def _quantize_w(cfg: QuantConfig, w: torch.Tensor,
@@ -382,25 +376,38 @@ def _qmm_delayed(cfg: QuantConfig, x: torch.Tensor, wt: QT,
                  a: ActScale) -> torch.Tensor:
     """Serving forward against the site's calibrated activation scales:
     the quantize is a rescale and a saturating cast with no reduction,
-    and the GEMM is the MX GEMM kernel."""
+    and the GEMM is the recipe's kernel (moss: the MX GEMM; per_group:
+    the COAT GEMM; per_tensor: the TE product)."""
     from repro_torch.kernels import dispatch
 
-    _unsupported(cfg)
     orig_dtype = x.dtype
     *lead, k = x.shape
     x2d = x.reshape(-1, k)
     if wt.s is None and not _is_fp8(wt.w):
+        # REPRO_SERVE_PREQUANT=0 with a non-auto recipe: the weight is
+        # quantized in the step, only the activation side is delayed
         wcfg = QuantConfig(**{**cfg.__dict__, "weight_scaling": "jit"}) \
             if cfg.weight_scaling == "auto" else cfg
         wq = _quantize_w(wcfg, wt.w, torch.ones((), dtype=torch.float32))
     else:
         wq = _quantize_w(cfg, wt.w, wt.s if wt.s is not None
                          else torch.ones((), dtype=torch.float32))
-    x2d = pad_axis(x2d, -1, cfg.micro_group)
-    xq = quant_mx_delayed(x2d, a.s, a.sub, cfg.micro_group,
-                          cfg.fwd_format)
-    wq_p = PerTensorQ(q=pad_axis(wq.q, 0, cfg.micro_group), s=wq.s)
-    y2d = dispatch.mx_matmul(xq, wq_p, out_dtype=torch.float32)
+    if cfg.mode == "moss":
+        x2d = pad_axis(x2d, -1, cfg.micro_group)
+        xq = quant_mx_delayed(x2d, a.s, a.sub, cfg.micro_group,
+                              cfg.fwd_format)
+        wq_p = PerTensorQ(q=pad_axis(wq.q, 0, cfg.micro_group), s=wq.s)
+        y2d = dispatch.mx_matmul(xq, wq_p, out_dtype=torch.float32)
+    elif cfg.mode == "per_group":
+        x2d = pad_axis(x2d, -1, cfg.group_size)
+        g = x2d.shape[-1] // cfg.group_size
+        s = a.s.to(torch.float32).expand(x2d.shape[0], g)
+        xq = quant_per_group(x2d, cfg.group_size, cfg.fwd_format, scale=s)
+        wq_p = PerTensorQ(q=pad_axis(wq.q, 0, cfg.group_size), s=wq.s)
+        y2d = dispatch.group_matmul(xq, wq_p, out_dtype=torch.float32)
+    else:  # per_tensor
+        xq = quant_per_tensor(x2d, cfg.fwd_format, scale=a.s)
+        y2d = dispatch.pt_matmul(xq, wq, out_dtype=torch.float32)
     return y2d.reshape(*lead, wt.w.shape[-1]).to(orig_dtype)
 
 

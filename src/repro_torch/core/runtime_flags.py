@@ -15,19 +15,22 @@ Counterpart of ``repro.core.runtime_flags``.  Two things live here:
 
 Serving and training flags
     The reference reads ``REPRO_*`` environment variables.  The port
-    reads seven of them as the reference does: ``REPRO_SERVE_PAGED``
+    reads nine of them as the reference does: ``REPRO_SERVE_PAGED``
     (the paged engine, or the legacy ``Server`` under 0),
     ``REPRO_PAGED_PLACEMENT`` (float or identity pages),
     ``REPRO_CHUNKED_PREFILL`` (chunked, or the whole-prompt prefill
-    under 0), ``REPRO_SPEC_DECODE`` (speculative verify steps under
-    1), ``REPRO_SERVE_PREQUANT`` (weights quantized in every step
-    against the build-time scales under 0), ``REPRO_SERVE_DELAYED_ACT``
+    under 0), ``REPRO_PREEMPTION`` (usage-based admission with
+    preemption to host, or reservation admission under 0),
+    ``REPRO_PREFIX_CACHE`` (prefix-hit page sharing, off under 0),
+    ``REPRO_SPEC_DECODE`` (speculative verify steps under 1),
+    ``REPRO_SERVE_PREQUANT`` (weights quantized in every step against
+    the build-time scales under 0), ``REPRO_SERVE_DELAYED_ACT``
     (just-in-time activation scales under 0) and ``REPRO_DECODE_ATTN``
     (``einsum``: the decode kernels' plain versions, on the card too).
-    For the other two the port implements the reference's default
-    (usage-based admission with preemption, no quant-health taps), and
-    ``check_serving_env`` refuses one set to another value, naming the
-    ROADMAP entry that will bring it.  The KV-cache dtype is the
+    For ``REPRO_QUANT_HEALTH`` the port implements the reference's
+    default (no quant-health taps), and ``check_serving_env`` refuses
+    it set to another value, naming the ROADMAP entry that will bring
+    it.  The KV-cache dtype is the
     config's ``kv_cache_dtype`` alone: ``REPRO_KV_CACHE``, the
     reference's override of it, is refused whenever it is set, so that
     it cannot be silently ignored.  ``check_train_env`` does the same
@@ -43,8 +46,6 @@ import torch
 # reference switch -> (value the port implements, ROADMAP entry that
 # brings the others)
 _SERVING_ENV = {
-    "REPRO_PREEMPTION": ("1", "queue 1 item 8 (reservation admission "
-                         "with preemption swap)"),
     "REPRO_QUANT_HEALTH": ("0", "queue 1 item 12 (observability)"),
 }
 
@@ -106,6 +107,21 @@ def chunked_prefill() -> bool:
     steps (where the arch and max_len allow it), or whole prompts under
     ``REPRO_CHUNKED_PREFILL=0``."""
     return os.environ.get("REPRO_CHUNKED_PREFILL", "1").strip() != "0"
+
+
+def serve_preemption() -> bool:
+    """Whether the paged engine admits against actual page usage and
+    preempts running requests to host when the pool runs dry (floating
+    pages and chunked prefill only); ``REPRO_PREEMPTION=0`` admits on
+    worst-case reservations and never swaps."""
+    return os.environ.get("REPRO_PREEMPTION", "1").strip() != "0"
+
+
+def serve_prefix_cache() -> bool:
+    """Whether the floating-page engine hashes page-aligned prompt
+    prefixes and maps hits copy-on-write onto the shared physical pages
+    (``REPRO_PREFIX_CACHE=0``: every request prefills cold)."""
+    return os.environ.get("REPRO_PREFIX_CACHE", "1").strip() != "0"
 
 
 def spec_decode() -> bool:

@@ -163,7 +163,8 @@ def main(argv=None):
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--page-size", type=int, default=16)
     ap.add_argument("--num-pages", type=int, default=None,
-                    help="page pool budget (default: fully backed slots)")
+                    help="page pool budget (default: fully backed slots; "
+                         "a smaller pool preempts requests to the host)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--legacy", action="store_true",

@@ -26,7 +26,8 @@ records under its (layer, expert) index (``REC.sub_index``).
 
 Not ported yet, and refused with ``NotImplementedError``: expert
 parallelism over a mesh (the reference's shard_map with two
-``all_to_all``).
+``all_to_all``), and serving (decode, verify and calibration) in the
+per_group and per_tensor recipes.
 """
 
 from __future__ import annotations
@@ -234,6 +235,11 @@ def moe_block(cfg, p, x, qcfg: QuantConfig, mode: str = "train"):
     bad = _unsupported()
     if bad:
         raise NotImplementedError(bad)
+    if qcfg.mode in ("per_group", "per_tensor") and (
+            mode in ("decode", "verify") or REC.recording):
+        raise NotImplementedError(
+            f"serving a MoE model in {qcfg.mode!r} (the dense combine "
+            "one expert at a time): ROADMAP queue 1 entry 6")
     b, s, d = x.shape
     x_flat = x.reshape(-1, d)
     t = x_flat.shape[0]

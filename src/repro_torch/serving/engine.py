@@ -5,13 +5,16 @@ Scheduler v2 (the default; chunked prefill): one engine ``step()`` is
 
   1. retire finished requests (release their pages, shrink them out of
      the decode batch);
-  2. up to ``Scheduler.chunk_budget()`` chunked-prefill steps: the
+  2. swap preempted requests back in, first in first out, while their
+     pages fit;
+  3. up to ``Scheduler.chunk_budget()`` chunked-prefill steps: the
      staging request's next ``chunk_tokens`` prompt tokens run as one
      (1, chunk) decode-mode step, written at the request's own depth
      (into its own pages, or into a detached one-row cache under
      identity placement); the final chunk's last real logit is the
      first output token, and the request joins the decode batch;
-  3. one batched (B, 1) decode over the resident rows, every row at its
+  4. retire again (an attached request may finish at once), then one
+     batched (B, 1) decode over the resident rows, every row at its
      own depth; or, with speculative decode (``spec_decode=True`` or
      ``REPRO_SPEC_DECODE=1``), one (B, k) verify step: up to k - 1
      draft tokens per row from the draft source (``NgramDraft`` unless
@@ -19,6 +22,12 @@ Scheduler v2 (the default; chunked prefill): one engine ``step()`` is
      cache, and per row the longest draft prefix that matches the
      model's own argmax committed, plus the model's next token.  Greedy
      output is token for token that of plain decode.
+
+A prefix-cache hit (floating pages and chunked prefill; on unless
+``prefix_cache=False`` or ``REPRO_PREFIX_CACHE=0``) maps the prompt's
+page-aligned shared prefix onto the donor's physical pages, refcounted
+and copy-on-write, and chunk-prefills only the unshared suffix (a full
+hit still runs the last prompt token, whose logit is the first output).
 
 The v1 path (``REPRO_CHUNKED_PREFILL=0``, and what an arch chunks
 cannot serve takes without being asked: a windowed ring) prefills each
@@ -35,14 +44,17 @@ step against their build-time scales instead, and
 (``prepare_weights``, ``calibrate_serving``).  Dense and MoE models
 serve alike: a MoE block's decode, verify and chunk steps take the
 masked dense-experts combine, every expert on every token, each through
-its own weight and activation scales.  With chunked prefill on floating
-pages admission is usage-based (a request reserves its prompt plus one
-page); when growth finds the pool dry the reference preempts to host,
-which the port does not have yet: size the pool fully backed (the
-default) and it never happens.  Not yet ported, each raising
-``NotImplementedError`` when reached: preemption swap-to-host and
-prefix-cache hits with copy-on-write (ROADMAP queue 1 item 8),
-quant-health telemetry (queue 1 item 12).  Speculative decode needs the
+its own weight and activation scales; the per_group and per_tensor
+recipes serve dense models.  With chunked prefill on floating pages
+admission is usage-based (``REPRO_PREEMPTION``, on by default): a
+request reserves its prompt plus one page, and growth past it extends
+page by page.  When growth finds the pool dry the engine preempts the
+victim ``Scheduler.pick_victim`` names: its live pages are copied to the
+host bit for bit and freed, and it waits in a deque until retirement
+frees enough pages to swap it back in at its recorded depth.
+``REPRO_PREEMPTION=0`` admits on worst-case reservations instead.
+Quant-health telemetry is not ported yet (``NotImplementedError``,
+ROADMAP queue 1 item 12).  Speculative decode needs the
 chunked path, an unwrapped cache (``spec_verify_supported``) and delayed
 activation scales (or bf16); elsewhere (a windowed ring, the v1
 prefill, ``REPRO_SERVE_DELAYED_ACT=0``) the flag is inert, as in the
@@ -67,6 +79,8 @@ from repro_torch.core.runtime_flags import (
     chunked_prefill,
     paged_placement,
     serve_delayed_act,
+    serve_preemption,
+    serve_prefix_cache,
     serve_prequant,
     spec_decode as spec_decode_flag,
 )
@@ -90,8 +104,9 @@ from .paged_cache import (
     PagedKVCache,
     PageExhausted,
     SlotCapacityExceeded,
+    page_keys,
 )
-from .scheduler import Request, Scheduler, SLOTargets
+from .scheduler import Request, RequestState, Scheduler, SLOTargets
 from .spec import DraftSource, NgramDraft
 
 PROMPT_BUCKET = 16
@@ -152,11 +167,32 @@ def greedy_sample(logits: torch.Tensor) -> torch.Tensor:
 
 
 @dataclasses.dataclass
+class PrefixPlan:
+    """Admission-time prefix-cache decision for one request.
+
+    ``keys``        chained page hashes of every full prompt page
+    ``pages``       physical pages hit (the longest registered prefix
+                    run, at most the prompt's full pages); empty: cold
+    ``suffix_from`` first prompt position that chunk-prefills:
+                    ``min(n_shared·T, prompt_len - 1)`` (a full hit
+                    still runs the last prompt token through a chunk,
+                    whose logit is the first output)
+    ``cow_slack``   1 when the suffix's first write lands inside a
+                    shared page (a full page-aligned hit), else 0: kept
+                    in reserve so that the copy-on-write can allocate"""
+    keys: list
+    pages: list
+    suffix_from: int
+    cow_slack: int
+
+
+@dataclasses.dataclass
 class _Staging:
     """The one request currently chunk-prefilling: its pages are
     admitted but it has no decode-batch row until the last chunk."""
     req: Request
     pos: int                  # next prompt position to chunk-prefill
+    keys: list | None         # page hashes to publish at attach (float)
     row_cache: dict | None    # detached one-row caches (identity only)
 
 
@@ -168,7 +204,7 @@ class Engine:
                  num_pages: int | None = None,
                  chunk_tokens: int = CHUNK_TOKENS,
                  eos_id: int | None = None,
-                 prefix_cache: bool = False,
+                 prefix_cache: bool | None = None,
                  slo: SLOTargets | None = None,
                  spec_decode: bool | None = None,
                  draft: DraftSource | None = None,
@@ -180,10 +216,6 @@ class Engine:
             raise ValueError(f"serving engine drives token models; "
                              f"{cfg.name} has input_mode="
                              f"{cfg.input_mode!r}")
-        if prefix_cache:
-            raise NotImplementedError(
-                "prefix-cache hits with copy-on-write: ROADMAP queue 1 "
-                "item 8")
         self.cfg = cfg
         self.max_len = max_len
         self.num_slots = num_slots
@@ -202,10 +234,10 @@ class Engine:
                                                        page_size))
         self.chunked = (chunked_prefill()
                         and chunk_prefill_supported(cfg, max_len))
-        # usage-based admission needs preemption, which lives on the
-        # floating pool's block tables (REPRO_PREEMPTION=0 is refused);
-        # identity placement and the v1 prefill admit on reservations
-        self.preemption = self.chunked and self.float_pages
+        # preemption = usage-based admission + swap to host; both live
+        # on the floating pool's block tables
+        self.preemption = (serve_preemption() and self.chunked
+                           and self.float_pages)
         if self.float_pages:
             self.kv = FloatingPageCache(cfg, max_len, num_slots,
                                         page_size=page_size,
@@ -216,6 +248,12 @@ class Engine:
             self.kv = PagedKVCache(cfg, max_len, num_slots,
                                    page_size=page_size,
                                    num_pages=num_pages, device=self.device)
+        # prefix hits chunk-prefill the unshared suffix: no chunked
+        # prefill or no floating pages, no prefix cache
+        self.prefix_cache = (self.float_pages and self.chunked
+                             and (serve_prefix_cache()
+                                  if prefix_cache is None
+                                  else bool(prefix_cache)))
         self.chunk_tokens = max(1, min(chunk_tokens, self.kv.slot_tokens))
         # speculative decode (the constructor's argument wins over the
         # flag) rides on the chunked path: per-slot depths and an
@@ -236,7 +274,13 @@ class Engine:
                                         act_scales=self.act_scales)
                        if self.spec else None)
         self._staging: _Staging | None = None
+        self._preempted: deque[tuple[Request, dict]] = deque()
         self.prefill_calls = 0
+        self.prefill_tokens_skipped = 0
+        self.prefix_hits = 0
+        self.pages_shared = 0
+        self.preemptions = 0
+        self.swap_ins = 0
         self.prefill_seconds = 0.0
         self.chunk_prefill_steps = 0
         self.chunked_requests = 0
@@ -280,6 +324,22 @@ class Engine:
             self.requests[req.rid] = req
         self.sched.submit(requests)
 
+    def _prefix_plan(self, req: Request) -> PrefixPlan | None:
+        """Look the request's page-aligned prompt prefix up in the hash
+        map (None when the prefix cache is off)."""
+        if not self.prefix_cache:
+            return None
+        t = self.kv.page_size
+        keys = page_keys(req.prompt, t)
+        pages = self.kv.allocator.lookup(keys)
+        if not pages:
+            return PrefixPlan(keys=keys, pages=[], suffix_from=0,
+                              cow_slack=0)
+        return PrefixPlan(keys=keys, pages=pages,
+                          suffix_from=min(len(pages) * t,
+                                          req.prompt_len - 1),
+                          cow_slack=int(len(pages) * t >= req.prompt_len))
+
     # -- the engine step -----------------------------------------------
     @torch.inference_mode()
     def step(self) -> None:
@@ -289,6 +349,7 @@ class Engine:
             self._decode_once()
             return
         self._retire()
+        self._swap_in_preempted()
         self._chunk_phase()
         self._retire()          # an attached request may finish at once
         if self.spec:
@@ -305,17 +366,46 @@ class Engine:
             else:
                 row += 1
 
-    # -- preemption (swap-to-host raises until it is ported) -----------
+    # -- preemption ----------------------------------------------------
+    def _swap_in_preempted(self):
+        """Resume preempted requests first in first out while their
+        pages fit.  One slot stays free for the staging request, whose
+        attach must never find the batch full."""
+        while self._preempted:
+            limit = self.num_slots - (self._staging is not None)
+            if len(self.kv.rows) >= limit:
+                return
+            req, bundle = self._preempted[0]
+            admit = (min(self._total_tokens(req),
+                         bundle["depth"] + self.kv.page_size)
+                     if self.preemption else self._total_tokens(req))
+            try:
+                self.kv.swap_in(bundle, admit)
+            except PageExhausted:
+                return            # stays parked; retirement frees pages
+            self._preempted.popleft()
+            req.state = RequestState.RUNNING
+            self.swap_ins += 1
+
     def _preempt_one(self) -> bool:
+        """Swap the victim the scheduler names out to the host; False
+        when the decode batch has nobody left to preempt."""
         cands = [self.requests[rid] for rid in self.kv.rows
                  if rid is not None]
         victim = self.sched.pick_victim(cands)
         if victim is None:
             return False
-        self.kv.swap_out(self.kv.rows.index(victim.rid))
+        bundle = self.kv.swap_out(self.kv.rows.index(victim.rid))
+        victim.state = RequestState.PREEMPTED
+        self._preempted.append((victim, bundle))
+        self.preemptions += 1
         return True
 
     def _grow_or_preempt(self, grow) -> None:
+        """Run a page-growing cache operation, preempting one victim per
+        ``PageExhausted`` until it fits.  This ends: every preemption
+        frees pages, and a lone resident request always fits (submit
+        rejects a request larger than the whole pool)."""
         while True:
             try:
                 grow()
@@ -327,18 +417,52 @@ class Engine:
     # -- chunked prefill -----------------------------------------------
     def _begin_staging(self) -> bool:
         """Pop the queue head into the staging slot when it fits under
-        the actual free-page accounting."""
+        the actual free-page accounting (usage-based under preemption).
+        Preempted requests drain first: they hold finished work, and no
+        new request is admitted while any is parked, so their return is
+        never starved."""
+        if self._preempted:
+            return False
         head = self.sched.peek()
         if head is None or len(self.kv.rows) >= self.num_slots:
             return False
+        plan = self._prefix_plan(head)
         admit = self._admit_tokens(head)
-        if not self.kv.can_admit(admit):
+        if plan is not None and plan.pages:
+            ok = self.kv.can_admit(admit, shared=plan.pages,
+                                   cow_slack=plan.cow_slack)
+            if not ok and self.kv.can_admit(admit):
+                # the hit needs more headroom than a cold admit (page
+                # revival and the CoW slack, e.g. on a minimal pool):
+                # serve it cold rather than hold the queue head forever
+                plan = PrefixPlan(keys=plan.keys, pages=[],
+                                  suffix_from=0, cow_slack=0)
+                ok = True
+        else:
+            ok = self.kv.can_admit(admit)
+        if not ok:
             return False          # stays queued (backpressure)
         req = self.sched.pop()
-        self.kv.stage_admit(req.rid, admit)
-        row_cache = None if self.float_pages else init_caches(
-            self.cfg, 1, self.max_len, per_slot=True, device=self.device)
-        self._staging = _Staging(req=req, pos=0, row_cache=row_cache)
+        pos, keys, row_cache = 0, None, None
+        if self.float_pages:
+            shared = plan.pages if plan is not None else []
+            self.kv.stage_admit(req.rid, admit, shared=shared,
+                                cow_slack=plan.cow_slack
+                                if plan is not None else 0)
+            keys = plan.keys if plan is not None else None
+            if shared:
+                pos = plan.suffix_from
+                self.prefix_hits += 1
+                self.prefill_tokens_skipped += pos
+                self.pages_shared += len(shared)
+                req.prefix_pages = len(shared)
+                req.prefill_skipped = pos
+        else:
+            self.kv.stage_admit(req.rid, admit)
+            row_cache = init_caches(self.cfg, 1, self.max_len,
+                                    per_slot=True, device=self.device)
+        self._staging = _Staging(req=req, pos=pos, keys=keys,
+                                 row_cache=row_cache)
         self.chunked_requests += 1
         return True
 
@@ -373,6 +497,8 @@ class Engine:
         first = int(torch.argmax(logits[0, n_real - 1]))
         if self.float_pages:
             self.kv.stage_attach(req.rid, plen)
+            if st.keys:
+                self.kv.register_prompt(req.rid, st.keys)
         else:
             self.kv.stage_attach(req.rid, st.row_cache, plen)
         self._staging = None
@@ -552,7 +678,7 @@ class Engine:
     # -- the serving loop ----------------------------------------------
     def _idle(self) -> bool:
         return not (self.sched.queue or self.kv.rows
-                    or self._staging is not None)
+                    or self._staging is not None or self._preempted)
 
     def run(self, requests: list[Request] | None = None, log=print):
         """Drain the queue; returns the requests that finished during
@@ -611,6 +737,12 @@ class Engine:
             "mean_verify_step_s": (self.verify_seconds
                                    / self.sched.verify_steps
                                    if self.sched.verify_steps else None),
+            "preemptions": self.preemptions,
+            "swap_ins": self.swap_ins,
+            "prefix_hits": self.prefix_hits,
+            "prefill_tokens_skipped": self.prefill_tokens_skipped,
+            "pages_shared": self.pages_shared,
+            "cow_copies": getattr(self.kv, "cow_copies", 0),
             "page_evictions": al.evictions,
             "peak_pool_pages": al.peak_used,
         })

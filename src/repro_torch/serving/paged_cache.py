@@ -23,10 +23,14 @@ NP)`` tensors before every step.  Admission, retirement and refill are
 host-list surgery; a whole-prompt prefill's pages are scattered into the
 pool (``_pool_insert``).
 
-Every device tensor is written in place (the reference's jitted
-helpers return new arrays instead).  Preemption's swap-to-host and
-copy-on-write of shared or prefix-hashed pages wait (ROADMAP queue 1
-item 8) and raise when reached.
+Every device tensor is written in place, on the current stream (the
+reference's jitted helpers return new arrays instead): a copy-on-write
+page copy (``_copy_page``) and a swap-in land before the next step
+reads the page.  Preemption swaps a victim's live pages to the host
+(``swap_out``: one indexed gather and one device-to-host copy per pool
+tensor, payloads and scales bit for bit) and back (``swap_in``); a
+prompt's full pages are published to the prefix-hash map at attach
+(``register_prompt``).
 """
 
 from __future__ import annotations
@@ -578,6 +582,7 @@ class FloatingPageCache:
                                        slot_tokens=self.slot_tokens,
                                        usage_mode=usage_mode)
         self.num_pages = num_pages
+        self.cow_copies = 0
         self.rows: list[int | None] = []
         self.lengths: list[int] = []
         # pools are allocated once up front and live for the engine's
@@ -596,15 +601,21 @@ class FloatingPageCache:
             self._resident(total_tokens), shared=shared,
             cow_slack=cow_slack)
 
+    def _copy_page(self, src: int, dst: int) -> None:
+        """The device half of copy-on-write: physical page ``src`` ->
+        ``dst``, every layer, payloads and scales, in place."""
+        for pool in self.caches.values():
+            for buf in _leaves(pool):
+                b = _bytes(buf)
+                b[:, dst] = b[:, src]
+
     def _ensure_writable(self, owner: int, page_idx: int) -> None:
-        kind, _, _ = self.allocator.ensure_writable(owner, page_idx)
+        kind, src, dst = self.allocator.ensure_writable(owner, page_idx)
         if kind == "cow":
-            # only a shared or prefix-hashed page needs a copy, and
-            # nothing shares or hashes pages before the prefix cache is
-            raise NotImplementedError(
-                "copy-on-write of a shared page: ROADMAP queue 1 item 8 "
-                "(next slices: preemption swap and prefix-hit "
-                "copy-on-write)")
+            # a shared or prefix-hashed page: the write lands in a
+            # private copy, made before the step that writes it
+            self.cow_copies += 1
+            self._copy_page(src, dst)
 
     def _insert(self, owner: int, one: dict) -> None:
         """Scatter a whole-prompt prefill's pages into the pool."""
@@ -642,8 +653,10 @@ class FloatingPageCache:
 
     def stage_ensure(self, owner: int, lo: int, hi: int) -> None:
         """Make every page prompt positions [lo, hi) touch writable
-        before a chunk step.  May raise ``PageExhausted`` in usage
-        mode (the engine's preemption trigger)."""
+        before a chunk step: fresh pages past the frontier, a
+        copy-on-write only for a full hit (the chunk's first page is
+        shared or hashed).  May raise ``PageExhausted`` in usage mode
+        (the engine's preemption trigger)."""
         t = self.page_size
         for j in range(lo // t, (hi - 1) // t + 1):
             self._ensure_writable(owner, j)
@@ -676,11 +689,66 @@ class FloatingPageCache:
         self.lengths.append(depth)
         return len(self.rows) - 1
 
-    # -- preemption ----------------------------------------------------
+    # -- preemption (swap to host) ---------------------------------------
     def swap_out(self, row: int) -> dict:
-        raise NotImplementedError(
-            "preemption swap-to-host: ROADMAP queue 1 item 8 (next "
-            "slices: preemption swap and prefix-hit copy-on-write)")
+        """Preempt: copy the row's live pages (those covering [0,
+        depth); payloads and scales, every layer, bit for bit) to a host
+        store, release them and drop the row from the decode batch.
+        Each pool tensor's victim pages move in one indexed gather and
+        one device-to-host copy (into pinned memory on the card, issued
+        on the current stream, which ``swap_in``'s copy back follows).
+        Shared prefix pages are copied too: they come back private.
+        Returns the bundle ``swap_in`` consumes."""
+        owner = self.rows[row]
+        depth = self.lengths[row]
+        # an ensured but unwritten frontier page holds nothing to save,
+        # and swap_in re-admits exactly pages_for(depth)
+        n_live = pages_for(depth, self.page_size)
+        pages = self.allocator.table(owner).pages[:n_live]
+        idx = torch.tensor(pages, dtype=torch.int64, device=self.device)
+        cuda = self.device.type == "cuda"
+        store = {}
+        for name, pool in self.caches.items():
+            store[name] = []
+            for buf in _leaves(pool):
+                dev = _bytes(buf).index_select(1, idx)
+                host = torch.empty(dev.shape, dtype=dev.dtype,
+                                   pin_memory=cuda)
+                host.copy_(dev, non_blocking=cuda)
+                store[name].append(host)
+        self.allocator.release(owner)
+        self.rows[row] = None
+        self.shrink(row)
+        return {"owner": owner, "depth": depth, "n_pages": n_live,
+                "store": store}
+
+    def swap_in(self, bundle: dict, total_tokens: int) -> int:
+        """Re-admit a preempted request: fresh private pages for its
+        recorded depth, the host store written back verbatim, and the
+        row rejoins the decode batch at that depth.  Raises
+        ``PageExhausted`` when the pages do not fit yet (the request
+        stays parked)."""
+        owner, depth = bundle["owner"], bundle["depth"]
+        assert len(self.rows) < self.num_slots
+        self.allocator.admit(owner, depth, self._resident(total_tokens))
+        pages = self.allocator.table(owner).pages
+        assert len(pages) == bundle["n_pages"]
+        idx = torch.tensor(pages, dtype=torch.int64, device=self.device)
+        cuda = self.device.type == "cuda"
+        for name, pool in self.caches.items():
+            for buf, host in zip(_leaves(pool), bundle["store"][name]):
+                _bytes(buf)[:, idx] = host.to(self.device,
+                                              non_blocking=cuda)
+        self.rows.append(owner)
+        self.lengths.append(depth)
+        return len(self.rows) - 1
+
+    def register_prompt(self, owner: int, keys: list) -> int:
+        """Publish the owner's full prompt pages in the prefix-hash map
+        (first writer wins); returns how many were registered."""
+        pages = self.allocator.table(owner).pages
+        return sum(bool(self.allocator.register_hash(pages[j], key))
+                   for j, key in enumerate(keys) if j < len(pages))
 
     # -- retirement ----------------------------------------------------
     def release(self, row: int) -> None:

@@ -1,8 +1,7 @@
 """Request admission + slot lifecycle for the paged serving engine
-(a copy of ``repro.serving.scheduler``, less what the port does not run
-yet: the metrics-registry mirror of ``repro.obs`` waits for
-observability, ROADMAP queue 1 item 12; the prefix-cache hit counts for
-prefix-hit copy-on-write, item 8).
+(a copy of ``repro.serving.scheduler``, less the metrics-registry
+mirror of ``repro.obs``, which waits for observability: ROADMAP queue 1
+entry 8).
 
 Host-side and model-free by design: the scheduler owns the FIFO
 queue, request state transitions (QUEUED -> RUNNING [-> PREEMPTED ->
@@ -61,6 +60,12 @@ class Request:
     t_submit: float | None = None
     t_first: float | None = None
     t_last: float | None = None
+    # stamped at admission by the engine's prefix-cache plan: physical
+    # pages mapped from prefix-hash hits, and prompt tokens whose
+    # prefill was skipped (served from the shared pages; the unshared
+    # suffix chunk-prefills at an offset)
+    prefix_pages: int = 0
+    prefill_skipped: int = 0
 
     @property
     def prompt_len(self) -> int:
@@ -244,5 +249,8 @@ class Scheduler:
             "spec_accepted": self.accepted,
             "spec_accept_rate": (self.accepted / self.drafted
                                  if self.drafted else None),
+            "prefix_hit_requests": sum(r.prefix_pages > 0 for r in done),
+            "prefill_tokens_skipped": sum(r.prefill_skipped
+                                          for r in done),
         }
         return s

@@ -227,28 +227,29 @@ def serve_weight_scales(cfg, params):
 def prequantize_params(cfg, params) -> PrequantParams | None:
     """Quantize every quantized linear weight to its fp8 payload once,
     per-(layer) slice scales, bitwise what the reference builds; never-
-    quantized leaves keep their arrays (scale 1).  (The reference's
-    transposed tied head ``embed/head_t`` comes with tied-embedding
-    models.)"""
+    quantized leaves keep their arrays (scale 1).  ``auto`` recipes
+    (moss) quantize against the predicted scale; ``jit`` and
+    ``delayed`` ones (the per_group and per_tensor baselines) against
+    each slice's own amax, taken after any bf16 cast, as their in-step
+    quantizer would.  (The reference's transposed tied head
+    ``embed/head_t`` comes with tied-embedding models.)"""
     qcfg = cfg.quant
     if not qcfg.quantized:
         return None
-    if qcfg.weight_scaling != "auto":
-        raise NotImplementedError(
-            f"weight_scaling={qcfg.weight_scaling!r} for serving: ROADMAP "
-            "next slices, serving the baselines")
     defs = model_defs(cfg)
     sdims = _scale_dims(defs)
     mask = quant_mask_tree(defs)
-    pred = init_scales(defs, params, qcfg)
+    auto = qcfg.weight_scaling == "auto"
+    pred = init_scales(defs, params, qcfg) if auto else None
 
     def leaf(w, nd, m, s):
         if not m:
             return w, torch.ones((), dtype=torch.float32, device=w.device)
-        return prequant_weight(w, nd, qcfg.fwd_format, scale=s,
+        return prequant_weight(w, nd, qcfg.fwd_format,
+                               scale=s if auto else None,
                                cast_bf16=qcfg.weight_cast_bf16)
 
-    out = tree_map(leaf, params, sdims, mask, pred)
+    out = tree_map(leaf, params, sdims, mask, pred if auto else sdims)
     return PrequantParams(qweights=tree_unzip(out, 0),
                           scales=tree_unzip(out, 1))
 

@@ -1,10 +1,13 @@
 """The port's twins of the reference's user examples, run on the CPU at
 a tiny size: ``examples/quickstart_torch.py`` (two-level quantization,
 the MOSS GEMM through ``kernels.ops.moss_linear``, automatic scaling)
-and ``examples/pretrain_moss_vs_bf16_torch.py`` (paper Fig. 5: bf16 and
-moss loss curves from one seed).  Each must run to its end with finite
-numbers; the GEMM's error against the exact product is the reference
-example's (~0.037 on its input), held within 0.05."""
+``examples/pretrain_moss_vs_bf16_torch.py`` (paper Fig. 5: bf16 and
+moss loss curves from one seed) and ``examples/serve_batched_torch.py``
+(the paged engine, then a wave sharing a system prompt through the
+prefix cache).  Each must run to its end with finite numbers; the GEMM's
+error against the exact product is the reference example's (~0.037 on
+its input), held within 0.05, and the serving wave's prefix-cache
+counts are the reference example's."""
 
 import importlib.util
 import math
@@ -40,3 +43,13 @@ def test_pretrain_twin_prints_two_finite_curves(capsys):
     for c in curves.values():
         assert c.shape == (3,) and np.isfinite(c).all(), c
     assert out.count("[moss] step") == 3 and "final loss: bf16" in out
+
+
+def test_serve_batched_twin_shares_the_system_prompt(capsys):
+    s = _load("serve_batched_torch").main(["--device", "cpu"])
+    out = capsys.readouterr().out
+    assert s["prefix_hits"] == 5 and s["prefill_tokens_skipped"] == 5 * 32
+    assert s["requests"] == 16 and s["preemptions"] == 0
+    assert "prefix hits 5/6" in out
+    assert "import jax" not in (EXAMPLES / "serve_batched_torch.py"
+                                ).read_text()

@@ -5,11 +5,15 @@ to end against the reference's.
 End to end, a ``repro_torch`` ``Engine(device="cpu")`` and a ``repro``
 ``Engine`` serve the same requests on the same weights (the reference's
 smoke phi3-mini, carried across by ``repro_torch.bridge``), mixed prompt
-lengths, a page-aligned ``max_len``, no prefix cache.  Each builds and
-calibrates itself.  The greedy streams must be equal, except where the
-reference's top two logits lie within 1e-3 * max|logit| (a tie): there
-the comparison of that request stops, as tests/test_chunked_prefill.py
-does.
+lengths, a page-aligned ``max_len``, each engine with its defaults (the
+prefix cache on).  Each builds and calibrates itself.  The greedy
+streams must be equal, except where the reference's top two logits lie
+within 1e-3 * max|logit| (a tie): there the comparison of that request
+stops, as tests/test_chunked_prefill.py does.  The runs that preempt,
+share a prefix or serve a baseline recipe also hold the engines'
+counters equal: both schedulers then read a clock that ticks once a
+call, and latency targets no run can miss, so that every admission and
+victim is decided alike.
 
 The reference runs in a child process compiled with
 ``REFERENCE_XLA_FLAGS`` (tests/test_torch_train.py): XLA's excess
@@ -86,11 +90,31 @@ RUNS = {
     "moe-float": dict(arch=MOE),
     "moe-identity": dict(arch=MOE, env={"REPRO_PAGED_PLACEMENT":
                                         "identity"}),
+    # the prefix cache at its default: a donor, then a wave with a
+    # partial hit (a 32-token shared prefix, its own 9-token suffix) and
+    # a full hit (the donor's prompt again: one copy-on-write)
+    "prefix": dict(waves="prefix", max_len=64, ticks=True),
+    # a 6-page pool where the worst cases need 4 pages a request:
+    # usage admission packs 3 and preempts to the host
+    # (tests/test_chunked_prefill.py's case); reservation admission
+    # (REPRO_PREEMPTION=0) serves them one or two at a time
+    "preempt": dict(lens=[12] * 4, max_new=40, max_len=64, num_pages=6,
+                    ticks=True),
+    "reservation": dict(lens=[12] * 4, max_new=40, max_len=64, num_pages=6,
+                        ticks=True, env={"REPRO_PREEMPTION": "0"}),
+    # the paper's baselines (COAT per-128-group, TE per-tensor), served
+    # with their calibrated activation scales
+    "per_group": dict(quant="per_group", ticks=True),
+    "per_tensor": dict(quant="per_tensor", ticks=True),
 }
 # the reference switches the child resets between runs
 SWITCHES = ("REPRO_PAGED_PLACEMENT", "REPRO_CHUNKED_PREFILL",
             "REPRO_SERVE_PREQUANT", "REPRO_SERVE_DELAYED_ACT",
-            "REPRO_DECODE_ATTN")
+            "REPRO_DECODE_ATTN", "REPRO_PREEMPTION", "REPRO_PREFIX_CACHE")
+# the engine counters a ``ticks`` run holds equal to the reference's
+COUNTERS = ("preemptions", "swap_ins", "prefix_hits",
+            "prefill_tokens_skipped", "pages_shared", "cow_copies",
+            "peak_pool_pages")
 # a chunk budget that reads no clock: latency targets no run can miss
 PINNED = dict(ttft_s=1e9, tpot_s=1e9)
 # speculative decode (``Engine(spec_decode=True)``) on both placements and
@@ -116,12 +140,60 @@ def _prompts(lens=LENS):
     return [rng.integers(0, 512, n).astype(np.int32) for n in lens]
 
 
+def _waves(run):
+    """The run's prompts, as the waves it serves one ``run()`` call
+    each: one wave of ``lens``, or the prefix run's donor and then its
+    wave of a partial and a full hit."""
+    if run.get("waves") == "prefix":
+        rng = np.random.default_rng(3)
+        prefix = rng.integers(0, 512, 32).astype(np.int32)
+        tail = rng.integers(0, 512, 9).astype(np.int32)
+        return [[prefix], [np.concatenate([prefix, tail]), prefix.copy()]]
+    return [_prompts(run.get("lens", LENS))]
+
+
+def _engine_kw(run):
+    return {"max_len": run.get("max_len", MAX_LEN),
+            "num_pages": run.get("num_pages")}
+
+
+def _ticks():
+    """A clock that advances one second a call."""
+    t = [0.0]
+
+    def clock():
+        t[0] += 1.0
+        return t[0]
+
+    return clock
+
+
+def _serve_waves(eng, run, make_request):
+    """Serve the run's waves through ``eng`` (either package's engine,
+    ``make_request`` its Request); returns every request in rid order."""
+    if run.get("ticks"):
+        eng.sched.clock = _ticks()
+    reqs, rid = [], 0
+    for wave in _waves(run):
+        batch = []
+        for p in wave:
+            batch.append(make_request(rid=rid, prompt=p,
+                                      max_new=run.get("max_new", MAX_NEW)))
+            rid += 1
+        eng.run(batch, log=None)
+        reqs += batch
+    return reqs
+
+
 def _run_cfg(get, run):
     """The run's config from ``get`` (either package's get_config)."""
     cfg = get(run.get("arch", ARCH), smoke=True)
     over = {k: run[key] for k, key in (("window", "window"),
                                        ("kv_cache_dtype", "kv"))
             if key in run}
+    if "quant" in run:
+        over["quant"] = type(cfg.quant)(mode=run["quant"],
+                                        weight_scaling="jit")
     return cfg.replace(**over) if over else cfg
 
 
@@ -212,25 +284,102 @@ def test_serving_paths_match_reference(reference, monkeypatch, name):
         monkeypatch.setenv(k, v)
     cfg = _run_cfg(get_config, run)
     params = _params(cfg.name)
-    reqs = [Request(rid=i, prompt=p, max_new=MAX_NEW)
-            for i, p in enumerate(_prompts(run.get("lens", LENS)))]
+    want = reference[name]
     if run.get("server"):
+        reqs = [Request(rid=i, prompt=p, max_new=MAX_NEW)
+                for i, p in enumerate(_prompts(run.get("lens", LENS)))]
         Server(cfg, params, batch_slots=SLOTS, max_len=MAX_LEN,
                device="cpu").run(list(reqs), log=None)
     else:
-        slo = SLOTargets(**PINNED) if run.get("pinned") else None
-        eng = Engine(cfg, params, num_slots=SLOTS, max_len=MAX_LEN,
-                     chunk_tokens=CHUNK, device="cpu", slo=slo)
+        slo = SLOTargets(**PINNED) if (run.get("pinned")
+                                       or run.get("ticks")) else None
+        eng = Engine(cfg, params, num_slots=SLOTS, chunk_tokens=CHUNK,
+                     device="cpu", slo=slo, **_engine_kw(run))
         env = run.get("env", {})
         assert eng.float_pages == (
             env.get("REPRO_PAGED_PLACEMENT") != "identity"
             and "window" not in run)
         assert eng.chunked == (env.get("REPRO_CHUNKED_PREFILL") != "0"
                                and "window" not in run)
-        eng.run(reqs, log=None)
-        assert not eng.kv.rows
-    assert all(r.done and len(r.out) == MAX_NEW for r in reqs)
-    _assert_streams(reqs, reference[name], reference.get(name + "-solo"))
+        assert eng.prefix_cache == (eng.float_pages and eng.chunked)
+        assert eng.preemption == (eng.float_pages and eng.chunked and
+                                  env.get("REPRO_PREEMPTION") != "0")
+        reqs = _serve_waves(eng, run, Request)
+        assert not eng.kv.rows and not eng._preempted
+        al = eng.kv.allocator
+        assert al.free_pages == al.num_pages
+        if run.get("ticks"):
+            st = eng.stats()
+            assert {k: st[k] for k in COUNTERS} == want["counters"]
+        if "quant" in run:
+            # the calibrated activation scales, bit for bit
+            assert sorted(eng.act_scales) == sorted(want["act_scales"])
+            for tag, (s_bits, sub) in want["act_scales"].items():
+                a = eng.act_scales[tag]
+                assert a.sub is None and sub is None, tag
+                assert bridge.bits(a.s).reshape(-1).tolist() == s_bits, tag
+    assert all(r.done and len(r.out) == run.get("max_new", MAX_NEW)
+               for r in reqs)
+    _assert_streams(reqs, want, reference.get(name + "-solo"))
+
+
+def test_run_counters_show_their_paths(reference):
+    """The reference's counters on the runs that hold them: the prefix
+    run hits twice (a partial hit skips 32 prompt tokens, the full hit
+    31 and copies one page on write), the preempt run swaps out and back
+    in, and reservation admission never preempts."""
+    c = {name: reference[name]["counters"] for name in RUNS
+         if RUNS[name].get("ticks")}
+    assert (c["prefix"]["prefix_hits"], c["prefix"]["prefill_tokens_skipped"],
+            c["prefix"]["pages_shared"], c["prefix"]["cow_copies"]) \
+        == (2, 63, 4, 1)
+    assert c["preempt"]["preemptions"] > 0
+    assert c["preempt"]["swap_ins"] == c["preempt"]["preemptions"]
+    assert c["reservation"]["preemptions"] == 0
+    for name in ("per_group", "per_tensor"):
+        assert c[name]["preemptions"] == c[name]["cow_copies"] == 0
+
+
+@pytest.mark.parametrize("mode", ["per_group", "per_tensor"])
+def test_baseline_prequant_is_bitwise_the_reference(mode):
+    """``prequantize_params`` in the per_group and per_tensor recipes
+    (``jit`` weight scaling: each layer slice against its own amax):
+    payloads and scales bit for bit the reference's, on the smoke
+    phi3-mini weights."""
+    from repro.configs.registry import get_config as jax_get_config
+    from repro.models.layers import init_tree
+    from repro.models.transformer import model_defs
+    from repro.train import steps as jsteps
+    from repro_torch.train.steps import prequantize_params
+
+    run = {"quant": mode}
+    jcfg = _run_cfg(jax_get_config, run)
+    jparams = init_tree(model_defs(jcfg), jax.random.PRNGKey(SEED))
+    jp = jsteps.prequantize_params(jcfg, jparams)
+    tp = prequantize_params(_run_cfg(get_config, run), _params())
+    jq = dict(jax.tree_util.tree_flatten_with_path(jp.qweights)[0])
+    js = dict(jax.tree_util.tree_flatten_with_path(jp.scales)[0])
+
+    def walk(tree, path=()):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                yield from walk(v, path + (k,))
+            else:
+                yield path + (k,), v
+
+    n = 0
+    for path, q in walk(tp.qweights):
+        key = tuple(jax.tree_util.DictKey(k) for k in path)
+        s = dict(walk(tp.scales))[path]
+        want_q, want_s = np.asarray(jq[key]), np.asarray(js[key])
+        if q.dtype in (torch.float8_e4m3fn, torch.float8_e5m2):
+            n += 1
+            assert np.array_equal(bridge.bits(q),
+                                  want_q.view(np.uint8)), path
+        assert np.array_equal(bridge.bits(s.to(torch.float32)).reshape(-1),
+                              want_s.astype(np.float32).view(np.int32)
+                              .reshape(-1)), path
+    assert n >= 7, n
 
 
 @pytest.mark.parametrize("name", sorted(SPEC_RUNS))
@@ -282,13 +431,138 @@ def test_engine_is_deterministic_and_retires():
     assert outs[0] == outs[1]
 
 
-def test_engine_refuses_what_waits_and_oversize():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _port_engine(prefix_cache=True)
+def test_engine_refuses_what_waits_and_oversize(monkeypatch):
+    """``Engine()`` takes the prefix cache from ``REPRO_PREFIX_CACHE``
+    (on by default, as the reference's), and refuses a request larger
+    than its slot."""
     eng = _port_engine()
+    assert eng.prefix_cache and eng.preemption
     with pytest.raises(SlotCapacityExceeded):
         eng.submit([Request(rid=0, prompt=np.zeros(44, np.int32),
                             max_new=8)])
+    monkeypatch.setenv("REPRO_PREFIX_CACHE", "0")
+    assert not _port_engine().prefix_cache
+    assert _port_engine(prefix_cache=True).prefix_cache
+    monkeypatch.setenv("REPRO_PAGED_PLACEMENT", "identity")
+    assert not _port_engine(prefix_cache=True).prefix_cache
+
+
+# --- prefix sharing and swap, port only (the reference's own cases) -----
+
+
+def _engine_at(slots, max_len, **kw):
+    return Engine(get_config(ARCH, smoke=True), _params(), num_slots=slots,
+                  max_len=max_len, chunk_tokens=8, device="cpu", **kw)
+
+
+def _prompt(seed, n=32):
+    return np.random.default_rng(seed).integers(0, 64, n).astype(np.int32)
+
+
+def _swap_round_trip():
+    """swap_out then swap_in restores the victim's pages bit for bit:
+    payloads and scales of every pool tensor, every layer."""
+    from repro_torch.models.attention import _bytes
+    from repro_torch.serving.paged_cache import _leaves
+
+    eng = _engine_at(2, 64)
+    assert eng.preemption
+    req = Request(rid=0, prompt=_prompt(0, 21), max_new=8)
+    eng.submit([req])
+    for _ in range(4):                       # attach and a few decodes
+        eng.step()
+    assert not req.done
+
+    def snap(pages):
+        return [_bytes(buf)[:, pages].clone()
+                for pool in eng.kv.caches.values() for buf in _leaves(pool)]
+
+    before = snap(list(eng.kv.allocator.table(0).pages))
+    bundle = eng.kv.swap_out(eng.kv.rows.index(0))
+    assert 0 not in eng.kv.rows and bundle["n_pages"] == len(before[0][0])
+    assert eng.kv.allocator.free_pages == eng.kv.allocator.num_pages
+    eng.kv.swap_in(bundle, req.prompt_len + req.max_new - 1)
+    after = snap(list(eng.kv.allocator.table(0).pages))
+    assert len(before) == 4                  # k, v and their fp8 scales
+    for a, b in zip(before, after):
+        assert torch.equal(a, b)
+
+
+def _donor_unperturbed():
+    """The donor's stream is the same whether or not a sharer mapped (and
+    then left) its prefix pages."""
+    prefix, suffix = _prompt(2), _prompt(3, 5)
+    solo = Request(rid=0, prompt=prefix, max_new=6)
+    _engine_at(1, 48).run([solo], log=None)
+    donor = Request(rid=0, prompt=prefix, max_new=6)
+    sharer = Request(rid=1, prompt=np.concatenate([prefix, suffix]),
+                     max_new=6)
+    eng = _engine_at(2, 48)
+    eng.run([donor, sharer], log=None)
+    assert eng.prefix_hits == 1 and sharer.prefix_pages == 2
+    assert donor.out == solo.out
+
+
+def _map_survives_retirement():
+    """A retired donor's hashed pages park evictable and revive on the
+    next hit: the second serve of the prompt chunks only its last
+    token."""
+    eng = _engine_at(1, 48, num_pages=6)
+    eng.run([Request(rid=0, prompt=_prompt(4), max_new=3)], log=None)
+    al = eng.kv.allocator
+    assert al.free_pages == al.num_pages and al.cached_pages == 2
+    second = Request(rid=1, prompt=_prompt(4), max_new=3)
+    eng.run([second], log=None)
+    assert second.prefill_skipped == 31 and second.prefix_pages == 2
+    assert eng.prefix_hits == 1 and eng.kv.cow_copies == 1
+    assert second.done and len(second.out) == 3
+
+
+def _full_hit_minimal_pool():
+    """On a pool of one slot's pages a full hit (page revival and the CoW
+    slack) needs more headroom than a cold admit: it is served cold."""
+    eng = _engine_at(1, 48)                  # a 3-page pool
+    first = Request(rid=0, prompt=_prompt(7), max_new=3)
+    eng.run([first], log=None)
+    second = Request(rid=1, prompt=_prompt(7), max_new=3)
+    eng.run([second], log=None)
+    assert eng.prefix_hits == 0 and eng.pages_shared == 0
+    assert second.prefill_skipped == 0 and second.out == first.out
+
+
+def _cache_off_never_shares():
+    reqs = [Request(rid=i, prompt=_prompt(5), max_new=3) for i in range(2)]
+    eng = _engine_at(2, 48, prefix_cache=False)
+    eng.run(reqs, log=None)
+    assert not eng.prefix_cache
+    assert eng.prefix_hits == eng.pages_shared == eng.kv.cow_copies == 0
+    al = eng.kv.allocator
+    assert al.free_pages == al.num_pages and al.cached_pages == 0
+    assert reqs[0].out == reqs[1].out
+
+
+ENGINE_CASES = {"swap-round-trip": _swap_round_trip,
+                "donor-unperturbed": _donor_unperturbed,
+                "map-survives-retirement": _map_survives_retirement,
+                "full-hit-minimal-pool-cold": _full_hit_minimal_pool,
+                "cache-off-never-shares": _cache_off_never_shares}
+
+
+@pytest.mark.parametrize("case", sorted(ENGINE_CASES))
+def test_prefix_and_swap_engine_cases(case):
+    """The reference's engine-level prefix-cache and swap cases
+    (tests/test_prefix_caching.py, tests/test_chunked_prefill.py), on
+    the port's smoke phi3-mini (fp8 cache)."""
+    ENGINE_CASES[case]()
+
+
+def test_moe_serving_refuses_the_baselines():
+    """Serving the MoE in per_group or per_tensor (its dense combine one
+    expert at a time) has no reference check yet and stays refused."""
+    run = {"arch": MOE, "quant": "per_group"}
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 entry 6"):
+        Engine(_run_cfg(get_config, run), _params(MOE), num_slots=SLOTS,
+               max_len=MAX_LEN, device="cpu")
 
 
 def test_engine_refuses_unported_reference_switch(monkeypatch):
@@ -301,24 +575,28 @@ def test_engine_refuses_unported_reference_switch(monkeypatch):
         _port_engine()
 
 
-@pytest.mark.parametrize("arch", [ARCH, MOE])
+@pytest.mark.parametrize("run", [ARCH, MOE, "per_group", "per_tensor"])
 @pytest.mark.parametrize("act", ["delayed", "jit"])
-def test_prequant_off_logits_equal_prequant_on(arch, act):
+def test_prequant_off_logits_equal_prequant_on(run, act):
     """The reference's prequant-parity contract, on the port: the bf16
     tree quantized in every step against the build-time scales
     (``REPRO_SERVE_PREQUANT=0``) gives the prefill's and three decode
     steps' logits bitwise those of the build-time fp8 payloads, with
     calibrated activation scales (which calibrate bitwise alike from
     either tree) and just in time; on phi3-mini and on the MoE (its
-    expert stacks scaled per (layer, expert))."""
+    expert stacks scaled per (layer, expert)), and on phi3-mini in the
+    baseline recipes (``jit`` weight scaling: each weight quantized in
+    the step against its own amax, bitwise what ``prequantize_params``
+    builds)."""
     from repro_torch.core.actscale import calibrate_act_scales
     from repro_torch.train.steps import (make_decode_step,
                                          make_prefill_step,
                                          prequantize_params,
                                          serve_weight_scales)
 
-    cfg = get_config(arch, smoke=True)
-    params = _params(arch)
+    baseline = run in ("per_group", "per_tensor")
+    cfg = _run_cfg(get_config, {"quant": run} if baseline else {"arch": run})
+    params = _params(ARCH if baseline else run)
     pq = prequantize_params(cfg, params)
     scales = serve_weight_scales(cfg, params)
     trees = {"off": (params, scales), "on": (pq.qweights, pq.scales)}
@@ -326,8 +604,10 @@ def test_prequant_off_logits_equal_prequant_on(arch, act):
             for k, t in trees.items()}
     if act == "delayed":
         for tag, a in acts["on"].items():
-            assert torch.equal(a.s, acts["off"][tag].s), tag
-            assert torch.equal(a.sub, acts["off"][tag].sub), tag
+            b = acts["off"][tag]
+            assert torch.equal(a.s, b.s), tag
+            assert (a.sub is None) == (b.sub is None), tag
+            assert a.sub is None or torch.equal(a.sub, b.sub), tag
     toks = torch.from_numpy(np.stack(_prompts([8, 8])))
     out = {}
     for k, (tree, sc) in trees.items():
@@ -618,7 +898,7 @@ def _reference_spec_serve(cfg, params, run, prompts, truth):
     reqs = [JRequest(rid=i, prompt=p, max_new=MAX_NEW)
             for i, p in enumerate(prompts)]
     eng = JEngine(cfg, params, num_slots=SLOTS, max_len=MAX_LEN,
-                  chunk_tokens=CHUNK, prefix_cache=False, spec_decode=True,
+                  chunk_tokens=CHUNK, spec_decode=True,
                   draft=DRAFTS[run["draft"]](dict(enumerate(truth))),
                   spec_k=run["k"])
     assert eng.spec
@@ -628,10 +908,12 @@ def _reference_spec_serve(cfg, params, run, prompts, truth):
 
 
 def _reference_serve(cfg, params, run, prompts, slots=SLOTS):
-    """Serve ``prompts`` through the reference's Engine (or its legacy
-    Server); returns the streams and, per generated token, the gap
-    between the top two logits it was sampled from and the largest
-    |logit|."""
+    """Serve ``prompts`` (or the run's waves) through the reference's
+    Engine (or its legacy Server); returns the streams and, per
+    generated token, the gap between the top two logits it was sampled
+    from and the largest |logit|; for a ``ticks`` run also the engine's
+    counters, and for a baseline recipe its calibrated activation
+    scales (as f32 bit patterns)."""
     from repro.launch.serve import Server as JServer
     from repro.serving import Engine as JEngine, Request as JRequest
 
@@ -639,7 +921,7 @@ def _reference_serve(cfg, params, run, prompts, slots=SLOTS):
 
     reqs = [JRequest(rid=i, prompt=p, max_new=MAX_NEW)
             for i, p in enumerate(prompts)]
-    gaps = {r.rid: [] for r in reqs}
+    gaps = {}
     last = {}
 
     def capture(fn, row_of):
@@ -655,8 +937,8 @@ def _reference_serve(cfg, params, run, prompts, slots=SLOTS):
             row = last["row_of"](req, last["logits"])
             top = np.sort(row)
             assert int(np.argmax(row)) == int(token)
-            gaps[req.rid].append([float(top[-1] - top[-2]),
-                                  float(np.abs(row).max())])
+            gaps.setdefault(req.rid, []).append(
+                [float(top[-1] - top[-2]), float(np.abs(row).max())])
             return on_token(req, token)
         return rec
 
@@ -669,24 +951,40 @@ def _reference_serve(cfg, params, run, prompts, slots=SLOTS):
         srv._on_token = record(srv._on_token)
         srv.run(list(reqs), log=lambda *a: None)
     else:
-        slo = JSLOTargets(**PINNED) if run.get("pinned") else None
-        eng = JEngine(cfg, params, num_slots=slots, max_len=MAX_LEN,
-                      chunk_tokens=CHUNK, prefix_cache=False, slo=slo)
+        slo = JSLOTargets(**PINNED) if (run.get("pinned")
+                                        or run.get("ticks")) else None
+        eng = JEngine(cfg, params, num_slots=slots, chunk_tokens=CHUNK,
+                      slo=slo, **_engine_kw(run))
 
         def decode_rows():
             rows = list(eng.kv.rows)
+            # read before the chunk step advances it
+            pos = eng._staging.pos if eng._staging is not None else 0
 
             def row_of(req, lg):
                 if lg.shape[1] == 1:             # batched decode step
                     return lg[rows.index(req.rid), 0]
-                # the last chunk of a prompt
-                return lg[0, (req.prompt_len - 1) % lg.shape[1]]
+                # the last chunk of a prompt (a prefix hit's starts
+                # at its suffix)
+                return lg[0, req.prompt_len - 1 - pos]
             return row_of
 
         eng._run_decode = capture(eng._run_decode, decode_rows)
         eng._run_prefill = capture(eng._run_prefill, lambda: first)
         eng.sched.on_token = record(eng.sched.on_token)
-        eng.run(reqs, log=None)
+        reqs = _serve_waves(eng, run, JRequest)
+        out = {}
+        if run.get("ticks"):
+            st = eng.stats()
+            out["counters"] = {k: st[k] for k in COUNTERS}
+        if "quant" in run:
+            out["act_scales"] = {
+                tag: [np.asarray(a.s, np.float32).view(np.int32)
+                      .reshape(-1).tolist(),
+                      None if a.sub is None else np.asarray(a.sub).tolist()]
+                for tag, a in eng.act_scales.items()}
+        return {"streams": [r.out for r in reqs],
+                "gaps": [gaps[r.rid] for r in reqs], **out}
     return {"streams": [r.out for r in reqs],
             "gaps": [gaps[r.rid] for r in reqs]}
 

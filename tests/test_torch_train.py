@@ -71,7 +71,7 @@ from repro_torch import bridge
 from repro_torch.configs.registry import get_config
 from repro_torch.core import autoscale as tauto
 from repro_torch.core.formats import QuantConfig
-from repro_torch.core.linear import QT, qlinear, qmm
+from repro_torch.core.linear import qmm
 from repro_torch.core.quant import quant_mx, quant_per_tensor
 from repro_torch.core.tree import tree_map
 from repro_torch.kernels import dispatch, mx_bwd
@@ -324,21 +324,6 @@ def test_qmm_vjp_matches_reference(reference, mode, xshape, n):
         np.testing.assert_array_equal(
             bridge.bits(got).reshape(-1),
             np.asarray(want).reshape(-1).view(bridge.bits(got).dtype))
-
-
-def test_qmm_refuses_baseline_recipes():
-    """Training takes the baseline recipes (tests/test_torch_recipes.py);
-    their delayed-scale serving forward and its calibration do not."""
-    from repro_torch.core.actscale import REC, ActScale
-
-    x = torch.ones(4, 32)
-    act = ActScale(s=torch.tensor(1.0), sub=None)
-    for mode in BASELINES:
-        cfg = QuantConfig(**recipe(mode))
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            qlinear(x, QT(torch.ones(32, 8), torch.tensor(1.0), act), cfg)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            REC.record("site", x, cfg)
 
 
 # --- automatic scaling, AdamW, the schedule -------------------------------
