@@ -9,18 +9,23 @@ Phases, each fatal on failure:
   3. the kernels: each kernel against its plain PyTorch version at the
      shapes its path gives it -- mx_gemm's weight-streaming tile (M <=
      32) at M 4 (decode), 16 (verify) and 32 (prefill chunk) over
-     full-width phi3-mini-3.8b's, h2o-danube-3-4b's and phi3.5-moe-42b-
-     a6.6b's serving shapes, the rows of the M 4 and M 16 calls bitwise
+     full-width phi3-mini-3.8b's, h2o-danube-3-4b's, phi3.5-moe-42b-
+     a6.6b's and deepseek-v2-lite-16b's serving shapes (N 64 to
+     102,400, K 10,944), the rows of the M 4 and M 16 calls bitwise
      those of the M 32 call; the calibration fused_quant_gemm (the
      mx_quant kernel then that tile; phi3-mini's shapes at M 32, the
-     MoE's at M 4, 16 and 32) and paged decode attention (phi3-mini's 4
+     MoE's at M 4, 16 and 32, deepseek's at M 32 with its latent
+     up-projections' K 512, and its wo at M 4) and paged decode
+     attention (phi3-mini's 4
      pages a slot and the MoE's GQA 8 x 4, Dh 128, within 1e-5, and 256
      pages a slot at ~4,000 live slots, within attn_limit); mx_gemm's
      wgmma
      tile (M > 32: mx_gemm_tiled) at
-     Table 6's shapes, h2o-danube-3-4b's 4160-token prefill and a ragged
-     shape, in all four operand formats, two calls bitwise equal; and
-     olmo-7b training shapes (M = 2048 tokens) for
+     Table 6's shapes, h2o-danube-3-4b's 4160-token prefill, a ragged
+     shape and deepseek's prefill of w_uk / w_uv (M 48, K 512), in all
+     four operand formats, two calls bitwise equal; and
+     olmo-7b training shapes (M = 2048 tokens) and deepseek's (M 8192:
+     w_kr's N 64 and K 64, dense0's 10,944) for
      fused_quant_gemm_tiled (fused_quant_gemm at M > 32, the mx_quant
      kernel then the wgmma tile: forward e4m3, dx e5m2 on the transposed
      weights) and mx_dw_gemm (the dw_requant pass, then the wgmma tile
@@ -62,14 +67,16 @@ Phases, each fatal on failure:
      them with the n-gram draft, an oracle draft of the plain streams and
      the oracle under identity placement, each stream equal to the plain
      one, launching the verify forms; 2 prompts of ~4000 tokens give the
-     same streams plainly and with the oracle draft; the reference's
+     same streams plainly and with the oracle draft (depth cut to 8
+     layers); the reference's
      three serving switches, each for one run (REPRO_SERVE_PREQUANT=0:
      no mx_quant launch but the calibration's, streams phase 4's up to
      a tie; REPRO_SERVE_DELAYED_ACT=0: fused_quant_gemm at every
      quantized site of every decode step; REPRO_DECODE_ATTN=einsum: no
      decode_attn launch, and every attention call of a second run within
      attn_limit of the kernel on the same rows); the prefix cache at
-     its default (Engine(num_slots=4, max_len=640): phase 4's requests,
+     its default (Engine(num_slots=4, max_len=640), 8 layers: phase 4's
+     requests,
      then 6 requests sharing a 512-token system prompt and the prompt
      alone: 6 hits, 5 · 512 + 511 prompt tokens skipped, a
      copy-on-write that leaves the donor's pages byte for byte, the
@@ -93,15 +100,22 @@ Phases, each fatal on failure:
      expert per layer, the attention's 4 and the head's; the
      calibration's fused_quant_gemm per (layer, expert) site), equal
      streams on a second run, on identity rows and with speculative
-     verify (oracle draft); then
+     verify (oracle draft); deepseek-v2-lite-16b (MLA, 64 experts top-6
+     and 2 shared, a leading dense layer) at full width, 4 of 27 layers,
+     serving 8 requests through the default Engine (identity rows and
+     the whole-prompt prefill on its latent cache; each decode step's
+     launches as counted from the code: the M <= 32 tile at every
+     delayed site, 192 a MoE layer, and one just-in-time fused call
+     for each layer's wo; no decode attention kernel), equal streams on
+     a second run; then
      h2o-danube-3-4b (sliding window 4096) at full
      width and depth serves 6 requests whose rings wrap, through
      identity rows and the whole-prompt prefill, launching decode_attn
      and not decode_attn_paged, with equal streams on a second run; the
      port on the card must agree with the port on the CPU on smoke-size
      models (phi3-mini's chunked step, also under the two scale
-     switches, phi3.5-moe's steps and its engine's streams, h2o's
-     prefill past the window and its ring decode);
+     switches, phi3.5-moe's steps and its engine's streams, deepseek's
+     engine streams, h2o's prefill past the window and its ring decode);
   5. the ablation (the paper's Table 6): the quantizer/GEMM entry points
      of kernels.ops at its three (M, N, K) shapes -- the MOSS GEMM
      (mx_gemm's wgmma tile), the COAT GEMM (group_gemm: the same tile,
@@ -132,11 +146,17 @@ Phases, each fatal on failure:
      exactly 0; the dW twice bitwise, an empty expert's exactly 0),
      timed beside bf16 torch.bmm; then 3 moss and 3 bf16 steps from
      the same weights and batches, each moss step launching exactly its
-     kernels, none in bf16; the smoke-size MoE trains 3 moss steps on the
-     grouped route on the card and on the CPU (phase 6's check);
+     kernels, none in bf16; deepseek-v2-lite-16b at full width, 3 of 27
+     layers (dense0 + 2 MoE), 2 x 4096: the same moe_gmm / moe_dw_gemm
+     checks at E 64, then 3 moss and 3 bf16 steps, finite, the loss
+     falling, each moss step's launches as counted; the smoke-size MoE
+     and deepseek train 3 moss steps on the grouped route on the card
+     and on the CPU (phase 6's check);
   8. the kernels line (JSON; group_gemm with a "serving" entry: its
      times at the serving rows, its launches the per_group steps' and
-     engine's), the card line, and the last line
+     engine's; a "deepseek" entry where a kernel was checked at
+     deepseek's shapes or launched on its serving or training path,
+     with those launches), the card line, and the last line
      {"ok": true, "device": {...}}.
 
 Each phase prints its wall seconds, and the script its total.
@@ -194,6 +214,25 @@ MOE_BATCH, MOE_SEQ = 2, 4096        # 8192 tokens > 4096: the grouped route
 # of 32: 32 layers are ~84 GB in bf16 (launch/profile_serve.py's
 # MOE_SERVE_LAYERS must equal it)
 MOE_SERVE_LAYERS = 4
+# deepseek-v2-lite-16b (MLA, 64 experts top-6 + 2 shared, a leading dense
+# layer): served at 4 of 27 layers (dense0 + 3 MoE), trained at 3 (dense0
+# + 2 MoE; launch/profile_serve.py's MOE_SERVE_LAYERS must equal
+# MLA_SERVE_LAYERS)
+MLA_ARCH = "deepseek-v2-lite-16b"
+MLA_SERVE_LAYERS, MLA_TRAIN_LAYERS = 4, 3
+MLA_BATCH, MLA_SEQ = 2, 4096        # 8192 tokens > 4096: the grouped route
+# its decode GEMMs (K, N): wq, w_dkv, w_kr, wo, dense0's up and gate, its
+# down, an expert's up and gate, its down, the shared experts' up and
+# gate, their down, the head
+MLA_DECODE_KN = [(2048, 3072), (2048, 512), (2048, 64), (2048, 2048),
+                 (2048, 10944), (10944, 2048), (2048, 1408), (1408, 2048),
+                 (2048, 2816), (2816, 2048), (2048, 102400)]
+# the prefill's latent up-projections (w_uk, w_uv: K 512) at a 48-token
+# prompt bucket, through the M > 32 tile (M, N, K)
+MLA_PREFILL_MNK = [(48, 2048, 512)]
+# its training GEMMs at M = 8192 (K, N): w_kr (N 64 forward, K 64 in dx,
+# N 64 in dW), dense0's up (N 10944; K 10944 in dx) and down (K 10944)
+MLA_TRAIN_KN = [(2048, 64), (2048, 10944), (10944, 2048)]
 LLAMA_ARCH = "llama2-7b"
 LLAMA_LAYERS = 4                    # of 32: f32 master + grads + moments
 LLAMA_M = 4096                      # batch 1 x seq 4096 (paper Table 8)
@@ -243,10 +282,12 @@ VERIFY_REPORTED = {"decode_attn_paged_verify": "phi3",
                    "decode_attn_verify": "phi3-identity"}
 # the spec engine phase's long-context run: 2 prompts of ~4000 tokens
 SPEC_LONG_PROMPTS, SPEC_LONG_MAX_NEW, SPEC_LONG_MAX_LEN = [4000, 3968], 32, 4160
+SPEC_LONG_LAYERS = 8                # of 32 (full width)
 SPEC_K = 4
 # the prefix phase: a 512-token system prompt (16 chunks of 32) shared
 # by a wave of 6 requests; its bf16-cache twin at this depth
 PREFIX_SYSTEM, PREFIX_MAX_LEN, PREFIX_BF16_LAYERS = 512, 640, 4
+PREFIX_LAYERS = 8                   # the fp8-cache runs, of 32
 # the preempt phase: 12 pages where 4 slots of 128 tokens need 32; the
 # reservation run (about one request at a time) at this depth
 PREEMPT_PAGES, PREEMPT_MAX_LEN, PREEMPT_MAX_NEW = 12, 128, 64
@@ -416,8 +457,8 @@ def phase_kernels(torch, timer) -> dict:
     # (each (K, N) at M 32 first; the M 4 and M 16 calls' rows must be
     # the M 32 call's first rows bit for bit: a row's bits do not depend
     # on the batch)
-    worst, moe_worst = 0.0, 0.0
-    for k, n in GEMM_KN + H2O_DECODE_KN + MOE_DECODE_KN:
+    worst, moe_worst, mla_worst = 0.0, 0.0, 0.0
+    for k, n in GEMM_KN + H2O_DECODE_KN + MOE_DECODE_KN + MLA_DECODE_KN:
         if (k, n) not in weights:
             w = torch.randn(k, n, device="cuda", generator=gen) / k ** 0.5
             weights[k, n] = quant_per_tensor(w).q
@@ -446,6 +487,8 @@ def phase_kernels(torch, timer) -> dict:
             worst = max(worst, err)
             if (k, n) in MOE_DECODE_KN:
                 moe_worst = max(moe_worst, err)
+            if (k, n) in MLA_DECODE_KN:
+                mla_worst = max(mla_worst, err)
             opnd = mx_operand(q, se)
             wb = qw.to(torch.bfloat16)
             t = timer.ms(lambda: mx_gemm.mx_gemm(q, se, qw))
@@ -467,14 +510,24 @@ def phase_kernels(torch, timer) -> dict:
     res["mx_gemm"]["max_abs_err"] = worst
     res["mx_gemm"]["moe_serving"] = dict(
         kn=MOE_DECODE_KN, m=list(SMALL_M), max_abs_err=moe_worst)
+    res["mx_gemm"]["deepseek"] = dict(
+        kn=MLA_DECODE_KN, m=list(SMALL_M), max_abs_err=mla_worst)
 
     # -- fused_quant_gemm: M = 32 (the calibration forward) -----------
     # and at the MoE serving phase's shapes, M 4, 16 and 32 (its
     # calibration forward and, under REPRO_SERVE_DELAYED_ACT=0, its decode
-    # and chunk rows)
-    worst, moe_worst = 0.0, 0.0
+    # and chunk rows); deepseek's calibration at M 32 (its decode shapes
+    # and the latent up-projections' K 512) and its wo at every decode
+    # step (just in time, M 4)
+    worst, moe_worst, mla_worst = 0.0, 0.0, 0.0
     cases = [(fmt, 32, k, n) for fmt in ("e4m3", "e5m2") for k, n in GEMM_KN]
     cases += [("e4m3", m, k, n) for k, n in MOE_DECODE_KN for m in SMALL_M]
+    mla_cases = [("e4m3", 32, k, n) for k, n in MLA_DECODE_KN
+                 + [(512, 2048)]] + [("e4m3", 4, 2048, 2048)]
+    cases += mla_cases
+    for k, n in [(512, 2048)]:
+        w = torch.randn(k, n, device="cuda", generator=gen) / k ** 0.5
+        weights[k, n] = quant_per_tensor(w).q
     for fmt, m, k, n in cases:
         qw = weights[k, n]
         x = _activations(torch, gen, m, k)
@@ -505,6 +558,8 @@ def phase_kernels(torch, timer) -> dict:
         worst = max(worst, err)
         if (k, n) in MOE_DECODE_KN:
             moe_worst = max(moe_worst, err)
+        if (fmt, m, k, n) in mla_cases:
+            mla_worst = max(mla_worst, err)
         opnd = mx_operand(q_p, se_p)
         wb = qw.to(torch.bfloat16)
         t = timer.ms(lambda: mx_fused.fused_quant_gemm(x, s, qw, fmt))
@@ -523,6 +578,8 @@ def phase_kernels(torch, timer) -> dict:
     res["fused_quant_gemm"]["max_abs_err"] = worst
     res["fused_quant_gemm"]["moe_serving"] = dict(
         kn=MOE_DECODE_KN, m=list(SMALL_M), max_abs_err=moe_worst)
+    res["fused_quant_gemm"]["deepseek"] = dict(
+        mkn=[c[1:] for c in mla_cases], max_abs_err=mla_worst)
 
     # -- decode_attn_paged: pages of 16 ------------------------------
     # (the G query rows of each (slot, kv-head), as dispatch passes them)
@@ -609,8 +666,8 @@ def phase_mx_gemm_tiled(torch, timer) -> dict:
     from repro_torch.kernels import mx_gemm
 
     gen = torch.Generator(device="cuda").manual_seed(7)
-    res, worst = {}, 0.0
-    for m, n, k in TILED_MNK:
+    res, worst, mla_worst = {}, 0.0, 0.0
+    for m, n, k in TILED_MNK + MLA_PREFILL_MNK:
         x = _activations(torch, gen, m, k)
         w = torch.randn(k, n, device="cuda", generator=gen) / k ** 0.5
         fmts = [("e4m3", "e4m3")]
@@ -637,6 +694,8 @@ def phase_mx_gemm_tiled(torch, timer) -> dict:
                     and same):
                 raise AssertionError(line)
             worst = max(worst, err)
+            if (m, n, k) in MLA_PREFILL_MNK:
+                mla_worst = max(mla_worst, err)
             del got, again, want
             if (xf, wf) != ("e4m3", "e4m3"):
                 print(line)
@@ -657,6 +716,8 @@ def phase_mx_gemm_tiled(torch, timer) -> dict:
         del x, w
         torch.cuda.empty_cache()
     res["mx_gemm_tiled"]["max_abs_err"] = worst
+    res["mx_gemm_tiled"]["deepseek"] = dict(mnk=MLA_PREFILL_MNK,
+                                            max_abs_err=mla_worst)
     return res
 
 
@@ -913,16 +974,20 @@ def phase_verify_kernels(torch, timer) -> dict:
 def phase_train_kernels(torch, timer) -> dict:
     """fused_quant_gemm (forward e4m3 on bf16 activations, dx e5m2 on
     the f32 gradient against the transposed weights) and mx_dw_gemm at
-    olmo-7b training shapes."""
+    olmo-7b training shapes (M 2048) and at deepseek-v2-lite-16b's (M
+    8192: N 64 and, in dx, K 64, half of a last K-128 step; K and N
+    10,944, K % 128 = 64), reported under "deepseek"."""
     from repro_torch.core.quant import mx_operand, quant_per_tensor
     from repro_torch.kernels import (dispatch, mx_bwd, mx_fused, mx_gemm,
                                      mx_quant)
 
     gen = torch.Generator(device="cuda").manual_seed(2)
-    m = TRAIN_M
     res = {}
     worst_f = worst_d = worst_r = 0.0
-    for k, n in TRAIN_KN:
+    mla_f = mla_d = 0.0
+    mla_m = MLA_BATCH * MLA_SEQ
+    for m, k, n in ([(TRAIN_M, k, n) for k, n in TRAIN_KN]
+                    + [(mla_m, k, n) for k, n in MLA_TRAIN_KN]):
         w = torch.randn(k, n, device="cuda", generator=gen) / k ** 0.5
         qw = quant_per_tensor(w).q
         del w
@@ -959,6 +1024,8 @@ def phase_train_kernels(torch, timer) -> dict:
                 raise AssertionError(f"fused_quant_gemm {what} K={kk} "
                                      f"N={nn}")
             worst_f = max(worst_f, err)
+            if m == mla_m:
+                mla_f = max(mla_f, err)
             opnd, wb = mx_operand(q_p, se_p), wq.to(torch.bfloat16)
             del acc, acc_p, q, se
             t = timer.ms(lambda: mx_fused.fused_quant_gemm(xin, s, wq, fmt))
@@ -970,7 +1037,7 @@ def phase_train_kernels(torch, timer) -> dict:
                              2.0 * m * nn * kk)
             print(f", {t:.4f} ms, plain {tp:.4f} ms, library {tl:.4f} ms, "
                   f"bound {b:.4f} ms ({by})")
-            if (what, k, n) == ("fwd", 4096, 11008):
+            if (what, m, k, n) == ("fwd", TRAIN_M, 4096, 11008):
                 res["fused_quant_gemm_tiled"] = dict(
                     ms=t, plain_ms=tp, library_ms=tl, bound_ms=b,
                     bound_by=by)
@@ -997,6 +1064,8 @@ def phase_train_kernels(torch, timer) -> dict:
             print()
             raise AssertionError(f"mx_dw_gemm K={k} N={n}")
         worst_d = max(worst_d, err)
+        if m == mla_m:
+            mla_d = max(mla_d, err)
         worst_r = max(worst_r, float((mx_operand(qt, et).float()
                                       - mx_operand(qt_p, et_p).float())
                                      .abs().max()))
@@ -1013,7 +1082,7 @@ def phase_train_kernels(torch, timer) -> dict:
         print(f", {t:.4f} ms ({flops / t / 1e9:.1f} TFLOP/s; the requant "
               f"pass and the tile), plain {tp:.4f} ms, library {tl:.4f} ms, "
               f"bound {b:.4f} ms ({by})")
-        if (k, n) == (4096, 11008):
+        if (m, k, n) == (TRAIN_M, 4096, 11008):
             res["mx_dw_gemm"] = dict(ms=t, plain_ms=tp, library_ms=tl,
                                      bound_ms=b, bound_by=by)
             # the requant pass alone: the residual and its exponents read
@@ -1030,6 +1099,10 @@ def phase_train_kernels(torch, timer) -> dict:
         torch.cuda.empty_cache()
     res["fused_quant_gemm_tiled"]["max_abs_err"] = worst_f
     res["mx_dw_gemm"]["max_abs_err"] = worst_d
+    for name, err in (("fused_quant_gemm_tiled", mla_f),
+                      ("mx_dw_gemm", mla_d)):
+        res[name]["deepseek"] = dict(m=mla_m, kn=MLA_TRAIN_KN,
+                                     max_abs_err=err)
     res["dw_requant"]["max_abs_err"] = worst_r
     return res
 
@@ -1416,13 +1489,16 @@ def _serve_once(torch, np, seed: int, float_pages: bool = True,
                 reqs=None, max_len: int = 64, arch: str = ARCH,
                 layers: int | None = None, gaps: dict | None = None,
                 step_log: tuple | None = None, wrap_decode=None,
-                over: dict | None = None, **engine_kw):
+                over: dict | None = None, chunked: bool = True,
+                **engine_kw):
     """Serve ``reqs`` (phase 4's 8 requests by default) through a
     full-width engine of ``arch`` (depth cut to ``layers`` if given,
     config fields replaced by ``over``) on weights from ``seed``; with
     ``gaps`` records each token's top-two logit gap, with ``step_log``
     ((counters, list)) each decode step's launches; ``wrap_decode(eng)``
-    wraps the engine's own step first.  Returns the requests, the build
+    wraps the engine's own step first.  The engine must take the
+    placement ``float_pages`` and the prefill ``chunked`` (the
+    whole-prompt prefill where False).  Returns the requests, the build
     and serve seconds and the engine's stats (with the run's peak
     memory)."""
     from repro_torch.serving import Request
@@ -1434,7 +1510,7 @@ def _serve_once(torch, np, seed: int, float_pages: bool = True,
     cfg = eng.cfg
     torch.cuda.synchronize()
     build_s = time.monotonic() - t0
-    if (eng.float_pages, eng.chunked) != (float_pages, True):
+    if (eng.float_pages, eng.chunked) != (float_pages, chunked):
         raise AssertionError(f"engine took float_pages={eng.float_pages}, "
                              f"chunked={eng.chunked}")
     if eng.spec != bool(engine_kw.get("spec_decode")):
@@ -1657,7 +1733,8 @@ def phase_engine_spec(torch, np, plain: list) -> dict:
     placement -- and every stream must equal phase 4's token for token;
     the verify form must have been launched.  Then 2 prompts of ~4000
     tokens (max_len 4160, 32 new tokens) are served plainly and with the
-    oracle draft on the same weights, with equal streams."""
+    oracle draft on the same weights, full width with the depth cut to
+    SPEC_LONG_LAYERS, with equal streams."""
     from repro_torch.configs.registry import get_config
     from repro_torch.kernels import decode_attn
     from repro_torch.serving import Request
@@ -1704,9 +1781,11 @@ def phase_engine_spec(torch, np, plain: list) -> dict:
 
     base, _, run_b, st_b = _serve_once(torch, np, seed=0,
                                        reqs=long_requests(),
-                                       max_len=SPEC_LONG_MAX_LEN)
+                                       max_len=SPEC_LONG_MAX_LEN,
+                                       layers=SPEC_LONG_LAYERS)
     toks = sum(len(r.out) for r in base)
-    print(f"long context plain: prompts {SPEC_LONG_PROMPTS}, {toks} tokens, "
+    print(f"long context plain ({SPEC_LONG_LAYERS} layers): prompts "
+          f"{SPEC_LONG_PROMPTS}, {toks} tokens, "
           f"serve {run_b:.2f} s, {st_b['chunk_prefill_steps']} prefill "
           f"chunks, {st_b['decode_steps']} decode steps of "
           f"{1e3 * st_b['mean_decode_step_s']:.2f} ms mean")
@@ -1714,7 +1793,8 @@ def phase_engine_spec(torch, np, plain: list) -> dict:
     truth = {r.rid: list(r.out) for r in base}
     spec, _, run_s, st = _serve_once(
         torch, np, seed=0, reqs=long_requests(), max_len=SPEC_LONG_MAX_LEN,
-        spec_decode=True, spec_k=SPEC_K, draft=Oracle(truth))
+        layers=SPEC_LONG_LAYERS, spec_decode=True, spec_k=SPEC_K,
+        draft=Oracle(truth))
     n_long = {n: c - before[n] for n, c in counts().items()}
     _spec_line("long context, oracle draft", spec, run_s, st, n_long)
     if [list(r.out) for r in spec] != list(truth.values()):
@@ -2053,10 +2133,10 @@ def _serve_prefix_wave(torch, np, layers=None, over=None, first=False,
     return out, ttft, st
 
 
-def phase_engine_prefix(torch, np, plain: list):
-    """The prefix cache at its default on full-width phi3-mini, all 32
-    layers, Engine(num_slots=4, max_len=640): phase 4's 8 requests (their
-    streams against phase 4's reported), then
+def phase_engine_prefix(torch, np):
+    """The prefix cache at its default on full-width phi3-mini, depth cut
+    to PREFIX_LAYERS, Engine(num_slots=4, max_len=640): phase 4's 8
+    requests (their streams with and without the cache reported), then
     a wave of 6 requests sharing a 512-token system prompt (16 chunks),
     each with a 2-8-token suffix, then the system prompt alone.  The
     first wave request registers the prompt's 32 pages; the other five
@@ -2074,13 +2154,8 @@ def phase_engine_prefix(torch, np, plain: list):
     for c in counters:
         c.reset()
     (base, wave, full), ttft_on, st = _serve_prefix_wave(
-        torch, np, first=True, check_donor=True)
+        torch, np, layers=PREFIX_LAYERS, first=True, check_donor=True)
     _launch_line("prefix on", counters)
-    # the chunk attention sums over every slot of max_len (640 here, 64
-    # in phase 4), so phase 4's streams are reported, not gated
-    print(f"prefix on: phase 4's requests at max_len {PREFIX_MAX_LEN}: "
-          f"{sum(a == b for a, b in zip(base, plain))} of {len(plain)} "
-          "streams equal phase 4's")
     skipped = 5 * PREFIX_SYSTEM + PREFIX_SYSTEM - 1
     if (st["prefix_hits"], st["prefill_tokens_skipped"]) != (6, skipped):
         raise AssertionError(f"prefix on: {st['prefix_hits']} hits, "
@@ -2089,9 +2164,12 @@ def phase_engine_prefix(torch, np, plain: list):
     if st["cow_copies"] < 1 or st["prefix_hit_requests"] != 6:
         raise AssertionError(f"prefix on: {st['cow_copies']} CoW copies, "
                              f"{st['prefix_hit_requests']} hit requests")
-    (_, wave_off, full_off), ttft_off, st_off = _with_env(
+    (base_off, wave_off, full_off), ttft_off, st_off = _with_env(
         "REPRO_PREFIX_CACHE", "0", lambda: _serve_prefix_wave(
-            torch, np, first=True))
+            torch, np, layers=PREFIX_LAYERS, first=True))
+    print(f"prefix: phase 4's requests at max_len {PREFIX_MAX_LEN}, "
+          f"{PREFIX_LAYERS} layers: {sum(a == b for a, b in zip(base, base_off))}"
+          f" of {len(base)} streams equal with and without the cache")
     if st_off["prefix_hits"] or st_off["pages_shared"]:
         raise AssertionError("REPRO_PREFIX_CACHE=0 shared pages")
     if wave != wave_off:
@@ -2439,6 +2517,191 @@ def phase_engine_moe(torch, np) -> dict:
     return launches
 
 
+def _mla_decode_launches(cfg) -> dict:
+    """mx_gemm's launches in one decode step of deepseek, counted from
+    the code: per layer the delayed sites wq, w_dkv and w_kr, the FFN's
+    (dense0's, or the shared experts') 3 and each routed expert's 3 on
+    the dense combine, and wo's fused call (just in time: one
+    global_amax, one mx_quant and the M <= 32 tile); the head.  MLA's
+    w_uk and w_uv are absorbed einsums in decode, not GEMMs."""
+    moe_layers = cfg.n_layers - cfg.first_dense
+    sites = (cfg.first_dense * (3 + 3)
+             + moe_layers * (3 + 3 + 3 * cfg.n_experts) + 1)
+    return {"mx_gemm": sites + cfg.n_layers,
+            "fused_quant_gemm": cfg.n_layers, "mx_quant": cfg.n_layers,
+            "global_amax": cfg.n_layers}
+
+
+def phase_engine_mla(torch, np) -> dict:
+    """deepseek-v2-lite-16b at full width (d 2048, 16 heads, MLA with a
+    512-wide latent cache, 64 experts top-6 and 2 shared, a leading
+    dense layer of 10,944), 4 of its 27 layers (dense0 + 3 MoE), on
+    weights from a seed, serves phase 4's kind of 8 requests through
+    the default Engine: identity rows and the whole-prompt prefill, as
+    the reference serves MLA's latent cache, with pre-quantized weights
+    (the absorbed decode on their bf16 copies) and delayed activation
+    scales.  Every decode step launches, as counted from the code, the
+    M <= 32 tile at every delayed site (64 experts x 3 in each MoE
+    layer) and one just-in-time fused call for each layer's wo; no
+    decode attention kernel runs (the absorbed einsums attend).  A
+    second run from the same seed gives the same streams.  Returns the
+    launches of the serving kernels on this path."""
+    from repro_torch.configs.registry import get_config
+
+    cfg = get_config(MLA_ARCH).replace(n_layers=MLA_SERVE_LAYERS)
+    print(f"engine {MLA_ARCH}: full width (d {cfg.d_model}, {cfg.n_heads} "
+          f"heads, kv_lora {cfg.kv_lora}, q_nope {cfg.q_nope}, q_rope "
+          f"{cfg.q_rope}, {cfg.n_experts} experts top-{cfg.top_k} + "
+          f"{cfg.n_shared} shared, d_ff {cfg.d_ff}, dense_ff "
+          f"{cfg.dense_ff}, vocab {cfg.vocab}), depth cut from 27 to "
+          f"{MLA_SERVE_LAYERS} layers ({cfg.first_dense} dense)")
+    counters = _serving_counters()
+    for c in counters:
+        c.reset()
+    log = []
+    kw = dict(seed=0, arch=MLA_ARCH, layers=MLA_SERVE_LAYERS,
+              float_pages=False, chunked=False)
+    reqs, build_s, run_s, st = _serve_once(torch, np, step_log=(counters,
+                                                                  log), **kw)
+    launches = {c.name: c.count for c in counters}
+    _serve_line(f"engine {MLA_ARCH} ({MLA_SERVE_LAYERS} layers, build "
+                f"{build_s:.2f} s, {st['prefill_calls']} whole-prompt "
+                f"prefills of {1e3 * st['mean_prefill_s']:.1f} ms mean)",
+                reqs, run_s, st)
+    print(f"launches on the MLA serving path: {json.dumps(launches)}")
+    for name in ("mx_gemm", "mx_gemm_tiled", "fused_quant_gemm",
+                 "global_amax", "mx_quant"):
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the "
+                                 "MLA serving path")
+    attn = {n: v for n, v in launches.items() if n.startswith("decode_attn")}
+    if any(attn.values()):
+        raise AssertionError(f"MLA: decode attention launched: {attn}")
+    zero = {c.name: 0 for c in counters}
+    _check_steps("MLA decode", log, {**zero, **_mla_decode_launches(cfg)})
+    plain = [list(r.out) for r in reqs]
+    again, *_ = _serve_once(torch, np, **kw)
+    if [list(r.out) for r in again] != plain:
+        raise AssertionError("MLA: two runs from the same seed differ")
+    print("MLA second run from the same seed: identical streams")
+    return launches
+
+
+def phase_mla_train(torch, np) -> tuple[dict, dict]:
+    """deepseek-v2-lite-16b at full width, 3 of its 27 layers (dense0 + 2
+    MoE: 1.67 B parameters, whose f32 weights, gradients and moments
+    are ~27 GB), batch 2 x 4096 (8192 tokens: the routed experts take
+    the grouped kernels): moe_gmm and moe_dw_gemm checked on the first
+    batch's routing at E 64 (phase_moe_kernels), then 3 moss and 3 bf16
+    steps from the same weights on the same batches: finite, the loss
+    falling in both, each moss step launching its kernels as counted
+    from the code, none in bf16.  Returns the MoE kernels' checks and
+    the launches of the moss run."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.kernels import (group_gemm, moe_gmm, mx_bwd, mx_fused,
+                                     mx_gemm, mx_quant)
+    from repro_torch.launch.train import quant_from_name
+    from repro_torch.models.layers import init_tree
+    from repro_torch.models.transformer import model_defs
+    from repro_torch.train.steps import (TrainHParams, init_train_state,
+                                         make_train_step)
+
+    hp = TrainHParams(peak_lr=3e-4, warmup_steps=0, total_steps=3)
+    cfg_of = lambda mode: get_config(MLA_ARCH).replace(
+        n_layers=MLA_TRAIN_LAYERS, quant=quant_from_name(mode))
+    base = cfg_of("moss")
+    tokens = MLA_BATCH * MLA_SEQ
+    print(f"train {MLA_ARCH}: full width (d {base.d_model}, {base.n_heads} "
+          f"heads, MLA kv_lora {base.kv_lora}, {base.n_experts} experts "
+          f"top-{base.top_k} + {base.n_shared} shared, d_ff {base.d_ff}, "
+          f"dense_ff {base.dense_ff}, vocab {base.vocab}, remat "
+          f"{base.remat}), depth cut from 27 to {MLA_TRAIN_LAYERS} layers, "
+          f"batch {MLA_BATCH} x {MLA_SEQ}")
+    data = SyntheticLM(DataConfig(vocab=base.vocab, seq_len=MLA_SEQ,
+                                  global_batch=MLA_BATCH, seed=0))
+    batches = [data.batch_for_step(i) for i in range(3)]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    init = init_tree(model_defs(base), gen, "cuda")
+    print(f"train {MLA_ARCH}: "
+          f"{sum(int(w.numel()) for w in tree_leaves(init)) / 1e9:.3f}B "
+          "parameters")
+    t0 = time.monotonic()
+    timer = Timer(torch)
+    res = phase_moe_kernels(torch, timer, base, init, batches[0]["tokens"])
+    del timer
+    print(f"MLA moe kernel checks: {time.monotonic() - t0:.1f} s")
+    counters = [moe_gmm.counter, moe_gmm.counter_dw, mx_fused.counter,
+                mx_fused.counter_tiled, mx_bwd.counter, mx_bwd.counter_requant,
+                group_gemm.counter, mx_quant.counter, mx_quant.counter_amax,
+                mx_gemm.counter, mx_gemm.counter_tiled]
+    losses, launches = {}, {}
+    for mode in ("moss", "bf16"):
+        cfg = cfg_of(mode)
+        state = init_train_state(cfg, hp, params=init, device="cuda")
+        step = make_train_step(cfg, hp)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for c in counters:
+            c.reset()
+        losses[mode] = []
+        for i, batch in enumerate(batches):
+            t0 = time.monotonic()
+            state, met = step(state, batch)
+            loss, aux = float(met["loss"]), float(met["aux"])
+            gnorm = float(met["grad_norm"])
+            torch.cuda.synchronize()
+            dt = time.monotonic() - t0
+            losses[mode].append(loss)
+            print(f"train mla {mode} step {i}: loss {loss:.5f} aux "
+                  f"{aux:.5f} grad_norm {gnorm:.4f} step {dt * 1e3:.1f} ms "
+                  f"= {tokens / dt:.0f} tok/s")
+            if not all(np.isfinite(v) for v in (loss, aux, gnorm)):
+                raise AssertionError(f"train mla {mode} step {i}: "
+                                     "non-finite")
+        launches[mode] = {c.name: c.count for c in counters}
+        print(f"train mla {mode}: peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB, "
+              f"launches {json.dumps(launches[mode])}")
+        if not losses[mode][-1] < losses[mode][0]:
+            raise AssertionError(f"train mla {mode}: the loss did not fall "
+                                 f"({losses[mode]})")
+        del state, step
+        torch.cuda.empty_cache()
+    # per moss step, from the code: the linear sites (each layer's MLA
+    # wq, w_dkv, w_kr, w_uk, w_uv and wo, dense0's FFN or a MoE layer's
+    # shared FFN: 9 a layer, and the head) take the fused tile in the
+    # forward, the layers' again in the remat recompute, and dx and dW
+    # at every site; each MoE layer's up, gate and down take moe_gmm in
+    # the forward, the recompute and dx, and moe_dw_gemm for dW.  Each
+    # fused call launches global_amax, mx_quant and the wgmma tile, each
+    # moe_gmm call global_amax and mx_quant, each dW call one dw_requant
+    moe_layers = MLA_TRAIN_LAYERS - base.first_dense
+    sites = 9 * MLA_TRAIN_LAYERS + 1
+    fused = 2 * sites + 9 * MLA_TRAIN_LAYERS
+    gmm = 9 * moe_layers
+    none = {c.name: 0 for c in counters}
+    want = {"moss": {**none, "moe_gmm": 3 * gmm,
+                     "moe_dw_gemm": 3 * 3 * moe_layers,
+                     "fused_quant_gemm_tiled": 3 * fused,
+                     "mx_quant": 3 * (fused + gmm),
+                     "global_amax": 3 * (fused + gmm),
+                     "mx_gemm_tiled": 3 * fused, "mx_dw_gemm": 3 * sites,
+                     "dw_requant": 3 * (sites + 3 * moe_layers)},
+            "bf16": none}
+    for mode, got in launches.items():
+        if got != want[mode]:
+            raise AssertionError(f"mla {mode} launches {got}, expected "
+                                 f"{want[mode]}")
+    for i, (a, b) in enumerate(zip(losses["moss"], losses["bf16"])):
+        print(f"train mla step {i}: moss vs bf16 loss rel "
+              f"{abs(a - b) / abs(b):.3g}")
+    del init
+    torch.cuda.empty_cache()
+    return res, launches["moss"]
+
+
 def _build(torch, cfg, params, dev):
     """``params`` on ``dev`` built as the engine builds them
     (``prepare_weights``, ``calibrate_serving``: the switches in the
@@ -2528,28 +2791,112 @@ def _close_logits(np, label, cpu: list, card: list):
               f"(limit {tol:.3g})")
 
 
-def _small_moe_engine(torch, np):
-    """phi3.5-moe's smoke model served by the paged engine on the CPU and
-    on the card from the same weights: 5 requests of 5-31 prompt tokens,
-    8 new tokens each, a pinned chunk budget (latency targets no run can
-    miss, so both devices take the same steps); equal streams, and each
-    step's logits within 2e-2 * max|logit|."""
+def _recorded_step(torch, fn, record: list):
+    """Run ``fn()`` with every quantized linear, norm and MLA einsum of
+    the port's models recording (kind, input, output) on the host into
+    ``record``, in call order; the functions are restored after."""
+    from repro_torch.core import linear
+    from repro_torch.models import layers, mla, moe
+
+    patched = []
+
+    def wrap(mod, name, arg):
+        f = getattr(mod, name)
+
+        def g(*a, **k):
+            out = f(*a, **k)
+            record.append((name, a[arg].detach().float().cpu(),
+                           out.detach().float().cpu()))
+            return out
+        setattr(mod, name, g)
+        patched.append((mod, name, f))
+
+    for mod in (linear, layers, mla, moe):
+        wrap(mod, "qlinear", 0)
+    for mod in (layers, mla):
+        wrap(mod, "rmsnorm", 0)
+    wrap(mla, "einsum", 1)
+    try:
+        return fn()
+    finally:
+        for mod, name, f in patched:
+            setattr(mod, name, f)
+
+
+def _norm_parted(torch, cfg, built, caches, toks, label):
+    """Why a decode step's logits part the card from the CPU: the step
+    runs on both devices from the CPU's weights, scales, caches and
+    tokens, every quantized linear, norm and MLA einsum recorded.  The
+    first call whose output differs must be a norm whose input is equal
+    on both devices and whose output is at most one bf16 rounding away
+    (2 ** -7 of its largest value): the card's own norm arithmetic, an
+    f32 sum in another order (ROADMAP queue 3); every earlier call
+    equal bit for bit.  Anything else raises."""
+    from repro_torch.serving.engine import to_device
+    from repro_torch.train.steps import make_decode_step
+
+    qw, sc, act = built
+    recs = {}
+    for dev in ("cpu", "cuda"):
+        recs[dev] = []
+        step = make_decode_step(cfg, scales=to_device(sc, dev),
+                                act_scales=_moved(act, dev))
+        c = {n: v._replace(**{f: getattr(v, f).to(dev) for f in v._fields})
+             for n, v in caches.items()}
+        _recorded_step(torch, lambda: step(to_device(qw, dev), c,
+                                           toks.to(dev)), recs[dev])
+    for i, ((kind, xa, ya), (_, xb, yb)) in enumerate(zip(recs["cpu"],
+                                                          recs["cuda"])):
+        if torch.equal(ya, yb):
+            continue
+        d = float((ya - yb).abs().max())
+        big = float(ya.abs().max())
+        line = (f"{label}: first parting call {i} of {len(recs['cpu'])} "
+                f"({kind}), input equal {torch.equal(xa, xb)}, "
+                f"{int((ya != yb).sum())} of {ya.numel()} outputs apart, "
+                f"max |d| {d:.3g} of {big:.3g}")
+        print(line)
+        if not (kind == "rmsnorm" and torch.equal(xa, xb)
+                and d <= 2.0 ** -7 * big):
+            raise AssertionError(line)
+        return
+    raise AssertionError(f"{label}: no recorded call parts the devices")
+
+
+def _small_moe_engine(torch, np, arch: str = MOE_ARCH,
+                      norm_flips: bool = False):
+    """A MoE model's smoke config (phi3.5-moe's, or deepseek's on the
+    whole-prompt path over its latent cache) served by the paged engine
+    on the CPU and on the card from the same weights: 5 requests of 5-31
+    prompt tokens, 8 new tokens each, a pinned chunk budget (latency
+    targets no run can miss, so both devices take the same steps); equal
+    streams, and each decode step's logits within 2e-2 * max|logit|.
+    With ``norm_flips`` a step past that limit is traced site by site
+    instead (``_norm_parted``: on an H100, deepseek's smoke logits moved
+    3.6e-2 of max|logit| at one step from 2 of 256 outputs of one norm
+    one bf16 rounding apart; PERF.md)."""
     from repro_torch.configs.registry import get_config
     from repro_torch.launch.serve import random_params
     from repro_torch.serving import Engine, Request, SLOTargets
 
-    cfg = get_config(MOE_ARCH, smoke=True)
+    cfg = get_config(arch, smoke=True)
     params = random_params(cfg, 0, "cpu")
     rng = np.random.default_rng(1)
     prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32)
                for n in (5, 16, 23, 9, 31)]
-    streams, logs = {}, {}
+    streams, logs, inputs = {}, {}, []
     for dev in ("cpu", "cuda"):
         eng = Engine(cfg, params, num_slots=3, max_len=48, chunk_tokens=16,
                      slo=SLOTargets(ttft_s=1e9, tpot_s=1e9), device=dev)
         step, logs[dev] = eng.decode, []
+        if dev == "cpu":
+            built = (eng.params, eng.scales, eng.act_scales)
 
-        def logged(p, caches, toks, step=step, out=logs[dev]):
+        def logged(p, caches, toks, step=step, out=logs[dev], dev=dev):
+            if dev == "cpu" and norm_flips:
+                inputs.append(({n: c._replace(**{
+                    f: getattr(c, f).clone() for f in c._fields})
+                    for n, c in caches.items()}, toks.clone()))
             logits, caches = step(p, caches, toks)
             out.append(logits.float().cpu().numpy())
             return logits, caches
@@ -2560,12 +2907,24 @@ def _small_moe_engine(torch, np):
         eng.run(reqs, log=None)
         streams[dev] = [list(r.out) for r in reqs]
     if streams["cuda"] != streams["cpu"]:
-        raise AssertionError(f"smoke {MOE_ARCH} engine: card streams "
+        raise AssertionError(f"smoke {arch} engine: card streams "
                              f"{streams['cuda']} != CPU {streams['cpu']}")
-    print(f"smoke {MOE_ARCH} engine: card streams equal the CPU's "
+    print(f"smoke {arch} engine: card streams equal the CPU's "
           f"({len(logs['cpu'])} steps)")
-    _close_logits(np, f"smoke {MOE_ARCH} engine step", logs["cpu"],
-                  logs["cuda"])
+    if not norm_flips:
+        _close_logits(np, f"smoke {arch} engine step", logs["cpu"],
+                      logs["cuda"])
+        return
+    for i, (a, b) in enumerate(zip(logs["cpu"], logs["cuda"])):
+        tol = 2e-2 * float(np.abs(a).max())
+        err = float(np.abs(a - b).max())
+        print(f"smoke {arch} engine step {i}: card vs CPU max |d logit| "
+              f"{err:.3g} (limit {tol:.3g})")
+        if not np.isfinite(b).all():
+            raise AssertionError(f"smoke {arch} engine step {i}: non-finite")
+        if err > tol:
+            _norm_parted(torch, cfg, built, *inputs[i],
+                         f"smoke {arch} engine step {i}")
 
 
 def phase_small_reference(torch, np):
@@ -2573,7 +2932,8 @@ def phase_small_reference(torch, np):
     versions) on smoke-size models: phi3-mini's serving steps (as built
     by default, under REPRO_SERVE_PREQUANT=0 and under
     REPRO_SERVE_DELAYED_ACT=0), phi3.5-moe's serving steps and its
-    engine's streams, and h2o's ring."""
+    engine's streams, deepseek's engine streams (MLA's absorbed decode
+    on the latent cache), and h2o's ring."""
     from repro_torch.configs.registry import get_config
 
     cfg = get_config(ARCH, smoke=True)
@@ -2584,6 +2944,7 @@ def phase_small_reference(torch, np):
     _small_steps(torch, np, get_config(MOE_ARCH, smoke=True),
                  f"smoke {MOE_ARCH}")
     _small_moe_engine(torch, np)
+    _small_moe_engine(torch, np, MLA_ARCH, norm_flips=True)
     _small_ring_reference(torch, np)
 
 
@@ -2763,22 +3124,31 @@ def _moe_cfg(get_config, quant_from_name, mode, smoke, interval=500):
 
 
 def _moe_routing(torch, cfg, params, tokens):
-    """Layer 0's dispatch of ``tokens`` through the port's modules, with
-    the weights at their step-0 scales: the sorted token buffer
-    (E·C, d) bf16 that the up and gate GEMMs take, the sizes and C."""
+    """The first MoE layer's dispatch of ``tokens`` through the port's
+    modules (after the leading dense layers, if any), with the weights
+    at their step-0 scales: the sorted token buffer (E·C, d) bf16 that
+    the up and gate GEMMs take, the sizes and C."""
     from repro_torch.models import moe
     from repro_torch.models.attention import attention
     from repro_torch.models.layers import (apply_norm, embed_tokens,
                                            quant_mask_tree, wrap_qt_nojit)
-    from repro_torch.models.transformer import _layers, model_defs
+    from repro_torch.models.mla import mla_attention
+    from repro_torch.models.transformer import (_layers, build_segments,
+                                                model_defs)
 
+    att = mla_attention if cfg.family == "mla_moe" else attention
     with torch.no_grad():
         qp = wrap_qt_nojit(params, quant_mask_tree(model_defs(cfg)))
-        p0 = _layers(qp["blocks"], cfg.n_layers)[0]
         x = embed_tokens(cfg, qp["embed"], tokens.to("cuda"))
         pos = torch.arange(x.shape[1], dtype=torch.int32, device="cuda")
-        h, _ = attention(cfg, p0["attn"], apply_norm(cfg, p0["ln1"], x),
-                         pos, cfg.quant)
+        segs = build_segments(cfg)
+        for seg in segs[:-1]:
+            for p_l in _layers(qp[seg.name], seg.n):
+                x, _, _ = seg.apply(cfg, cfg.quant, p_l, x, pos, None,
+                                    "train")
+        p0 = _layers(qp["blocks"], segs[-1].n)[0]
+        h, _ = att(cfg, p0["attn"], apply_norm(cfg, p0["ln1"], x), pos,
+                   cfg.quant)
         hn = apply_norm(cfg, p0["ln2"], x + h).reshape(-1, cfg.d_model)
         _, _, ids = moe.route(cfg, p0["moe"], hn)
         cap = moe._capacity(cfg, hn.shape[0])
@@ -2790,9 +3160,10 @@ def _moe_routing(torch, cfg, params, tokens):
 
 
 def phase_moe_kernels(torch, timer, cfg, params, tokens) -> dict:
-    """moe_gmm and moe_dw_gemm against their plain versions at the MoE
-    cell's shapes (E 16, C from the routing of the first batch, d 4096,
-    d_ff 6400) on layer 0's real token buffer and weights: the up
+    """moe_gmm and moe_dw_gemm against their plain versions at a MoE
+    model's shapes (phi3.5-moe: E 16, d 4096, d_ff 6400; deepseek: E 64,
+    d 2048, d_ff 1408; C from the routing of the first batch) on the
+    first MoE layer's real token buffer and weights: the up
     forward (e4m3, K 4096, N 6400) at the routed sizes and at sizes with
     expert 0 empty and expert 1 at full capacity, the down forward on
     silu(gate) * up (K 6400, N 4096), dx (an e5m2 gradient against the
@@ -3047,8 +3418,9 @@ def phase_small_train_reference(torch, np):
     and on the CPU from the same initial state and batches, each device
     on its own trajectory, in moss (rescale_interval 2, so a refresh
     happens), per_group and per_tensor; so do the smoke-size llama2-7b
-    in moss and the smoke-size phi3.5-moe in moss on the grouped route (moe_decode_dense off, so
-    its 128 tokens take the grouped kernels): losses within 1e-2
+    in moss and the smoke-size phi3.5-moe and deepseek-v2-lite-16b in
+    moss on the grouped route (moe_decode_dense off, so their 128 tokens
+    take the grouped kernels): losses within 1e-2
     relative and equal scale_t at every step (f32 sums in another order
     and the rare fp8 rounding flip they cause)."""
     from repro_torch.configs.registry import get_config
@@ -3066,6 +3438,8 @@ def phase_small_train_reference(torch, np):
                  .replace(quant=quant_from_name("moss", 2))))
     runs.append((MOE_ARCH, "moss", _moe_cfg(get_config, quant_from_name,
                                             "moss", smoke=True, interval=2)))
+    runs.append((MLA_ARCH, "moss", get_config(MLA_ARCH, smoke=True).replace(
+        quant=quant_from_name("moss", 2), moe_decode_dense=False)))
     for arch, mode, cfg in runs:
         hp = TrainHParams(peak_lr=1e-3, warmup_steps=0, total_steps=3)
         data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=64,
@@ -3128,7 +3502,7 @@ def main() -> int:
     phase_engine_hatch(torch, np, plain, gaps)
     print(f"phase engine hatch: {time.monotonic() - t0:.1f} s")
     t0 = time.monotonic()
-    phase_engine_prefix(torch, np, plain)
+    phase_engine_prefix(torch, np)
     print(f"phase engine prefix: {time.monotonic() - t0:.1f} s")
     t0 = time.monotonic()
     phase_engine_preempt(torch, np)
@@ -3139,6 +3513,9 @@ def main() -> int:
     t0 = time.monotonic()
     phase_engine_moe(torch, np)
     print(f"phase engine moe: {time.monotonic() - t0:.1f} s")
+    t0 = time.monotonic()
+    mla_serve_launches = phase_engine_mla(torch, np)
+    print(f"phase engine mla: {time.monotonic() - t0:.1f} s")
     t0 = time.monotonic()
     ring_launches = phase_engine_ring(torch, np)
     print(f"phase engine ring: {time.monotonic() - t0:.1f} s")
@@ -3155,6 +3532,9 @@ def main() -> int:
     t0 = time.monotonic()
     moe_res, moe_launches = phase_moe_train(torch, np)
     print(f"phase moe train: {time.monotonic() - t0:.1f} s")
+    t0 = time.monotonic()
+    mla_res, mla_train_launches = phase_mla_train(torch, np)
+    print(f"phase mla train: {time.monotonic() - t0:.1f} s")
     t0 = time.monotonic()
     phase_small_train_reference(torch, np)
     print(f"phase small train vs CPU: {time.monotonic() - t0:.1f} s")
@@ -3177,6 +3557,17 @@ def main() -> int:
     launches["decode_attn"] = ring_launches["decode_attn"]
     launches["moe_gmm"] = moe_launches["moe_gmm"]
     launches["moe_dw_gemm"] = moe_launches["moe_dw_gemm"]
+    # deepseek's own rows: its kernel checks (res[name]["deepseek"], the
+    # MoE kernels' from its training phase) and each kernel's launches on
+    # its serving and training paths, each counted from 0 for that path
+    for name, row in mla_res.items():
+        res[name]["deepseek"] = row
+    for name in REPLACES:
+        n = mla_serve_launches.get(name, 0) + mla_train_launches.get(name, 0)
+        if n or "deepseek" in res[name]:
+            res[name].setdefault("deepseek", {})["launches"] = dict(
+                serving=mla_serve_launches.get(name, 0),
+                training=mla_train_launches.get(name, 0))
     kernels = [dict(name=name, route="cuda", source=SOURCES[name],
                     replaces=REPLACES[name], launches=launches[name],
                     **{k: res[name][k] for k in
@@ -3184,6 +3575,8 @@ def main() -> int:
                         "bound_by", "library_ms")},
                     **({"moe_serving": res[name]["moe_serving"]}
                        if name in MOE_CHECKED else {}),
+                    **({"deepseek": res[name]["deepseek"]}
+                       if "deepseek" in res[name] else {}),
                     **({"serving": res[name]["serving"]}
                        if "serving" in res[name] else {}))
                for name in REPLACES]

@@ -1,6 +1,6 @@
 """Model configuration dataclass (counterpart of
 ``repro.configs.base.ModelConfig``): the reference's fields that the
-dense serving and training slices and MoE training read, or refuses
+ported families (dense, moe, mla_moe) read, or that the port refuses
 when set (``models.transformer.build_segments``)."""
 
 from __future__ import annotations
@@ -38,11 +38,18 @@ class ModelConfig:
 
     # --- MoE (the reference's names and defaults) ---
     n_experts: int = 0
-    n_shared: int = 0                  # shared experts: refused
+    n_shared: int = 0                  # shared experts (width n_shared·d_ff)
     top_k: int = 0
     capacity_factor: float = 1.3
-    first_dense: int = 0               # leading dense layers: refused
+    dense_ff: int = 0                  # width of the non-MoE FFN layers
+    first_dense: int = 0               # leading layers with a dense FFN
     moe_decode_dense: bool = True      # small T: masked dense experts
+
+    # --- MLA (deepseek) ---
+    kv_lora: int = 0                   # latent width of the K/V cache
+    q_nope: int = 128
+    q_rope: int = 64
+    v_head: int = 128
 
     # --- io / misc ---
     input_mode: Literal["tokens", "embeddings"] = "tokens"

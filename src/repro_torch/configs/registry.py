@@ -12,11 +12,11 @@ ARCHS: dict[str, str] = {
     "llama2-7b": "llama2_7b",
     "phi3.5-moe-42b-a6.6b": "phi35_moe_42b",
     "h2o-danube-3-4b": "h2o_danube3_4b",
+    "deepseek-v2-lite-16b": "deepseek_v2_lite_16b",
 }
 
 # reference archs whose families or features the port does not have yet
 NOT_PORTED = {
-    "deepseek-v2-lite-16b": "queue 1 item 10 (MLA, shared experts)",
     "stablelm-12b": "queue 1 item 11 (qk-norm, partial rotary)",
     "minitron-8b": "queue 1 item 11 (squared-ReLU, partial rotary)",
     "musicgen-medium": "queue 1 item 11 (embeddings input)",

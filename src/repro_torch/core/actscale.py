@@ -5,9 +5,11 @@
 prompt when the engine is built, recording every quantized GEMM site's
 per-micro-group activation amax; each site's statistics, times a
 safety margin, become an ``ActScale`` in a flat ``{site tag: ActScale}``
-dict keyed by the params-tree path (``"blocks/attn/wq"``), with the
-stacked layer dim leading (then the expert dim of a MoE expert's site,
-``"blocks/moe/w_up"``: (L, E) scales).  The serving steps then quantize
+dict keyed by the params-tree path (``"blocks/attn/wq"``; deepseek's
+``"dense0/attn/w_uk"``, ``"blocks/shared/w_up"``), with the stacked
+layer dim leading (then the expert dim of a MoE expert's site,
+``"blocks/moe/w_up"``: (L, E) scales).  MLA's ``wo`` records nothing:
+it drops its tag, as the reference's does, and quantizes just in time.  The serving steps then quantize
 activations against these scales with no amax reduction
 (``linear._qmm_delayed``).
 

@@ -2,7 +2,10 @@
 
 Builds a full-width engine that ``chip_smoke.py`` serves with (phi3-mini
 on floating pages; ``--arch phi3.5-moe-42b-a6.6b``, the MoE, the same
-way with its depth cut to ``MOE_SERVE_LAYERS``; or with ``--arch
+way with its depth cut to ``MOE_SERVE_LAYERS``; ``--arch
+deepseek-v2-lite-16b`` cut to the same depth, its leading dense layer
+and the MoE layers after it, on identity rows with the whole-prompt
+prefill, as the engine serves MLA's latent cache; or with ``--arch
 h2o-danube-3-4b`` the windowed model on identity rows with the
 whole-prompt prefill, its prompts at or past the 4096-token window so
 that every decode step reads a full ring),
@@ -22,6 +25,8 @@ launches and the PyTorch ops issued (the ten most frequent, and
       --arch h2o-danube-3-4b --trace build/ring_trace.json
   PYTHONPATH=src python -m repro_torch.launch.profile_serve \\
       --arch phi3.5-moe-42b-a6.6b --trace build/moe_serve_trace.json
+  PYTHONPATH=src python -m repro_torch.launch.profile_serve \\
+      --arch deepseek-v2-lite-16b --trace build/mla_serve_trace.json
 
 The profiler adds host time to every launch, so the traced steps are
 slower than the warm-up's; both mean decode (and verify) steps are
@@ -43,9 +48,11 @@ from repro_torch.launch.serve import make_requests, random_params
 from repro_torch.serving import Engine, Request
 
 GPU_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
-# the MoE's depth (of 32): the engine builds from the seeded f32 tree,
-# and all 32 layers would be ~84 GB even in bf16.  Must equal
-# chip_smoke.py's MOE_SERVE_LAYERS, whose serving phase this profiles.
+# the MoE models' depth (phi3.5-moe's of 32, deepseek's of 27: its
+# leading dense layer and 3 MoE layers): the engine builds from the
+# seeded f32 tree, and all 32 of phi3.5-moe's layers would be ~84 GB
+# even in bf16.  Must equal chip_smoke.py's MOE_SERVE_LAYERS and
+# MLA_SERVE_LAYERS, whose serving phases this profiles.
 MOE_SERVE_LAYERS = 4
 SPANS = ("decode_step", "prefill_chunk", "prefill", "verify_step")
 # the port's own kernels (csrc/*.cu), by the name the trace gives them
@@ -158,7 +165,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="phi3-mini-3.8b",
                     choices=("phi3-mini-3.8b", "phi3.5-moe-42b-a6.6b",
-                             "h2o-danube-3-4b"))
+                             "deepseek-v2-lite-16b", "h2o-danube-3-4b"))
     ap.add_argument("--trace", default="serve_trace.json",
                     help="where to write the Chrome trace")
     args = ap.parse_args(argv)
@@ -166,8 +173,10 @@ def main(argv=None):
         raise SystemExit("profile_serve measures the card: no CUDA device")
 
     cfg = get_config(args.arch)
-    if cfg.family == "moe":
-        cfg = cfg.replace(n_layers=MOE_SERVE_LAYERS)
+    if cfg.family in ("moe", "mla_moe"):
+        # the leading dense layers stay (the cut keeps the first layers)
+        cfg = cfg.replace(n_layers=max(MOE_SERVE_LAYERS,
+                                       cfg.first_dense + 1))
     params = random_params(cfg, 0, "cuda")
     if args.arch != "h2o-danube-3-4b":
         # chip_smoke.py's engine: 4 slots, 64-token slots of 16-token

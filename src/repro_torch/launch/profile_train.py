@@ -1,9 +1,11 @@
 """Where a training step's time goes on the card.
 
 Builds one of chip_smoke.py's training configurations at full width --
-olmo-7b (depth cut to 4 layers, batch 1 x 2048) or, with ``--arch
-phi3.5-moe-42b-a6.6b``, the MoE model (depth cut to 1 layer, batch
-2 x 4096: the grouped-expert kernels) -- in moss or ``--quant``, takes
+olmo-7b (depth cut to 4 layers, batch 1 x 2048), with ``--arch
+phi3.5-moe-42b-a6.6b`` the MoE model (depth cut to 1 layer, batch
+2 x 4096: the grouped-expert kernels) or with ``--arch
+deepseek-v2-lite-16b`` the MLA MoE model (its dense layer and 2 MoE
+layers, batch 2 x 4096) -- in moss or ``--quant``, takes
 one untraced warm-up step and two timed untraced steps, then two steps
 under ``torch.profiler``, each inside a ``train_step`` span.  From the
 Chrome trace it reports per step the host span, the card's busy time
@@ -17,6 +19,8 @@ untraced step (kernel durations do not depend on the host).
       --trace build/train_trace.json [--quant bf16|per_group|per_tensor]
   PYTHONPATH=src python -m repro_torch.launch.profile_train \\
       --arch phi3.5-moe-42b-a6.6b --trace build/moe_trace.json
+  PYTHONPATH=src python -m repro_torch.launch.profile_train \\
+      --arch deepseek-v2-lite-16b --trace build/mla_trace.json
 """
 
 from __future__ import annotations
@@ -40,7 +44,8 @@ from repro_torch.train.steps import (
 SPAN = "train_step"
 # chip_smoke.py's training cells: (layers, batch, seq)
 CELLS = {"olmo-7b": (4, 1, 2048),               # TRAIN_LAYERS, TRAIN_M
-         "phi3.5-moe-42b-a6.6b": (1, 2, 4096)}  # MOE_LAYERS, MOE_BATCH/SEQ
+         "phi3.5-moe-42b-a6.6b": (1, 2, 4096),  # MOE_LAYERS, MOE_BATCH/SEQ
+         "deepseek-v2-lite-16b": (3, 2, 4096)}  # MLA_TRAIN_LAYERS, MLA_*
 
 
 def main(argv=None):

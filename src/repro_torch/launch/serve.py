@@ -12,6 +12,10 @@ Usage:
       --smoke --device cpu             # speculative verify steps
   PYTHONPATH=src python -m repro_torch.launch.serve \\
       --arch phi3.5-moe-42b-a6.6b --layers 4   # the MoE at full width
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch deepseek-v2-lite-16b --smoke --device cpu   # MLA, identity rows
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch deepseek-v2-lite-16b --layers 4   # dense0 + 3 MoE layers
   REPRO_SERVE_PREQUANT=0 REPRO_SERVE_DELAYED_ACT=0 \\
   REPRO_DECODE_ATTN=einsum PYTHONPATH=src \\
       python -m repro_torch.launch.serve --smoke --device cpu   # switches
@@ -154,7 +158,8 @@ def main(argv=None):
     ap.add_argument("--smoke", action="store_true",
                     help="the arch's reduced smoke config")
     ap.add_argument("--layers", type=int, default=None,
-                    help="cut the depth (the engine builds from the "
+                    help="cut the depth, the leading dense layers of "
+                         "deepseek first (the engine builds from the "
                          "seeded f32 tree: phi3.5-moe's 32 layers would be "
                          "~84 GB even in bf16)")
     ap.add_argument("--requests", type=int, default=8)

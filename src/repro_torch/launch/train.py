@@ -13,6 +13,10 @@ Usage:
       --arch phi3.5-moe-42b-a6.6b --smoke --device cpu --steps 3
   PYTHONPATH=src python -m repro_torch.launch.train \\
       --arch phi3.5-moe-42b-a6.6b --full --layers 1 --batch 2 --seq 4096
+  PYTHONPATH=src python -m repro_torch.launch.train \\
+      --arch deepseek-v2-lite-16b --smoke --device cpu --steps 3
+  PYTHONPATH=src python -m repro_torch.launch.train \\
+      --arch deepseek-v2-lite-16b --full --layers 3 --batch 2 --seq 4096
 
 Checkpoints and meshes are ROADMAP queue 1 item 13: ``--ckpt-dir`` and
 ``--mesh`` raise ``NotImplementedError``.

@@ -94,6 +94,34 @@ def wrap_qt_nojit(params, mask):
     return QT(params, None) if mask else params
 
 
+class _Broadcast(torch.autograd.Function):
+    """``x`` repeated ``n`` times along a new axis ``dim`` (a view).  The
+    backward sums the ``n`` gradients one at a time in their own dtype,
+    each add rounded (bf16 in training), as XLA transposes the
+    reference's ``broadcast_to`` (its CPU order, checked for up to 32
+    terms); ``expand``'s backward sums in f32 and rounds once, which
+    differs in a third to three quarters of the bf16 elements."""
+
+    @staticmethod
+    def forward(ctx, x, n: int, dim: int):
+        ctx.dim = dim
+        return x.unsqueeze(dim).expand(*x.shape[:dim], n, *x.shape[dim:])
+
+    @staticmethod
+    def backward(ctx, g):
+        parts = g.unbind(ctx.dim)
+        acc = parts[0]
+        for part in parts[1:]:
+            acc = acc + part
+        return acc, None, None
+
+
+def broadcast(x: torch.Tensor, n: int, dim: int) -> torch.Tensor:
+    """``x`` broadcast to ``n`` copies along a new axis ``dim``, with the
+    reference's gradient arithmetic (``_Broadcast``)."""
+    return _Broadcast.apply(x, n, dim)
+
+
 # ---------------------------------------------------------------------------
 # Norms
 # ---------------------------------------------------------------------------

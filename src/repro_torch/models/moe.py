@@ -39,7 +39,7 @@ import torch.nn.functional as F
 
 from repro_torch.core.formats import QuantConfig
 from repro_torch.core.linear import QT, qlinear, qlinear_grouped
-from .layers import PDef
+from .layers import PDef, broadcast
 
 DENSE_MAX_TOKENS = 4096     # the dense combine's limit under moe_decode_dense
 
@@ -215,7 +215,8 @@ def _dense_moe(cfg, p, x_flat, top_w, top_ids, qcfg):
     combine = torch.zeros((t, cfg.n_experts), dtype=torch.float32,
                           device=x_flat.device).scatter(
         1, top_ids.long(), top_w.to(torch.float32))
-    ys = _experts_vmapped(cfg, p, [x_flat] * cfg.n_experts, qcfg)  # (E,T,d)
+    xs = broadcast(x_flat, cfg.n_experts, 0)            # (E,T,d) view
+    ys = _experts_vmapped(cfg, p, xs, qcfg)              # (E,T,d)
     y = torch.einsum("etd,te->td", ys.to(torch.float32), combine)
     return y.to(x_flat.dtype)
 

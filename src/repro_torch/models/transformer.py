@@ -1,6 +1,8 @@
-"""Model assembly (counterpart of ``repro.models.transformer``, the dense
-and MoE families): embed -> repeated blocks -> final norm -> LM head,
-and the token cross-entropy.  Params are stacked over layers like the
+"""Model assembly (counterpart of ``repro.models.transformer``, the dense,
+MoE and MLA-MoE families): embed -> segments of repeated blocks -> final
+norm -> LM head, and the token cross-entropy.  deepseek's leading dense
+layers are a segment of their own (``dense0``) before the MoE
+``blocks``.  Params are stacked over layers like the
 reference's; the layer scan is a Python loop over them.  In ``train``
 mode the forward runs under autograd, each layer under
 ``torch.utils.checkpoint`` when ``cfg.remat`` is set (the reference's
@@ -16,6 +18,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.formats import QuantConfig
 from . import attention as attn_mod
+from . import mla as mla_mod
 from . import moe as moe_mod
 from .attention import KVCache
 from .layers import (
@@ -36,19 +39,29 @@ class Segment(NamedTuple):
     defs: dict                   # one unit's param defs (unstacked)
     apply: Callable              # (cfg,qcfg,p,x,pos,cache,mode)
     #                              -> (x, cache, aux loss or None)
+    init_cache: Callable         # (cfg,batch,max_len,device)->one cache
+
+
+def _attention(cfg):
+    """(param defs, apply, init_cache) of the family's attention: MLA's
+    latent attention for mla_moe, else the per-head one."""
+    if cfg.family == "mla_moe":
+        return mla_mod.mla_defs, mla_mod.mla_attention, \
+            mla_mod.init_mla_cache
+    return attn_mod.attn_defs, attn_mod.attention, attn_mod.init_cache
 
 
 def _dense_unit(cfg, d_ff=None):
     return {
         "ln1": norm_defs(cfg, cfg.d_model),
-        "attn": attn_mod.attn_defs(cfg),
+        "attn": _attention(cfg)[0](cfg),
         "ln2": norm_defs(cfg, cfg.d_model),
         "ffn": ffn_defs(cfg, d_ff),
     }
 
 
 def _dense_apply(cfg, qcfg, p, x, pos, cache, mode):
-    h, cache = attn_mod.attention(cfg, p["attn"],
+    h, cache = _attention(cfg)[1](cfg, p["attn"],
                                   apply_norm(cfg, p["ln1"], x), pos, qcfg,
                                   cache, mode)
     x = x + h
@@ -57,30 +70,37 @@ def _dense_apply(cfg, qcfg, p, x, pos, cache, mode):
 
 
 def _moe_unit(cfg):
-    return {
+    unit = {
         "ln1": norm_defs(cfg, cfg.d_model),
-        "attn": attn_mod.attn_defs(cfg),
+        "attn": _attention(cfg)[0](cfg),
         "ln2": norm_defs(cfg, cfg.d_model),
         "moe": moe_mod.moe_defs(cfg),
     }
+    if cfg.n_shared > 0:
+        unit["shared"] = ffn_defs(cfg, cfg.n_shared * cfg.d_ff)
+    return unit
 
 
 def _moe_apply(cfg, qcfg, p, x, pos, cache, mode):
-    h, cache = attn_mod.attention(cfg, p["attn"],
+    """The MoE block: attention, the routed experts, then the shared
+    experts' FFN on the same normed input, added after the routed output
+    (the reference's order)."""
+    h, cache = _attention(cfg)[1](cfg, p["attn"],
                                   apply_norm(cfg, p["ln1"], x), pos, qcfg,
                                   cache, mode)
     x = x + h
-    h, aux = moe_mod.moe_block(cfg, p["moe"], apply_norm(cfg, p["ln2"], x),
-                               qcfg, mode)
+    hn = apply_norm(cfg, p["ln2"], x)
+    h, aux = moe_mod.moe_block(cfg, p["moe"], hn, qcfg, mode)
+    if cfg.n_shared > 0:
+        h = h + apply_ffn(cfg, p["shared"], hn, qcfg)
     return x + h, cache, aux
 
 
 def _unsupported(cfg) -> list[str]:
     """What of ``cfg`` the port cannot run yet."""
     checks = {
-        f"family {cfg.family!r}": cfg.family not in ("dense", "moe"),
-        "shared experts (n_shared)": cfg.n_shared > 0,
-        "leading dense layers (first_dense)": cfg.first_dense > 0,
+        f"family {cfg.family!r}": cfg.family not in ("dense", "moe",
+                                                     "mla_moe"),
         f"input_mode {cfg.input_mode!r}": cfg.input_mode != "tokens",
         f"pos_embedding {cfg.pos_embedding!r}":
             cfg.pos_embedding not in ("rope", "none"),
@@ -101,10 +121,23 @@ def build_segments(cfg) -> list[Segment]:
     if bad:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(bad)} not ported yet: ROADMAP queue 1 "
-            "items 10-11")
+            "item 11")
+    init = _attention(cfg)[2]
+    if cfg.family == "mla_moe":
+        # deepseek: the leading dense layers, then the MoE blocks
+        segs = []
+        if cfg.first_dense:
+            segs.append(Segment("dense0", cfg.first_dense,
+                                _dense_unit(cfg, cfg.dense_ff or cfg.d_ff),
+                                _dense_apply, init))
+        segs.append(Segment("blocks", cfg.n_layers - cfg.first_dense,
+                            _moe_unit(cfg), _moe_apply, init))
+        return segs
     if cfg.family == "moe":
-        return [Segment("blocks", cfg.n_layers, _moe_unit(cfg), _moe_apply)]
-    return [Segment("blocks", cfg.n_layers, _dense_unit(cfg), _dense_apply)]
+        return [Segment("blocks", cfg.n_layers, _moe_unit(cfg), _moe_apply,
+                        init)]
+    return [Segment("blocks", cfg.n_layers, _dense_unit(cfg), _dense_apply,
+                    init)]
 
 
 def model_defs(cfg) -> dict:
@@ -117,44 +150,65 @@ def model_defs(cfg) -> dict:
     return defs
 
 
+def cache_payloads(c) -> list[str]:
+    """The payload fields of a cache node (``KVCache``, ``MLACache``):
+    every field but the ``idx`` and ``block_table`` the layers share."""
+    return [f for f in c._fields if f not in ("idx", "block_table")]
+
+
+def map_payloads(c, fn):
+    """``c`` with ``fn`` applied to each payload tensor (None stays)."""
+    return c._replace(**{f: None if getattr(c, f) is None
+                         else fn(getattr(c, f)) for f in cache_payloads(c)})
+
+
 def init_caches(cfg, batch: int, max_len: int, per_slot: bool = False,
                 device="cuda") -> dict:
-    """Contiguous caches for every segment, payloads stacked over the
-    segment's layers: (L, B, KV, C, Dh).  One ``idx`` is shared by the
-    layers: a scalar 0, or with ``per_slot`` a (B,) vector of zeros so
-    that serving slots track their own depths."""
+    """Contiguous caches for every segment (``KVCache`` or the MLA
+    latent ``MLACache``), payloads stacked over the segment's layers:
+    (L, B, ...).  One ``idx`` is shared by the layers: a scalar 0, or
+    with ``per_slot`` a (B,) vector of zeros so that serving slots
+    track their own depths."""
     caches = {}
     for seg in build_segments(cfg):
-        one = attn_mod.init_cache(cfg, batch, max_len, device)
-        stack = lambda t: None if t is None else \
-            t[None].expand(seg.n, *t.shape).contiguous()
-        idx = (torch.zeros((batch,), dtype=torch.int32, device=device)
-               if per_slot else one.idx)
-        caches[seg.name] = KVCache(stack(one.k), stack(one.v),
-                                   stack(one.k_scale), stack(one.v_scale),
-                                   idx)
+        one = seg.init_cache(cfg, batch, max_len, device)
+        one = map_payloads(
+            one, lambda t: t[None].expand(seg.n, *t.shape).contiguous())
+        if per_slot:
+            one = one._replace(idx=torch.zeros((batch,), dtype=torch.int32,
+                                               device=device))
+        caches[seg.name] = one
     return caches
 
 
+def _per_head_cache(cfg) -> bool:
+    """Page pools, chunked prefill and verify steps take per-head
+    ``KVCache`` families; MLA's latent cache has no page structure and
+    takes the whole-prompt prefill on identity rows (the reference's
+    gates)."""
+    return cfg.family in ("dense", "moe")
+
+
 def paged_decode_supported(cfg, max_len: int, page_size: int) -> bool:
-    """Floating page pools need an unwrapped cache (no window ring: the
-    pool append writes ``idx // T`` directly) of a whole number of
-    pages.  Dense and MoE models alike: a MoE block's attention and its
-    caches are the dense ones."""
+    """Floating page pools need a per-head cache, unwrapped (no window
+    ring: the pool append writes ``idx // T`` directly), of a whole
+    number of pages.  Dense and MoE models alike: a MoE block's
+    attention and its caches are the dense ones."""
     c = attn_mod.cache_len(cfg, max_len)
-    return c == max_len and c % page_size == 0
+    return _per_head_cache(cfg) and c == max_len and c % page_size == 0
 
 
 def chunk_prefill_supported(cfg, max_len: int) -> bool:
     """Chunked prefill writes prompt chunks at absolute positions, so it
-    needs an unwrapped cache (C == max_len)."""
-    return attn_mod.cache_len(cfg, max_len) == max_len
+    needs a per-head, unwrapped cache (C == max_len)."""
+    return _per_head_cache(cfg) and \
+        attn_mod.cache_len(cfg, max_len) == max_len
 
 
 def spec_verify_supported(cfg, max_len: int) -> bool:
     """The speculative verify step writes k positions at absolute depths
     and a rejection truncates the depth: the same gate as chunked
-    prefill (an unwrapped cache, C == max_len)."""
+    prefill (a per-head, unwrapped cache, C == max_len)."""
     return chunk_prefill_supported(cfg, max_len)
 
 
@@ -182,11 +236,9 @@ def init_paged_pools(cfg, max_len: int, num_pages: int, page_size: int,
     return pools
 
 
-def _layer_cache(c: KVCache, l: int) -> KVCache:
+def _layer_cache(c, l: int):
     # views: the layer's in-place writes land in the stacked tensors
-    return c._replace(k=c.k[l], v=c.v[l],
-                      k_scale=None if c.k_scale is None else c.k_scale[l],
-                      v_scale=None if c.v_scale is None else c.v_scale[l])
+    return map_payloads(c, lambda t: t[l])
 
 
 def _unbind(t, n: int) -> list:

@@ -30,18 +30,19 @@ and copy-on-write, and chunk-prefills only the unshared suffix (a full
 hit still runs the last prompt token, whose logit is the first output).
 
 The v1 path (``REPRO_CHUNKED_PREFILL=0``, and what an arch chunks
-cannot serve takes without being asked: a windowed ring) prefills each
-admitted prompt whole, right-padded to a 16-token bucket, in one (1, S)
-step, and admits on worst-case reservations.  Placement: floating pages
-by default, identity rows (``REPRO_PAGED_PLACEMENT=identity``, and a
-windowed ring, whose cache is C = window < max_len slots).
+cannot serve takes without being asked: a windowed ring, MLA's latent
+cache) prefills each admitted prompt whole, right-padded to a 16-token
+bucket, in one (1, S) step, and admits on worst-case reservations.
+Placement: floating pages by default, identity rows
+(``REPRO_PAGED_PLACEMENT=identity``, a windowed ring, whose cache is C
+= window < max_len slots, and MLA's latent cache).
 
 Weights are pre-quantized to fp8 at build and the activation scales are
 calibrated at build (one forward over a fixed prompt), as in the
 reference; ``REPRO_SERVE_PREQUANT=0`` quantizes the weights in every
 step against their build-time scales instead, and
 ``REPRO_SERVE_DELAYED_ACT=0`` measures every activation in the step
-(``prepare_weights``, ``calibrate_serving``).  Dense and MoE models
+(``prepare_weights``, ``calibrate_serving``).  Dense, MoE and MLA models
 serve alike: a MoE block's decode, verify and chunk steps take the
 masked dense-experts combine, every expert on every token, each through
 its own weight and activation scales; the per_group and per_tensor

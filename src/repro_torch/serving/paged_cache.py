@@ -7,9 +7,11 @@ usage-based admission, and the prefix-hash map (chained page keys,
 first-writer-wins, LRU eviction of refcount-0 hashed pages).
 
 ``PagedKVCache`` (identity placement) keeps per-slot contiguous rows
-``(L, B, KV, C, Dh)``, the block tables being accounting over an
+``(L, B, KV, C, Dh)`` (MLA's latent cache: ``(L, B, C, kv_lora)`` and
+``(L, B, C, q_rope)``), the block tables being accounting over an
 identity mapping.  It serves what the floating pool cannot (windowed
-rings: C = the window < max_len) and ``REPRO_PAGED_PLACEMENT=identity``.
+rings: C = the window < max_len; MLA's latent cache, which has no page
+structure) and ``REPRO_PAGED_PLACEMENT=identity``.
 Where the reference concatenates a row onto its stacked tree on every
 admission, the port allocates ``num_slots`` rows once and moves rows in
 place, in the reference's row order (a new row at the end, a retired
@@ -43,8 +45,10 @@ import torch
 
 from repro_torch.models.attention import _bytes, cache_len
 from repro_torch.models.transformer import (
+    cache_payloads,
     init_caches,
     init_paged_pools,
+    map_payloads,
     paged_decode_supported,
 )
 
@@ -367,11 +371,14 @@ class PageAllocator:
 # Identity-placement row moves.  Stacked payloads are (L, B, ...) with the
 # slot row at dim 1; one idx (B,) serves every layer.  A one-row prefill
 # cache is (L, 1, ...) with a scalar idx, a staging row's idx is (1,).
+# The cache node is a KVCache (k, v and their scales) or an MLACache
+# (c_kv, k_rope): every payload moves alike.
 # ---------------------------------------------------------------------------
 
 
 def _leaves(c):
-    return [t for t in (c.k, c.v, c.k_scale, c.v_scale) if t is not None]
+    return [t for t in (getattr(c, f) for f in cache_payloads(c))
+            if t is not None]
 
 
 def write_row(big: dict, one: dict, row: int, length: int) -> None:
@@ -434,10 +441,8 @@ class PagedKVCache:
         n = len(self.rows)
         if n == 0:
             return None
-        cut = lambda t: None if t is None else t[:, :n]
-        return {name: c._replace(k=cut(c.k), v=cut(c.v),
-                                 k_scale=cut(c.k_scale),
-                                 v_scale=cut(c.v_scale), idx=c.idx[:n])
+        return {name: map_payloads(c, lambda t: t[:, :n])._replace(
+                    idx=c.idx[:n])
                 for name, c in self._store.items()}
 
     @caches.setter

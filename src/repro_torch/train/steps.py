@@ -33,6 +33,7 @@ from repro_torch.core.tree import (
     tree_unflatten,
     tree_unzip,
 )
+from repro_torch.models.mla import ABSORBED
 from repro_torch.models.layers import (
     PDef,
     init_tree,
@@ -231,8 +232,11 @@ def prequantize_params(cfg, params) -> PrequantParams | None:
     (moss) quantize against the predicted scale; ``jit`` and
     ``delayed`` ones (the per_group and per_tensor baselines) against
     each slice's own amax, taken after any bf16 cast, as their in-step
-    quantizer would.  (The reference's transposed tied head
-    ``embed/head_t`` comes with tied-embedding models.)"""
+    quantizer would.  An MLA attention node also gets the bf16 copies of
+    ``w_uk`` and ``w_uv`` that its absorbed decode multiplies by
+    (``models.mla.ABSORBED``; the reference multiplies by the fp8
+    payloads there and drops their scales).  (The reference's transposed
+    tied head ``embed/head_t`` comes with tied-embedding models.)"""
     qcfg = cfg.quant
     if not qcfg.quantized:
         return None
@@ -250,15 +254,35 @@ def prequantize_params(cfg, params) -> PrequantParams | None:
                                cast_bf16=qcfg.weight_cast_bf16)
 
     out = tree_map(leaf, params, sdims, mask, pred if auto else sdims)
-    return PrequantParams(qweights=tree_unzip(out, 0),
-                          scales=tree_unzip(out, 1))
+    qweights, scales = tree_unzip(out, 0), tree_unzip(out, 1)
+    for name, att in _mla_attention(params):
+        # the MLA absorbed decode's operands: the raw weights in bf16,
+        # what the in-graph path multiplies by (mla.ABSORBED)
+        for src, dst in ABSORBED.items():
+            qweights[name]["attn"][dst] = att[src].to(torch.bfloat16)
+            scales[name]["attn"][dst] = torch.ones(
+                (), dtype=torch.float32, device=att[src].device)
+    return PrequantParams(qweights=qweights, scales=scales)
+
+
+def _mla_attention(tree):
+    """(segment name, attention node) of every MLA segment of a
+    params-shaped tree (its attention has ``w_uk``)."""
+    for name, seg in tree.items():
+        att = seg.get("attn") if isinstance(seg, dict) else None
+        if att is not None and "w_uk" in att:
+            yield name, att
 
 
 def serve_quant_mask(cfg, tree=None):
-    """The serving quantization mask (``quant_mask_tree``; ``tree`` is
-    the reference's hook for the tied head, which waits with tied
-    models)."""
-    return quant_mask_tree(model_defs(cfg))
+    """The serving quantization mask: ``quant_mask_tree``, and for an
+    MLA model the bf16 copies that a pre-quantized tree carries for the
+    absorbed decode (never quantized).  ``tree`` is the reference's hook
+    for the tied head, which waits with tied models."""
+    mask = quant_mask_tree(model_defs(cfg))
+    for _, att in _mla_attention(mask):
+        att.update({dst: False for dst in ABSORBED.values()})
+    return mask
 
 
 def _wrap_serve(params, mask, scales, act=None, path=()):

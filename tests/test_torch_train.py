@@ -32,9 +32,11 @@ The child also computes the reference's side of
 ``tests/test_torch_recipes.py`` (``qmm`` and the train steps in the
 per_group and per_tensor recipes), of tests/test_torch_ring.py's
 model tests (``h2o_reference``: the sliding-window forward and prefill
-step) and of tests/test_torch_moe.py (``moe_reference``: qmm_grouped,
-the MoE block and its VJP, the MoE train steps); the modules share its
-results (``reference``, ``shared_reference``).
+step), of tests/test_torch_moe.py (``moe_reference``: qmm_grouped,
+the MoE block and its VJP, the MoE train steps) and of
+tests/test_torch_mla.py (``mla_reference``: MLA attention, the
+deepseek forward, train steps and serving streams); the modules share
+its results (``reference``, ``shared_reference``).
 """
 
 import fcntl
@@ -143,19 +145,25 @@ REFERENCE_XLA_FLAGS = ("--xla_allow_excess_precision=false "
 
 def _reference_child(out: str) -> None:
     """What the reference computes for this module's tests and for
-    tests/test_torch_recipes.py, test_torch_ring.py and
-    test_torch_moe.py, compiled with ``REFERENCE_XLA_FLAGS`` under
+    tests/test_torch_recipes.py, test_torch_ring.py, test_torch_moe.py
+    and test_torch_mla.py, compiled with ``REFERENCE_XLA_FLAGS`` under
     ``REPRO_KERNELS=ref``, pickled."""
     from concurrent.futures import ThreadPoolExecutor
 
+    from test_torch_mla import mla_reference
     from test_torch_moe import moe_reference
     from test_torch_ring import h2o_reference
 
-    # the MoE references (the longest part) in a second thread: XLA
-    # compiles and runs with the GIL released, and no builder touches
-    # global state, so the two halves overlap and give the same results
-    with ThreadPoolExecutor(max_workers=1) as pool:
+    # the MoE and the MLA references (the longest parts) in two more
+    # threads: XLA compiles and runs with the GIL released, each thread
+    # has its own calibration recorder (_recorder_per_thread), and only
+    # mla_reference's serving runs (the child's only engines) read the
+    # environment they set, so the three parts overlap and give the
+    # same results
+    _recorder_per_thread()
+    with ThreadPoolExecutor(max_workers=2) as pool:
         moe = pool.submit(moe_reference)
+        mla = pool.submit(mla_reference)
         ref = {"dw": {case: _dw_reference(*case) for case in DW_CASES},
                "h2o": h2o_reference(),
                "optimizer": _optimizer_reference(),
@@ -165,8 +173,35 @@ def _reference_child(out: str) -> None:
                        for mode in MODES
                        for i, shape in enumerate(QMM_SHAPES)}}
         ref["moe"] = moe.result()
+        ref["mla"] = mla.result()
     with open(out, "wb") as f:
         pickle.dump(ref, f)
+
+
+def _recorder_per_thread() -> None:
+    """In the child: the reference's calibration recorder
+    (``repro.core.actscale.REC``, one object in the process) keeps its
+    state per thread, so that a calibration in one thread neither
+    records another thread's activations nor changes what a MoE block
+    traced in another thread sees (``REC.recording`` and ``REC.index``
+    steer ``repro.models.moe``).  Within a thread it behaves as it
+    does alone."""
+    import threading
+
+    from repro.core import actscale as jactscale
+
+    local = threading.local()
+
+    def field(name, default):
+        return property(lambda self: getattr(local, name, default()),
+                        lambda self, value: setattr(local, name, value))
+
+    rec = jactscale.REC
+    rec.__class__ = type("PerThreadRecorder", (type(rec),), {
+        "recording": field("recording", bool),
+        "index": field("index", tuple),
+        "stats": field("stats", dict)})
+    rec.__dict__.clear()
 
 
 def shared_reference(tmp_path_factory) -> dict:
@@ -520,8 +555,8 @@ def _jax_state(ps):
         comm_residual=None, step=jnp.int32(ps.step))
 
 
-def _train_runs(arch=ARCH, modes=MODES):
-    """Per mode, from the reference's ``init_train_state``: three port
+def _train_runs(arch=ARCH, modes=MODES, steps=3):
+    """Per mode, from the reference's ``init_train_state``: ``steps`` port
     steps of ``arch``'s smoke config on the reference's batches, and
     before each the reference's step from the same state on the same
     batch, as ``[(state before, ref state after, ref metrics, port state
@@ -530,7 +565,7 @@ def _train_runs(arch=ARCH, modes=MODES):
     data = JSyntheticLM(JDataConfig(vocab=jcfg0.vocab, seq_len=64,
                                     global_batch=2, seed=0))
     batches = [jax.tree.map(np.asarray, data.batch_for_step(i))
-               for i in range(3)]
+               for i in range(steps)]
     out = {}
     for mode in modes:
         jcfg = jcfg0.replace(quant=JQuantConfig(**recipe(mode),
