@@ -55,6 +55,11 @@ Phases, each fatal on failure:
      the same limit of the 5-D plain version and each draft row bitwise
      the q_len = 1 kernel at that draft's limit; each decode line also
      prints the kernel's share of its bound and its time over SDPA's;
+     paged decode attention at stablelm-12b's Dh 160 and minitron-8b's
+     Dh 128 (GQA 8 x 4); and the 256,000-wide heads: mx_gemm's M <= 32
+     tile over stablelm's, minitron's and recurrentgemma's heads, and
+     at minitron's training shape (M 4096, N or K 256,000)
+     fused_quant_gemm forward and dx, mx_dw_gemm and mx_quant;
   4. the engine: phi3-mini-3.8b at full width on random weights from a
      seed serves 8 requests through the paged engine; every serving
      kernel must have been launched on that path (the calibration's
@@ -85,10 +90,11 @@ Phases, each fatal on failure:
      the host (num_pages=12 where 32 back the slots: 8 requests of 64
      new tokens preempt and swap back in, each victim's pages byte for
      byte after its round trip, the streams those of a fully backed
-     pool; REPRO_PREEMPTION=0 at 4 layers the same, with no
+     pool, at 8 layers, a decode row's logits at B 1 bitwise the same
+     row's at B 4; REPRO_PREEMPTION=0 at 4 layers the same, with no
      preemption); the per_group and per_tensor recipes serving phase
-     4's requests (group_gemm at every quantized site of every decode
-     step and prefill chunk and of the calibration, none in
+     4's requests at 8 layers (group_gemm at every quantized site of
+     every decode step and prefill chunk and of the calibration, none in
      per_tensor; both recipes' steps on the card against the CPU, on
      the smoke model and at full width, 2 layers, with the CPU's
      calibrated scales; group_gemm at M 4, 16 and 32
@@ -107,15 +113,27 @@ Phases, each fatal on failure:
      launches as counted from the code: the M <= 32 tile at every
      delayed site, 192 a MoE layer, and one just-in-time fused call
      for each layer's wo; no decode attention kernel), equal streams on
-     a second run; then
+     a second run; phi3.5-moe (4 layers) in per_group and per_tensor
+     (each decode step's launches as counted: group_gemm at every
+     (layer, expert) site in per_group), and in each served recipe a
+     decode row at B 1 against the same row at B 4 (the streams served
+     one at a time must equal the mixed batch's wherever they differ);
+     then
      h2o-danube-3-4b (sliding window 4096) at full
      width and depth serves 6 requests whose rings wrap, through
      identity rows and the whole-prompt prefill, launching decode_attn
-     and not decode_attn_paged, with equal streams on a second run; the
+     and not decode_attn_paged, with equal streams on a second run;
+     stablelm-12b and minitron-8b at full width, 8 layers, on floating
+     pages, and recurrentgemma-2b at full width and depth (26 layers)
+     on identity rows, phase 4's requests and one of 2,100 prompt tokens
+     whose 2048-slot ring wraps, the legacy Server's streams equal, each
+     decode step's launches as counted from the code; the
      port on the card must agree with the port on the CPU on smoke-size
      models (phi3-mini's chunked step, also under the two scale
      switches, phi3.5-moe's steps and its engine's streams, deepseek's
-     engine streams, h2o's prefill past the window and its ring decode);
+     engine streams, h2o's prefill past the window and its ring decode,
+     stablelm's and minitron's chunked steps, recurrentgemma's prefill
+     and decode past its window);
   5. the ablation (the paper's Table 6): the quantizer/GEMM entry points
      of kernels.ops at its three (M, N, K) shapes -- the MOSS GEMM
      (mx_gemm's wgmma tile), the COAT GEMM (group_gemm: the same tile,
@@ -151,12 +169,22 @@ Phases, each fatal on failure:
      checks at E 64, then 3 moss and 3 bf16 steps, finite, the loss
      falling, each moss step's launches as counted; the smoke-size MoE
      and deepseek train 3 moss steps on the grouped route on the card
+     and on the CPU (phase 6's check); phi3.5-moe's moss steps again
+     under REPRO_MOE_EXPERTS=vmapped (the experts one by one: each
+     step's launches as counted, losses within 1e-2 of the grouped
+     steps', both times printed); stablelm-12b (2 layers), minitron-8b
+     (1 layer) and recurrentgemma-2b (5 layers: a griffin unit and the
+     2-layer tail) at full width, 3 moss and 3 bf16 steps of 1 x 4096
+     each, launches as counted; their smoke models in moss on the card
      and on the CPU (phase 6's check);
   8. the kernels line (JSON; group_gemm with a "serving" entry: its
      times at the serving rows, its launches the per_group steps' and
      engine's; a "deepseek" entry where a kernel was checked at
      deepseek's shapes or launched on its serving or training path,
-     with those launches), the card line, and the last line
+     with those launches; a "families" entry with the checks at the
+     three families' shapes and their launches; group_gemm's
+     "moe_baselines" and moe_gmm's "vmapped_ab"), the card line, and
+     the last line
      {"ok": true, "device": {...}}.
 
 Each phase prints its wall seconds, and the script its total.
@@ -167,6 +195,7 @@ Imports nothing of JAX and nothing of the JAX package.
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -247,7 +276,9 @@ RING_MAX_NEW, RING_MAX_LEN = 48, 4352
 # serving phase's (phi3.5-moe: GQA 8 x 4, Dh 128)
 PAGED_SHAPES = {"phi3": (4, 32, 1, 96, 4, [17, 64, 33, 5]),
                 "phi3-long": (4, 32, 1, 96, 256, [3000, 4096, 3517, 3999]),
-                "phi3.5-moe": (4, 8, 4, 128, 4, [17, 64, 33, 5])}
+                "phi3.5-moe": (4, 8, 4, 128, 4, [17, 64, 33, 5]),
+                "stablelm": (4, 8, 4, 160, 4, [17, 64, 33, 5]),
+                "minitron": (4, 8, 4, 128, 4, [17, 64, 33, 5])}
 # contiguous decode attention (B, KV, G, Dh, C, n_valid): h2o-danube-3-4b's
 # decode (rows 0-1 wrapped, 2-3 partial), recurrentgemma-2b's local layer
 RING_SHAPES = {"h2o": (4, 8, 4, 120, 4096, [4100, 4200, 300, 97]),
@@ -288,12 +319,38 @@ SPEC_K = 4
 # by a wave of 6 requests; its bf16-cache twin at this depth
 PREFIX_SYSTEM, PREFIX_MAX_LEN, PREFIX_BF16_LAYERS = 512, 640, 4
 PREFIX_LAYERS = 8                   # the fp8-cache runs, of 32
-# the preempt phase: 12 pages where 4 slots of 128 tokens need 32; the
-# reservation run (about one request at a time) at this depth
+# the preempt phase: 12 pages where 4 slots of 128 tokens need 32, at 8
+# of phi3-mini's 32 layers; the reservation run (about one request at a
+# time) at 4
 PREEMPT_PAGES, PREEMPT_MAX_LEN, PREEMPT_MAX_NEW = 12, 128, 64
-PREEMPT_RESERVE_LAYERS = 4
-# the baselines' card-vs-CPU check at full width: this depth of phi3-mini
-BASELINE_CHECK_LAYERS = 2
+PREEMPT_LAYERS, PREEMPT_RESERVE_LAYERS = 8, 4
+# the baselines served at this depth of phi3-mini's 32 layers (at 32
+# until the families' phases needed the time); their card-vs-CPU check
+# at full width at the second
+BASELINE_LAYERS, BASELINE_CHECK_LAYERS = 8, 2
+# three more families at full width: stablelm-12b (qk-norm, 25% partial
+# rotary, Dh 160), minitron-8b (squared ReLU, a non-gated FFN, vocab
+# 256,000) and recurrentgemma-2b (RG-LRU + local attention on a 2048-slot
+# ring, GeGLU, the tied head embed/head_t, vocab 256,000); each served at
+# this depth (None: all 26 layers) and trained at this one, batch 1 x 4096
+STABLELM, MINITRON, GEMMA = "stablelm-12b", "minitron-8b", "recurrentgemma-2b"
+FAMILIES = (STABLELM, MINITRON, GEMMA)
+FAMILY_SERVE_LAYERS = {STABLELM: 8, MINITRON: 8, GEMMA: None}
+# trained at full width: each recipe's step holds the f32 weights, their
+# gradients, both moments and AdamW's new copies of three of them at its
+# peak (stablelm at 4 layers, 2.14B parameters, ran out of the 80 GB in
+# bf16), and minitron's f32 logits of 1 x 4096 x 256,000 and their
+# gradient (4.2 GB each) beside its 2.1B embedding and head parameters
+FAMILY_TRAIN_LAYERS = {STABLELM: 2, MINITRON: 1, GEMMA: 5}
+FAMILY_TRAIN_M = 4096               # paper Table 8's sequence
+# recurrentgemma's engine: phase 4's 8 requests and one of this many
+# prompt tokens, whose ring (2048 slots) wraps at its prefill
+GEMMA_LONG_PROMPT, GEMMA_MAX_LEN = 2100, 2176
+# the three heads (K, N): row 1 at M 4/16/32 over each; minitron's at M
+# 4096 (its training forward, dx at K 256,000, dW, and row 9 on its f32
+# gradient)
+FAMILY_HEAD_KN = [(5120, 100352), (4096, 256000), (2560, 256000)]
+HEAD_TRAIN_KN = (4096, 256000)
 REPLACES = {
     "mx_gemm": "src/repro/kernels/mx_gemm.py:61",
     "mx_gemm_tiled": "src/repro/kernels/mx_gemm.py:61",
@@ -586,7 +643,7 @@ def phase_kernels(torch, timer) -> dict:
     # at PAGED_SHAPES; the kernels line reports phi3-mini's serving
     # shape, and the MoE's under "moe_serving"
     t_ = 16
-    worst, moe = 0.0, {}
+    worst, moe, fam = 0.0, {}, {}
     for name, (b_, kvh, g, dh, n_p, nv_list) in PAGED_SHAPES.items():
         pool = b_ * n_p + 1
         kf = torch.randn(pool, kvh, t_, dh, device="cuda", generator=gen)
@@ -647,9 +704,15 @@ def phase_kernels(torch, timer) -> dict:
             if name == "phi3.5-moe":
                 moe = dict(shape=[b_, kvh, g, dh, n_p], n_valid=nv_list,
                            max_abs_err=max(moe.get("max_abs_err", 0.0), err))
+            if name in ("stablelm", "minitron"):
+                fam.setdefault(name, dict(shape=[b_, kvh, g, dh, n_p],
+                                          n_valid=nv_list))[kv_dtype] = dict(
+                    max_abs_err=err, ms=t, plain_ms=tp, library_ms=tl,
+                    bound_ms=b)
             del k, v, ks, vs, got, want
         del kf, vf
     res["decode_attn_paged"]["moe_serving"] = moe
+    res["decode_attn_paged"]["families"] = fam
     res["decode_attn_paged"]["max_abs_err"] = worst
     return res
 
@@ -1468,10 +1531,10 @@ def _step_deltas(eng, counters, log: list):
 
 
 def _engine(seed: int = 0, arch: str = ARCH, layers: int | None = None,
-            over: dict | None = None, **engine_kw):
+            over: dict | None = None, num_slots: int = 4, **engine_kw):
     """A full-width engine of ``arch`` (depth cut to ``layers`` if
     given, config fields replaced by ``over``) on weights from ``seed``,
-    4 slots, pages of 16, on the card."""
+    ``num_slots`` slots, pages of 16, on the card."""
     from repro_torch.configs.registry import get_config
     from repro_torch.launch.serve import random_params
     from repro_torch.serving import Engine
@@ -1481,8 +1544,9 @@ def _engine(seed: int = 0, arch: str = ARCH, layers: int | None = None,
         cfg = cfg.replace(n_layers=layers)
     if over:
         cfg = cfg.replace(**over)
-    return Engine(cfg, random_params(cfg, seed, "cuda"), num_slots=4,
-                  page_size=16, device="cuda", **engine_kw)
+    return Engine(cfg, random_params(cfg, seed, "cuda"),
+                  num_slots=num_slots, page_size=16, device="cuda",
+                  **engine_kw)
 
 
 def _serve_once(torch, np, seed: int, float_pages: bool = True,
@@ -2242,6 +2306,41 @@ def _watch_swaps(torch, eng, log: dict):
     kv.swap_out, kv.swap_in = swap_out, swap_in
 
 
+def _row_at_b1_and_b4(torch, np, eng, label) -> float:
+    """One decode step of ``eng``'s model over 4 rows at depths 19, 33,
+    8 and 27 (each prefilled by the engine's own prefill into identity
+    rows), and the same step of row 0 alone: returns and prints max
+    |logits(B 1) - logits(B 4)| of row 0 (0 where every computation of
+    a row is independent of the rows beside it)."""
+    from repro_torch.models.transformer import (cache_idx, init_caches,
+                                                map_payloads, with_idx)
+    from repro_torch.serving.paged_cache import write_row
+
+    cfg, rng = eng.cfg, np.random.default_rng(3)
+    lens = [19, 33, 8, 27]
+    with torch.inference_mode():
+        caches = init_caches(cfg, len(lens), eng.max_len, per_slot=True,
+                             device="cuda")
+        feed = []
+        for i, n in enumerate(lens):
+            prompt = torch.from_numpy(rng.integers(
+                0, cfg.vocab, (1, n)).astype(np.int32)).cuda()
+            logits, one = eng.prefill(eng.params, prompt)
+            write_row(caches, one, i, n)
+            feed.append(int(logits[0, -1].argmax()))
+        toks = torch.tensor(feed, dtype=torch.int32, device="cuda")[:, None]
+        alone = {n: with_idx(map_payloads(c, lambda t: t[:, :1].clone()),
+                             cache_idx(c)[:1].clone())
+                 for n, c in caches.items()}
+        l1, _ = eng.decode(eng.params, alone, toks[:1])
+        l4, _ = eng.decode(eng.params, caches, toks)
+        d = float((l1[0, -1] - l4[0, -1]).abs().max())
+        big = float(l4[0, -1].abs().max())
+    print(f"{label}: a decode row's logits at B 1 against the same row at "
+          f"B 4 (depths {lens}): max |d| {d:.4g} of max|logit| {big:.4g}")
+    return d
+
+
 def _serve_preempt(torch, np, label, layers=None, swaps=None, **kw):
     """The preempt phase's 8 requests on one engine (max_len
     PREEMPT_MAX_LEN); returns the streams, the stats, tok/s and the
@@ -2280,23 +2379,36 @@ def _serve_preempt(torch, np, label, layers=None, swaps=None, **kw):
 
 
 def phase_engine_preempt(torch, np):
-    """Preemption to the host on full-width phi3-mini, all 32 layers:
-    Engine(num_slots=4, max_len=128, num_pages=12), where 32 pages would
-    back the slots fully, serves 8 requests of 16-48 prompt tokens and
-    64 new tokens.  Usage admission packs them until growth finds the
-    pool dry, and the engine swaps victims out and back in.  Gates:
-    preemptions > 0 and as many swap-ins, the pool free at the end,
-    every victim's pages byte for byte the same after its swap round
-    trip (every pool tensor), and the streams bit for bit those of the
-    same requests on a fully backed pool.  Then REPRO_PREEMPTION=0
-    (reservation admission: about one request at a time on this pool),
-    at PREEMPT_RESERVE_LAYERS layers beside its fully backed twin at
-    that depth: equal streams and no preemption."""
+    """Preemption to the host on full-width phi3-mini, PREEMPT_LAYERS of
+    its 32 layers: Engine(num_slots=4, max_len=128, num_pages=12), where
+    32 pages would back the slots fully, serves 8 requests of 16-48
+    prompt tokens and 64 new tokens.  Usage admission packs them until
+    growth finds the pool dry, and the engine swaps victims out and back
+    in.  Gates: preemptions > 0 and as many swap-ins, the pool free at
+    the end, every victim's pages byte for byte the same after its swap
+    round trip (every pool tensor, payloads and per-token scales), and
+    the streams bit for bit those of the same requests on a fully backed
+    pool; a victim decodes in smaller batches than on the fully backed
+    pool, so a decode row's logits at B 1 must equal the same row's at
+    B 4 (``_row_at_b1_and_b4``: the norms' row sums, once in an order
+    that depended on the batch, tools/preempt_trace.py).  Then
+    REPRO_PREEMPTION=0 (reservation admission: about one request at a
+    time on this pool), at PREEMPT_RESERVE_LAYERS layers beside its
+    fully backed twin at that depth: equal streams and no preemption."""
     counters = _serving_counters()
     for c in counters:
         c.reset()
     swaps = {"bytes": 0, "out_s": [], "in_s": [], "round_trips": 0}
+    eng = _engine(layers=PREEMPT_LAYERS, max_len=PREEMPT_MAX_LEN)
+    d = _row_at_b1_and_b4(torch, np, eng, f"{ARCH} ({PREEMPT_LAYERS} "
+                          "layers)")
+    del eng
+    torch.cuda.empty_cache()
+    if d != 0.0:
+        raise AssertionError(f"preempt: a decode row at B 1 differs from "
+                             f"the same row at B 4 by {d}")
     small, st = _serve_preempt(torch, np, "preempt usage", swaps=swaps,
+                               layers=PREEMPT_LAYERS,
                                num_pages=PREEMPT_PAGES)
     _launch_line("preempt usage", counters)
     if not (st["preemptions"] > 0
@@ -2311,7 +2423,8 @@ def phase_engine_preempt(torch, np):
           f"to the host ({swaps['bytes'] / n / 2 ** 20:.2f} MiB a swap), "
           f"swap-out {1e3 * statistics.mean(swaps['out_s']):.2f} ms, "
           f"swap-in {1e3 * statistics.mean(swaps['in_s']):.2f} ms a swap")
-    full, _ = _serve_preempt(torch, np, "preempt fully backed")
+    full, _ = _serve_preempt(torch, np, "preempt fully backed",
+                             layers=PREEMPT_LAYERS)
     if small != full:
         raise AssertionError("preempt: streams differ from the fully "
                              "backed pool's")
@@ -2376,8 +2489,9 @@ def _group_gemm_serving(torch, timer) -> dict:
 
 
 def phase_engine_baselines(torch, np, timer) -> dict:
-    """The paper's baselines served on full-width phi3-mini, all 32
-    layers, phase 4's requests and weights: per_group (COAT: each site's
+    """The paper's baselines served on full-width phi3-mini,
+    BASELINE_LAYERS of its 32 layers, phase 4's requests and weights:
+    per_group (COAT: each site's
     activation quantized per 128 along K against its calibrated group
     scales, the GEMM group_gemm, row 6) and per_tensor (TE: one
     calibrated scale, pt_matmul, no kernel of its own), weights
@@ -2395,7 +2509,7 @@ def phase_engine_baselines(torch, np, timer) -> dict:
     from repro_torch.core.formats import PER_GROUP_CONFIG, PER_TENSOR_CONFIG
     from repro_torch.kernels import group_gemm
 
-    cfg = get_config(ARCH)
+    cfg = get_config(ARCH).replace(n_layers=BASELINE_LAYERS)
     sites = 7 * cfg.n_layers + 1            # q k v o up gate down, head
     counters = _serving_counters() + [group_gemm.counter]
     zero = {c.name: 0 for c in counters}
@@ -2410,7 +2524,7 @@ def phase_engine_baselines(torch, np, timer) -> dict:
             per_step["group_gemm"] = sites
         reqs, build_s, run_s, st = _serve_once(
             torch, np, seed=0, step_log=(counters, log),
-            over=dict(quant=qcfg))
+            layers=BASELINE_LAYERS, over=dict(quant=qcfg))
         total = {c.name: c.count for c in counters}
         label = f"serve {mode}"
         _serve_line(label, reqs, run_s, st)
@@ -2945,29 +3059,32 @@ def phase_small_reference(torch, np):
                  f"smoke {MOE_ARCH}")
     _small_moe_engine(torch, np)
     _small_moe_engine(torch, np, MLA_ARCH, norm_flips=True)
-    _small_ring_reference(torch, np)
+    # h2o-danube-3-4b at window 16: the prefill of 21 tokens keeps the
+    # last 16 on its ring, then four ring decode steps
+    _small_prefill_decode(torch, np, get_config(RING_ARCH, smoke=True)
+                          .replace(window=16), "smoke ring step", 21)
 
 
-def _small_ring_reference(torch, np):
-    """h2o-danube-3-4b's smoke model at window 16 on the card against
-    the CPU, fed the same tokens: the whole-prompt prefill of 21 tokens
-    (the ring keeps the last 16) and four ring decode steps through the
-    contiguous kernel; logits within 2e-2 * max|logit| as above."""
-    from repro_torch.configs.registry import get_config
+def _small_prefill_decode(torch, np, cfg, label, prompt_len, max_len=48):
+    """``cfg`` on the card against the CPU from the same seeded weights,
+    each built as the engine builds it, fed the CPU's tokens: the
+    whole-prompt prefill of ``prompt_len`` tokens into contiguous caches
+    of ``max_len`` and four decode steps; logits within 2e-2 *
+    max|logit|."""
     from repro_torch.core.actscale import calibrate_act_scales
     from repro_torch.launch.serve import random_params
     from repro_torch.serving.engine import prepare_weights, to_device
     from repro_torch.train.steps import make_decode_step, make_prefill_step
 
-    cfg = get_config(RING_ARCH, smoke=True).replace(window=16)
     params = random_params(cfg, 0, "cpu")
-    prompt = np.random.default_rng(6).integers(0, cfg.vocab, (1, 21))
+    prompt = np.random.default_rng(6).integers(0, cfg.vocab,
+                                               (1, prompt_len))
     outs = {}
     for dev in ("cpu", "cuda"):
         with torch.inference_mode():
             qw, sc = prepare_weights(cfg, to_device(params, dev))
             act = calibrate_act_scales(cfg, qw, sc)
-        pre = make_prefill_step(cfg, 48, scales=sc, act_scales=act)
+        pre = make_prefill_step(cfg, max_len, scales=sc, act_scales=act)
         dec = make_decode_step(cfg, scales=sc, act_scales=act)
         logits, caches = pre(qw, torch.from_numpy(prompt).to(dev))
         logs = [logits[0].float().cpu().numpy()]
@@ -2978,7 +3095,22 @@ def _small_ring_reference(torch, np):
             logits, caches = dec(qw, caches, feed)
             logs.append(logits[0].float().cpu().numpy())
         outs[dev] = logs
-    _close_logits(np, "smoke ring step", outs["cpu"], outs["cuda"])
+    _close_logits(np, label, outs["cpu"], outs["cuda"])
+
+
+def phase_small_families(torch, np):
+    """The three families' smoke models on the card against the CPU:
+    stablelm's and minitron's serving steps on pages (``_small_steps``),
+    recurrentgemma's prefill and decode steps on contiguous caches (its
+    RG-LRU states and a 64-slot local-attention ring; the prompt of 70
+    tokens wraps it); logits within 2e-2 * max|logit|."""
+    from repro_torch.configs.registry import get_config
+
+    for arch in (STABLELM, MINITRON):
+        _small_steps(torch, np, get_config(arch, smoke=True),
+                     f"smoke {arch} step")
+    _small_prefill_decode(torch, np, get_config(GEMMA, smoke=True),
+                          f"smoke {GEMMA} step", 70, max_len=96)
 
 
 def _train_cfg(get_config, quant_from_name, mode, smoke, interval=500):
@@ -2990,33 +3122,40 @@ def _train_cfg(get_config, quant_from_name, mode, smoke, interval=500):
 TRAIN_MODES = ("moss", "bf16", "per_group", "per_tensor")
 
 
-def _dense_launches(counters, layers: int) -> dict:
-    """The training kernels' launches in 3 steps of a dense model of
-    ``layers`` layers, per recipe.  Per step: the forward at every
-    linear site (7 a layer + the head), the remat recompute of the
+def _dense_launches(counters, layers: int,
+                    layer_sites: int | None = None) -> dict:
+    """The training kernels' launches in 3 steps of a model of ``layers``
+    layers with ``layer_sites`` linear sites in them (7 a layer of a
+    gated FFN by default), per recipe.  Per step: the forward at every
+    linear site (the layers' and the head), the remat recompute of the
     layers' sites, dx and dW at every site; each fused_quant_gemm call
     (M > 32) launches global_amax, mx_quant and the wgmma tile, each
     mx_dw_gemm call the dw_requant pass and the tile (counted on
     mx_dw_gemm, not mx_gemm_tiled)."""
-    sites = 7 * layers + 1
-    fused = 3 * (2 * sites + 7 * layers)
+    if layer_sites is None:
+        layer_sites = 7 * layers
+    sites = layer_sites + 1
+    fused = 3 * (2 * sites + layer_sites)
     none = {c.name: 0 for c in counters}
     return {
         "moss": {**none, "fused_quant_gemm_tiled": fused, "mx_quant": fused,
                  "global_amax": fused, "mx_gemm_tiled": fused,
                  "mx_dw_gemm": 3 * sites, "dw_requant": 3 * sites},
         "bf16": none,
-        "per_group": {**none, "group_gemm": 3 * (3 * sites + 7 * layers)},
+        "per_group": {**none, "group_gemm": 3 * (3 * sites + layer_sites)},
         "per_tensor": none,                # pt_matmul: no kernel of its own
     }
 
 
-def _train_modes(torch, np, arch, cfg_of, modes, m: int, label: str):
+def _train_modes(torch, np, arch, cfg_of, modes, m: int, label: str,
+                 layer_sites: int | None = None, full_layers: int = 32):
     """3 steps of batch 1 x ``m`` in each recipe of ``modes`` from the
-    same weights on the same batches (``cfg_of(mode)`` the config);
-    launches gated by ``_dense_launches``, every quantized recipe's
-    losses within 1e-2 of bf16's.  Returns the launches by recipe."""
-    from repro_torch.core.tree import tree_leaves
+    same weights on the same batches (``cfg_of(mode)`` the config, cut
+    from ``full_layers``); launches gated by ``_dense_launches`` (with
+    ``layer_sites``), every quantized recipe's losses within 1e-2 of
+    bf16's.  Returns the launches by recipe, with each recipe's step
+    ms, tok/s and peak GiB under "timing"."""
+    from repro_torch.core.tree import tree_leaves, tree_map
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.kernels import (group_gemm, mx_bwd, mx_fused, mx_gemm,
                                      mx_quant)
@@ -3027,21 +3166,29 @@ def _train_modes(torch, np, arch, cfg_of, modes, m: int, label: str):
     base = cfg_of(modes[0])
     print(f"train {arch}: full width (d {base.d_model}, {base.n_heads} "
           f"heads, Dh {base.head_dim}, d_ff {base.d_ff}, vocab {base.vocab}, "
-          f"{base.norm}, remat {base.remat}), depth cut from 32 to "
-          f"{base.n_layers} layers, batch 1 x {m}")
+          f"{base.norm}, remat {base.remat}), depth cut from {full_layers} "
+          f"to {base.n_layers} layers, batch 1 x {m}")
     data = SyntheticLM(DataConfig(vocab=base.vocab, seq_len=m,
                                   global_batch=1, seed=0))
     batches = [data.batch_for_step(i) for i in range(3)]
-    init = init_train_state(base, hp, seed=0, device="cuda").params
+    # the initial weights wait on the host between recipes: on the card
+    # they would stay beside each run's updated copy (minitron's f32
+    # embedding and head alone are 8.4 GB)
+    init = tree_map(lambda t: t.cpu(), init_train_state(
+        base, hp, seed=0, device="cuda").params)
+    torch.cuda.empty_cache()
     n_params = sum(int(w.numel()) for w in tree_leaves(init))
     print(f"train {arch}: {n_params / 1e9:.3f}B parameters")
     counters = [mx_fused.counter, mx_fused.counter_tiled, mx_bwd.counter,
                 mx_bwd.counter_requant, group_gemm.counter, mx_quant.counter,
                 mx_quant.counter_amax, mx_gemm.counter, mx_gemm.counter_tiled]
-    losses, launches = {}, {}
+    losses, launches, timing = {}, {}, {}
     for mode in modes:
         cfg = cfg_of(mode)
-        state = init_train_state(cfg, hp, params=init, device="cuda")
+        state = init_train_state(
+            cfg, hp, params=tree_map(lambda t: t.to("cuda"), init),
+            device="cuda")
+        step_ms = []
         step = make_train_step(cfg, hp)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -3056,18 +3203,21 @@ def _train_modes(torch, np, arch, cfg_of, modes, m: int, label: str):
             torch.cuda.synchronize()
             dt = time.monotonic() - t0
             losses[mode].append(loss)
+            step_ms.append(dt * 1e3)
             print(f"{label} {mode} step {i}: loss {loss:.5f} grad_norm "
                   f"{gnorm:.4f} lr {float(met['lr']):.3e} step "
                   f"{dt * 1e3:.1f} ms = {m / dt:.0f} tok/s")
             if not (np.isfinite(loss) and np.isfinite(gnorm)):
                 raise AssertionError(f"{label} {mode} step {i}: non-finite")
         launches[mode] = {c.name: c.count for c in counters}
-        print(f"{label} {mode}: peak memory "
-              f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB, "
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        timing[mode] = dict(step_ms=step_ms[-1], tok_s=m / step_ms[-1] * 1e3,
+                            peak_gib=peak)
+        print(f"{label} {mode}: peak memory {peak:.2f} GiB, "
               f"launches {json.dumps(launches[mode])}")
         del state, step
         torch.cuda.empty_cache()
-    want = _dense_launches(counters, base.n_layers)
+    want = _dense_launches(counters, base.n_layers, layer_sites)
     for mode in modes:
         if launches[mode] != want[mode]:
             raise AssertionError(f"{label} {mode} launches {launches[mode]},"
@@ -3085,6 +3235,7 @@ def _train_modes(torch, np, arch, cfg_of, modes, m: int, label: str):
                                      f"bf16 {b}")
     del init
     torch.cuda.empty_cache()
+    launches["timing"] = timing
     return launches
 
 
@@ -3352,8 +3503,15 @@ def phase_moe_train(torch, np) -> tuple[dict, dict]:
                 mx_fused.counter_tiled, mx_bwd.counter, mx_bwd.counter_requant,
                 group_gemm.counter, mx_quant.counter, mx_quant.counter_amax,
                 mx_gemm.counter, mx_gemm.counter_tiled]
-    losses, launches = {}, {}
-    for mode in ("moss", "bf16"):
+    losses, launches, step_ms = {}, {}, {}
+    # moss and bf16 on the grouped kernels, then moss under
+    # REPRO_MOE_EXPERTS=vmapped (the reference's A/B path: each expert's
+    # three GEMMs one by one through qlinear)
+    for run in ("moss", "bf16", "moss-vmapped"):
+        mode = run.split("-")[0]
+        path = "vmapped" if run.endswith("vmapped") else "grouped"
+        prev = os.environ.get("REPRO_MOE_EXPERTS")
+        os.environ["REPRO_MOE_EXPERTS"] = path
         cfg = _moe_cfg(get_config, quant_from_name, mode, smoke=False)
         state = init_train_state(cfg, hp, params=init, device="cuda")
         step = make_train_step(cfg, hp)
@@ -3361,25 +3519,32 @@ def phase_moe_train(torch, np) -> tuple[dict, dict]:
         torch.cuda.reset_peak_memory_stats()
         for c in counters:
             c.reset()
-        losses[mode] = []
-        for i, batch in enumerate(batches):
-            t0 = time.monotonic()
-            state, met = step(state, batch)
-            loss, aux = float(met["loss"]), float(met["aux"])
-            gnorm = float(met["grad_norm"])
-            torch.cuda.synchronize()
-            dt = time.monotonic() - t0
-            losses[mode].append(loss)
-            print(f"train moe {mode} step {i}: loss {loss:.5f} aux "
-                  f"{aux:.5f} grad_norm {gnorm:.4f} step {dt * 1e3:.1f} ms "
-                  f"= {tokens / dt:.0f} tok/s")
-            if not all(np.isfinite(v) for v in (loss, aux, gnorm)):
-                raise AssertionError(f"train moe {mode} step {i}: "
-                                     "non-finite")
-        launches[mode] = {c.name: c.count for c in counters}
-        print(f"train moe {mode}: peak memory "
+        losses[run], step_ms[run] = [], []
+        try:
+            for i, batch in enumerate(batches):
+                t0 = time.monotonic()
+                state, met = step(state, batch)
+                loss, aux = float(met["loss"]), float(met["aux"])
+                gnorm = float(met["grad_norm"])
+                torch.cuda.synchronize()
+                dt = time.monotonic() - t0
+                losses[run].append(loss)
+                step_ms[run].append(dt * 1e3)
+                print(f"train moe {run} step {i}: loss {loss:.5f} aux "
+                      f"{aux:.5f} grad_norm {gnorm:.4f} step "
+                      f"{dt * 1e3:.1f} ms = {tokens / dt:.0f} tok/s")
+                if not all(np.isfinite(v) for v in (loss, aux, gnorm)):
+                    raise AssertionError(f"train moe {run} step {i}: "
+                                         "non-finite")
+        finally:
+            if prev is None:
+                os.environ.pop("REPRO_MOE_EXPERTS")
+            else:
+                os.environ["REPRO_MOE_EXPERTS"] = prev
+        launches[run] = {c.name: c.count for c in counters}
+        print(f"train moe {run}: peak memory "
               f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB, "
-              f"launches {json.dumps(launches[mode])}")
+              f"launches {json.dumps(launches[run])}")
         del state, step
         torch.cuda.empty_cache()
     # per moss step, from the code: attention q, k, v, o and the head
@@ -3391,13 +3556,25 @@ def phase_moe_train(torch, np) -> tuple[dict, dict]:
     # grouped tile (9 a step): 23 mx_quant a step, 69 in 3, each behind
     # one global_amax; each dW call
     # (5 mx_dw_gemm, 3 moe_dw_gemm) one dw_requant pass: 8 a step
+    # Vmapped, the experts' 3 GEMMs each take the fused tile per expert
+    # (C 1336 rows > 32) in the forward, the recompute and dx, and
+    # mx_dw_gemm for dW: 5 + 48, 4 + 48 and 5 + 48 fused calls and 5 + 48
+    # dW calls a step, no moe_gmm or moe_dw_gemm.
     none = {c.name: 0 for c in counters}
+    e3 = 3 * base.n_experts
+    fused_v = 5 + 4 + 5 + 3 * e3
     want = {"moss": {**none, "moe_gmm": 3 * 9, "moe_dw_gemm": 3 * 3,
                      "fused_quant_gemm_tiled": 3 * 14,
                      "mx_quant": 3 * (14 + 9), "global_amax": 3 * (14 + 9),
                      "mx_gemm_tiled": 3 * 14,
                      "mx_dw_gemm": 3 * 5, "dw_requant": 3 * (5 + 3)},
-            "bf16": none}
+            "bf16": none,
+            "moss-vmapped": {**none, "fused_quant_gemm_tiled": 3 * fused_v,
+                             "mx_quant": 3 * fused_v,
+                             "global_amax": 3 * fused_v,
+                             "mx_gemm_tiled": 3 * fused_v,
+                             "mx_dw_gemm": 3 * (5 + e3),
+                             "dw_requant": 3 * (5 + e3)}}
     for mode, got in launches.items():
         if got != want[mode]:
             raise AssertionError(f"moe {mode} launches {got}, expected "
@@ -3408,9 +3585,410 @@ def phase_moe_train(torch, np) -> tuple[dict, dict]:
               "(limit 1e-2)")
         if not rel <= 1e-2:
             raise AssertionError(f"train moe step {i}: moss {a} vs bf16 {b}")
+    for i, (a, b) in enumerate(zip(losses["moss-vmapped"],
+                                   losses["moss"])):
+        rel = abs(a - b) / abs(b)
+        print(f"train moe step {i}: REPRO_MOE_EXPERTS vmapped loss {a:.6f} "
+              f"{step_ms['moss-vmapped'][i]:.1f} ms, grouped {b:.6f} "
+              f"{step_ms['moss'][i]:.1f} ms (loss rel {rel:.3g}, limit "
+              "1e-2)")
+        if not rel <= 1e-2:
+            raise AssertionError(f"train moe step {i}: vmapped {a} vs "
+                                 f"grouped {b}")
     del init
     torch.cuda.empty_cache()
+    res["vmapped_ab"] = {run: dict(step_ms=step_ms[run][-1],
+                                   loss=losses[run][-1],
+                                   launches=launches[run])
+                         for run in ("moss", "moss-vmapped")}
     return res, launches["moss"]
+
+
+def _family_cfg(arch, layers):
+    from repro_torch.configs.registry import get_config
+
+    cfg = get_config(arch)
+    return cfg if layers is None else cfg.replace(n_layers=layers)
+
+
+def _family_sites(cfg) -> tuple[int, int]:
+    """(linear sites in the layers, attention layers) of a dense or
+    hybrid model, counted from the code: an attention layer's q, k, v, o
+    and its FFN's up, down and, when gated, gate; a recurrent layer's
+    RG-LRU projections x, gate branch, a, i and out and its FFN's."""
+    ffn = 3 if cfg.act in ("swiglu", "geglu") else 2
+    if cfg.family == "hybrid":
+        units, rem = divmod(cfg.n_layers, 3)
+        rec, attn = 2 * units + rem, units
+    else:
+        rec, attn = 0, cfg.n_layers
+    return attn * (4 + ffn) + rec * (5 + ffn), attn
+
+
+def _family_decode_launches(cfg) -> dict:
+    """One decode step's launches, counted from the code: the M <= 32 tile
+    at every delayed site and the head (the tied ``head_t`` too), and one
+    decode attention a layer with attention: on pages for the dense
+    families, on identity rows (the contiguous ring) for the hybrid."""
+    sites, attn = _family_sites(cfg)
+    key = "decode_attn" if cfg.family == "hybrid" else "decode_attn_paged"
+    return {"mx_gemm": sites + 1, key: attn}
+
+
+def _gemma_requests(Request, np, cfg):
+    """Phase 4's 8 requests and one of GEMMA_LONG_PROMPT prompt tokens,
+    past the 2048-slot window: its prefill keeps the last 2048 positions
+    on the ring and every decode step overwrites the oldest slot."""
+    reqs = _requests(Request, np, cfg, 0)
+    rng = np.random.default_rng(7)
+    reqs.append(Request(rid=len(reqs), prompt=rng.integers(
+        0, cfg.vocab, GEMMA_LONG_PROMPT, dtype=np.int32), max_new=16))
+    return reqs
+
+
+def phase_families_serve(torch, np) -> dict:
+    """stablelm-12b and minitron-8b at full width, depth cut to
+    FAMILY_SERVE_LAYERS (the engine builds from the seeded f32 tree), on
+    floating pages with chunked prefill, and recurrentgemma-2b at full
+    width and depth (26 layers: 8 griffin units and the 2-layer tail) on
+    identity rows with the exact-length whole-prompt prefill, each on
+    weights from seed 0 with pre-quantized weights (recurrentgemma's tied
+    head as embed/head_t) and delayed activation scales.  stablelm and
+    minitron serve phase 4's 8 requests; recurrentgemma those and one
+    prompt of GEMMA_LONG_PROMPT tokens, whose ring wraps.  Gates: every
+    request finishes with finite logits, every decode step launches
+    what ``_family_decode_launches`` counts, the calibration one fused
+    call a site; recurrentgemma's streams are those of the legacy Server
+    on the same weights.  Returns, per family, its launches and serving
+    numbers."""
+    from repro_torch.launch.serve import Server, random_params
+    from repro_torch.serving import Request
+
+    out = {}
+    for arch in FAMILIES:
+        layers = FAMILY_SERVE_LAYERS[arch]
+        cfg = _family_cfg(arch, layers)
+        hybrid = cfg.family == "hybrid"
+        full = _family_cfg(arch, None).n_layers
+        print(f"engine {arch}: full width (d {cfg.d_model}, {cfg.n_heads} "
+              f"heads, {cfg.n_kv} kv heads, Dh {cfg.head_dim}, d_ff "
+              f"{cfg.d_ff}, {cfg.act}, {cfg.norm}, qk_norm {cfg.qk_norm}, "
+              f"rope_pct {cfg.rope_pct}, vocab {cfg.vocab}, tied "
+              f"{cfg.tie_embeddings}), {cfg.n_layers} of {full} layers")
+        counters = _serving_counters()
+        for c in counters:
+            c.reset()
+        log = []
+        kw = dict(seed=0, arch=arch, layers=layers, float_pages=not hybrid,
+                  chunked=not hybrid)
+        if hybrid:
+            kw.update(max_len=GEMMA_MAX_LEN,
+                      reqs=_gemma_requests(Request, np, cfg))
+        reqs, build_s, run_s, st = _serve_once(torch, np, step_log=(counters,
+                                                                      log),
+                                               **kw)
+        launches = {c.name: c.count for c in counters}
+        _serve_line(f"engine {arch} ({cfg.n_layers} layers, build "
+                    f"{build_s:.2f} s)", reqs, run_s, st)
+        print(f"launches on the {arch} serving path: {json.dumps(launches)}")
+        sites = _family_sites(cfg)[0] + 1
+        for name in ("fused_quant_gemm", "mx_quant", "global_amax"):
+            if launches[name] != sites:
+                raise AssertionError(f"{arch}: {launches[name]} {name} "
+                                     f"launches, {sites} calibration sites")
+        zero = {c.name: 0 for c in counters}
+        per_step = {**zero, **_family_decode_launches(cfg)}
+        _check_steps(f"{arch} decode", log, per_step)
+        streams = [list(r.out) for r in reqs]
+        row = dict(layers=cfg.n_layers, launches=launches,
+                   decode_step_launches=per_step,
+                   tok_s=sum(map(len, streams)) / run_s,
+                   decode_step_ms=1e3 * st["mean_decode_step_s"],
+                   peak_gib=st["peak_gib"])
+        if hybrid:
+            long = reqs[-1]
+            if long.prompt_len + len(long.out) <= cfg.window:
+                raise AssertionError(f"{arch}: the long request did not "
+                                     "wrap the ring")
+            srv = Server(cfg, random_params(cfg, 0, "cuda"), batch_slots=4,
+                         max_len=GEMMA_MAX_LEN, device="cuda")
+            finite = []
+            srv.decode = _checked(torch, srv.decode, finite)
+            again = _gemma_requests(Request, np, cfg)
+            t0 = time.monotonic()
+            srv.run(again, log=None)
+            torch.cuda.synchronize()
+            srv_s = time.monotonic() - t0
+            toks = sum(len(r.out) for r in again)
+            print(f"legacy Server {arch} ({cfg.n_layers} layers): "
+                  f"{len(again)} requests, {toks} tokens in {srv_s:.2f} s "
+                  f"({toks / srv_s:.1f} tok/s)")
+            if not bool(torch.stack(finite).all()):
+                raise AssertionError(f"{arch} Server: non-finite logits")
+            if [list(r.out) for r in again] != streams:
+                raise AssertionError(f"{arch}: the legacy Server's streams "
+                                     "differ from the engine's")
+            print(f"{arch}: the legacy Server's streams equal the engine's "
+                  f"(the ring wrapped: {long.prompt_len} prompt + "
+                  f"{len(long.out)} tokens on {cfg.window} slots)")
+            row["server_tok_s"] = toks / srv_s
+            del srv
+            torch.cuda.empty_cache()
+        out[arch] = row
+    return out
+
+
+def phase_families_train(torch, np) -> dict:
+    """The three families at full width, depth cut to FAMILY_TRAIN_LAYERS
+    (recurrentgemma's 5: one griffin unit and the 2-layer tail, so both
+    segments run; minitron's 1: its f32 embedding and head, their
+    gradients and moments, and its f32 logits of 1 x 4096 x 256,000 and
+    their gradient, 4.2 GB each), batch 1 x 4096: 3 moss and 3 bf16
+    steps from the same weights on the same batches, launches as counted
+    from the code (``_family_sites``), moss losses within 1e-2 of
+    bf16's.  Returns, per family, the moss launches and each recipe's
+    timing."""
+    from repro_torch.launch.train import quant_from_name
+
+    out = {}
+    for arch in FAMILIES:
+        layers = FAMILY_TRAIN_LAYERS[arch]
+        base = _family_cfg(arch, layers)
+        res = _train_modes(
+            torch, np, arch,
+            lambda mode, base=base: base.replace(quant=quant_from_name(mode)),
+            ("moss", "bf16"), FAMILY_TRAIN_M, f"train {arch}",
+            layer_sites=_family_sites(base)[0],
+            full_layers=_family_cfg(arch, None).n_layers)
+        out[arch] = dict(layers=layers, launches=res["moss"],
+                         timing=res["timing"])
+    return out
+
+
+def phase_head_kernels(torch, timer) -> dict:
+    """Rows 1, 2, 5 and 9 at the 256,000-wide heads: mx_gemm's M <= 32
+    tile at M 4/16/32 over the three families' heads (K, N) (stablelm's
+    5120 x 100,352, minitron's 4096 x 256,000, recurrentgemma's head_t
+    2560 x 256,000: 1.05e9 fp8 weights), and at minitron's training
+    shape, M 4096: fused_quant_gemm forward (e4m3, N 256,000) and dx
+    (e5m2 on the f32 gradient, K 256,000: 4.2 GB of input, past 2^31
+    bytes), mx_dw_gemm (the (4096, 256,000) f32 dW) and mx_quant on the
+    f32 gradient; each against its plain version (payloads bitwise, sums
+    within 1e-5 * max|ref|), timed (5 calls) beside its bound and the
+    library's product.  Returns the kernels line's "families" entries."""
+    from repro_torch.core.quant import mx_operand, quant_mx, quant_per_tensor
+    from repro_torch.kernels import dispatch, mx_bwd, mx_fused, mx_gemm
+    from repro_torch.kernels import mx_quant as mxq
+
+    gen = torch.Generator(device="cuda").manual_seed(27)
+    res = {k: {} for k in ("mx_gemm", "fused_quant_gemm_tiled",
+                           "mx_dw_gemm", "mx_quant")}
+    worst = 0.0
+    for k, n in FAMILY_HEAD_KN:
+        qw = quant_per_tensor(torch.randn(k, n, device="cuda",
+                                          generator=gen) / k ** 0.5).q
+        xq = quant_mx(_activations(torch, gen, max(SMALL_M), k))
+        top = None
+        for m in sorted(SMALL_M, reverse=True):
+            q, se = xq.q[:m].contiguous(), xq.sexp[:m].contiguous()
+            got = mx_gemm.mx_gemm(q, se, qw)
+            want = mx_gemm.mx_gemm_plain(q, se, qw)
+            err = float((got - want).abs().max())
+            scale = float(want.abs().max())
+            top = got if top is None else top
+            if not (err <= 1e-5 * scale and torch.isfinite(got).all()
+                    and torch.equal(got.view(torch.int32),
+                                    top[:m].view(torch.int32))):
+                raise AssertionError(f"mx_gemm head M={m} K={k} N={n}: "
+                                     f"max err {err} > 1e-5 * {scale}, or "
+                                     "rows differ across M")
+            worst = max(worst, err)
+            opnd, wb = mx_operand(q, se), None
+            t = timer.ms(lambda: mx_gemm.mx_gemm(q, se, qw), n=5)
+            wb = qw.to(torch.bfloat16)
+            tl = timer.ms(lambda: torch.matmul(opnd, wb), n=5)
+            del wb
+            b, by = bound_ms(m * k + m * k // 32 + k * n + 4 * m * n,
+                             2.0 * m * n * k)
+            print(f"mx_gemm head M={m:2d} K={k} N={n}: max_err {err:.3g} "
+                  f"(max|ref| {scale:.3g}), {t:.4f} ms, library {tl:.4f} ms "
+                  f"(torch.matmul bf16), bound {b:.4f} ms ({by}), "
+                  f"{b / t:.1%} of the bound")
+            if m == 4:
+                res["mx_gemm"][f"{k}x{n}"] = dict(ms=t, library_ms=tl,
+                                                  bound_ms=b)
+            del got, want
+        del qw, xq, top
+        torch.cuda.empty_cache()
+    res["mx_gemm"]["max_abs_err"] = worst
+    # minitron's head at its training shape
+    k, n = HEAD_TRAIN_KN
+    m = FAMILY_TRAIN_M
+    w = torch.randn(k, n, device="cuda", generator=gen) / k ** 0.5
+    qw = quant_per_tensor(w).q
+    del w
+    x = _activations(torch, gen, m, k)
+    g = torch.randn(m, n, device="cuda", generator=gen) * 1e-3
+    for what, xin, wq, fmt in (("fwd", x, qw, "e4m3"),
+                               ("dx", g, None, "e5m2")):
+        if wq is None:
+            wq = qw.T.contiguous()
+        kk, nn = wq.shape
+        s = dispatch.global_scale(xin, fmt)
+        acc, q, se = mx_fused.fused_quant_gemm(xin, s, wq, fmt)
+        acc_p, q_p, se_p = mx_fused.fused_quant_gemm_plain(xin, s, wq, fmt)
+        q_mis = int((q.view(torch.uint8) != q_p.view(torch.uint8)).sum())
+        e_mis = int((se != se_p).sum())
+        err = float((acc - acc_p).abs().max())
+        scale = float(acc_p.abs().max())
+        if q_mis or e_mis or not (err <= 1e-5 * scale
+                                  and torch.isfinite(acc).all()):
+            raise AssertionError(f"fused_quant_gemm head {what} M={m} "
+                                 f"K={kk} N={nn}: q {q_mis} / sexp {e_mis} "
+                                 f"mismatches, max err {err} (max|ref| "
+                                 f"{scale})")
+        del acc, acc_p, q, se
+        opnd, wb = mx_operand(q_p, se_p), wq.to(torch.bfloat16)
+        del q_p, se_p
+        t = timer.ms(lambda: mx_fused.fused_quant_gemm(xin, s, wq, fmt), n=5)
+        tl = timer.ms(lambda: torch.matmul(opnd, wb), n=5)
+        del opnd, wb
+        b, by = bound_ms(xin.element_size() * m * kk + 4 + kk * nn
+                         + 4 * m * nn + m * kk + m * kk // 32,
+                         2.0 * m * nn * kk)
+        print(f"fused_quant_gemm head {what} {fmt} M={m} K={kk} N={nn}: "
+              f"max_err {err:.3g} (max|ref| {scale:.3g}), payloads bitwise, "
+              f"{t:.4f} ms, library {tl:.4f} ms (torch.matmul bf16), bound "
+              f"{b:.4f} ms ({by}), {b / t:.1%} of the bound")
+        res["fused_quant_gemm_tiled"][what] = dict(
+            m=m, k=kk, n=nn, max_abs_err=err, ms=t, library_ms=tl,
+            bound_ms=b)
+        if what == "dx":
+            # row 9 alone on the f32 gradient (K 256,000 along a row)
+            q_, se_ = mxq.mx_quant(xin, s, fmt)
+            qw_, sw_ = mxq.mx_quant_plain(xin, s, fmt)
+            mis = int((q_.view(torch.uint8) != qw_.view(torch.uint8))
+                      .sum()) + int((se_ != sw_).sum())
+            if mis:
+                raise AssertionError(f"mx_quant head M={m} K={kk}: {mis} "
+                                     "payload mismatches")
+            del q_, se_, qw_, sw_
+            t = timer.ms(lambda: mxq.mx_quant(xin, s, fmt), n=5)
+            b, by = bound_ms(4 * m * kk + m * kk + m * kk // 32, 0.0)
+            print(f"mx_quant head M={m} K={kk} f32 -> {fmt}: payloads "
+                  f"bitwise, {t:.4f} ms, bound {b:.4f} ms ({by}), "
+                  f"{b / t:.1%} of the bound")
+            res["mx_quant"] = dict(m=m, k=kk, ms=t, bound_ms=b,
+                                   max_abs_err=0.0)
+        else:
+            xq_fwd = mxq.mx_quant(xin, s, fmt)
+        del wq
+        torch.cuda.empty_cache()
+    # dW: the forward's residual against the e5m2 gradient: (K, N) f32
+    gq = quant_per_tensor(g, "e5m2").q
+    del g, x
+    acc = mx_bwd.mx_dw_gemm(*xq_fwd, gq, "e4m3")
+    acc_p = mx_bwd.mx_dw_gemm_plain(*xq_fwd, gq, "e4m3")
+    err = float((acc - acc_p).abs().max())
+    scale = float(acc_p.abs().max())
+    if not (err <= 1e-5 * scale and torch.isfinite(acc).all()):
+        raise AssertionError(f"mx_dw_gemm head M={m} K={k} N={n}: max err "
+                             f"{err} > 1e-5 * {scale}")
+    del acc, acc_p
+    torch.cuda.empty_cache()
+    t = timer.ms(lambda: mx_bwd.mx_dw_gemm(*xq_fwd, gq), n=5)
+    opnd, gb = mx_operand(*xq_fwd).T.contiguous(), gq.to(torch.bfloat16)
+    tl = timer.ms(lambda: torch.matmul(opnd, gb), n=5)
+    del opnd, gb
+    b, by = bound_ms(m * k + m * k // 32 + m * n + 4 * k * n, 2.0 * m * n * k)
+    print(f"mx_dw_gemm head M={m} K={k} N={n}: max_err {err:.3g} (max|ref| "
+          f"{scale:.3g}), {t:.4f} ms, library {tl:.4f} ms (torch.matmul "
+          f"bf16), bound {b:.4f} ms ({by}), {b / t:.1%} of the bound")
+    res["mx_dw_gemm"] = dict(m=m, k=k, n=n, max_abs_err=err, ms=t,
+                             library_ms=tl, bound_ms=b)
+    del xq_fwd, gq, qw
+    torch.cuda.empty_cache()
+    return res
+
+
+def _moe_engine_rows(torch, np, mode, quant, label) -> dict:
+    """phi3.5-moe at full width, MOE_SERVE_LAYERS layers, in ``quant``:
+    ``_row_at_b1_and_b4`` on its engine, then phase 4's requests served
+    (floating pages), every decode step's launches gated (the dense
+    combine's expert sites one by one: group_gemm at each delayed site
+    in per_group, the M <= 32 tile in moss, per_tensor's pt_matmul no
+    kernel of its own; decode_attn_paged once a layer).  Where the row
+    moved with the batch, the same requests on one slot (each alone)
+    must give the same streams.  Returns the row's difference, the
+    streams' equality and the serving numbers."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import group_gemm
+
+    cfg = get_config(MOE_ARCH).replace(n_layers=MOE_SERVE_LAYERS)
+    sites = MOE_SERVE_LAYERS * (4 + 3 * cfg.n_experts) + 1
+    counters = _serving_counters() + [group_gemm.counter]
+    zero = {c.name: 0 for c in counters}
+    per_step = {**zero, "decode_attn_paged": MOE_SERVE_LAYERS}
+    if mode == "per_group":
+        per_step["group_gemm"] = sites
+    elif mode == "moss":
+        per_step["mx_gemm"] = sites
+    rows = {}
+
+    def check(eng):
+        rows["d"] = _row_at_b1_and_b4(torch, np, eng, label)
+
+    for c in counters:
+        c.reset()
+    log = []
+    kw = dict(seed=0, arch=MOE_ARCH, layers=MOE_SERVE_LAYERS,
+              over=dict(quant=quant))
+    reqs, build_s, run_s, st = _serve_once(torch, np, step_log=(counters,
+                                                                  log),
+                                           wrap_decode=check, **kw)
+    _serve_line(f"{label} (build {build_s:.2f} s)", reqs, run_s, st)
+    _check_steps(f"{label} decode", log, per_step)
+    mixed = [list(r.out) for r in reqs]
+    out = dict(b1_b4_max_abs=rows["d"], tok_s=sum(map(len, mixed)) / run_s,
+               decode_step_ms=1e3 * st["mean_decode_step_s"],
+               decode_step_launches=per_step)
+    if rows["d"] != 0.0:
+        solo, *_ = _serve_once(torch, np, num_slots=1, **kw)
+        same = [list(r.out) for r in solo] == mixed
+        print(f"{label}: the streams served alone (1 slot) equal the mixed "
+              f"batch's: {same}")
+        if not same:
+            raise AssertionError(f"{label}: a row's arithmetic depends on "
+                                 "its batch and the streams moved with it")
+        out["solo_streams_equal"] = same
+    return out
+
+
+def phase_engine_moe_baselines(torch, np) -> dict:
+    """phi3.5-moe served in the paper's baselines at full width (4 of 32
+    layers, phase 4's requests, weights pre-quantized per (layer,
+    expert) against their own amax, calibrated activation scales per
+    (layer, expert) site): per_group (COAT: group_gemm at every site of
+    every expert, M <= 32) and per_tensor (TE: pt_matmul); and the
+    moss engine's decode row at B 1 against B 4 (the dense combine is
+    meant to keep a token's arithmetic independent of its batch: the
+    router's and the combine's f32 products are cuBLAS's, whose split
+    may follow the batch).  Returns each recipe's numbers."""
+    from repro_torch.core.formats import (MOSS_CONFIG, PER_GROUP_CONFIG,
+                                          PER_TENSOR_CONFIG)
+
+    out = {}
+    for mode, quant in (("per_group", PER_GROUP_CONFIG),
+                        ("per_tensor", PER_TENSOR_CONFIG)):
+        out[mode] = _moe_engine_rows(torch, np, mode, quant,
+                                     f"serve {MOE_ARCH} {mode}")
+    eng = _engine(arch=MOE_ARCH, layers=MOE_SERVE_LAYERS, max_len=64,
+                  over=dict(quant=MOSS_CONFIG))
+    out["moss"] = dict(b1_b4_max_abs=_row_at_b1_and_b4(
+        torch, np, eng, f"serve {MOE_ARCH} moss"))
+    del eng
+    torch.cuda.empty_cache()
+    return out
 
 
 def phase_small_train_reference(torch, np):
@@ -3418,9 +3996,10 @@ def phase_small_train_reference(torch, np):
     and on the CPU from the same initial state and batches, each device
     on its own trajectory, in moss (rescale_interval 2, so a refresh
     happens), per_group and per_tensor; so do the smoke-size llama2-7b
-    in moss and the smoke-size phi3.5-moe and deepseek-v2-lite-16b in
+    in moss, the smoke-size phi3.5-moe and deepseek-v2-lite-16b in
     moss on the grouped route (moe_decode_dense off, so their 128 tokens
-    take the grouped kernels): losses within 1e-2
+    take the grouped kernels), and the smoke-size stablelm-12b,
+    minitron-8b and recurrentgemma-2b in moss: losses within 1e-2
     relative and equal scale_t at every step (f32 sums in another order
     and the rare fp8 rounding flip they cause)."""
     from repro_torch.configs.registry import get_config
@@ -3440,6 +4019,9 @@ def phase_small_train_reference(torch, np):
                                             "moss", smoke=True, interval=2)))
     runs.append((MLA_ARCH, "moss", get_config(MLA_ARCH, smoke=True).replace(
         quant=quant_from_name("moss", 2), moe_decode_dense=False)))
+    for arch in FAMILIES:
+        runs.append((arch, "moss", get_config(arch, smoke=True).replace(
+            quant=quant_from_name("moss", 2))))
     for arch, mode, cfg in runs:
         hp = TrainHParams(peak_lr=1e-3, warmup_steps=0, total_steps=3)
         data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=64,
@@ -3493,6 +4075,9 @@ def main() -> int:
     res.update(phase_verify_kernels(torch, timer))
     print(f"phase kernels: {time.monotonic() - t0:.1f} s")
     t0 = time.monotonic()
+    heads = phase_head_kernels(torch, timer)
+    print(f"phase head kernels: {time.monotonic() - t0:.1f} s")
+    t0 = time.monotonic()
     launches, plain, gaps = phase_engine(torch, np)
     print(f"phase engine: {time.monotonic() - t0:.1f} s")
     t0 = time.monotonic()
@@ -3514,13 +4099,20 @@ def main() -> int:
     phase_engine_moe(torch, np)
     print(f"phase engine moe: {time.monotonic() - t0:.1f} s")
     t0 = time.monotonic()
+    moe_baselines = phase_engine_moe_baselines(torch, np)
+    print(f"phase engine moe baselines: {time.monotonic() - t0:.1f} s")
+    t0 = time.monotonic()
     mla_serve_launches = phase_engine_mla(torch, np)
     print(f"phase engine mla: {time.monotonic() - t0:.1f} s")
     t0 = time.monotonic()
     ring_launches = phase_engine_ring(torch, np)
     print(f"phase engine ring: {time.monotonic() - t0:.1f} s")
     t0 = time.monotonic()
+    fam_serve = phase_families_serve(torch, np)
+    print(f"phase engine families: {time.monotonic() - t0:.1f} s")
+    t0 = time.monotonic()
     phase_small_reference(torch, np)
+    phase_small_families(torch, np)
     print(f"phase small serving vs CPU: {time.monotonic() - t0:.1f} s")
     t0 = time.monotonic()
     phase_table6(torch, timer)
@@ -3536,8 +4128,12 @@ def main() -> int:
     mla_res, mla_train_launches = phase_mla_train(torch, np)
     print(f"phase mla train: {time.monotonic() - t0:.1f} s")
     t0 = time.monotonic()
+    fam_train = phase_families_train(torch, np)
+    print(f"phase families train: {time.monotonic() - t0:.1f} s")
+    t0 = time.monotonic()
     phase_small_train_reference(torch, np)
     print(f"phase small train vs CPU: {time.monotonic() - t0:.1f} s")
+    vmapped_ab = moe_res.pop("vmapped_ab")
     res.update(moe_res)
     # each row's launches come from its path: the serving kernels'
     # (mx_gemm is the M <= 32 tile, decode steps' and calibration's;
@@ -3568,6 +4164,22 @@ def main() -> int:
             res[name].setdefault("deepseek", {})["launches"] = dict(
                 serving=mla_serve_launches.get(name, 0),
                 training=mla_train_launches.get(name, 0))
+    # the three families' rows: the kernel checks at their shapes (the
+    # 256,000-wide heads, Dh 160) and each kernel's launches on their
+    # serving and training paths, each counted from 0 for that path
+    for name, row in heads.items():
+        res[name]["families"] = row
+    res["decode_attn_paged"].setdefault("families", {})
+    for name in REPLACES:
+        n = {arch: dict(serving=fam_serve[arch]["launches"].get(name, 0),
+                        training=fam_train[arch]["launches"].get(name, 0))
+             for arch in FAMILIES}
+        if any(v["serving"] or v["training"] for v in n.values()):
+            res[name].setdefault("families", {})["launches"] = n
+    res["group_gemm"]["moe_baselines"] = moe_baselines
+    res["moe_gmm"]["vmapped_ab"] = vmapped_ab
+    print("families: " + json.dumps({"serving": fam_serve,
+                                     "training": fam_train}))
     kernels = [dict(name=name, route="cuda", source=SOURCES[name],
                     replaces=REPLACES[name], launches=launches[name],
                     **{k: res[name][k] for k in
@@ -3578,7 +4190,10 @@ def main() -> int:
                     **({"deepseek": res[name]["deepseek"]}
                        if "deepseek" in res[name] else {}),
                     **({"serving": res[name]["serving"]}
-                       if "serving" in res[name] else {}))
+                       if "serving" in res[name] else {}),
+                    **{k: res[name][k] for k in ("families", "moe_baselines",
+                                                 "vmapped_ab")
+                       if k in res[name]})
                for name in REPLACES]
     print(f"chip_smoke: {time.monotonic() - t_start:.1f} s in all")
     print(json.dumps({"kernels": kernels}))

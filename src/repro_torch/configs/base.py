@@ -1,7 +1,7 @@
 """Model configuration dataclass (counterpart of
 ``repro.configs.base.ModelConfig``): the reference's fields that the
-ported families (dense, moe, mla_moe) read, or that the port refuses
-when set (``models.transformer.build_segments``)."""
+ported families (dense, moe, mla_moe, hybrid) read, or that the port
+refuses when set (``models.transformer.build_segments``)."""
 
 from __future__ import annotations
 
@@ -50,6 +50,10 @@ class ModelConfig:
     q_nope: int = 128
     q_rope: int = 64
     v_head: int = 128
+
+    # --- hybrid (recurrentgemma): the RG-LRU block ---
+    lru_width: int = 0
+    conv_width: int = 4
 
     # --- io / misc ---
     input_mode: Literal["tokens", "embeddings"] = "tokens"

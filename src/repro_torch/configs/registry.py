@@ -13,16 +13,16 @@ ARCHS: dict[str, str] = {
     "phi3.5-moe-42b-a6.6b": "phi35_moe_42b",
     "h2o-danube-3-4b": "h2o_danube3_4b",
     "deepseek-v2-lite-16b": "deepseek_v2_lite_16b",
+    "stablelm-12b": "stablelm_12b",
+    "minitron-8b": "minitron_8b",
+    "recurrentgemma-2b": "recurrentgemma_2b",
 }
 
 # reference archs whose families or features the port does not have yet
 NOT_PORTED = {
-    "stablelm-12b": "queue 1 item 11 (qk-norm, partial rotary)",
-    "minitron-8b": "queue 1 item 11 (squared-ReLU, partial rotary)",
     "musicgen-medium": "queue 1 item 11 (embeddings input)",
-    "recurrentgemma-2b": "queue 1 item 11 (RG-LRU hybrid)",
-    "phi-3-vision-4.2b": "queue 1 item 11 (vision)",
-    "rwkv6-3b": "queue 1 item 11 (RWKV6)",
+    "phi-3-vision-4.2b": "queue 1 item 11 (embeddings input, vision)",
+    "rwkv6-3b": "queue 1 item 11 (RWKV6, the chunked WKV recurrence)",
 }
 
 

@@ -86,9 +86,13 @@ def _quantize_w(cfg: QuantConfig, w: torch.Tensor,
             w_scale, dtype=torch.float32, device=w.device))
     if cfg.weight_cast_bf16:
         w = w.to(torch.bfloat16)
+    # row-major payload whatever w's layout (a tied head multiplies by
+    # the embedding transposed)
     if cfg.weight_scaling == "auto":
-        return quant_per_tensor(w, cfg.fwd_format, scale=w_scale)
-    return quant_per_tensor(w, cfg.fwd_format)
+        wq = quant_per_tensor(w, cfg.fwd_format, scale=w_scale)
+    else:
+        wq = quant_per_tensor(w, cfg.fwd_format)
+    return wq._replace(q=wq.q.contiguous())
 
 
 def _fwd_gemm(cfg: QuantConfig, x2d: torch.Tensor, wq: PerTensorQ):

@@ -33,8 +33,10 @@ Serving and training flags
     it.  The KV-cache dtype is the
     config's ``kv_cache_dtype`` alone: ``REPRO_KV_CACHE``, the
     reference's override of it, is refused whenever it is set, so that
-    it cannot be silently ignored.  ``check_train_env`` does the same
-    for the training CLI's one reference switch, ``REPRO_MOE_EXPERTS``.
+    it cannot be silently ignored.  The training CLI's one reference
+    switch, ``REPRO_MOE_EXPERTS`` (``grouped`` or ``vmapped``), is read
+    by ``moe_expert_path``, which refuses another value (the CLI reads
+    it before training starts).
 """
 
 from __future__ import annotations
@@ -147,16 +149,21 @@ def check_serving_env() -> None:
                 f"{name}={got!r} is not ported yet: ROADMAP {entry}")
 
 
-def check_train_env() -> None:
-    """Raise ``NotImplementedError`` when ``REPRO_MOE_EXPERTS`` asks for
-    another MoE expert path than the one the port implements: moss and
-    bf16 run the grouped kernels (``grouped``, the reference's default);
-    the reference's ``vmapped`` A/B path for them is not ported."""
-    got = os.environ.get("REPRO_MOE_EXPERTS", "").strip()
-    if got and got != "grouped":
-        raise NotImplementedError(
-            f"REPRO_MOE_EXPERTS={got!r} is not ported: the port runs "
-            "moss and bf16 experts grouped (ROADMAP queue 1 item 10)")
+MOE_EXPERT_PATHS = ("grouped", "vmapped")
+
+
+def moe_expert_path() -> str:
+    """The MoE expert path of moss and bf16 training and prefill
+    (``REPRO_MOE_EXPERTS``, the reference's A/B switch): ``grouped``
+    (the default: the grouped kernels, three launches a block) or
+    ``vmapped`` (one expert at a time through ``qlinear``, as the
+    baselines and the serving modes always run).  Another value raises
+    ``ValueError``."""
+    env = os.environ.get("REPRO_MOE_EXPERTS", "").strip()
+    if env and env not in MOE_EXPERT_PATHS:
+        raise ValueError(f"REPRO_MOE_EXPERTS={env!r}: expected one of "
+                         f"{MOE_EXPERT_PATHS}")
+    return env or "grouped"
 
 
 def _bf16_values(t: torch.Tensor) -> torch.Tensor:

@@ -8,7 +8,10 @@ and the MoE layers after it, on identity rows with the whole-prompt
 prefill, as the engine serves MLA's latent cache; or with ``--arch
 h2o-danube-3-4b`` the windowed model on identity rows with the
 whole-prompt prefill, its prompts at or past the 4096-token window so
-that every decode step reads a full ring),
+that every decode step reads a full ring; ``--arch stablelm-12b`` or
+``minitron-8b`` at ``FAMILY_SERVE_LAYERS`` on floating pages, or
+``--arch recurrentgemma-2b`` at full depth on identity rows with the
+exact-length whole-prompt prefill),
 serves one untraced warm-up trace, then serves a second trace under
 ``torch.profiler`` with every model step inside a ``decode_step``,
 ``prefill_chunk``, ``prefill`` (whole-prompt) or, under
@@ -54,6 +57,9 @@ GPU_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 # even in bf16.  Must equal chip_smoke.py's MOE_SERVE_LAYERS and
 # MLA_SERVE_LAYERS, whose serving phases this profiles.
 MOE_SERVE_LAYERS = 4
+# stablelm-12b's and minitron-8b's serving depth (of 40 and 32): must
+# equal chip_smoke.py's FAMILY_SERVE_LAYERS
+FAMILY_SERVE_LAYERS = {"stablelm-12b": 8, "minitron-8b": 8}
 SPANS = ("decode_step", "prefill_chunk", "prefill", "verify_step")
 # the port's own kernels (csrc/*.cu), by the name the trace gives them
 # (decode attention is one launch: its cluster holds the split over the
@@ -165,7 +171,9 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="phi3-mini-3.8b",
                     choices=("phi3-mini-3.8b", "phi3.5-moe-42b-a6.6b",
-                             "deepseek-v2-lite-16b", "h2o-danube-3-4b"))
+                             "deepseek-v2-lite-16b", "h2o-danube-3-4b",
+                             "stablelm-12b", "minitron-8b",
+                             "recurrentgemma-2b"))
     ap.add_argument("--trace", default="serve_trace.json",
                     help="where to write the Chrome trace")
     args = ap.parse_args(argv)
@@ -177,8 +185,16 @@ def main(argv=None):
         # the leading dense layers stay (the cut keeps the first layers)
         cfg = cfg.replace(n_layers=max(MOE_SERVE_LAYERS,
                                        cfg.first_dense + 1))
+    elif args.arch in FAMILY_SERVE_LAYERS:
+        cfg = cfg.replace(n_layers=FAMILY_SERVE_LAYERS[args.arch])
     params = random_params(cfg, 0, "cuda")
-    if args.arch != "h2o-danube-3-4b":
+    if cfg.family == "hybrid":
+        # chip_smoke.py's recurrentgemma engine: identity rows over its
+        # 2048-slot rings, the whole-prompt prefill at the exact length
+        eng = Engine(cfg, params, 4, max_len=2176, device="cuda")
+        warm = make_requests(cfg, 8, 48, 16, seed=0)
+        reqs = make_requests(cfg, 8, 48, 16, seed=1)
+    elif args.arch != "h2o-danube-3-4b":
         # chip_smoke.py's engine: 4 slots, 64-token slots of 16-token
         # pages, 8 requests of 16 new tokens (prompts here of 24-48)
         eng = Engine(cfg, params, 4, max_len=64, page_size=16,

@@ -5,7 +5,9 @@ olmo-7b (depth cut to 4 layers, batch 1 x 2048), with ``--arch
 phi3.5-moe-42b-a6.6b`` the MoE model (depth cut to 1 layer, batch
 2 x 4096: the grouped-expert kernels) or with ``--arch
 deepseek-v2-lite-16b`` the MLA MoE model (its dense layer and 2 MoE
-layers, batch 2 x 4096) -- in moss or ``--quant``, takes
+layers, batch 2 x 4096), or stablelm-12b, minitron-8b or
+recurrentgemma-2b at chip_smoke.py's depths (2, 1 and 5 layers, batch
+1 x 4096) -- in moss or ``--quant``, takes
 one untraced warm-up step and two timed untraced steps, then two steps
 under ``torch.profiler``, each inside a ``train_step`` span.  From the
 Chrome trace it reports per step the host span, the card's busy time
@@ -45,7 +47,11 @@ SPAN = "train_step"
 # chip_smoke.py's training cells: (layers, batch, seq)
 CELLS = {"olmo-7b": (4, 1, 2048),               # TRAIN_LAYERS, TRAIN_M
          "phi3.5-moe-42b-a6.6b": (1, 2, 4096),  # MOE_LAYERS, MOE_BATCH/SEQ
-         "deepseek-v2-lite-16b": (3, 2, 4096)}  # MLA_TRAIN_LAYERS, MLA_*
+         "deepseek-v2-lite-16b": (3, 2, 4096),  # MLA_TRAIN_LAYERS, MLA_*
+         # FAMILY_TRAIN_LAYERS, FAMILY_TRAIN_M
+         "stablelm-12b": (2, 1, 4096),
+         "minitron-8b": (1, 1, 4096),
+         "recurrentgemma-2b": (5, 1, 4096)}
 
 
 def main(argv=None):

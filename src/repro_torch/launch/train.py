@@ -31,7 +31,7 @@ import torch
 
 from repro_torch.configs.registry import get_config
 from repro_torch.core.formats import QuantConfig
-from repro_torch.core.runtime_flags import check_train_env
+from repro_torch.core.runtime_flags import moe_expert_path
 from repro_torch.data.pipeline import DataConfig, SyntheticLM
 from repro_torch.train.steps import (
     TrainHParams,
@@ -66,7 +66,7 @@ def train(arch: str, *, smoke: bool = True, steps: int = 100,
     if ckpt_dir is not None or mesh is not None:
         raise NotImplementedError(
             "checkpoints and meshes: ROADMAP queue 1 item 13")
-    check_train_env()
+    moe_expert_path()             # refuses an unknown REPRO_MOE_EXPERTS
     device = torch.device(device)
     cfg = get_config(arch, smoke=smoke).replace(
         quant=quant_from_name(quant, interval))

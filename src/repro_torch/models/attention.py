@@ -35,7 +35,7 @@ from repro_torch.core.linear import QT, dense_general
 from repro_torch.core.runtime_flags import decode_attn_path, einsum
 from repro_torch.kernels import dispatch
 from ._attn_core import NEG_INF, _window, chunked_attention
-from .layers import PDef, apply_rope
+from .layers import PDef, _mean, _rsqrt, apply_rope
 
 
 class KVCache(NamedTuple):
@@ -90,12 +90,16 @@ def _dequant_kv(q, s, dtype=torch.bfloat16):
 
 def attn_defs(cfg):
     d, h, kv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.head_dim
-    return {
+    defs = {
         "wq": PDef((d, h, dh), ("fsdp", "heads", None), quantized=True),
         "wk": PDef((d, kv, dh), ("fsdp", "kv_heads", None), quantized=True),
         "wv": PDef((d, kv, dh), ("fsdp", "kv_heads", None), quantized=True),
         "wo": PDef((h, dh, d), ("heads", None, "fsdp"), quantized=True),
     }
+    if cfg.qk_norm:
+        defs["q_norm"] = PDef((dh,), (None,), "ones")
+        defs["k_norm"] = PDef((dh,), (None,), "ones")
+    return defs
 
 
 def cache_len(cfg, max_len: int) -> int:
@@ -133,10 +137,22 @@ def init_page_pool(cfg, num_pages: int, page_size: int, n_layers: int,
     return z, z.clone(), None, None
 
 
+def _qk_norm(x, scale, eps):
+    """Per-head RMS over Dh in f32 times the per-head-dim ``scale`` (no
+    1 + scale, unlike ``layers.rmsnorm``); the f32 result, which the
+    caller rounds."""
+    xf = x.to(torch.float32)
+    return xf * _rsqrt(_mean(xf * xf) + eps) * scale.to(torch.float32)
+
+
 def _project_qkv(cfg, p, x, positions, qcfg: QuantConfig):
     q = dense_general(x, p["wq"], qcfg)                  # (B,S,H,Dh)
     k = dense_general(x, p["wk"], qcfg)                  # (B,S,KV,Dh)
     v = dense_general(x, p["wv"], qcfg)
+    if cfg.qk_norm:
+        # after the projections, before RoPE
+        q = _qk_norm(q, p["q_norm"], cfg.norm_eps).to(x.dtype)
+        k = _qk_norm(k, p["k_norm"], cfg.norm_eps).to(x.dtype)
     if cfg.pos_embedding == "rope":
         q = apply_rope(q, positions, cfg.rope_theta, cfg.rope_pct)
         k = apply_rope(k, positions, cfg.rope_theta, cfg.rope_pct)

@@ -17,14 +17,14 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import xla_cpu_numerics
-from repro_torch.core.formats import QuantConfig
+from repro_torch.core.formats import QuantConfig, div_c
 from repro_torch.core.linear import QT, qlinear
 
 
 class PDef(NamedTuple):
     shape: tuple[int, ...]
     logical: tuple[str | None, ...]
-    init: str = "normal"              # normal | zeros | ones | embed
+    init: str = "normal"              # normal | zeros | ones | embed | small
     quantized: bool = False
     dtype: Any = torch.float32
 
@@ -47,6 +47,8 @@ def init_param(d: PDef, gen: torch.Generator,
     x = torch.empty(d.shape, dtype=d.dtype, device=device)
     if d.init == "embed":
         return x.normal_(0.0, 0.02, generator=gen)
+    if d.init == "small":
+        return x.normal_(0.0, 0.006, generator=gen)
     # truncated-normal (+-2 sigma) fan-in init for linear weights, by
     # inverse CDF of a uniform draw
     std = 1.0 / math.sqrt(max(d.shape[0], 1))
@@ -127,12 +129,30 @@ def broadcast(x: torch.Tensor, n: int, dim: int) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+def _row_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last dim in one order for every row whatever the
+    number of rows: halve the row with elementwise adds while its length
+    is even, then add what is left from the left.  (PyTorch's CUDA
+    reductions pick their split of a row from the number of rows, so a
+    decode row's norm at B 1 differed from the same row's at B 4 in 13
+    of 3072 bf16 outputs on phi3-mini.)"""
+    k = x.shape[-1]
+    while k % 2 == 0 and k > 1:
+        k //= 2
+        x = x[..., :k] + x[..., k:]
+    total = x[..., 0]
+    for i in range(1, k):
+        total = total + x[..., i]
+    return total
+
+
 def _mean(xf: torch.Tensor) -> torch.Tensor:
     """f32 mean over the last dim, keepdim; on the CPU in the
-    reference's order (``core.xla_cpu_numerics``)."""
+    reference's order (``core.xla_cpu_numerics``), on the card in an
+    order that no other row changes (``_row_sum``)."""
     if xf.device.type == "cpu":
         return xla_cpu_numerics.mean(xf)
-    return xf.mean(dim=-1, keepdim=True)
+    return div_c(_row_sum(xf), float(xf.shape[-1]))[..., None]
 
 
 def _rsqrt(v: torch.Tensor) -> torch.Tensor:
@@ -207,22 +227,51 @@ def apply_rope(x, positions, theta: float = 1e4, pct: float = 1.0):
 
 
 # ---------------------------------------------------------------------------
-# FFN
+# Activations
+# ---------------------------------------------------------------------------
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``'s default, the tanh approximation, of f32 ``x``;
+    on the CPU in the reference's arithmetic."""
+    if x.device.type == "cpu":
+        return xla_cpu_numerics.gelu_tanh(x)
+    return F.gelu(x, approximate="tanh")
+
+
+def tanh(x: torch.Tensor) -> torch.Tensor:
+    if x.device.type == "cpu":
+        return xla_cpu_numerics.tanh(x)
+    return torch.tanh(x)
+
+
+# ---------------------------------------------------------------------------
+# FFN: SwiGLU, GeGLU, GELU-MLP, squared ReLU
 # ---------------------------------------------------------------------------
 
 
 def ffn_defs(cfg, d_ff: int | None = None):
+    """``w_up`` and ``w_down``, and ``w_gate`` for the gated forms."""
     d, f = cfg.d_model, d_ff or cfg.d_ff
-    return {"w_up": PDef((d, f), ("fsdp", "mlp"), quantized=True),
-            "w_gate": PDef((d, f), ("fsdp", "mlp"), quantized=True),
+    defs = {"w_up": PDef((d, f), ("fsdp", "mlp"), quantized=True),
             "w_down": PDef((f, d), ("mlp", "fsdp"), quantized=True)}
+    if cfg.act in ("swiglu", "geglu"):
+        defs["w_gate"] = PDef((d, f), ("fsdp", "mlp"), quantized=True)
+    return defs
 
 
 def apply_ffn(cfg, p, x, qcfg: QuantConfig):
-    """SwiGLU (the other activations are not ported yet)."""
     up = qlinear(x, p["w_up"], qcfg)
-    gate = qlinear(x, p["w_gate"], qcfg)
-    h = F.silu(gate.to(torch.float32)).to(x.dtype) * up
+    if cfg.act == "swiglu":
+        gate = qlinear(x, p["w_gate"], qcfg)
+        h = F.silu(gate.to(torch.float32)).to(x.dtype) * up
+    elif cfg.act == "geglu":
+        gate = qlinear(x, p["w_gate"], qcfg)
+        h = gelu(gate.to(torch.float32)).to(x.dtype) * up
+    elif cfg.act == "relu2":
+        h = torch.square(F.relu(up.to(torch.float32))).to(x.dtype)
+    else:                                               # gelu_mlp
+        h = gelu(up.to(torch.float32)).to(x.dtype)
     return qlinear(h, p["w_down"], qcfg)
 
 
@@ -232,18 +281,46 @@ def apply_ffn(cfg, p, x, qcfg: QuantConfig):
 
 
 def embed_defs(cfg):
-    """Untied embedding and LM head (tied heads are not ported yet)."""
-    return {"embedding": PDef((cfg.vocab, cfg.d_model), ("vocab", "fsdp"),
-                              "embed"),
-            "head": PDef((cfg.d_model, cfg.vocab), ("fsdp", "vocab"),
-                         quantized=True)}
+    """The embedding, and an untied LM head (a tied model's head is the
+    embedding transposed)."""
+    defs = {"embedding": PDef((cfg.vocab, cfg.d_model), ("vocab", "fsdp"),
+                              "embed")}
+    if not cfg.tie_embeddings:
+        defs["head"] = PDef((cfg.d_model, cfg.vocab), ("fsdp", "vocab"),
+                            quantized=True)
+    return defs
 
 
 def embed_tokens(cfg, p, tokens):
+    """The rows of the embedding in bf16; with ``embed_scale`` times
+    sqrt(d) rounded to bf16 first, as the reference multiplies (sqrt(2560)
+    is 50.596..., 50.5 in bf16)."""
     emb = p["embedding"]
     emb = emb.w if isinstance(emb, QT) else emb
-    return emb[tokens.long()].to(torch.bfloat16)
+    x = emb[tokens.long()].to(torch.bfloat16)
+    if cfg.embed_scale:
+        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=torch.bfloat16,
+                             device=x.device)
+    return x
 
 
 def lm_head(cfg, p, x, qcfg: QuantConfig):
-    return qlinear(x, p["head"], qcfg).to(torch.float32)
+    """f32 logits.  A tied model multiplies by the embedding transposed,
+    its weight scale taken just in time; a served one by the
+    pre-quantized transposed head ``head_t`` (``train.steps.
+    prequantize_params``).  ``logit_softcap`` c: tanh(logits / c) * c in
+    f32."""
+    if cfg.tie_embeddings:
+        if "head_t" in p:
+            logits = qlinear(x, p["head_t"], qcfg)
+        else:
+            emb = p["embedding"]
+            w = (emb.w if isinstance(emb, QT) else emb).T
+            logits = qlinear(x, QT(w, None), qcfg)
+    else:
+        logits = qlinear(x, p["head"], qcfg)
+    logits = logits.to(torch.float32)
+    if cfg.logit_softcap > 0:
+        c = cfg.logit_softcap
+        logits = tanh(div_c(logits, c)) * c
+    return logits

@@ -39,9 +39,14 @@ import torch.nn.functional as F
 
 from repro_torch.core.formats import QuantConfig
 from repro_torch.core.linear import QT, qlinear, qlinear_grouped
-from .layers import PDef, broadcast
+from repro_torch.core.runtime_flags import moe_expert_path
+from .layers import PDef, _row_sum, broadcast
 
 DENSE_MAX_TOKENS = 4096     # the dense combine's limit under moe_decode_dense
+# up to this many tokens the card takes the router's product in one
+# fixed order a row (the serving rows: decode, verify, chunks,
+# calibration), so that a row's routing does not depend on its batch
+FIXED_ORDER_TOKENS = 256
 
 
 def moe_defs(cfg):
@@ -117,18 +122,27 @@ def _experts_grouped(cfg, p, xs, sizes, qcfg):
 
 def _expert_runner(cfg, p, qcfg):
     """fn(xs, sizes) -> ys: moss and bf16 through the grouped kernels
-    (bf16 grouped computes the same dots over the same rows as one by
-    one), the per-tensor and per-group baselines one expert at a time."""
-    if qcfg.mode in ("moss", "bf16"):
+    (the same dots over the same rows as one by one) unless
+    ``REPRO_MOE_EXPERTS=vmapped``; the per-tensor and per-group
+    baselines one expert at a time."""
+    if qcfg.mode in ("moss", "bf16") and moe_expert_path() == "grouped":
         return lambda xs, sizes: _experts_grouped(cfg, p, xs, sizes, qcfg)
     return lambda xs, sizes: _experts_vmapped(cfg, p, xs, qcfg)
 
 
 def router_probs(cfg, p, x_flat):
-    """The f32 router: (logits, softmax probs)."""
+    """The f32 router: (logits, softmax probs).  On the card, up to
+    ``FIXED_ORDER_TOKENS`` rows, each row's logits are summed in one
+    order (``layers._row_sum``): cuBLAS picks its split of K from the
+    number of rows, so a decode row routed at B 1 and at B 4 could
+    differ."""
     w = p["router"]
-    w = w.w if isinstance(w, QT) else w
-    logits = x_flat.to(torch.float32) @ w.to(torch.float32)
+    w = (w.w if isinstance(w, QT) else w).to(torch.float32)
+    xf = x_flat.to(torch.float32)
+    if xf.device.type == "cuda" and xf.shape[0] <= FIXED_ORDER_TOKENS:
+        logits = _row_sum(xf[:, None, :] * w.T[None])
+    else:
+        logits = xf @ w
     return logits, torch.softmax(logits, dim=-1)
 
 
@@ -217,7 +231,13 @@ def _dense_moe(cfg, p, x_flat, top_w, top_ids, qcfg):
         1, top_ids.long(), top_w.to(torch.float32))
     xs = broadcast(x_flat, cfg.n_experts, 0)            # (E,T,d) view
     ys = _experts_vmapped(cfg, p, xs, qcfg)              # (E,T,d)
-    y = torch.einsum("etd,te->td", ys.to(torch.float32), combine)
+    if ys.device.type == "cuda":
+        # each row's sum over the experts in one order, whatever T
+        # (an einsum's cuBLAS split follows the batch)
+        y = _row_sum((ys.to(torch.float32)
+                      * combine.T[:, :, None]).movedim(0, -1))
+    else:
+        y = torch.einsum("etd,te->td", ys.to(torch.float32), combine)
     return y.to(x_flat.dtype)
 
 
@@ -236,11 +256,6 @@ def moe_block(cfg, p, x, qcfg: QuantConfig, mode: str = "train"):
     bad = _unsupported()
     if bad:
         raise NotImplementedError(bad)
-    if qcfg.mode in ("per_group", "per_tensor") and (
-            mode in ("decode", "verify") or REC.recording):
-        raise NotImplementedError(
-            f"serving a MoE model in {qcfg.mode!r} (the dense combine "
-            "one expert at a time): ROADMAP queue 1 entry 6")
     b, s, d = x.shape
     x_flat = x.reshape(-1, d)
     t = x_flat.shape[0]

@@ -1,8 +1,13 @@
 """Model assembly (counterpart of ``repro.models.transformer``, the dense,
-MoE and MLA-MoE families): embed -> segments of repeated blocks -> final
-norm -> LM head, and the token cross-entropy.  deepseek's leading dense
-layers are a segment of their own (``dense0``) before the MoE
-``blocks``.  Params are stacked over layers like the
+MoE, MLA-MoE and hybrid families): embed -> segments of repeated blocks
+-> final norm -> LM head, and the token cross-entropy.  deepseek's
+leading dense layers are a segment of their own (``dense0``) before the
+MoE ``blocks``; recurrentgemma's are ``griffin`` units of (recurrent,
+recurrent, local attention) and a ``tail_rec`` segment of the
+``n_layers % 3`` recurrent blocks left over.  A segment's cache is one
+node (``KVCache``, ``MLACache``, ``RGLRUState``) or a griffin unit's
+tuple of three; every node of a segment shares one ``idx``.  Params are
+stacked over layers like the
 reference's; the layer scan is a Python loop over them.  In ``train``
 mode the forward runs under autograd, each layer under
 ``torch.utils.checkpoint`` when ``cfg.remat`` is set (the reference's
@@ -20,6 +25,7 @@ from repro_torch.core.formats import QuantConfig
 from . import attention as attn_mod
 from . import mla as mla_mod
 from . import moe as moe_mod
+from . import rglru as rglru_mod
 from .attention import KVCache
 from .layers import (
     apply_ffn,
@@ -96,22 +102,54 @@ def _moe_apply(cfg, qcfg, p, x, pos, cache, mode):
     return x + h, cache, aux
 
 
+def _rec_unit(cfg):
+    return {
+        "ln1": norm_defs(cfg, cfg.d_model),
+        "rec": rglru_mod.rglru_defs(cfg),
+        "ln2": norm_defs(cfg, cfg.d_model),
+        "ffn": ffn_defs(cfg),
+    }
+
+
+def _rec_apply(cfg, qcfg, p, x, pos, cache, mode):
+    h, cache = rglru_mod.rglru_block(cfg, p["rec"],
+                                     apply_norm(cfg, p["ln1"], x), qcfg,
+                                     cache, mode)
+    x = x + h
+    h = apply_ffn(cfg, p["ffn"], apply_norm(cfg, p["ln2"], x), qcfg)
+    return x + h, cache, None
+
+
+def _griffin_unit(cfg):
+    """RecurrentGemma's repeating unit: (rec, rec, local attention),
+    each with its own FFN."""
+    return {"rec0": _rec_unit(cfg), "rec1": _rec_unit(cfg),
+            "attn0": _dense_unit(cfg)}
+
+
+def _griffin_apply(cfg, qcfg, p, x, pos, cache, mode):
+    cache = cache if cache is not None else (None, None, None)
+    x, c0, _ = _rec_apply(cfg, qcfg, p["rec0"], x, pos, cache[0], mode)
+    x, c1, _ = _rec_apply(cfg, qcfg, p["rec1"], x, pos, cache[1], mode)
+    x, c2, _ = _dense_apply(cfg, qcfg, p["attn0"], x, pos, cache[2], mode)
+    return x, (c0, c1, c2), None
+
+
+def _griffin_cache(cfg, batch, max_len, device):
+    return (rglru_mod.init_rglru_state(cfg, batch, device=device),
+            rglru_mod.init_rglru_state(cfg, batch, device=device),
+            attn_mod.init_cache(cfg, batch, max_len, device))
+
+
 def _unsupported(cfg) -> list[str]:
-    """What of ``cfg`` the port cannot run yet."""
+    """What of ``cfg`` the port cannot run yet: the embeddings input
+    (musicgen, phi-3-vision) and its sinusoidal positions, and RWKV6."""
     checks = {
         f"family {cfg.family!r}": cfg.family not in ("dense", "moe",
-                                                     "mla_moe"),
+                                                     "mla_moe", "hybrid"),
         f"input_mode {cfg.input_mode!r}": cfg.input_mode != "tokens",
         f"pos_embedding {cfg.pos_embedding!r}":
             cfg.pos_embedding not in ("rope", "none"),
-        f"attn_type {cfg.attn_type!r}": cfg.attn_type not in ("full",
-                                                              "swa"),
-        f"act {cfg.act!r}": cfg.act != "swiglu",
-        f"norm {cfg.norm!r}": cfg.norm not in ("rmsnorm", "layernorm"),
-        "qk_norm": cfg.qk_norm,
-        "logit_softcap": cfg.logit_softcap > 0,
-        "tie_embeddings": cfg.tie_embeddings,
-        "embed_scale": cfg.embed_scale,
     }
     return [name for name, bad in checks.items() if bad]
 
@@ -136,6 +174,14 @@ def build_segments(cfg) -> list[Segment]:
     if cfg.family == "moe":
         return [Segment("blocks", cfg.n_layers, _moe_unit(cfg), _moe_apply,
                         init)]
+    if cfg.family == "hybrid":
+        n_units, rem = divmod(cfg.n_layers, 3)
+        segs = [Segment("griffin", n_units, _griffin_unit(cfg),
+                        _griffin_apply, _griffin_cache)]
+        if rem:
+            segs.append(Segment("tail_rec", rem, _rec_unit(cfg), _rec_apply,
+                                rglru_mod.init_rglru_state))
+        return segs
     return [Segment("blocks", cfg.n_layers, _dense_unit(cfg), _dense_apply,
                     init)]
 
@@ -150,34 +196,62 @@ def model_defs(cfg) -> dict:
     return defs
 
 
+def cache_nodes(c) -> list:
+    """The nodes of one segment's cache: the node, or a griffin unit's
+    three."""
+    if hasattr(c, "_fields"):
+        return [c]
+    return [n for x in c for n in cache_nodes(x)]
+
+
+def map_nodes(c, fn):
+    """``c`` with ``fn`` applied to each of its nodes (tuples kept)."""
+    if hasattr(c, "_fields"):
+        return fn(c)
+    return tuple(map_nodes(x, fn) for x in c)
+
+
 def cache_payloads(c) -> list[str]:
-    """The payload fields of a cache node (``KVCache``, ``MLACache``):
-    every field but the ``idx`` and ``block_table`` the layers share."""
+    """The payload fields of a cache node (``KVCache``, ``MLACache``,
+    ``RGLRUState``): every field but the ``idx`` and ``block_table``
+    the layers share."""
     return [f for f in c._fields if f not in ("idx", "block_table")]
 
 
 def map_payloads(c, fn):
-    """``c`` with ``fn`` applied to each payload tensor (None stays)."""
-    return c._replace(**{f: None if getattr(c, f) is None
-                         else fn(getattr(c, f)) for f in cache_payloads(c)})
+    """``c`` with ``fn`` applied to each payload tensor of each node
+    (None stays)."""
+    return map_nodes(c, lambda n: n._replace(**{
+        f: None if getattr(n, f) is None else fn(getattr(n, f))
+        for f in cache_payloads(n)}))
+
+
+def cache_idx(c) -> torch.Tensor:
+    """The depth ``idx`` that a segment's nodes share."""
+    return cache_nodes(c)[0].idx
+
+
+def with_idx(c, idx):
+    """``c`` with every node's ``idx`` replaced by ``idx``."""
+    return map_nodes(c, lambda n: n._replace(idx=idx))
 
 
 def init_caches(cfg, batch: int, max_len: int, per_slot: bool = False,
                 device="cuda") -> dict:
-    """Contiguous caches for every segment (``KVCache`` or the MLA
-    latent ``MLACache``), payloads stacked over the segment's layers:
-    (L, B, ...).  One ``idx`` is shared by the layers: a scalar 0, or
-    with ``per_slot`` a (B,) vector of zeros so that serving slots
-    track their own depths."""
+    """Contiguous caches for every segment (``KVCache``, the MLA latent
+    ``MLACache``, the RG-LRU's ``RGLRUState``, or a griffin unit's
+    tuple of them), payloads stacked over the segment's layers: (L, B,
+    ...).  One ``idx`` is shared by the layers and the nodes of a
+    segment: a scalar 0, or with ``per_slot`` a (B,) vector of zeros
+    so that serving slots track their own depths."""
     caches = {}
     for seg in build_segments(cfg):
         one = seg.init_cache(cfg, batch, max_len, device)
         one = map_payloads(
             one, lambda t: t[None].expand(seg.n, *t.shape).contiguous())
-        if per_slot:
-            one = one._replace(idx=torch.zeros((batch,), dtype=torch.int32,
-                                               device=device))
-        caches[seg.name] = one
+        idx = (torch.zeros((batch,), dtype=torch.int32, device=device)
+               if per_slot else cache_idx(one))
+        caches[seg.name] = with_idx(one, idx)
     return caches
 
 
@@ -239,6 +313,17 @@ def init_paged_pools(cfg, max_len: int, num_pages: int, page_size: int,
 def _layer_cache(c, l: int):
     # views: the layer's in-place writes land in the stacked tensors
     return map_payloads(c, lambda t: t[l])
+
+
+def _store_layer(view, new) -> None:
+    """Copy a layer's new state into its views of the stacked cache
+    where the layer returned new tensors (the RG-LRU's ``h`` and
+    ``conv``); attention writes its cache in place."""
+    for vn, nn in zip(cache_nodes(view), cache_nodes(new)):
+        for f in cache_payloads(vn):
+            a, b = getattr(vn, f), getattr(nn, f)
+            if a is not None and b is not a:
+                a.copy_(b)
 
 
 def _unbind(t, n: int) -> list:
@@ -305,10 +390,12 @@ def forward(cfg, qcfg: QuantConfig, params, tokens: torch.Tensor,
             else:
                 x, new_c, aux = seg.apply(cfg, qcfg, p_l, x, positions,
                                           c_l, mode)
+            if c_l is not None:
+                _store_layer(c_l, new_c)
             if aux is not None:
                 aux_total = aux_total + aux
         new_caches[seg.name] = (None if c_seg is None
-                                else c_seg._replace(idx=new_c.idx))
+                                else with_idx(c_seg, cache_idx(new_c)))
     x = apply_norm(cfg, params["final_norm"], x)
     logits = lm_head(cfg, params["embed"], x, qcfg)
     return logits, (new_caches if caches is not None else None), aux_total
@@ -333,5 +420,5 @@ def ce_loss(cfg, logits: torch.Tensor, labels: torch.Tensor,
 def _first_idx(caches) -> torch.Tensor:
     for c in caches.values():
         if c is not None:
-            return c.idx
+            return cache_idx(c)
     raise ValueError("decode mode needs caches")

@@ -31,11 +31,13 @@ hit still runs the last prompt token, whose logit is the first output).
 
 The v1 path (``REPRO_CHUNKED_PREFILL=0``, and what an arch chunks
 cannot serve takes without being asked: a windowed ring, MLA's latent
-cache) prefills each admitted prompt whole, right-padded to a 16-token
-bucket, in one (1, S) step, and admits on worst-case reservations.
+cache, the hybrid's recurrent states) prefills each admitted prompt
+whole, right-padded to a 16-token bucket (the hybrid's at its exact
+length), in one (1, S) step, and admits on worst-case reservations; the
+row it is written into takes the prompt's caches and RG-LRU states.
 Placement: floating pages by default, identity rows
 (``REPRO_PAGED_PLACEMENT=identity``, a windowed ring, whose cache is C
-= window < max_len slots, and MLA's latent cache).
+= window < max_len slots, MLA's latent cache and the hybrid).
 
 Weights are pre-quantized to fp8 at build and the activation scales are
 calibrated at build (one forward over a fixed prompt), as in the
@@ -86,6 +88,7 @@ from repro_torch.core.runtime_flags import (
     spec_decode as spec_decode_flag,
 )
 from repro_torch.models.transformer import (
+    cache_idx,
     chunk_prefill_supported,
     init_caches,
     paged_decode_supported,
@@ -220,6 +223,11 @@ class Engine:
         self.cfg = cfg
         self.max_len = max_len
         self.num_slots = num_slots
+        # a recurrent state (RG-LRU) integrates every prefill token, so a
+        # padded prompt would corrupt it (attention caches mask the
+        # padding): the hybrid family prefills at its exact length
+        self.prompt_bucket = (1 if cfg.family in ("ssm", "hybrid")
+                              else PROMPT_BUCKET)
         self.eos_id = eos_id
         with torch.inference_mode():
             params = to_device(params, self.device)
@@ -489,7 +497,7 @@ class Engine:
             # identity placement: the chunk runs on a detached one-row
             # cache; only the depth stamp moves between chunks
             for c in st.row_cache.values():
-                c.idx.fill_(st.pos)
+                cache_idx(c).fill_(st.pos)
             logits, _ = self.decode(self.params, st.row_cache, toks)
         self.chunk_prefill_steps += 1
         st.pos += n_real
@@ -518,7 +526,7 @@ class Engine:
         c = self.kv.slot_tokens
         if n >= c:
             return n          # the ring's keep-last-C prefill, exact
-        return min(c, -(-n // PROMPT_BUCKET) * PROMPT_BUCKET)
+        return min(c, -(-n // self.prompt_bucket) * self.prompt_bucket)
 
     def _prefill_request(self, req: Request) -> dict:
         """The (1, bucket) prefill of one prompt; returns the one-row

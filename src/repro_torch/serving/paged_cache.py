@@ -45,11 +45,14 @@ import torch
 
 from repro_torch.models.attention import _bytes, cache_len
 from repro_torch.models.transformer import (
+    cache_idx,
+    cache_nodes,
     cache_payloads,
     init_caches,
     init_paged_pools,
     map_payloads,
     paged_decode_supported,
+    with_idx,
 )
 
 PAGE_SIZE = 16
@@ -371,13 +374,15 @@ class PageAllocator:
 # Identity-placement row moves.  Stacked payloads are (L, B, ...) with the
 # slot row at dim 1; one idx (B,) serves every layer.  A one-row prefill
 # cache is (L, 1, ...) with a scalar idx, a staging row's idx is (1,).
-# The cache node is a KVCache (k, v and their scales) or an MLACache
-# (c_kv, k_rope): every payload moves alike.
+# A segment's cache is a KVCache (k, v and their scales), an MLACache
+# (c_kv, k_rope), an RGLRUState (h, conv) or a griffin unit's tuple of
+# them, whose nodes share one idx: every payload moves alike.
 # ---------------------------------------------------------------------------
 
 
 def _leaves(c):
-    return [t for t in (getattr(c, f) for f in cache_payloads(c))
+    return [t for n in cache_nodes(c)
+            for t in (getattr(n, f) for f in cache_payloads(n))
             if t is not None]
 
 
@@ -392,7 +397,7 @@ def write_row(big: dict, one: dict, row: int, length: int) -> None:
         dst = big[name]
         for a, o in zip(_leaves(dst), _leaves(c)):
             _bytes(a)[:, row] = _bytes(o[:, 0].to(a.dtype))
-        dst.idx[row] = length
+        cache_idx(dst)[row] = length
 
 
 def _swap_shrink(big: dict, row: int, last: int) -> None:
@@ -403,7 +408,8 @@ def _swap_shrink(big: dict, row: int, last: int) -> None:
     for c in big.values():
         for a in _leaves(c):
             _bytes(a)[:, row] = _bytes(a)[:, last]
-        c.idx[row] = c.idx[last]
+        idx = cache_idx(c)
+        idx[row] = idx[last]
 
 
 class PagedKVCache:
@@ -441,8 +447,8 @@ class PagedKVCache:
         n = len(self.rows)
         if n == 0:
             return None
-        return {name: map_payloads(c, lambda t: t[:, :n])._replace(
-                    idx=c.idx[:n])
+        return {name: with_idx(map_payloads(c, lambda t: t[:, :n]),
+                               cache_idx(c)[:n])
                 for name, c in self._store.items()}
 
     @caches.setter
@@ -450,7 +456,7 @@ class PagedKVCache:
         # a step wrote its rows in place; keep the depths it advanced
         n = len(self.rows)
         for name, c in new.items():
-            self._store[name].idx[:n] = c.idx
+            cache_idx(self._store[name])[:n] = cache_idx(c)
 
     # -- admission -----------------------------------------------------
     def _resident(self, n_tokens: int) -> int:
@@ -542,7 +548,7 @@ class PagedKVCache:
         depth = torch.tensor(self.lengths, dtype=torch.int32,
                              device=self.device)
         for c in self._store.values():
-            c.idx[:len(self.rows)] = depth
+            cache_idx(c)[:len(self.rows)] = depth
 
 
 def _pool_insert(pool, one, pages: torch.Tensor, n_new: int) -> None:

@@ -172,6 +172,7 @@ def make_train_step(cfg, hp: TrainHParams, mesh=None):
             g = torch.autograd.grad(l + hp.aux_coef * a, flat)
             grads = list(g) if grads is None else \
                 [a + b for a, b in zip(grads, g)]
+            del g
             loss = loss + l.detach()
             aux = aux + a.detach()
         if n_mb > 1:
@@ -180,10 +181,15 @@ def make_train_step(cfg, hp: TrainHParams, mesh=None):
         grads = tree_unflatten(state.params, grads)
 
         with torch.no_grad():
-            grads, gnorm = clip_by_global_norm(grads, hp.grad_clip)
+            # the step owns its gradients: clipped in place, each freed
+            # once its leaf is updated
+            del flat, params
+            grads, gnorm = clip_by_global_norm(grads, hp.grad_clip,
+                                               inplace=True)
             new_params, new_opt = adamw_update(hp.adamw, state.params,
                                                grads, state.opt,
-                                               state.step, lr_dev)
+                                               state.step, lr_dev,
+                                               free_grads=True)
             del grads
             if qcfg.quantized:
                 new_s0, new_t = advance_scales(defs, state.scale_s0,
@@ -262,6 +268,12 @@ def prequantize_params(cfg, params) -> PrequantParams | None:
             qweights[name]["attn"][dst] = att[src].to(torch.bfloat16)
             scales[name]["attn"][dst] = torch.ones(
                 (), dtype=torch.float32, device=att[src].device)
+    if cfg.tie_embeddings:
+        q, s = prequant_weight(params["embed"]["embedding"].T, 0,
+                               qcfg.fwd_format, scale=None,
+                               cast_bf16=qcfg.weight_cast_bf16)
+        qweights["embed"]["head_t"] = q.contiguous()    # (d, vocab)
+        scales["embed"]["head_t"] = s
     return PrequantParams(qweights=qweights, scales=scales)
 
 
@@ -275,13 +287,17 @@ def _mla_attention(tree):
 
 
 def serve_quant_mask(cfg, tree=None):
-    """The serving quantization mask: ``quant_mask_tree``, and for an
-    MLA model the bf16 copies that a pre-quantized tree carries for the
-    absorbed decode (never quantized).  ``tree`` is the reference's hook
-    for the tied head, which waits with tied models."""
+    """The serving quantization mask: ``quant_mask_tree``, for an MLA
+    model the bf16 copies that a pre-quantized tree carries for the
+    absorbed decode (never quantized), and the transposed tied head
+    ``embed/head_t`` (quantized) when ``tree`` (a serving params or
+    scales tree) carries one."""
     mask = quant_mask_tree(model_defs(cfg))
     for _, att in _mla_attention(mask):
         att.update({dst: False for dst in ABSORBED.values()})
+    if (isinstance(tree, dict) and isinstance(tree.get("embed"), dict)
+            and "head_t" in tree["embed"]):
+        mask["embed"]["head_t"] = True
     return mask
 
 

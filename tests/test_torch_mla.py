@@ -153,22 +153,25 @@ def _module_reference(jcfg, params):
 
 def _serve_reference(jcfg, params) -> dict:
     """The reference's streams and logit gaps for ``SERVE_RUNS``, the
-    quantized runs under ``REPRO_SERVE_PREQUANT=0`` (this thread builds
-    the only engines of the child, which share their compiled steps:
-    tests/test_torch_serving.py's ``_share_steps``)."""
+    quantized runs under ``REPRO_SERVE_PREQUANT=0`` (holding the child's
+    ``ENGINE_LOCK`` alone while the variable is set; the child's engines
+    share their compiled steps: tests/test_torch_serving.py's
+    ``_share_steps``)."""
     from test_torch_serving import _reference_serve, _share_steps
+    from test_torch_train import ENGINE_LOCK
 
-    _share_steps()
     out = {}
-    for name, run in SERVE_RUNS.items():
-        cfg = jcfg
-        if "mode" in run:
-            cfg = cfg.replace(quant=type(cfg.quant)(mode=run["mode"]))
-        os.environ["REPRO_SERVE_PREQUANT"] = "0"
-        try:
-            out[name] = _reference_serve(cfg, params, run, _prompts())
-        finally:
-            os.environ.pop("REPRO_SERVE_PREQUANT")
+    with ENGINE_LOCK.exclusive():
+        _share_steps()
+        for name, run in SERVE_RUNS.items():
+            cfg = jcfg
+            if "mode" in run:
+                cfg = cfg.replace(quant=type(cfg.quant)(mode=run["mode"]))
+            os.environ["REPRO_SERVE_PREQUANT"] = "0"
+            try:
+                out[name] = _reference_serve(cfg, params, run, _prompts())
+            finally:
+                os.environ.pop("REPRO_SERVE_PREQUANT")
     return out
 
 
@@ -276,7 +279,7 @@ def test_mla_is_ported_and_takes_the_v1_serving_path():
     assert not ttr.chunk_prefill_supported(cfg, 48)
     assert not ttr.spec_verify_supported(cfg, 48)
     with pytest.raises(NotImplementedError) as e:
-        ttr.build_segments(cfg.replace(qk_norm=True))
+        ttr.build_segments(cfg.replace(input_mode="embeddings"))
     assert "n_shared" not in str(e.value) and \
         "first_dense" not in str(e.value)
 

@@ -353,6 +353,54 @@ def test_snr_functions_match_reference():
 
 # --- qmm in the baselines ---------------------------------------------------
 
+def test_per_group_step_launches_group_gemm_at_every_site(monkeypatch):
+    """One per_group smoke step with remat on (as at full width) reaches
+    ``group_gemm`` once per linear site in the forward, once more per
+    layer site in the remat recompute, and once each for dx and dW: the
+    count chip_smoke.py holds the full-width step to on the card."""
+    cfg = get_config(ARCH, smoke=True).replace(
+        quant=QuantConfig(**recipe("per_group")), remat=True)
+    defs = model_defs(cfg)
+    sites = layer_sites = 0
+    for (name, q), (_, d) in zip(_leaf_items(quant_mask_tree(defs)),
+                                 _leaf_items(defs)):
+        if q:
+            stacked = d.logical[0] == "layers"
+            sites += d.shape[0] if stacked else 1
+            layer_sites += d.shape[0] if stacked else 0
+    calls = []
+    kernel = dispatch.group_gemm
+    monkeypatch.setattr(dispatch, "group_gemm",
+                        lambda *a: calls.append(1) or kernel(*a))
+    hp = tsteps.TrainHParams(**TRAIN_HP)
+    state = tsteps.init_train_state(cfg, hp, seed=0, device="cpu")
+    batch = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=64,
+                                   global_batch=2)).batch_for_step(0)
+    _, met = tsteps.make_train_step(cfg, hp)(state, batch)
+    assert np.isfinite(float(met["loss"]))
+    assert layer_sites == 7 * cfg.n_layers
+    assert len(calls) == 3 * sites + layer_sites
+
+
+def test_train_cli_runs_the_baselines():
+    """``--quant`` takes all four recipes, mapped as the reference's CLI
+    maps them (and the baselines' named configs equal the reference's);
+    ``python -m repro_torch.launch.train --quant per_group
+    --smoke --device cpu --steps 2`` trains (per_tensor's steps are held
+    to the reference above)."""
+    for name in ttrain.QUANTS:
+        got, want = ttrain.quant_from_name(name), jquant_from_name(name)
+        assert got.__dict__ == want.__dict__, name
+    for name in ("PER_TENSOR_CONFIG", "PER_GROUP_CONFIG"):
+        assert getattr(tformats, name).__dict__ == \
+            getattr(jformats, name).__dict__
+    state, hist = ttrain.main(["--arch", ARCH, "--quant", "per_group",
+                               "--smoke", "--device", "cpu", "--steps", "2"])
+    assert [step for step, _ in hist] == [2]
+    assert all(np.isfinite(loss) for _, loss in hist)
+    assert all(t.device.type == "cpu" for t in tree_leaves(state.params))
+
+
 @pytest.mark.parametrize("xshape,n", QMM_SHAPES)
 @pytest.mark.parametrize("mode", BASELINES)
 def test_qmm_vjp_matches_reference(reference, mode, xshape, n):
@@ -423,49 +471,3 @@ def test_train_steps_match_reference(reference, mode):
     print(mode, worst)
 
 
-def test_per_group_step_launches_group_gemm_at_every_site(monkeypatch):
-    """One per_group smoke step with remat on (as at full width) reaches
-    ``group_gemm`` once per linear site in the forward, once more per
-    layer site in the remat recompute, and once each for dx and dW: the
-    count chip_smoke.py holds the full-width step to on the card."""
-    cfg = get_config(ARCH, smoke=True).replace(
-        quant=QuantConfig(**recipe("per_group")), remat=True)
-    defs = model_defs(cfg)
-    sites = layer_sites = 0
-    for (name, q), (_, d) in zip(_leaf_items(quant_mask_tree(defs)),
-                                 _leaf_items(defs)):
-        if q:
-            stacked = d.logical[0] == "layers"
-            sites += d.shape[0] if stacked else 1
-            layer_sites += d.shape[0] if stacked else 0
-    calls = []
-    kernel = dispatch.group_gemm
-    monkeypatch.setattr(dispatch, "group_gemm",
-                        lambda *a: calls.append(1) or kernel(*a))
-    hp = tsteps.TrainHParams(**TRAIN_HP)
-    state = tsteps.init_train_state(cfg, hp, seed=0, device="cpu")
-    batch = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=64,
-                                   global_batch=2)).batch_for_step(0)
-    _, met = tsteps.make_train_step(cfg, hp)(state, batch)
-    assert np.isfinite(float(met["loss"]))
-    assert layer_sites == 7 * cfg.n_layers
-    assert len(calls) == 3 * sites + layer_sites
-
-
-def test_train_cli_runs_the_baselines():
-    """``--quant`` takes all four recipes, mapped as the reference's CLI
-    maps them (and the baselines' named configs equal the reference's);
-    ``python -m repro_torch.launch.train --quant per_group
-    --smoke --device cpu --steps 2`` trains (per_tensor's steps are held
-    to the reference above)."""
-    for name in ttrain.QUANTS:
-        got, want = ttrain.quant_from_name(name), jquant_from_name(name)
-        assert got.__dict__ == want.__dict__, name
-    for name in ("PER_TENSOR_CONFIG", "PER_GROUP_CONFIG"):
-        assert getattr(tformats, name).__dict__ == \
-            getattr(jformats, name).__dict__
-    state, hist = ttrain.main(["--arch", ARCH, "--quant", "per_group",
-                               "--smoke", "--device", "cpu", "--steps", "2"])
-    assert [step for step, _ in hist] == [2]
-    assert all(np.isfinite(loss) for _, loss in hist)
-    assert all(t.device.type == "cpu" for t in tree_leaves(state.params))

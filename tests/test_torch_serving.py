@@ -33,9 +33,7 @@ share their compiled steps (``_share_steps``).
 
 import json
 import os
-import subprocess
 import sys
-from pathlib import Path
 
 import jax
 import numpy as np
@@ -57,7 +55,12 @@ from repro_torch.serving import (
 )
 
 from test_torch_spec import Adversarial, HalfOracle, Oracle
-from test_torch_train import REFERENCE_XLA_FLAGS
+from test_torch_train import (
+    _run_dir,
+    child_output,
+    reference_env,
+    start_reference_child,
+)
 
 ARCH = "phi3-mini-3.8b"
 MOE = "phi3.5-moe-42b-a6.6b"
@@ -197,21 +200,19 @@ def _run_cfg(get, run):
     return cfg.replace(**over) if over else cfg
 
 
+CHILD_OUT = "serving_reference.json"
+start_reference_child(CHILD_OUT, __file__, reference_env())
+
+
 @pytest.fixture(scope="module")
 def reference(tmp_path_factory):
     """The reference's streams and logit gaps for the default run and
     every run of ``RUNS``, and the streams of every run of ``SPEC_RUNS``
-    (one child process)."""
-    d = tmp_path_factory.mktemp("jax_engine")
-    env = dict(os.environ)
-    env["XLA_FLAGS"] = (env.get("XLA_FLAGS", "") + " " +
-                        REFERENCE_XLA_FLAGS).strip()
-    env["JAX_PLATFORMS"] = "cpu"
-    src = str(Path(__file__).resolve().parent.parent / "src")
-    env["PYTHONPATH"] = src + os.pathsep + env.get("PYTHONPATH", "")
-    subprocess.run([sys.executable, __file__, str(d / "out.json")],
-                   env=env, check=True, timeout=900)
-    return json.loads((d / "out.json").read_text())
+    (one child process; under pytest-xdist started at collection,
+    ``start_reference_child``)."""
+    base = _run_dir() or tmp_path_factory.mktemp("jax_engine")
+    out = child_output(base, CHILD_OUT, __file__, reference_env())
+    return json.loads(out.read_text())
 
 
 def _params(arch=ARCH):
@@ -248,6 +249,187 @@ def _assert_streams(reqs, want, solo=None):
         gap, big = gaps[t]
         assert gap <= 1e-3 * big, (r.rid, t, r.out, stream, gap, big)
     assert exact >= len(reqs) - 1, exact
+
+
+@pytest.mark.parametrize("mode", ["per_group", "per_tensor"])
+def test_baseline_prequant_is_bitwise_the_reference(mode):
+    """``prequantize_params`` in the per_group and per_tensor recipes
+    (``jit`` weight scaling: each layer slice against its own amax):
+    payloads and scales bit for bit the reference's, on the smoke
+    phi3-mini weights."""
+    from repro.configs.registry import get_config as jax_get_config
+    from repro.models.layers import init_tree
+    from repro.models.transformer import model_defs
+    from repro.train import steps as jsteps
+    from repro_torch.train.steps import prequantize_params
+
+    run = {"quant": mode}
+    jcfg = _run_cfg(jax_get_config, run)
+    jparams = init_tree(model_defs(jcfg), jax.random.PRNGKey(SEED))
+    jp = jsteps.prequantize_params(jcfg, jparams)
+    tp = prequantize_params(_run_cfg(get_config, run), _params())
+    jq = dict(jax.tree_util.tree_flatten_with_path(jp.qweights)[0])
+    js = dict(jax.tree_util.tree_flatten_with_path(jp.scales)[0])
+
+    def walk(tree, path=()):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                yield from walk(v, path + (k,))
+            else:
+                yield path + (k,), v
+
+    n = 0
+    for path, q in walk(tp.qweights):
+        key = tuple(jax.tree_util.DictKey(k) for k in path)
+        s = dict(walk(tp.scales))[path]
+        want_q, want_s = np.asarray(jq[key]), np.asarray(js[key])
+        if q.dtype in (torch.float8_e4m3fn, torch.float8_e5m2):
+            n += 1
+            assert np.array_equal(bridge.bits(q),
+                                  want_q.view(np.uint8)), path
+        assert np.array_equal(bridge.bits(s.to(torch.float32)).reshape(-1),
+                              want_s.astype(np.float32).view(np.int32)
+                              .reshape(-1)), path
+    assert n >= 7, n
+
+
+def test_engine_is_deterministic_and_retires():
+    outs = []
+    for _ in range(2):
+        eng = _port_engine()
+        reqs = [Request(rid=i, prompt=p, max_new=4)
+                for i, p in enumerate(_prompts()[:3])]
+        eng.run(reqs, log=None)
+        assert not eng.kv.rows and eng._staging is None
+        outs.append([r.out for r in reqs])
+    assert outs[0] == outs[1]
+
+
+def test_engine_refuses_what_waits_and_oversize(monkeypatch):
+    """``Engine()`` takes the prefix cache from ``REPRO_PREFIX_CACHE``
+    (on by default, as the reference's), and refuses a request larger
+    than its slot."""
+    eng = _port_engine()
+    assert eng.prefix_cache and eng.preemption
+    with pytest.raises(SlotCapacityExceeded):
+        eng.submit([Request(rid=0, prompt=np.zeros(44, np.int32),
+                            max_new=8)])
+    monkeypatch.setenv("REPRO_PREFIX_CACHE", "0")
+    assert not _port_engine().prefix_cache
+    assert _port_engine(prefix_cache=True).prefix_cache
+    monkeypatch.setenv("REPRO_PAGED_PLACEMENT", "identity")
+    assert not _port_engine(prefix_cache=True).prefix_cache
+
+
+def test_moe_serving_refuses_the_baselines(monkeypatch):
+    """The MoE serves in per_group and per_tensor now (its dense combine
+    one expert at a time, each (layer, expert) site calibrated on its
+    own; the streams against the reference's are
+    tests/test_torch_moe.py's ``test_moe_baselines_serve_as_the_reference``):
+    the engine builds in both; what the baselines' serving still
+    refuses is what every recipe refuses, a MoE over more than one rank
+    (expert parallelism)."""
+    params = _params(MOE)
+    for quant in ("per_group", "per_tensor"):
+        cfg = _run_cfg(get_config, {"arch": MOE, "quant": quant})
+        eng = Engine(cfg, params, num_slots=SLOTS, max_len=MAX_LEN,
+                     device="cpu")
+        assert eng.act_scales["blocks/moe/w_down"].s.shape[:2] == (
+            cfg.n_layers, cfg.n_experts)
+    monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
+    monkeypatch.setattr(torch.distributed, "get_world_size", lambda: 2)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        Engine(cfg, params, num_slots=SLOTS, max_len=MAX_LEN, device="cpu")
+
+
+def test_engine_refuses_unported_reference_switch(monkeypatch):
+    monkeypatch.setenv("REPRO_QUANT_HEALTH", "1")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        _port_engine()
+    monkeypatch.setenv("REPRO_QUANT_HEALTH", "0")
+    monkeypatch.setenv("REPRO_PAGED_PLACEMENT", "floating")
+    with pytest.raises(ValueError, match="REPRO_PAGED_PLACEMENT"):
+        _port_engine()
+
+
+@pytest.mark.parametrize("run", [ARCH, MOE, "per_group", "per_tensor"])
+@pytest.mark.parametrize("act", ["delayed", "jit"])
+def test_prequant_off_logits_equal_prequant_on(run, act):
+    """The reference's prequant-parity contract, on the port: the bf16
+    tree quantized in every step against the build-time scales
+    (``REPRO_SERVE_PREQUANT=0``) gives the prefill's and three decode
+    steps' logits bitwise those of the build-time fp8 payloads, with
+    calibrated activation scales (which calibrate bitwise alike from
+    either tree) and just in time; on phi3-mini and on the MoE (its
+    expert stacks scaled per (layer, expert)), and on phi3-mini in the
+    baseline recipes (``jit`` weight scaling: each weight quantized in
+    the step against its own amax, bitwise what ``prequantize_params``
+    builds)."""
+    from repro_torch.core.actscale import calibrate_act_scales
+    from repro_torch.train.steps import (make_decode_step,
+                                         make_prefill_step,
+                                         prequantize_params,
+                                         serve_weight_scales)
+
+    baseline = run in ("per_group", "per_tensor")
+    cfg = _run_cfg(get_config, {"quant": run} if baseline else {"arch": run})
+    params = _params(ARCH if baseline else run)
+    pq = prequantize_params(cfg, params)
+    scales = serve_weight_scales(cfg, params)
+    trees = {"off": (params, scales), "on": (pq.qweights, pq.scales)}
+    acts = {k: (calibrate_act_scales(cfg, *t) if act == "delayed" else None)
+            for k, t in trees.items()}
+    if act == "delayed":
+        for tag, a in acts["on"].items():
+            b = acts["off"][tag]
+            assert torch.equal(a.s, b.s), tag
+            assert (a.sub is None) == (b.sub is None), tag
+            assert a.sub is None or torch.equal(a.sub, b.sub), tag
+    toks = torch.from_numpy(np.stack(_prompts([8, 8])))
+    out = {}
+    for k, (tree, sc) in trees.items():
+        pre = make_prefill_step(cfg, 16, scales=sc, act_scales=acts[k])
+        dec = make_decode_step(cfg, scales=sc, act_scales=acts[k])
+        logits, caches = pre(tree, toks)
+        out[k] = [logits]
+        for i in range(3):
+            logits, caches = dec(tree, caches, toks[:, i:i + 1])
+            out[k].append(logits)
+    for i, (a, b) in enumerate(zip(out["off"], out["on"])):
+        assert torch.equal(a, b), (i, float((a - b).abs().max()))
+
+
+def test_serving_switches_read_like_the_reference(monkeypatch):
+    """``REPRO_SERVE_PREQUANT``, ``REPRO_SERVE_DELAYED_ACT`` and
+    ``REPRO_DECODE_ATTN`` with the reference's names, defaults and
+    errors; the engine builds from the bf16 tree and its build-time
+    scales under the first, without activation scales (and without
+    speculative verify) under the second."""
+    from repro_torch.core import runtime_flags as rf
+
+    assert rf.serve_prequant() and rf.serve_delayed_act()
+    assert rf.decode_attn_path() == "kernel"
+    monkeypatch.setenv("REPRO_DECODE_ATTN", "fused")
+    with pytest.raises(ValueError, match="REPRO_DECODE_ATTN"):
+        rf.decode_attn_path()
+    monkeypatch.setenv("REPRO_DECODE_ATTN", "einsum")
+    assert rf.decode_attn_path() == "einsum"
+    monkeypatch.setenv("REPRO_SERVE_PREQUANT", "0")
+    monkeypatch.setenv("REPRO_SERVE_DELAYED_ACT", "0")
+    assert not rf.serve_prequant() and not rf.serve_delayed_act()
+    eng = _port_engine(spec_decode=True)
+    assert eng.act_scales is None and not eng.spec
+    wq = eng.params["blocks"]["attn"]["wq"]
+    assert wq.dtype == torch.float32 and eng.scales["blocks"]["attn"][
+        "wq"].shape == (2,)
+
+
+def test_engine_refuses_kv_cache_env_override(monkeypatch):
+    # the pool dtype is the config's alone; the reference's override
+    # must not be silently ignored
+    monkeypatch.setenv("REPRO_KV_CACHE", "bf16")
+    with pytest.raises(NotImplementedError, match="kv_cache_dtype"):
+        _port_engine()
 
 
 def test_engine_streams_match_reference(reference):
@@ -340,48 +522,6 @@ def test_run_counters_show_their_paths(reference):
         assert c[name]["preemptions"] == c[name]["cow_copies"] == 0
 
 
-@pytest.mark.parametrize("mode", ["per_group", "per_tensor"])
-def test_baseline_prequant_is_bitwise_the_reference(mode):
-    """``prequantize_params`` in the per_group and per_tensor recipes
-    (``jit`` weight scaling: each layer slice against its own amax):
-    payloads and scales bit for bit the reference's, on the smoke
-    phi3-mini weights."""
-    from repro.configs.registry import get_config as jax_get_config
-    from repro.models.layers import init_tree
-    from repro.models.transformer import model_defs
-    from repro.train import steps as jsteps
-    from repro_torch.train.steps import prequantize_params
-
-    run = {"quant": mode}
-    jcfg = _run_cfg(jax_get_config, run)
-    jparams = init_tree(model_defs(jcfg), jax.random.PRNGKey(SEED))
-    jp = jsteps.prequantize_params(jcfg, jparams)
-    tp = prequantize_params(_run_cfg(get_config, run), _params())
-    jq = dict(jax.tree_util.tree_flatten_with_path(jp.qweights)[0])
-    js = dict(jax.tree_util.tree_flatten_with_path(jp.scales)[0])
-
-    def walk(tree, path=()):
-        for k, v in tree.items():
-            if isinstance(v, dict):
-                yield from walk(v, path + (k,))
-            else:
-                yield path + (k,), v
-
-    n = 0
-    for path, q in walk(tp.qweights):
-        key = tuple(jax.tree_util.DictKey(k) for k in path)
-        s = dict(walk(tp.scales))[path]
-        want_q, want_s = np.asarray(jq[key]), np.asarray(js[key])
-        if q.dtype in (torch.float8_e4m3fn, torch.float8_e5m2):
-            n += 1
-            assert np.array_equal(bridge.bits(q),
-                                  want_q.view(np.uint8)), path
-        assert np.array_equal(bridge.bits(s.to(torch.float32)).reshape(-1),
-                              want_s.astype(np.float32).view(np.int32)
-                              .reshape(-1)), path
-    assert n >= 7, n
-
-
 @pytest.mark.parametrize("name", sorted(SPEC_RUNS))
 def test_spec_paths_match_reference(reference, monkeypatch, name):
     """Speculative verify on floating pages and identity rows, fp8 and
@@ -417,34 +557,6 @@ def test_spec_paths_match_reference(reference, monkeypatch, name):
     assert want["streams"] == base["streams"] and want["verify_steps"] > 0
     _assert_streams(reqs, {"streams": want["streams"],
                            "gaps": base["gaps"]})
-
-
-def test_engine_is_deterministic_and_retires():
-    outs = []
-    for _ in range(2):
-        eng = _port_engine()
-        reqs = [Request(rid=i, prompt=p, max_new=4)
-                for i, p in enumerate(_prompts()[:3])]
-        eng.run(reqs, log=None)
-        assert not eng.kv.rows and eng._staging is None
-        outs.append([r.out for r in reqs])
-    assert outs[0] == outs[1]
-
-
-def test_engine_refuses_what_waits_and_oversize(monkeypatch):
-    """``Engine()`` takes the prefix cache from ``REPRO_PREFIX_CACHE``
-    (on by default, as the reference's), and refuses a request larger
-    than its slot."""
-    eng = _port_engine()
-    assert eng.prefix_cache and eng.preemption
-    with pytest.raises(SlotCapacityExceeded):
-        eng.submit([Request(rid=0, prompt=np.zeros(44, np.int32),
-                            max_new=8)])
-    monkeypatch.setenv("REPRO_PREFIX_CACHE", "0")
-    assert not _port_engine().prefix_cache
-    assert _port_engine(prefix_cache=True).prefix_cache
-    monkeypatch.setenv("REPRO_PAGED_PLACEMENT", "identity")
-    assert not _port_engine(prefix_cache=True).prefix_cache
 
 
 # --- prefix sharing and swap, port only (the reference's own cases) -----
@@ -554,105 +666,6 @@ def test_prefix_and_swap_engine_cases(case):
     (tests/test_prefix_caching.py, tests/test_chunked_prefill.py), on
     the port's smoke phi3-mini (fp8 cache)."""
     ENGINE_CASES[case]()
-
-
-def test_moe_serving_refuses_the_baselines():
-    """Serving the MoE in per_group or per_tensor (its dense combine one
-    expert at a time) has no reference check yet and stays refused."""
-    run = {"arch": MOE, "quant": "per_group"}
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 entry 6"):
-        Engine(_run_cfg(get_config, run), _params(MOE), num_slots=SLOTS,
-               max_len=MAX_LEN, device="cpu")
-
-
-def test_engine_refuses_unported_reference_switch(monkeypatch):
-    monkeypatch.setenv("REPRO_QUANT_HEALTH", "1")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _port_engine()
-    monkeypatch.setenv("REPRO_QUANT_HEALTH", "0")
-    monkeypatch.setenv("REPRO_PAGED_PLACEMENT", "floating")
-    with pytest.raises(ValueError, match="REPRO_PAGED_PLACEMENT"):
-        _port_engine()
-
-
-@pytest.mark.parametrize("run", [ARCH, MOE, "per_group", "per_tensor"])
-@pytest.mark.parametrize("act", ["delayed", "jit"])
-def test_prequant_off_logits_equal_prequant_on(run, act):
-    """The reference's prequant-parity contract, on the port: the bf16
-    tree quantized in every step against the build-time scales
-    (``REPRO_SERVE_PREQUANT=0``) gives the prefill's and three decode
-    steps' logits bitwise those of the build-time fp8 payloads, with
-    calibrated activation scales (which calibrate bitwise alike from
-    either tree) and just in time; on phi3-mini and on the MoE (its
-    expert stacks scaled per (layer, expert)), and on phi3-mini in the
-    baseline recipes (``jit`` weight scaling: each weight quantized in
-    the step against its own amax, bitwise what ``prequantize_params``
-    builds)."""
-    from repro_torch.core.actscale import calibrate_act_scales
-    from repro_torch.train.steps import (make_decode_step,
-                                         make_prefill_step,
-                                         prequantize_params,
-                                         serve_weight_scales)
-
-    baseline = run in ("per_group", "per_tensor")
-    cfg = _run_cfg(get_config, {"quant": run} if baseline else {"arch": run})
-    params = _params(ARCH if baseline else run)
-    pq = prequantize_params(cfg, params)
-    scales = serve_weight_scales(cfg, params)
-    trees = {"off": (params, scales), "on": (pq.qweights, pq.scales)}
-    acts = {k: (calibrate_act_scales(cfg, *t) if act == "delayed" else None)
-            for k, t in trees.items()}
-    if act == "delayed":
-        for tag, a in acts["on"].items():
-            b = acts["off"][tag]
-            assert torch.equal(a.s, b.s), tag
-            assert (a.sub is None) == (b.sub is None), tag
-            assert a.sub is None or torch.equal(a.sub, b.sub), tag
-    toks = torch.from_numpy(np.stack(_prompts([8, 8])))
-    out = {}
-    for k, (tree, sc) in trees.items():
-        pre = make_prefill_step(cfg, 16, scales=sc, act_scales=acts[k])
-        dec = make_decode_step(cfg, scales=sc, act_scales=acts[k])
-        logits, caches = pre(tree, toks)
-        out[k] = [logits]
-        for i in range(3):
-            logits, caches = dec(tree, caches, toks[:, i:i + 1])
-            out[k].append(logits)
-    for i, (a, b) in enumerate(zip(out["off"], out["on"])):
-        assert torch.equal(a, b), (i, float((a - b).abs().max()))
-
-
-def test_serving_switches_read_like_the_reference(monkeypatch):
-    """``REPRO_SERVE_PREQUANT``, ``REPRO_SERVE_DELAYED_ACT`` and
-    ``REPRO_DECODE_ATTN`` with the reference's names, defaults and
-    errors; the engine builds from the bf16 tree and its build-time
-    scales under the first, without activation scales (and without
-    speculative verify) under the second."""
-    from repro_torch.core import runtime_flags as rf
-
-    assert rf.serve_prequant() and rf.serve_delayed_act()
-    assert rf.decode_attn_path() == "kernel"
-    monkeypatch.setenv("REPRO_DECODE_ATTN", "fused")
-    with pytest.raises(ValueError, match="REPRO_DECODE_ATTN"):
-        rf.decode_attn_path()
-    monkeypatch.setenv("REPRO_DECODE_ATTN", "einsum")
-    assert rf.decode_attn_path() == "einsum"
-    monkeypatch.setenv("REPRO_SERVE_PREQUANT", "0")
-    monkeypatch.setenv("REPRO_SERVE_DELAYED_ACT", "0")
-    assert not rf.serve_prequant() and not rf.serve_delayed_act()
-    eng = _port_engine(spec_decode=True)
-    assert eng.act_scales is None and not eng.spec
-    wq = eng.params["blocks"]["attn"]["wq"]
-    assert wq.dtype == torch.float32 and eng.scales["blocks"]["attn"][
-        "wq"].shape == (2,)
-
-
-def test_engine_refuses_kv_cache_env_override(monkeypatch):
-    # the pool dtype is the config's alone; the reference's override
-    # must not be silently ignored
-    monkeypatch.setenv("REPRO_KV_CACHE", "bf16")
-    with pytest.raises(NotImplementedError, match="kv_cache_dtype"):
-        _port_engine()
 
 
 # --- scheduler units (model-free), from the reference's own cases -------
@@ -1005,6 +1018,9 @@ def _share_steps():
     import repro.launch.serve as jserve
     import repro.serving.engine as jengine
 
+    if getattr(jengine, "_steps_shared", False):
+        return                    # already shared in this process
+    jengine._steps_shared = True
     built = {}
 
     def shared(name, make):

@@ -33,17 +33,25 @@ The child also computes the reference's side of
 per_group and per_tensor recipes), of tests/test_torch_ring.py's
 model tests (``h2o_reference``: the sliding-window forward and prefill
 step), of tests/test_torch_moe.py (``moe_reference``: qmm_grouped,
-the MoE block and its VJP, the MoE train steps) and of
-tests/test_torch_mla.py (``mla_reference``: MLA attention, the
-deepseek forward, train steps and serving streams); the modules share
-its results (``reference``, ``shared_reference``).
+the MoE block and its VJP, the MoE train steps on both expert paths,
+the baselines' serving streams), of tests/test_torch_mla.py
+(``mla_reference``: MLA attention, the deepseek forward, train steps
+and serving streams) and of tests/test_torch_archs.py
+(``archs_reference``: the stablelm-12b, minitron-8b and
+recurrentgemma-2b smoke forwards, train steps, serving builds and
+streams); the modules share its results (``reference``,
+``shared_reference``).
 """
 
+import atexit
+import contextlib
 import fcntl
 import os
 import pickle
 import subprocess
 import sys
+import tempfile
+import threading
 from pathlib import Path
 
 import jax
@@ -143,27 +151,72 @@ REFERENCE_XLA_FLAGS = ("--xla_allow_excess_precision=false "
                        "--xla_disable_hlo_passes=algsimp")
 
 
+class _EngineLock:
+    """In the child: the threads' engines read the serving switches from
+    the one process environment, so a run that sets one (mla_reference
+    sets REPRO_SERVE_PREQUANT=0 around its own) holds the lock alone
+    (``exclusive``, ahead of any run waiting to share it), and the runs
+    that only read them hold it together (``shared``)."""
+
+    def __init__(self):
+        self._cond = threading.Condition()
+        self._readers, self._writer, self._waiting = 0, False, 0
+
+    @contextlib.contextmanager
+    def shared(self):
+        with self._cond:
+            self._cond.wait_for(lambda: not (self._writer or self._waiting))
+            self._readers += 1
+        try:
+            yield
+        finally:
+            with self._cond:
+                self._readers -= 1
+                self._cond.notify_all()
+
+    @contextlib.contextmanager
+    def exclusive(self):
+        with self._cond:
+            self._waiting += 1
+            self._cond.wait_for(lambda: not (self._writer or self._readers))
+            self._waiting -= 1
+            self._writer = True
+        try:
+            yield
+        finally:
+            with self._cond:
+                self._writer = False
+                self._cond.notify_all()
+
+
+ENGINE_LOCK = _EngineLock()
+
+
 def _reference_child(out: str) -> None:
     """What the reference computes for this module's tests and for
-    tests/test_torch_recipes.py, test_torch_ring.py, test_torch_moe.py
-    and test_torch_mla.py, compiled with ``REFERENCE_XLA_FLAGS`` under
-    ``REPRO_KERNELS=ref``, pickled."""
+    tests/test_torch_recipes.py, test_torch_ring.py, test_torch_moe.py,
+    test_torch_mla.py and test_torch_archs.py, compiled with
+    ``REFERENCE_XLA_FLAGS`` under ``REPRO_KERNELS=ref``, pickled."""
     from concurrent.futures import ThreadPoolExecutor
 
+    from test_torch_archs import archs_parts
     from test_torch_mla import mla_reference
-    from test_torch_moe import moe_reference
+    from test_torch_moe import _expert_path_per_thread, moe_reference
     from test_torch_ring import h2o_reference
 
-    # the MoE and the MLA references (the longest parts) in two more
-    # threads: XLA compiles and runs with the GIL released, each thread
-    # has its own calibration recorder (_recorder_per_thread), and only
-    # mla_reference's serving runs (the child's only engines) read the
-    # environment they set, so the three parts overlap and give the
-    # same results
+    # the MoE, MLA and each family's references (the longest parts) in
+    # more threads: XLA compiles and runs with the GIL released, each
+    # thread has its own calibration recorder (_recorder_per_thread)
+    # and MoE expert path (_expert_path_per_thread), and the engines,
+    # which read the environment, take ENGINE_LOCK, so the parts
+    # overlap and give the same results
     _recorder_per_thread()
-    with ThreadPoolExecutor(max_workers=2) as pool:
+    _expert_path_per_thread()
+    parts = archs_parts()
+    with ThreadPoolExecutor(max_workers=2 + len(parts)) as pool:
         moe = pool.submit(moe_reference)
         mla = pool.submit(mla_reference)
+        archs = {k: pool.submit(fn) for k, fn in parts.items()}
         ref = {"dw": {case: _dw_reference(*case) for case in DW_CASES},
                "h2o": h2o_reference(),
                "optimizer": _optimizer_reference(),
@@ -174,6 +227,7 @@ def _reference_child(out: str) -> None:
                        for i, shape in enumerate(QMM_SHAPES)}}
         ref["moe"] = moe.result()
         ref["mla"] = mla.result()
+        ref["archs"] = {k: f.result() for k, f in archs.items()}
     with open(out, "wb") as f:
         pickle.dump(ref, f)
 
@@ -204,32 +258,113 @@ def _recorder_per_thread() -> None:
     rec.__dict__.clear()
 
 
+def reference_env(**extra) -> dict:
+    """The environment of a child that runs the reference compiled as it
+    computes op by op (``REFERENCE_XLA_FLAGS``, CPU), with ``extra``;
+    the child starts no child of its own (``start_reference_child``)."""
+    env = dict(os.environ)
+    env["XLA_FLAGS"] = (env.get("XLA_FLAGS", "") + " "
+                        + REFERENCE_XLA_FLAGS).strip()
+    env["JAX_PLATFORMS"] = "cpu"
+    src = str(Path(__file__).resolve().parent.parent / "src")
+    env["PYTHONPATH"] = src + os.pathsep + env.get("PYTHONPATH", "")
+    env.pop("PYTEST_XDIST_TESTRUNUID", None)
+    env.update(extra)
+    return env
+
+
+def _run_dir() -> Path | None:
+    """Under pytest-xdist, a directory the run's workers share from
+    collection on (named by the run's id), else None."""
+    uid = os.environ.get("PYTEST_XDIST_TESTRUNUID")
+    if not uid:
+        return None
+    d = Path(tempfile.gettempdir()) / f"torch-references-{uid}"
+    d.mkdir(exist_ok=True)
+    return d
+
+
+def _run_child(script: str, out: Path, env: dict, timeout: int) -> None:
+    part = out.with_name(f"{out.name}.{os.getpid()}.part")
+    subprocess.run([sys.executable, script, str(part)], env=env,
+                   check=True, timeout=timeout)
+    os.replace(part, out)
+
+
+def child_output(base: Path, name: str, script: str, env: dict,
+                 timeout: int = 900) -> Path:
+    """``base / name``, written by ``script`` run as a child once per test
+    run: the first caller to take the lock runs it, the others wait for
+    it and read."""
+    out = base / name
+    with open(base / f"{name}.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not out.exists():
+            _run_child(script, out, env, timeout)
+    return out
+
+
+def start_reference_child(name: str, script: str, env: dict,
+                          timeout: int = 900) -> None:
+    """At collection under pytest-xdist: the first worker to import a
+    module that calls this starts its reference child (waited for in a
+    thread), so that the child runs beside the reference's own tests,
+    not when the port's tests first ask for it and wait.  The others
+    find the lock taken and go on; ``child_output`` then waits for the
+    child.  An early run that fails writes nothing, and ``child_output``
+    runs the child again and raises."""
+    base = _run_dir()
+    if base is None:
+        return
+    lock = open(base / f"{name}.lock", "w")
+    try:
+        fcntl.flock(lock, fcntl.LOCK_EX | fcntl.LOCK_NB)
+    except BlockingIOError:
+        lock.close()
+        return
+
+    out = base / name
+    part = out.with_name(f"{out.name}.{os.getpid()}.part")
+    proc = (None if out.exists() else
+            subprocess.Popen([sys.executable, script, str(part)], env=env))
+    # a worker that exits first takes its child with it (a test that
+    # then asks runs the child again)
+    atexit.register(lambda: proc is not None and proc.poll() is None
+                    and proc.kill())
+
+    def wait():
+        try:
+            if proc is not None and proc.wait(timeout) == 0:
+                os.replace(part, out)
+        except Exception:
+            proc.kill()
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+            lock.close()
+
+    threading.Thread(target=wait, daemon=True).start()
+
+
+def _shared_env() -> dict:
+    env = reference_env(REPRO_KERNELS="ref")
+    env.pop("REPRO_MOE_EXPERTS", None)
+    return env
+
+
 def shared_reference(tmp_path_factory) -> dict:
     """``_reference_child``'s results, from one child process per test
     run (the XLA flags take effect only before the backend starts).
     Under pytest-xdist the workers share it through the run's common
-    temporary directory: the first to take the lock runs the child."""
-    base = tmp_path_factory.getbasetemp()
-    if os.environ.get("PYTEST_XDIST_WORKER"):
-        base = base.parent
-    out = base / "torch_reference.pkl"
-    with open(base / "torch_reference.lock", "w") as lock:
-        fcntl.flock(lock, fcntl.LOCK_EX)
-        if not out.exists():
-            env = dict(os.environ)
-            env["XLA_FLAGS"] = (env.get("XLA_FLAGS", "") + " "
-                                + REFERENCE_XLA_FLAGS).strip()
-            env["JAX_PLATFORMS"] = "cpu"
-            env["REPRO_KERNELS"] = "ref"
-            env.pop("REPRO_MOE_EXPERTS", None)
-            src = str(Path(__file__).resolve().parent.parent / "src")
-            env["PYTHONPATH"] = src + os.pathsep + env.get("PYTHONPATH", "")
-            part = out.with_suffix(".part")
-            subprocess.run([sys.executable, __file__, str(part)], env=env,
-                           check=True, timeout=900)
-            os.replace(part, out)
+    directory (``_run_dir``), where a worker starts it at collection."""
+    base = _run_dir()
+    if base is None:
+        base = tmp_path_factory.getbasetemp()
+    out = child_output(base, "torch_reference.pkl", __file__, _shared_env())
     with open(out, "rb") as f:
         return pickle.load(f)
+
+
+start_reference_child("torch_reference.pkl", __file__, _shared_env())
 
 
 @pytest.fixture(scope="module")
