@@ -2306,20 +2306,45 @@ def _watch_swaps(torch, eng, log: dict):
     kv.swap_out, kv.swap_in = swap_out, swap_in
 
 
-def _row_at_b1_and_b4(torch, np, eng, label) -> float:
-    """One decode step of ``eng``'s model over 4 rows at depths 19, 33,
-    8 and 27 (each prefilled by the engine's own prefill into identity
-    rows), and the same step of row 0 alone: returns and prints max
-    |logits(B 1) - logits(B 4)| of row 0 (0 where every computation of
-    a row is independent of the rows beside it)."""
+def _row_at_b1_and_b4(torch, np, eng, label) -> dict:
+    """A decode step of ``eng``'s model over 4 rows at depths 19, 33, 8
+    and 27 (each prefilled by the engine's own prefill into identity
+    rows) and the same step of row 0 alone; then a verify step of SPEC_K
+    positions a row over the same rows (4·SPEC_K rows, the most a
+    4-slot engine's verify step takes) and of row 0 alone, under the row
+    limit an engine with speculative decode gives its steps
+    (``Engine.step_rows``).  Returns and prints max |logits(B 1) -
+    logits(B 4)| of row 0 for each step (0 where every computation of a
+    row is independent of the rows beside it), and the B-4 decode step's
+    ms with the fixed row order (``core.row_order``) and without it."""
     from repro_torch.models.transformer import (cache_idx, init_caches,
                                                 map_payloads, with_idx)
     from repro_torch.serving.paged_cache import write_row
+    from repro_torch.train.steps import make_decode_step, make_verify_step
 
     cfg, rng = eng.cfg, np.random.default_rng(3)
     lens = [19, 33, 8, 27]
+    b = len(lens)
+    steps = dict(scales=eng.scales, act_scales=eng.act_scales)
+    verify = make_verify_step(cfg, rows=b * SPEC_K, **steps)
+
+    def row0(caches):
+        return {n: with_idx(map_payloads(c, lambda t: t[:, :1].clone()),
+                            cache_idx(c)[:1].clone())
+                for n, c in caches.items()}
+
+    def ms(step, caches, toks):
+        times = []
+        for _ in range(6):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(eng.params, caches, toks)
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+        return statistics.median(times[1:])
+
     with torch.inference_mode():
-        caches = init_caches(cfg, len(lens), eng.max_len, per_slot=True,
+        caches = init_caches(cfg, b, eng.max_len, per_slot=True,
                              device="cuda")
         feed = []
         for i, n in enumerate(lens):
@@ -2329,22 +2354,35 @@ def _row_at_b1_and_b4(torch, np, eng, label) -> float:
             write_row(caches, one, i, n)
             feed.append(int(logits[0, -1].argmax()))
         toks = torch.tensor(feed, dtype=torch.int32, device="cuda")[:, None]
-        alone = {n: with_idx(map_payloads(c, lambda t: t[:, :1].clone()),
-                             cache_idx(c)[:1].clone())
-                 for n, c in caches.items()}
-        l1, _ = eng.decode(eng.params, alone, toks[:1])
+        drafts = torch.from_numpy(rng.integers(
+            0, cfg.vocab, (b, SPEC_K)).astype(np.int32)).cuda()
+        drafts[:, 0] = toks[:, 0]
+        # each step writes the positions at the caches' idx, which the
+        # returned caches advance: every call below writes the same ones
+        l1, _ = eng.decode(eng.params, row0(caches), toks[:1])
         l4, _ = eng.decode(eng.params, caches, toks)
-        d = float((l1[0, -1] - l4[0, -1]).abs().max())
+        v1, _ = verify(eng.params, row0(caches), drafts[:1])
+        v4, _ = verify(eng.params, caches, drafts)
+        out = dict(decode=float((l1[0, -1] - l4[0, -1]).abs().max()),
+                   verify=float((v1[0] - v4[0]).abs().max()))
         big = float(l4[0, -1].abs().max())
-    print(f"{label}: a decode row's logits at B 1 against the same row at "
-          f"B 4 (depths {lens}): max |d| {d:.4g} of max|logit| {big:.4g}")
-    return d
+        out["fixed_ms"] = ms(make_decode_step(cfg, rows=b, **steps),
+                             caches, toks)
+        out["plain_ms"] = ms(make_decode_step(cfg, **steps), caches, toks)
+    print(f"{label}: row 0's logits at B 1 against B 4 (depths {lens}): "
+          f"decode max |d| {out['decode']:.4g}, verify ({SPEC_K} positions "
+          f"a row, {b * SPEC_K} rows at B 4) max |d| {out['verify']:.4g}, "
+          f"of max|logit| {big:.4g}; a B-4 decode step "
+          f"{out['fixed_ms']:.2f} ms in the fixed row order, "
+          f"{out['plain_ms']:.2f} ms without it")
+    return out
 
 
-def _serve_preempt(torch, np, label, layers=None, swaps=None, **kw):
+def _serve_preempt(torch, np, label, layers=None, swaps=None, after=None,
+                   **kw):
     """The preempt phase's 8 requests on one engine (max_len
-    PREEMPT_MAX_LEN); returns the streams, the stats, tok/s and the
-    peak number of decode rows."""
+    PREEMPT_MAX_LEN); ``after(eng)`` is called once they are served.
+    Returns the streams and the stats."""
     from repro_torch.serving import Request
 
     eng, finite = _engine(layers=layers, max_len=PREEMPT_MAX_LEN, **kw), []
@@ -2372,6 +2410,8 @@ def _serve_preempt(torch, np, label, layers=None, swaps=None, **kw):
           f"{st['decode_steps']} decode steps, peak decode rows {peak[0]}, "
           f"preemptions {st['preemptions']}, swap-ins {st['swap_ins']}, "
           f"peak pool pages {st['peak_pool_pages']}")
+    if after is not None:
+        after(eng)
     out = [list(r.out) for r in reqs]
     del eng
     torch.cuda.empty_cache()
@@ -2390,27 +2430,31 @@ def phase_engine_preempt(torch, np):
     the streams bit for bit those of the same requests on a fully backed
     pool; a victim decodes in smaller batches than on the fully backed
     pool, so a decode row's logits at B 1 must equal the same row's at
-    B 4 (``_row_at_b1_and_b4``: the norms' row sums, once in an order
-    that depended on the batch, tools/preempt_trace.py).  Then
+    B 4, in a decode and in a verify step (``_row_at_b1_and_b4`` on the
+    preempting engine once its run is read: the norms' row sums, once in
+    an order that depended on the batch, tools/preempt_trace.py).  Then
     REPRO_PREEMPTION=0 (reservation admission: about one request at a
     time on this pool), at PREEMPT_RESERVE_LAYERS layers beside its
     fully backed twin at that depth: equal streams and no preemption."""
     counters = _serving_counters()
+    swaps = {"bytes": 0, "out_s": [], "in_s": [], "round_trips": 0}
+    rows = {}
+
+    def after(eng):
+        # the run's own launches, then the row check on its engine
+        _launch_line("preempt usage", counters)
+        rows.update(_row_at_b1_and_b4(torch, np, eng, f"{ARCH} "
+                                      f"({PREEMPT_LAYERS} layers)"))
+
     for c in counters:
         c.reset()
-    swaps = {"bytes": 0, "out_s": [], "in_s": [], "round_trips": 0}
-    eng = _engine(layers=PREEMPT_LAYERS, max_len=PREEMPT_MAX_LEN)
-    d = _row_at_b1_and_b4(torch, np, eng, f"{ARCH} ({PREEMPT_LAYERS} "
-                          "layers)")
-    del eng
-    torch.cuda.empty_cache()
-    if d != 0.0:
-        raise AssertionError(f"preempt: a decode row at B 1 differs from "
-                             f"the same row at B 4 by {d}")
     small, st = _serve_preempt(torch, np, "preempt usage", swaps=swaps,
-                               layers=PREEMPT_LAYERS,
+                               layers=PREEMPT_LAYERS, after=after,
                                num_pages=PREEMPT_PAGES)
-    _launch_line("preempt usage", counters)
+    if rows["decode"] != 0.0 or rows["verify"] != 0.0:
+        raise AssertionError(f"preempt: row 0 at B 1 differs from the same "
+                             f"row at B 4 by {rows['decode']} (decode), "
+                             f"{rows['verify']} (verify)")
     if not (st["preemptions"] > 0
             and st["swap_ins"] == st["preemptions"]
             == swaps["round_trips"]):
@@ -3917,10 +3961,11 @@ def _moe_engine_rows(torch, np, mode, quant, label) -> dict:
     (floating pages), every decode step's launches gated (the dense
     combine's expert sites one by one: group_gemm at each delayed site
     in per_group, the M <= 32 tile in moss, per_tensor's pt_matmul no
-    kernel of its own; decode_attn_paged once a layer).  Where the row
-    moved with the batch, the same requests on one slot (each alone)
-    must give the same streams.  Returns the row's difference, the
-    streams' equality and the serving numbers."""
+    kernel of its own; decode_attn_paged once a layer).  A verify row
+    must not move with its batch; where the decode row moved, the same
+    requests on one slot (each alone) must give the same streams.
+    Returns the rows' differences, the streams' equality and the serving
+    numbers."""
     from repro_torch.configs.registry import get_config
     from repro_torch.kernels import group_gemm
 
@@ -3936,7 +3981,7 @@ def _moe_engine_rows(torch, np, mode, quant, label) -> dict:
     rows = {}
 
     def check(eng):
-        rows["d"] = _row_at_b1_and_b4(torch, np, eng, label)
+        rows.update(_row_at_b1_and_b4(torch, np, eng, label))
 
     for c in counters:
         c.reset()
@@ -3949,10 +3994,17 @@ def _moe_engine_rows(torch, np, mode, quant, label) -> dict:
     _serve_line(f"{label} (build {build_s:.2f} s)", reqs, run_s, st)
     _check_steps(f"{label} decode", log, per_step)
     mixed = [list(r.out) for r in reqs]
-    out = dict(b1_b4_max_abs=rows["d"], tok_s=sum(map(len, mixed)) / run_s,
+    out = dict(b1_b4_max_abs=rows["decode"],
+               b1_b4_verify_max_abs=rows["verify"],
+               tok_s=sum(map(len, mixed)) / run_s,
                decode_step_ms=1e3 * st["mean_decode_step_s"],
-               decode_step_launches=per_step)
-    if rows["d"] != 0.0:
+               decode_step_launches=per_step,
+               b4_step_ms=dict(fixed=rows["fixed_ms"],
+                               plain=rows["plain_ms"]))
+    if rows["verify"] != 0.0:
+        raise AssertionError(f"{label}: a verify row at B 1 differs from "
+                             f"the same row at B 4 by {rows['verify']}")
+    if rows["decode"] != 0.0:
         solo, *_ = _serve_once(torch, np, num_slots=1, **kw)
         same = [list(r.out) for r in solo] == mixed
         print(f"{label}: the streams served alone (1 slot) equal the mixed "
@@ -3970,10 +4022,11 @@ def phase_engine_moe_baselines(torch, np) -> dict:
     expert) against their own amax, calibrated activation scales per
     (layer, expert) site): per_group (COAT: group_gemm at every site of
     every expert, M <= 32) and per_tensor (TE: pt_matmul); and the
-    moss engine's decode row at B 1 against B 4 (the dense combine is
-    meant to keep a token's arithmetic independent of its batch: the
-    router's and the combine's f32 products are cuBLAS's, whose split
-    may follow the batch).  Returns each recipe's numbers."""
+    moss engine's decode and verify rows at B 1 against B 4 (the dense
+    combine is meant to keep a token's arithmetic independent of its
+    batch: on the card the router's, the combine's and pt_matmul's f32
+    products take a serving step's fixed row order, core.row_order).
+    Returns each recipe's numbers."""
     from repro_torch.core.formats import (MOSS_CONFIG, PER_GROUP_CONFIG,
                                           PER_TENSOR_CONFIG)
 
@@ -3984,8 +4037,14 @@ def phase_engine_moe_baselines(torch, np) -> dict:
                                      f"serve {MOE_ARCH} {mode}")
     eng = _engine(arch=MOE_ARCH, layers=MOE_SERVE_LAYERS, max_len=64,
                   over=dict(quant=MOSS_CONFIG))
-    out["moss"] = dict(b1_b4_max_abs=_row_at_b1_and_b4(
-        torch, np, eng, f"serve {MOE_ARCH} moss"))
+    rows = _row_at_b1_and_b4(torch, np, eng, f"serve {MOE_ARCH} moss")
+    if rows["verify"] != 0.0:
+        raise AssertionError(f"serve {MOE_ARCH} moss: a verify row at B 1 "
+                             f"differs from B 4 by {rows['verify']}")
+    out["moss"] = dict(b1_b4_max_abs=rows["decode"],
+                       b1_b4_verify_max_abs=rows["verify"],
+                       b4_step_ms=dict(fixed=rows["fixed_ms"],
+                                       plain=rows["plain_ms"]))
     del eng
     torch.cuda.empty_cache()
     return out

@@ -251,10 +251,12 @@ def group_gemm(xq: PerGroupQ, wq: PerGroupQ | PerTensorQ,
 def pt_gemm(xq: PerTensorQ, wq: PerTensorQ,
             out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """TE-style per-tensor GEMM: the dequant is the one epilogue
-    multiply ``s_x · s_w``."""
-    from .runtime_flags import mm
+    multiply ``s_x · s_w``.  The product is f32 over the fp8 values
+    (exact in f32), a serving step's rows one by one on the card
+    (``row_order.matmul``)."""
+    from . import row_order
 
-    acc = mm(xq.q, wq.q, out_dtype=torch.float32)
+    acc = row_order.matmul(xq.q.to(torch.float32), wq.q.to(torch.float32))
     return (acc * (xq.s * wq.s)).to(out_dtype)
 
 

@@ -197,32 +197,16 @@ def group_matmul(xq: PerGroupQ, wq: PerTensorQ,
     return (acc * wq.s).to(out_dtype)
 
 
-PT_ROWS = 16          # pt_matmul takes up to this many rows one by one
-
-
 def pt_matmul(xq: PerTensorQ, wq: PerTensorQ,
               out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """TE-style per-tensor GEMM, epilogue-only dequant: ``(Qx @ Qw) ·
     s_x · s_w``.  The reference computes it outside any kernel (there
     is nothing for a hand-written kernel to fuse), as the upcast product
-    with f32 accumulation; so does this, on either device: the fp8
-    products are exact in f32 and only the order of the f32 sum differs
-    between devices.  (cuBLASLt's fp8 GEMM, ``torch._scaled_mm``, would
-    not do: Hopper's fp8 tensor cores accumulate in less than f32.)
-
-    On the card a product of at most ``PT_ROWS`` rows (the decode and
-    verify rows) is taken one row at a time: cuBLAS picks its algorithm
-    from the shape, and at B 1 and B 4 its sums for the same row
-    differed (phi3.5-moe's decode logits by 0.245 of 3.83, and the
-    streams served one at a time left the mixed batch's); one row a
-    call, a row's sum no longer depends on the rows beside it."""
-    m = xq.q.shape[0]
-    if xq.q.device.type == "cuda" and xq.q.dim() == 2 and 1 < m <= PT_ROWS:
-        # pt_gemm's product (fp8 values are exact in bf16 and f32), the
-        # weight upcast once
-        xf, wf = xq.q.to(torch.float32), wq.q.to(torch.float32)
-        acc = torch.cat([torch.matmul(xf[i:i + 1], wf) for i in range(m)])
-        return (acc * (xq.s * wq.s)).to(out_dtype)
+    with f32 accumulation; so does this, on either device
+    (``core.quant.pt_gemm``): the fp8 products are exact in f32 and only
+    the order of the f32 sum differs between devices.  (cuBLASLt's fp8
+    GEMM, ``torch._scaled_mm``, would not do: Hopper's fp8 tensor cores
+    accumulate in less than f32.)"""
     return pt_gemm(xq, wq, out_dtype=out_dtype)
 
 

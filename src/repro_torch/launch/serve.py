@@ -72,8 +72,11 @@ class Server:
                                                 self.scales)
         self.prefill = make_prefill_step(cfg, max_len, scales=self.scales,
                                          act_scales=self.act_scales)
+        # the engine's row order for its B rows (core.row_order), so
+        # that a request gives the engine's stream
         self.decode = make_decode_step(cfg, scales=self.scales,
-                                       act_scales=self.act_scales)
+                                       act_scales=self.act_scales,
+                                       rows=batch_slots)
         self.caches = init_caches(cfg, batch_slots, max_len, per_slot=True,
                                   device=self.device)
         self.slots: list[Request | None] = [None] * batch_slots

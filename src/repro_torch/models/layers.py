@@ -16,7 +16,7 @@ from typing import Any, NamedTuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core import xla_cpu_numerics
+from repro_torch.core import row_order, xla_cpu_numerics
 from repro_torch.core.formats import QuantConfig, div_c
 from repro_torch.core.linear import QT, qlinear
 
@@ -129,30 +129,13 @@ def broadcast(x: torch.Tensor, n: int, dim: int) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _row_sum(x: torch.Tensor) -> torch.Tensor:
-    """Sum over the last dim in one order for every row whatever the
-    number of rows: halve the row with elementwise adds while its length
-    is even, then add what is left from the left.  (PyTorch's CUDA
-    reductions pick their split of a row from the number of rows, so a
-    decode row's norm at B 1 differed from the same row's at B 4 in 13
-    of 3072 bf16 outputs on phi3-mini.)"""
-    k = x.shape[-1]
-    while k % 2 == 0 and k > 1:
-        k //= 2
-        x = x[..., :k] + x[..., k:]
-    total = x[..., 0]
-    for i in range(1, k):
-        total = total + x[..., i]
-    return total
-
-
 def _mean(xf: torch.Tensor) -> torch.Tensor:
     """f32 mean over the last dim, keepdim; on the CPU in the
-    reference's order (``core.xla_cpu_numerics``), on the card in an
-    order that no other row changes (``_row_sum``)."""
+    reference's order (``core.xla_cpu_numerics``), on the card in a
+    serving step's fixed row order (``core.row_order``)."""
     if xf.device.type == "cpu":
         return xla_cpu_numerics.mean(xf)
-    return div_c(_row_sum(xf), float(xf.shape[-1]))[..., None]
+    return row_order.mean(xf)
 
 
 def _rsqrt(v: torch.Tensor) -> torch.Tensor:

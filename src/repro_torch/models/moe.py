@@ -37,16 +37,13 @@ import contextlib
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import row_order
 from repro_torch.core.formats import QuantConfig
 from repro_torch.core.linear import QT, qlinear, qlinear_grouped
 from repro_torch.core.runtime_flags import moe_expert_path
-from .layers import PDef, _row_sum, broadcast
+from .layers import PDef, broadcast
 
 DENSE_MAX_TOKENS = 4096     # the dense combine's limit under moe_decode_dense
-# up to this many tokens the card takes the router's product in one
-# fixed order a row (the serving rows: decode, verify, chunks,
-# calibration), so that a row's routing does not depend on its batch
-FIXED_ORDER_TOKENS = 256
 
 
 def moe_defs(cfg):
@@ -131,18 +128,12 @@ def _expert_runner(cfg, p, qcfg):
 
 
 def router_probs(cfg, p, x_flat):
-    """The f32 router: (logits, softmax probs).  On the card, up to
-    ``FIXED_ORDER_TOKENS`` rows, each row's logits are summed in one
-    order (``layers._row_sum``): cuBLAS picks its split of K from the
-    number of rows, so a decode row routed at B 1 and at B 4 could
-    differ."""
+    """The f32 router: (logits, softmax probs); a serving step's rows
+    in their fixed order on the card (``core.row_order``), so that a
+    decode row is routed alike at B 1 and at B 4."""
     w = p["router"]
     w = (w.w if isinstance(w, QT) else w).to(torch.float32)
-    xf = x_flat.to(torch.float32)
-    if xf.device.type == "cuda" and xf.shape[0] <= FIXED_ORDER_TOKENS:
-        logits = _row_sum(xf[:, None, :] * w.T[None])
-    else:
-        logits = xf @ w
+    logits = row_order.matmul(x_flat.to(torch.float32), w)
     return logits, torch.softmax(logits, dim=-1)
 
 
@@ -231,14 +222,7 @@ def _dense_moe(cfg, p, x_flat, top_w, top_ids, qcfg):
         1, top_ids.long(), top_w.to(torch.float32))
     xs = broadcast(x_flat, cfg.n_experts, 0)            # (E,T,d) view
     ys = _experts_vmapped(cfg, p, xs, qcfg)              # (E,T,d)
-    if ys.device.type == "cuda":
-        # each row's sum over the experts in one order, whatever T
-        # (an einsum's cuBLAS split follows the batch)
-        y = _row_sum((ys.to(torch.float32)
-                      * combine.T[:, :, None]).movedim(0, -1))
-    else:
-        y = torch.einsum("etd,te->td", ys.to(torch.float32), combine)
-    return y.to(x_flat.dtype)
+    return row_order.expert_sum(ys, combine).to(x_flat.dtype)
 
 
 def _unsupported() -> str | None:

@@ -3,7 +3,8 @@
 Plain tensor code over nested dicts of f32 master weights; the
 reference has no kernel here.  The update has the reference's formula
 and order; the moments and the new weights are new tensors (the caller
-drops the old ones).
+drops the old ones), and the gradients are the caller's to consume: the
+clip scales them in place and the update frees each once it is used.
 """
 
 from __future__ import annotations
@@ -37,13 +38,12 @@ def _f32(v, device) -> torch.Tensor:
     return torch.as_tensor(v, dtype=torch.float32, device=device)
 
 
-def adamw_update(cfg: AdamWConfig, params, grads, state, step: int, lr,
-                 free_grads: bool = False):
+def adamw_update(cfg: AdamWConfig, params, grads, state, step: int, lr):
     """Returns (new_params, new_state).  ``step`` is 0-based (the
-    bias corrections use step + 1).  With ``free_grads`` each leaf of
-    the (dict) ``grads`` tree is set to None once its update is made,
-    so that a caller that owns the gradients holds them no longer than
-    needed (a 256,000 x 4096 f32 leaf is 4.2 GB)."""
+    bias corrections use step + 1).  The caller hands its gradients
+    over: each leaf of the (dict) ``grads`` tree is set to None once its
+    update is made, so that none is held longer than needed (a 256,000 x
+    4096 f32 leaf is 4.2 GB)."""
     t = float(step + 1)
     # 1 - b^t in f32, as the reference computes it from an f32 step
     c1 = 1.0 - torch.pow(torch.tensor(cfg.b1, dtype=torch.float32),
@@ -79,9 +79,6 @@ def adamw_update(cfg: AdamWConfig, params, grads, state, step: int, lr,
         w_new = w32 - delta
         return w_new.to(w.dtype), OptState(mu=mu, nu=nu)
 
-    if not isinstance(params, dict):
-        return upd(params, grads, state)
-
     def walk(p, g, st):
         new_p, new_st = {}, {}
         for k in p:
@@ -89,8 +86,7 @@ def adamw_update(cfg: AdamWConfig, params, grads, state, step: int, lr,
                 new_p[k], new_st[k] = walk(p[k], g[k], st[k])
             else:
                 new_p[k], new_st[k] = upd(p[k], g[k], st[k])
-                if free_grads:
-                    g[k] = None
+                g[k] = None
         return new_p, new_st
 
     return walk(params, grads, state)
@@ -101,16 +97,13 @@ def global_norm(tree) -> torch.Tensor:
                           for x in tree_leaves(tree)))
 
 
-def clip_by_global_norm(grads, max_norm: float, inplace: bool = False):
-    """(grads scaled to at most ``max_norm`` in global L2 norm, the norm);
-    with ``inplace`` the f32 leaves are scaled where they are (the same
-    product) and the same tree comes back."""
+def clip_by_global_norm(grads, max_norm: float):
+    """(grads scaled to at most ``max_norm`` in global L2 norm, the norm).
+    The f32 leaves are scaled where they are (the reference's product)
+    and the same tree comes back."""
     norm = global_norm(grads)
     factor = torch.clamp_max(
         _f32(max_norm, norm.device) / torch.clamp_min(norm, 1e-9), 1.0)
-    if inplace and all(g.dtype == torch.float32 for g in tree_leaves(grads)):
-        for g in tree_leaves(grads):
-            g.mul_(factor)
-        return grads, norm
-    return tree_map(lambda g: (g.to(torch.float32) * factor).to(g.dtype),
-                grads), norm
+    for g in tree_leaves(grads):
+        g.mul_(factor)
+    return grads, norm

@@ -47,8 +47,9 @@ step against their build-time scales instead, and
 (``prepare_weights``, ``calibrate_serving``).  Dense, MoE and MLA models
 serve alike: a MoE block's decode, verify and chunk steps take the
 masked dense-experts combine, every expert on every token, each through
-its own weight and activation scales; the per_group and per_tensor
-recipes serve dense models.  With chunked prefill on floating pages
+its own weight and activation scales, in every recipe.  On the card a
+decode or verify step computes each row in an order that its batch does
+not change (``core.row_order``, up to ``step_rows``).  With chunked prefill on floating pages
 admission is usage-based (``REPRO_PREEMPTION``, on by default): a
 request reserves its prompt plus one page, and growth past it extends
 page by page.  When growth finds the pool dry the engine preempts the
@@ -236,8 +237,6 @@ class Engine:
                                                 self.scales)
         self.prefill = make_prefill_step(cfg, max_len, scales=self.scales,
                                          act_scales=self.act_scales)
-        self.decode = make_decode_step(cfg, scales=self.scales,
-                                       act_scales=self.act_scales)
         self.float_pages = (paged_placement() == "float"
                             and paged_decode_supported(cfg, max_len,
                                                        page_size))
@@ -279,8 +278,18 @@ class Engine:
         self.draft: DraftSource = draft if draft is not None \
             else NgramDraft()
         self.spec_k = max(1, int(spec_k))
+        # the most rows a decode or verify step takes (a verify step
+        # runs at most spec_k positions a slot: Scheduler.draft_len): up
+        # to that many, the card computes each row in an order that its
+        # batch does not change (core.row_order), so a request's stream
+        # does not depend on the requests beside it
+        self.step_rows = num_slots * (self.spec_k if self.spec else 1)
+        self.decode = make_decode_step(cfg, scales=self.scales,
+                                       act_scales=self.act_scales,
+                                       rows=self.step_rows)
         self.verify = (make_verify_step(cfg, scales=self.scales,
-                                        act_scales=self.act_scales)
+                                        act_scales=self.act_scales,
+                                        rows=self.step_rows)
                        if self.spec else None)
         self._staging: _Staging | None = None
         self._preempted: deque[tuple[Request, dict]] = deque()

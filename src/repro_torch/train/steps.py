@@ -23,6 +23,7 @@ from typing import Any, NamedTuple
 
 import torch
 
+from repro_torch.core import row_order
 from repro_torch.core.autoscale import advance, measured_scale, predict
 from repro_torch.core.formats import QuantConfig
 from repro_torch.core.linear import QT
@@ -184,12 +185,10 @@ def make_train_step(cfg, hp: TrainHParams, mesh=None):
             # the step owns its gradients: clipped in place, each freed
             # once its leaf is updated
             del flat, params
-            grads, gnorm = clip_by_global_norm(grads, hp.grad_clip,
-                                               inplace=True)
+            grads, gnorm = clip_by_global_norm(grads, hp.grad_clip)
             new_params, new_opt = adamw_update(hp.adamw, state.params,
                                                grads, state.opt,
-                                               state.step, lr_dev,
-                                               free_grads=True)
+                                               state.step, lr_dev)
             del grads
             if qcfg.quantized:
                 new_s0, new_t = advance_scales(defs, state.scale_s0,
@@ -320,26 +319,29 @@ def _wrap_serve(params, mask, scales, act=None, path=()):
     return out
 
 
-def make_decode_step(cfg, scales=None, act_scales=None):
+def make_decode_step(cfg, scales=None, act_scales=None, rows: int = 0):
     """The serving step: tokens (B, 1) decode one position per slot;
     tokens (1, C) chunk-prefill C prompt tokens of one slot.  The same
     callable serves both shapes, as in the reference.  The caches' pool
     tensors are updated in place; the returned caches carry the advanced
-    ``idx``."""
+    ``idx``.  On the card a step of at most ``rows`` rows computes each
+    row in an order that its batch does not change
+    (``core.row_order``)."""
     mask = serve_quant_mask(cfg, scales)
     qcfg = cfg.quant
 
     @torch.inference_mode()
     def decode_step(params, caches, tokens):
         qp = _wrap_serve(params, mask, scales, act_scales)
-        logits, caches, _ = forward(cfg, qcfg, qp, tokens, caches,
-                                    mode="decode")
+        with row_order.rows(rows):
+            logits, caches, _ = forward(cfg, qcfg, qp, tokens, caches,
+                                        mode="decode")
         return logits, caches
 
     return decode_step
 
 
-def make_verify_step(cfg, scales=None, act_scales=None):
+def make_verify_step(cfg, scales=None, act_scales=None, rows: int = 0):
     """The speculative verify step: tokens (B, k) = [last committed
     token, draft_1 .. draft_{k-1}] per slot.  All k positions are written
     to the cache and attended in one forward through the decode kernel's
@@ -347,15 +349,17 @@ def make_verify_step(cfg, scales=None, act_scales=None):
     position j's being what the j-th of k sequential decode steps would
     give (with the same weights and delayed activation scales).  The
     caches' ``idx`` advances by k; the caller truncates the depths of
-    rejected drafts."""
+    rejected drafts.  ``rows`` as in ``make_decode_step``, counting
+    each slot's k positions."""
     mask = serve_quant_mask(cfg, scales)
     qcfg = cfg.quant
 
     @torch.inference_mode()
     def verify_step(params, caches, tokens):
         qp = _wrap_serve(params, mask, scales, act_scales)
-        logits, caches, _ = forward(cfg, qcfg, qp, tokens, caches,
-                                    mode="verify")
+        with row_order.rows(rows):
+            logits, caches, _ = forward(cfg, qcfg, qp, tokens, caches,
+                                        mode="verify")
         return logits, caches
 
     return verify_step

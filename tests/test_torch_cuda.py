@@ -1220,6 +1220,35 @@ def test_pt_matmul_matches_cpu(cuda):
             _close(got, want)
 
 
+# A serving step's fixed row order (core.row_order) on the card: at a
+# verify step's 16 rows (4 slots x spec_k 4) each helper's row 0 is
+# bitwise the same row computed alone; pt_matmul's too.
+def test_row_order_rows_do_not_depend_on_their_batch(cuda):
+    from repro_torch.core import row_order
+
+    rng = np.random.default_rng(5)
+
+    def t(*shape):
+        return torch.tensor(rng.standard_normal(shape),
+                            dtype=torch.float32).to(cuda)
+
+    x, w = t(16, 3072), t(3072, 16)
+    ys, c = t(16, 16, 256), t(16, 16).abs()
+    xq, wq = quant_per_tensor(x, "e4m3"), quant_per_tensor(t(3072, 640),
+                                                           "e4m3")
+    with row_order.rows(16):
+        cases = [(row_order.mean(x), row_order.mean(x[:1])),
+                 (row_order.matmul(x, w), row_order.matmul(x[:1], w)),
+                 (row_order.expert_sum(ys, c),
+                  row_order.expert_sum(ys[:, :1], c[:1])),
+                 (dispatch.pt_matmul(xq, wq, out_dtype=torch.float32),
+                  dispatch.pt_matmul(PerTensorQ(xq.q[:1], xq.s), wq,
+                                     out_dtype=torch.float32))]
+    for batch, alone in cases:
+        assert torch.equal(batch[:1], alone)
+    _close(row_order.mean(x), x.mean(dim=-1, keepdim=True))
+
+
 def _moe_sizes(e, c):
     """Ragged sizes with a full and an empty expert, one ending inside a
     128-row block and one past a block boundary."""

@@ -39,10 +39,11 @@ from repro.kernels.decode_attn import (decode_attn_paged_pallas,
 
 from repro_torch import bridge
 from repro_torch.configs.registry import get_config
+from repro_torch.core import row_order
 from repro_torch.core.actscale import calibrate_act_scales
 from repro_torch.core.formats import BF16_CONFIG
 from repro_torch.kernels import decode_attn, dispatch
-from repro_torch.launch.serve import random_params
+from repro_torch.launch.serve import Server, random_params
 from repro_torch.models.attention import _quant_kv
 from repro_torch.models.transformer import spec_verify_supported
 from repro_torch.serving import (
@@ -53,6 +54,8 @@ from repro_torch.serving import (
     Request,
     Scheduler,
 )
+from repro_torch.serving.engine import CHUNK_TOKENS
+from repro_torch.train import steps as tsteps
 from repro_torch.train.steps import (
     make_decode_step,
     make_prefill_step,
@@ -407,6 +410,70 @@ def test_spec_gate_requires_chunked_v2(monkeypatch):
     eng = Engine(mcfg, random_params(mcfg, 0, "cpu"), num_slots=2,
                  max_len=MAX_LEN, spec_decode=True, device="cpu")
     assert eng.spec and eng.act_scales is not None
+
+
+@pytest.mark.parametrize("server", ["engine", "spec", "legacy"])
+def test_serving_steps_run_under_their_most_rows(monkeypatch, server):
+    """Every decode, chunk and verify step of the engine runs under
+    ``row_order.rows(step_rows)``: ``num_slots`` rows, times ``spec_k``
+    with speculative verify (``draft_len`` never exceeds ``spec_k``
+    positions a slot), and no step is wider than that but the prefill
+    chunks; the legacy Server's decode steps under its B rows, so that
+    its streams are the engine's on the card.  Calibration and the
+    whole-prompt prefill run outside it."""
+    seen = []
+    forward = tsteps.forward
+
+    def record(*args, **kw):
+        seen.append((kw.get("mode"), args[3].numel(),
+                     row_order._ROWS.get()))
+        return forward(*args, **kw)
+
+    monkeypatch.setattr(tsteps, "forward", record)
+    cfg = _cfg("fp8")
+    if server == "legacy":
+        srv = Server(cfg, random_params(cfg, 0, "cpu"), batch_slots=3,
+                     max_len=MAX_LEN, device="cpu")
+        srv.run(_requests(cfg, MIXED_LENS), log=None)
+        limit, modes = 3, {"decode"}
+    else:
+        spec = server == "spec"
+        _, eng = _serve(cfg, MIXED_LENS, spec=spec, spec_k=4)
+        assert eng.step_rows == 3 * (4 if spec else 1)
+        limit = eng.step_rows
+        modes = {"decode", "verify"} if spec else {"decode"}
+    assert {m for m, _, _ in seen if m in ("decode", "verify")} == modes
+    for mode, n, got in seen:
+        if mode not in ("decode", "verify"):
+            assert got == 0, (mode, n, got)
+            continue
+        assert got == limit, (mode, n, got)
+        assert n <= limit or (mode, n) == ("decode", CHUNK_TOKENS)
+    assert row_order._ROWS.get() == 0
+
+
+def test_row_order_off_the_card_is_plain_torch():
+    """On the CPU the helpers are the plain torch calls inside a serving
+    step's limit too (bitwise), so no CPU result moves; the fixed order
+    itself (``_halve``) is the row's sum to f32 rounding, and a row's
+    sum is the same alone and among others."""
+    rng = np.random.default_rng(0)
+    x = torch.tensor(rng.standard_normal((5, 96)), dtype=torch.float32)
+    w = torch.tensor(rng.standard_normal((96, 7)), dtype=torch.float32)
+    ys = torch.tensor(rng.standard_normal((4, 5, 8)), dtype=torch.float32)
+    c = torch.tensor(rng.random((5, 4)), dtype=torch.float32)
+    with row_order.rows(64):
+        assert torch.equal(row_order.mean(x), x.mean(dim=-1, keepdim=True))
+        assert torch.equal(row_order.matmul(x, w), x @ w)
+        assert torch.equal(row_order.expert_sum(ys, c),
+                           torch.einsum("etd,te->td", ys, c))
+    for d in (96, 3072, 6400, 7):
+        x = torch.tensor(rng.standard_normal((5, d)), dtype=torch.float32)
+        got = row_order._halve(x)
+        np.testing.assert_allclose(got.numpy(),
+                                   x.double().sum(-1).numpy(), rtol=1e-5,
+                                   atol=1e-5 * d ** 0.5)
+        assert torch.equal(row_order._halve(x[2:3]), got[2:3])
 
 
 def test_accept_rate_ema_steers_draft_len():
