@@ -59,7 +59,11 @@ Phases, each fatal on failure:
      Dh 128 (GQA 8 x 4); and the 256,000-wide heads: mx_gemm's M <= 32
      tile over stablelm's, minitron's and recurrentgemma's heads, and
      at minitron's training shape (M 4096, N or K 256,000)
-     fused_quant_gemm forward and dx, mx_dw_gemm and mx_quant;
+     fused_quant_gemm forward and dx, mx_dw_gemm and mx_quant; the same
+     tile over rwkv6-3b's decode shapes (N 160 and 64 among them) and
+     musicgen-medium's head, the training kernels at rwkv6's ragged N
+     160 and 64 (M 4096), and the contiguous decode attention at
+     musicgen's Server shape (24 kv heads, G 1, Dh 64);
   4. the engine: phi3-mini-3.8b at full width on random weights from a
      seed serves 8 requests through the paged engine; every serving
      kernel must have been launched on that path (the calibration's
@@ -127,13 +131,18 @@ Phases, each fatal on failure:
      pages, and recurrentgemma-2b at full width and depth (26 layers)
      on identity rows, phase 4's requests and one of 2,100 prompt tokens
      whose 2048-slot ring wraps, the legacy Server's streams equal, each
-     decode step's launches as counted from the code; the
+     decode step's launches as counted from the code; rwkv6-3b at full
+     width and depth (32 layers) on identity rows, the legacy Server's
+     streams equal, a decode row at B 1 bitwise the same row at B 4;
+     musicgen-medium (48 layers) and phi-3-vision-4.2b (8 of 32) through
+     the legacy Server, their engines refusing them; the
      port on the card must agree with the port on the CPU on smoke-size
      models (phi3-mini's chunked step, also under the two scale
      switches, phi3.5-moe's steps and its engine's streams, deepseek's
      engine streams, h2o's prefill past the window and its ring decode,
      stablelm's and minitron's chunked steps, recurrentgemma's prefill
-     and decode past its window);
+     and decode past its window, rwkv6's, musicgen's and
+     phi-3-vision's prefill and decode);
   5. the ablation (the paper's Table 6): the quantizer/GEMM entry points
      of kernels.ops at its three (M, N, K) shapes -- the MOSS GEMM
      (mx_gemm's wgmma tile), the COAT GEMM (group_gemm: the same tile,
@@ -174,15 +183,17 @@ Phases, each fatal on failure:
      step's launches as counted, losses within 1e-2 of the grouped
      steps', both times printed); stablelm-12b (2 layers), minitron-8b
      (1 layer) and recurrentgemma-2b (5 layers: a griffin unit and the
-     2-layer tail) at full width, 3 moss and 3 bf16 steps of 1 x 4096
-     each, launches as counted; their smoke models in moss on the card
-     and on the CPU (phase 6's check);
+     2-layer tail), rwkv6-3b (4 layers), musicgen-medium (8) and
+     phi-3-vision-4.2b (4; both on the frontend stub's embeddings) at
+     full width, 3 moss and 3 bf16 steps of 1 x 4096 each, launches as
+     counted; their smoke models in moss on the card and on the CPU
+     (phase 6's check);
   8. the kernels line (JSON; group_gemm with a "serving" entry: its
      times at the serving rows, its launches the per_group steps' and
      engine's; a "deepseek" entry where a kernel was checked at
      deepseek's shapes or launched on its serving or training path,
      with those launches; a "families" entry with the checks at the
-     three families' shapes and their launches; group_gemm's
+     six families' shapes and their launches; group_gemm's
      "moe_baselines" and moe_gmm's "vmapped_ab"), the card line, and
      the last line
      {"ok": true, "device": {...}}.
@@ -283,7 +294,9 @@ PAGED_SHAPES = {"phi3": (4, 32, 1, 96, 4, [17, 64, 33, 5]),
 # decode (rows 0-1 wrapped, 2-3 partial), recurrentgemma-2b's local layer
 RING_SHAPES = {"h2o": (4, 8, 4, 120, 4096, [4100, 4200, 300, 97]),
                "recurrentgemma": (4, 1, 10, 256, 2048, [2048, 2500, 1000,
-                                                        1])}
+                                                        1]),
+               # musicgen-medium's Server: 24 kv heads, G 1, Dh 64, 64 slots
+               "musicgen": (4, 24, 1, 64, 64, [17, 64, 33, 5])}
 # the verify (q_len > 1) form of decode attention (layout, B, KV, S, G, Dh,
 # page size or C, pages a slot, n_valid after the S-token write):
 # phi3-mini's verify step in the spec engine phase (4 pages of 16 a slot;
@@ -319,6 +332,9 @@ SPEC_K = 4
 # by a wave of 6 requests; its bf16-cache twin at this depth
 PREFIX_SYSTEM, PREFIX_MAX_LEN, PREFIX_BF16_LAYERS = 512, 640, 4
 PREFIX_LAYERS = 8                   # the fp8-cache runs, of 32
+# the three serving switches' runs (and the default run they are held
+# to), of phi3-mini's 32 layers: cut to pay for the last three families
+HATCH_LAYERS = 8
 # the preempt phase: 12 pages where 4 slots of 128 tokens need 32, at 8
 # of phi3-mini's 32 layers; the reservation run (about one request at a
 # time) at 4
@@ -334,14 +350,26 @@ BASELINE_LAYERS, BASELINE_CHECK_LAYERS = 8, 2
 # ring, GeGLU, the tied head embed/head_t, vocab 256,000); each served at
 # this depth (None: all 26 layers) and trained at this one, batch 1 x 4096
 STABLELM, MINITRON, GEMMA = "stablelm-12b", "minitron-8b", "recurrentgemma-2b"
-FAMILIES = (STABLELM, MINITRON, GEMMA)
-FAMILY_SERVE_LAYERS = {STABLELM: 8, MINITRON: 8, GEMMA: None}
+# and the reference's last three: rwkv6-3b (attention-free: the chunked
+# WKV and its one-token update in plain torch, 10 quantized sites a
+# layer; identity rows, its streams those of the legacy Server),
+# musicgen-medium (embeddings input, sinusoidal positions, MHA Dh 64,
+# vocab 2048) and phi-3-vision-4.2b (embeddings input, the phi3-mini
+# backbone), whose engines refuse them (as the reference's): the legacy
+# Server serves them from token prompts through the embedding table,
+# their training takes the frontend stub's embeddings
+RWKV, MUSICGEN, PHI3V = "rwkv6-3b", "musicgen-medium", "phi-3-vision-4.2b"
+FAMILIES = (STABLELM, MINITRON, GEMMA, RWKV, MUSICGEN, PHI3V)
+# phi-3-vision's backbone (phi3-mini) is served at 32 layers by phase 4
+FAMILY_SERVE_LAYERS = {STABLELM: 8, MINITRON: 8, GEMMA: None, RWKV: None,
+                       MUSICGEN: None, PHI3V: 8}
 # trained at full width: each recipe's step holds the f32 weights, their
 # gradients, both moments and AdamW's new copies of three of them at its
 # peak (stablelm at 4 layers, 2.14B parameters, ran out of the 80 GB in
 # bf16), and minitron's f32 logits of 1 x 4096 x 256,000 and their
 # gradient (4.2 GB each) beside its 2.1B embedding and head parameters
-FAMILY_TRAIN_LAYERS = {STABLELM: 2, MINITRON: 1, GEMMA: 5}
+FAMILY_TRAIN_LAYERS = {STABLELM: 2, MINITRON: 1, GEMMA: 5, RWKV: 4,
+                       MUSICGEN: 8, PHI3V: 4}
 FAMILY_TRAIN_M = 4096               # paper Table 8's sequence
 # recurrentgemma's engine: phase 4's 8 requests and one of this many
 # prompt tokens, whose ring (2048 slots) wraps at its prefill
@@ -351,6 +379,13 @@ GEMMA_LONG_PROMPT, GEMMA_MAX_LEN = 2100, 2176
 # gradient)
 FAMILY_HEAD_KN = [(5120, 100352), (4096, 256000), (2560, 256000)]
 HEAD_TRAIN_KN = (4096, 256000)
+# rwkv6-3b's decode (K, N): the ddlerp LoRA's N 160, the decay LoRA's 64,
+# the time mix's square projections, the channel mix's two, its head; its
+# training's ragged N (ddlerp_w1, decay_w1); musicgen-medium's head
+RWKV_DECODE_KN = [(2560, 160), (2560, 64), (2560, 2560), (2560, 8960),
+                  (8960, 2560), (2560, 65536)]
+RWKV_TRAIN_KN = [(2560, 160), (2560, 64)]
+MUSICGEN_HEAD_KN = (1536, 2048)
 REPLACES = {
     "mx_gemm": "src/repro/kernels/mx_gemm.py:61",
     "mx_gemm_tiled": "src/repro/kernels/mx_gemm.py:61",
@@ -919,9 +954,14 @@ def phase_ring_kernels(torch, timer) -> dict:
             if (name, kv_dtype) == ("h2o", "fp8"):
                 res["decode_attn"] = dict(ms=t, plain_ms=tp, library_ms=tl,
                                           bound_ms=b, bound_by=by)
+            if (name, kv_dtype) == ("musicgen", "fp8"):
+                res["musicgen"] = dict(ms=t, plain_ms=tp, library_ms=tl,
+                                       bound_ms=b, bound_by=by,
+                                       max_abs_err=err)
             del k, v, ks, vs, got, want
         del q, kf, vf, qb, kb, vb
     res["decode_attn"]["max_abs_err"] = worst
+    res["decode_attn"]["families"] = {"musicgen": res.pop("musicgen")}
     torch.cuda.empty_cache()
     return res
 
@@ -1554,7 +1594,7 @@ def _serve_once(torch, np, seed: int, float_pages: bool = True,
                 layers: int | None = None, gaps: dict | None = None,
                 step_log: tuple | None = None, wrap_decode=None,
                 over: dict | None = None, chunked: bool = True,
-                **engine_kw):
+                after=None, **engine_kw):
     """Serve ``reqs`` (phase 4's 8 requests by default) through a
     full-width engine of ``arch`` (depth cut to ``layers`` if given,
     config fields replaced by ``over``) on weights from ``seed``; with
@@ -1562,9 +1602,9 @@ def _serve_once(torch, np, seed: int, float_pages: bool = True,
     ((counters, list)) each decode step's launches; ``wrap_decode(eng)``
     wraps the engine's own step first.  The engine must take the
     placement ``float_pages`` and the prefill ``chunked`` (the
-    whole-prompt prefill where False).  Returns the requests, the build
-    and serve seconds and the engine's stats (with the run's peak
-    memory)."""
+    whole-prompt prefill where False); ``after(eng)`` is called once the
+    requests are served.  Returns the requests, the build and serve
+    seconds and the engine's stats (with the run's peak memory)."""
     from repro_torch.serving import Request
 
     torch.cuda.reset_peak_memory_stats()
@@ -1601,6 +1641,8 @@ def _serve_once(torch, np, seed: int, float_pages: bool = True,
         raise AssertionError("non-finite logits on the main path")
     st = eng.stats()
     st["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    if after is not None:
+        after(eng)
     del eng
     torch.cuda.empty_cache()
     return reqs, build_s, run_s, st
@@ -1986,9 +2028,11 @@ def _serving_counters():
             decode_attn.counter_contiguous_verify]
 
 
-def phase_engine_hatch(torch, np, plain: list, gaps: dict):
-    """The reference's three serving switches on full-width phi3-mini,
-    phase 4's requests and weights, each set for its run only:
+def phase_engine_hatch(torch, np):
+    """The reference's three serving switches on full-width phi3-mini at
+    HATCH_LAYERS layers, phase 4's requests and weights, each set for its
+    run only, against a default run of the same model (its streams and
+    top-two gaps):
     REPRO_SERVE_PREQUANT=0 (the bf16 tree quantized in every step
     against its build-time scales: no mx_quant launch but the
     calibration's, streams phase 4's up to a tie), REPRO_SERVE_DELAYED_
@@ -1998,20 +2042,22 @@ def phase_engine_hatch(torch, np, plain: list, gaps: dict):
     decode kernels' plain versions: no decode_attn launch of any form;
     then, untimed, every attention call within ``attn_limit`` of the
     kernel on the same rows: ``_einsum_beside_kernels``).  Each reports
-    where its streams leave phase 4's."""
-    from repro_torch.configs.registry import get_config
-
-    cfg = get_config(ARCH)
-    sites = 7 * cfg.n_layers + 1            # q k v o up gate down, head
+    where its streams leave the default run's."""
+    gaps = {}
+    reqs, _, run_s, st = _serve_once(torch, np, seed=0, layers=HATCH_LAYERS,
+                                     gaps=gaps)
+    _serve_line(f"hatch default ({HATCH_LAYERS} layers)", reqs, run_s, st)
+    plain = [list(r.out) for r in reqs]
+    sites = 7 * HATCH_LAYERS + 1            # q k v o up gate down, head
     counters = _serving_counters()
     zero = {c.name: 0 for c in counters}
     runs = [
         ("REPRO_SERVE_PREQUANT", "0",
-         {**zero, "mx_gemm": sites, "decode_attn_paged": cfg.n_layers}),
+         {**zero, "mx_gemm": sites, "decode_attn_paged": HATCH_LAYERS}),
         ("REPRO_SERVE_DELAYED_ACT", "0",
          {**zero, "mx_gemm": sites, "fused_quant_gemm": sites,
           "mx_quant": sites, "global_amax": sites,
-          "decode_attn_paged": cfg.n_layers}),
+          "decode_attn_paged": HATCH_LAYERS}),
         ("REPRO_DECODE_ATTN", "einsum", {**zero, "mx_gemm": sites}),
     ]
     for name, value, want in runs:
@@ -2019,7 +2065,8 @@ def phase_engine_hatch(torch, np, plain: list, gaps: dict):
             c.reset()
         log = []
         reqs, _, run_s, st = _with_env(name, value, lambda: _serve_once(
-            torch, np, seed=0, step_log=(counters, log)))
+            torch, np, seed=0, layers=HATCH_LAYERS,
+            step_log=(counters, log)))
         total = {c.name: c.count for c in counters}
         label = f"hatch {name}={value}"
         _serve_line(label, reqs, run_s, st)
@@ -2048,23 +2095,25 @@ def phase_engine_hatch(torch, np, plain: list, gaps: dict):
         # the same weights' bits: equal streams up to a tie.  (The einsum
         # path is gated call by call above; its streams are reported.)
         if name == "REPRO_SERVE_PREQUANT" and any(g > TIE for *_, g in div):
-            raise AssertionError(f"{label}: a stream leaves phase 4's at a "
+            raise AssertionError(f"{label}: a stream leaves the default "
+                                 "run's at a "
                                  f"top-two gap above {TIE} of max|logit|")
 
 
 def _einsum_beside_kernels(torch, np, name, value):
-    """Phase 4's run again under ``name``=``value`` (untimed), beside the
-    kernels (``_beside_kernels``): every einsum attention call within
-    ``attn_limit`` of the kernel on the same rows, or where not, within
-    one bf16 rounding of the weights of it; each decode step's logits
-    against the kernels' step on the same cache, reported.  A flipped
-    bf16 attention output that moves one fp8 rounding of the next GEMM's
-    input moves this random-weight model's logits by percents; a step
-    without one gives the kernels' logits bit for bit."""
+    """The hatch phase's run again under ``name``=``value`` (untimed),
+    beside the kernels (``_beside_kernels``): every einsum attention call
+    within ``attn_limit`` of the kernel on the same rows, or where not,
+    within one bf16 rounding of the weights of it; each decode step's
+    logits against the kernels' step on the same cache, reported.  A
+    flipped bf16 attention output that moves one fp8 rounding of the next
+    GEMM's input moves this random-weight model's logits by percents; a
+    step without one gives the kernels' logits bit for bit."""
     rel, attn, restore = [], [], []
     try:
         _with_env(name, value, lambda: _serve_once(
-            torch, np, seed=0, wrap_decode=lambda eng: restore.append(
+            torch, np, seed=0, layers=HATCH_LAYERS,
+            wrap_decode=lambda eng: restore.append(
                 _beside_kernels(torch, eng, name, rel, attn))))
     finally:
         for fn in restore:
@@ -2306,14 +2355,14 @@ def _watch_swaps(torch, eng, log: dict):
     kv.swap_out, kv.swap_in = swap_out, swap_in
 
 
-def _row_at_b1_and_b4(torch, np, eng, label) -> dict:
+def _row_at_b1_and_b4(torch, np, eng, label, verify: bool = True) -> dict:
     """A decode step of ``eng``'s model over 4 rows at depths 19, 33, 8
     and 27 (each prefilled by the engine's own prefill into identity
-    rows) and the same step of row 0 alone; then a verify step of SPEC_K
-    positions a row over the same rows (4·SPEC_K rows, the most a
-    4-slot engine's verify step takes) and of row 0 alone, under the row
-    limit an engine with speculative decode gives its steps
-    (``Engine.step_rows``).  Returns and prints max |logits(B 1) -
+    rows) and the same step of row 0 alone; then (with ``verify``) a
+    verify step of SPEC_K positions a row over the same rows (4·SPEC_K
+    rows, the most a 4-slot engine's verify step takes) and of row 0
+    alone, under the row limit an engine with speculative decode gives
+    its steps (``Engine.step_rows``).  Returns and prints max |logits(B 1) -
     logits(B 4)| of row 0 for each step (0 where every computation of a
     row is independent of the rows beside it), and the B-4 decode step's
     ms with the fixed row order (``core.row_order``) and without it."""
@@ -2326,7 +2375,7 @@ def _row_at_b1_and_b4(torch, np, eng, label) -> dict:
     lens = [19, 33, 8, 27]
     b = len(lens)
     steps = dict(scales=eng.scales, act_scales=eng.act_scales)
-    verify = make_verify_step(cfg, rows=b * SPEC_K, **steps)
+    verify_step = make_verify_step(cfg, rows=b * SPEC_K, **steps)
 
     def row0(caches):
         return {n: with_idx(map_payloads(c, lambda t: t[:, :1].clone()),
@@ -2361,17 +2410,20 @@ def _row_at_b1_and_b4(torch, np, eng, label) -> dict:
         # returned caches advance: every call below writes the same ones
         l1, _ = eng.decode(eng.params, row0(caches), toks[:1])
         l4, _ = eng.decode(eng.params, caches, toks)
-        v1, _ = verify(eng.params, row0(caches), drafts[:1])
-        v4, _ = verify(eng.params, caches, drafts)
         out = dict(decode=float((l1[0, -1] - l4[0, -1]).abs().max()),
-                   verify=float((v1[0] - v4[0]).abs().max()))
+                   verify=None)
+        if verify:
+            v1, _ = verify_step(eng.params, row0(caches), drafts[:1])
+            v4, _ = verify_step(eng.params, caches, drafts)
+            out["verify"] = float((v1[0] - v4[0]).abs().max())
         big = float(l4[0, -1].abs().max())
         out["fixed_ms"] = ms(make_decode_step(cfg, rows=b, **steps),
                              caches, toks)
         out["plain_ms"] = ms(make_decode_step(cfg, **steps), caches, toks)
+    vline = ("" if not verify else f", verify ({SPEC_K} positions a row, "
+             f"{b * SPEC_K} rows at B 4) max |d| {out['verify']:.4g}")
     print(f"{label}: row 0's logits at B 1 against B 4 (depths {lens}): "
-          f"decode max |d| {out['decode']:.4g}, verify ({SPEC_K} positions "
-          f"a row, {b * SPEC_K} rows at B 4) max |d| {out['verify']:.4g}, "
+          f"decode max |d| {out['decode']:.4g}{vline}, "
           f"of max|logit| {big:.4g}; a B-4 decode step "
           f"{out['fixed_ms']:.2f} ms in the fixed row order, "
           f"{out['plain_ms']:.2f} ms without it")
@@ -3143,11 +3195,16 @@ def _small_prefill_decode(torch, np, cfg, label, prompt_len, max_len=48):
 
 
 def phase_small_families(torch, np):
-    """The three families' smoke models on the card against the CPU:
+    """The six families' smoke models on the card against the CPU:
     stablelm's and minitron's serving steps on pages (``_small_steps``),
     recurrentgemma's prefill and decode steps on contiguous caches (its
     RG-LRU states and a 64-slot local-attention ring; the prompt of 70
-    tokens wraps it); logits within 2e-2 * max|logit|."""
+    tokens wraps it), rwkv6's (its WKV state and shift states; a prompt
+    of 37 tokens: two chunks of 16 and a padded third; ddlerp_w1's N 40
+    and decay_w1's N 16 at rows 1 and 2), musicgen's and
+    phi-3-vision's (token prompts through the embedding table, as their
+    Server serves them; musicgen's sinusoidal positions); logits within
+    2e-2 * max|logit|."""
     from repro_torch.configs.registry import get_config
 
     for arch in (STABLELM, MINITRON):
@@ -3155,6 +3212,9 @@ def phase_small_families(torch, np):
                      f"smoke {arch} step")
     _small_prefill_decode(torch, np, get_config(GEMMA, smoke=True),
                           f"smoke {GEMMA} step", 70, max_len=96)
+    for arch in (RWKV, MUSICGEN, PHI3V):
+        _small_prefill_decode(torch, np, get_config(arch, smoke=True),
+                              f"smoke {arch} step", 37)
 
 
 def _train_cfg(get_config, quant_from_name, mode, smoke, interval=500):
@@ -3215,6 +3275,12 @@ def _train_modes(torch, np, arch, cfg_of, modes, m: int, label: str,
     data = SyntheticLM(DataConfig(vocab=base.vocab, seq_len=m,
                                   global_batch=1, seed=0))
     batches = [data.batch_for_step(i) for i in range(3)]
+    if base.input_mode == "embeddings":
+        # the training CLI's frontend stub
+        from repro_torch.launch.train import stub_embeds
+
+        for b in batches:
+            b["embeds"] = stub_embeds(base, b["tokens"].cuda())
     # the initial weights wait on the host between recipes: on the card
     # they would stay beside each run's updated copy (minitron's f32
     # embedding and head alone are 8.4 GB)
@@ -3656,10 +3722,14 @@ def _family_cfg(arch, layers):
 
 
 def _family_sites(cfg) -> tuple[int, int]:
-    """(linear sites in the layers, attention layers) of a dense or
-    hybrid model, counted from the code: an attention layer's q, k, v, o
-    and its FFN's up, down and, when gated, gate; a recurrent layer's
-    RG-LRU projections x, gate branch, a, i and out and its FFN's."""
+    """(linear sites in the layers, attention layers) of a dense,
+    hybrid, rwkv6 or embeddings-input model, counted from the code: an
+    attention layer's q, k, v, o and its FFN's up, down and, when gated,
+    gate; a recurrent layer's RG-LRU projections x, gate branch, a, i
+    and out and its FFN's; an rwkv6 layer's time mix (ddlerp_w1, r, k,
+    v, g, decay_w1, o) and channel mix (k, v, r)."""
+    if cfg.family == "ssm":
+        return 10 * cfg.n_layers, 0
     ffn = 3 if cfg.act in ("swiglu", "geglu") else 2
     if cfg.family == "hybrid":
         units, rem = divmod(cfg.n_layers, 3)
@@ -3669,13 +3739,13 @@ def _family_sites(cfg) -> tuple[int, int]:
     return attn * (4 + ffn) + rec * (5 + ffn), attn
 
 
-def _family_decode_launches(cfg) -> dict:
+def _family_decode_launches(cfg, paged: bool) -> dict:
     """One decode step's launches, counted from the code: the M <= 32 tile
     at every delayed site and the head (the tied ``head_t`` too), and one
-    decode attention a layer with attention: on pages for the dense
-    families, on identity rows (the contiguous ring) for the hybrid."""
+    decode attention a layer with attention: on pages (``paged``) or on
+    contiguous rows (identity rows, a ring, the legacy Server's cache)."""
     sites, attn = _family_sites(cfg)
-    key = "decode_attn" if cfg.family == "hybrid" else "decode_attn_paged"
+    key = "decode_attn_paged" if paged else "decode_attn"
     return {"mx_gemm": sites + 1, key: attn}
 
 
@@ -3690,108 +3760,209 @@ def _gemma_requests(Request, np, cfg):
     return reqs
 
 
+def _server_run(torch, np, cfg, params, reqs, max_len, step_log=None):
+    """``reqs`` through the legacy Server (4 slots, ``max_len``) on
+    ``params``, each decode step's logits checked finite (and its
+    launches logged with ``step_log``).  Returns the Server, the build and
+    serve seconds, the mean decode step's ms and the peak GiB."""
+    from repro_torch.launch.serve import Server
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    srv = Server(cfg, params, batch_slots=4, max_len=max_len, device="cuda")
+    torch.cuda.synchronize()
+    build_s = time.monotonic() - t0
+    finite, step_s = [], []
+    srv.decode = _checked(torch, srv.decode, finite)
+    if step_log is not None:
+        _step_deltas(srv, *step_log)
+    step = srv.decode
+
+    def timed(*a):
+        t = time.perf_counter()
+        out = step(*a)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t)
+        return out
+
+    srv.decode = timed
+    t0 = time.monotonic()
+    srv.run(reqs, log=None)
+    torch.cuda.synchronize()
+    run_s = time.monotonic() - t0
+    if not bool(torch.stack(finite).all()):
+        raise AssertionError(f"{cfg.name} Server: non-finite logits")
+    if not all(r.done and len(r.out) == r.max_new for r in reqs):
+        raise AssertionError(f"{cfg.name} Server: a request did not finish")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    return srv, build_s, run_s, 1e3 * statistics.mean(step_s), peak
+
+
+def _serve_embeddings_family(torch, np, cfg, counters) -> tuple[dict, list]:
+    """An embeddings-input model (musicgen-medium, phi-3-vision-4.2b)
+    on weights from seed 0: the Engine refuses it (as the reference's,
+    before building anything); the legacy Server serves phase 4's 8
+    requests from token prompts through the embedding table, with
+    pre-quantized weights and delayed activation scales calibrated on
+    the reference's random-embedding prompt.  Returns the serving row
+    and each decode step's launches."""
+    from repro_torch.launch.serve import random_params
+    from repro_torch.serving import Engine, Request
+
+    params = random_params(cfg, 0, "cuda")
+    try:
+        Engine(cfg, params, num_slots=4, max_len=64, device="cuda")
+    except ValueError as e:
+        print(f"engine {cfg.name}: refused ({e})")
+    else:
+        raise AssertionError(f"{cfg.name}: the Engine took an embeddings "
+                             "model")
+    for c in counters:
+        c.reset()
+    log = []
+    reqs = _requests(Request, np, cfg, 0)
+    srv, build_s, run_s, step_ms, peak = _server_run(
+        torch, np, cfg, params, reqs, 64, step_log=(counters, log))
+    launches = {c.name: c.count for c in counters}
+    del srv, params
+    torch.cuda.empty_cache()
+    toks = sum(len(r.out) for r in reqs)
+    print(f"legacy Server {cfg.name} ({cfg.n_layers} layers, build "
+          f"{build_s:.2f} s): {len(reqs)} requests, {toks} tokens, serve "
+          f"{run_s:.2f} s = {toks / run_s:.1f} tok/s, {len(log)} decode "
+          f"steps, mean decode step {step_ms:.2f} ms, peak memory "
+          f"{peak:.2f} GiB")
+    return dict(layers=cfg.n_layers, launches=launches, tok_s=toks / run_s,
+                decode_step_ms=step_ms, peak_gib=peak, path="Server"), log
+
+
 def phase_families_serve(torch, np) -> dict:
     """stablelm-12b and minitron-8b at full width, depth cut to
     FAMILY_SERVE_LAYERS (the engine builds from the seeded f32 tree), on
-    floating pages with chunked prefill, and recurrentgemma-2b at full
-    width and depth (26 layers: 8 griffin units and the 2-layer tail) on
-    identity rows with the exact-length whole-prompt prefill, each on
-    weights from seed 0 with pre-quantized weights (recurrentgemma's tied
-    head as embed/head_t) and delayed activation scales.  stablelm and
-    minitron serve phase 4's 8 requests; recurrentgemma those and one
-    prompt of GEMMA_LONG_PROMPT tokens, whose ring wraps.  Gates: every
-    request finishes with finite logits, every decode step launches
-    what ``_family_decode_launches`` counts, the calibration one fused
-    call a site; recurrentgemma's streams are those of the legacy Server
-    on the same weights.  Returns, per family, its launches and serving
-    numbers."""
-    from repro_torch.launch.serve import Server, random_params
+    floating pages with chunked prefill; recurrentgemma-2b and rwkv6-3b
+    at full width and depth (26 layers: 8 griffin units and the 2-layer
+    tail; 32 rwkv6 blocks) on identity rows with the exact-length
+    whole-prompt prefill; musicgen-medium (48 layers) and
+    phi-3-vision-4.2b (8 of 32) through the legacy Server, which their
+    engines refuse (``_serve_embeddings_family``); each on weights from
+    seed 0 with pre-quantized weights (recurrentgemma's tied head as
+    embed/head_t) and delayed activation scales.  All serve phase 4's 8
+    requests; recurrentgemma also one prompt of GEMMA_LONG_PROMPT tokens,
+    whose ring wraps.  Gates: every request finishes with finite logits,
+    every decode step launches what ``_family_decode_launches`` counts,
+    the calibration one fused call a site; recurrentgemma's and rwkv6's
+    streams are those of the legacy Server on the same weights, and
+    rwkv6's decode row at B 1 is bitwise the same row at B 4
+    (``_row_at_b1_and_b4``).  Returns, per family, its launches and
+    serving numbers."""
+    from repro_torch.launch.serve import random_params
     from repro_torch.serving import Request
 
     out = {}
     for arch in FAMILIES:
         layers = FAMILY_SERVE_LAYERS[arch]
         cfg = _family_cfg(arch, layers)
-        hybrid = cfg.family == "hybrid"
+        identity = cfg.family in ("hybrid", "ssm")
         full = _family_cfg(arch, None).n_layers
-        print(f"engine {arch}: full width (d {cfg.d_model}, {cfg.n_heads} "
+        print(f"serve {arch}: full width (d {cfg.d_model}, {cfg.n_heads} "
               f"heads, {cfg.n_kv} kv heads, Dh {cfg.head_dim}, d_ff "
               f"{cfg.d_ff}, {cfg.act}, {cfg.norm}, qk_norm {cfg.qk_norm}, "
-              f"rope_pct {cfg.rope_pct}, vocab {cfg.vocab}, tied "
+              f"rope_pct {cfg.rope_pct}, {cfg.pos_embedding} positions, "
+              f"{cfg.input_mode} input, vocab {cfg.vocab}, tied "
               f"{cfg.tie_embeddings}), {cfg.n_layers} of {full} layers")
         counters = _serving_counters()
-        for c in counters:
-            c.reset()
-        log = []
-        kw = dict(seed=0, arch=arch, layers=layers, float_pages=not hybrid,
-                  chunked=not hybrid)
-        if hybrid:
-            kw.update(max_len=GEMMA_MAX_LEN,
-                      reqs=_gemma_requests(Request, np, cfg))
-        reqs, build_s, run_s, st = _serve_once(torch, np, step_log=(counters,
-                                                                      log),
-                                               **kw)
-        launches = {c.name: c.count for c in counters}
-        _serve_line(f"engine {arch} ({cfg.n_layers} layers, build "
-                    f"{build_s:.2f} s)", reqs, run_s, st)
-        print(f"launches on the {arch} serving path: {json.dumps(launches)}")
+        zero = {c.name: 0 for c in counters}
+        if cfg.input_mode == "embeddings":
+            row, log = _serve_embeddings_family(torch, np, cfg, counters)
+            per_step = {**zero, **_family_decode_launches(cfg, paged=False)}
+        else:
+            for c in counters:
+                c.reset()
+            log, seen = [], {}
+
+            def after(eng, cfg=cfg, seen=seen, counters=counters):
+                # the serving run's own launches, then the row check's
+                seen.update({c.name: c.count for c in counters})
+                if cfg.family == "ssm":
+                    seen["rows"] = _row_at_b1_and_b4(
+                        torch, np, eng, f"{cfg.name} decode", verify=False)
+
+            kw = dict(seed=0, arch=arch, layers=layers,
+                      float_pages=not identity, chunked=not identity,
+                      after=after)
+            if cfg.family == "hybrid":
+                kw.update(max_len=GEMMA_MAX_LEN,
+                          reqs=_gemma_requests(Request, np, cfg))
+            reqs, build_s, run_s, st = _serve_once(
+                torch, np, step_log=(counters, log), **kw)
+            rows = seen.pop("rows", None)
+            launches = dict(seen)
+            _serve_line(f"engine {arch} ({cfg.n_layers} layers, build "
+                        f"{build_s:.2f} s)", reqs, run_s, st)
+            per_step = {**zero, **_family_decode_launches(
+                cfg, paged=not identity)}
+            streams = [list(r.out) for r in reqs]
+            row = dict(layers=cfg.n_layers, launches=launches,
+                       tok_s=sum(map(len, streams)) / run_s,
+                       decode_step_ms=1e3 * st["mean_decode_step_s"],
+                       peak_gib=st["peak_gib"])
+            if rows is not None:
+                if rows["decode"] != 0.0:
+                    raise AssertionError(f"{arch}: a decode row at B 1 "
+                                         "differs from the same row at B 4")
+                row["b1_b4"] = rows
+        print(f"launches on the {arch} serving path: "
+              f"{json.dumps(row['launches'])}")
         sites = _family_sites(cfg)[0] + 1
         for name in ("fused_quant_gemm", "mx_quant", "global_amax"):
-            if launches[name] != sites:
-                raise AssertionError(f"{arch}: {launches[name]} {name} "
-                                     f"launches, {sites} calibration sites")
-        zero = {c.name: 0 for c in counters}
-        per_step = {**zero, **_family_decode_launches(cfg)}
+            if row["launches"][name] != sites:
+                raise AssertionError(f"{arch}: {row['launches'][name]} "
+                                     f"{name} launches, {sites} calibration "
+                                     "sites")
         _check_steps(f"{arch} decode", log, per_step)
-        streams = [list(r.out) for r in reqs]
-        row = dict(layers=cfg.n_layers, launches=launches,
-                   decode_step_launches=per_step,
-                   tok_s=sum(map(len, streams)) / run_s,
-                   decode_step_ms=1e3 * st["mean_decode_step_s"],
-                   peak_gib=st["peak_gib"])
-        if hybrid:
-            long = reqs[-1]
-            if long.prompt_len + len(long.out) <= cfg.window:
-                raise AssertionError(f"{arch}: the long request did not "
-                                     "wrap the ring")
-            srv = Server(cfg, random_params(cfg, 0, "cuda"), batch_slots=4,
-                         max_len=GEMMA_MAX_LEN, device="cuda")
-            finite = []
-            srv.decode = _checked(torch, srv.decode, finite)
-            again = _gemma_requests(Request, np, cfg)
-            t0 = time.monotonic()
-            srv.run(again, log=None)
-            torch.cuda.synchronize()
-            srv_s = time.monotonic() - t0
+        row["decode_step_launches"] = per_step
+        if identity:
+            if cfg.family == "hybrid":
+                long = reqs[-1]
+                if long.prompt_len + len(long.out) <= cfg.window:
+                    raise AssertionError(f"{arch}: the long request did "
+                                         "not wrap the ring")
+                again = _gemma_requests(Request, np, cfg)
+                max_len = GEMMA_MAX_LEN
+            else:
+                again, max_len = _requests(Request, np, cfg, 0), 64
+            srv, _, srv_s, _, _ = _server_run(
+                torch, np, cfg, random_params(cfg, 0, "cuda"), again,
+                max_len)
+            del srv
+            torch.cuda.empty_cache()
             toks = sum(len(r.out) for r in again)
             print(f"legacy Server {arch} ({cfg.n_layers} layers): "
                   f"{len(again)} requests, {toks} tokens in {srv_s:.2f} s "
                   f"({toks / srv_s:.1f} tok/s)")
-            if not bool(torch.stack(finite).all()):
-                raise AssertionError(f"{arch} Server: non-finite logits")
             if [list(r.out) for r in again] != streams:
                 raise AssertionError(f"{arch}: the legacy Server's streams "
                                      "differ from the engine's")
-            print(f"{arch}: the legacy Server's streams equal the engine's "
-                  f"(the ring wrapped: {long.prompt_len} prompt + "
-                  f"{len(long.out)} tokens on {cfg.window} slots)")
+            print(f"{arch}: the legacy Server's streams equal the engine's"
+                  + (f" (the ring wrapped: {long.prompt_len} prompt + "
+                     f"{len(long.out)} tokens on {cfg.window} slots)"
+                     if cfg.family == "hybrid" else ""))
             row["server_tok_s"] = toks / srv_s
-            del srv
-            torch.cuda.empty_cache()
         out[arch] = row
     return out
 
 
 def phase_families_train(torch, np) -> dict:
-    """The three families at full width, depth cut to FAMILY_TRAIN_LAYERS
+    """The six families at full width, depth cut to FAMILY_TRAIN_LAYERS
     (recurrentgemma's 5: one griffin unit and the 2-layer tail, so both
     segments run; minitron's 1: its f32 embedding and head, their
     gradients and moments, and its f32 logits of 1 x 4096 x 256,000 and
-    their gradient, 4.2 GB each), batch 1 x 4096: 3 moss and 3 bf16
-    steps from the same weights on the same batches, launches as counted
-    from the code (``_family_sites``), moss losses within 1e-2 of
-    bf16's.  Returns, per family, the moss launches and each recipe's
-    timing."""
+    their gradient, 4.2 GB each; rwkv6 4 of 32, musicgen 8 of 48,
+    phi-3-vision 4 of 32, the embeddings models on the training CLI's
+    frontend stub), batch 1 x 4096: 3 moss and 3 bf16 steps from the
+    same weights on the same batches, launches as counted from the code
+    (``_family_sites``), moss losses within 1e-2 of bf16's.  Returns,
+    per family, the moss launches and each recipe's timing."""
     from repro_torch.launch.train import quant_from_name
 
     out = {}
@@ -3809,65 +3980,63 @@ def phase_families_train(torch, np) -> dict:
     return out
 
 
-def phase_head_kernels(torch, timer) -> dict:
-    """Rows 1, 2, 5 and 9 at the 256,000-wide heads: mx_gemm's M <= 32
-    tile at M 4/16/32 over the three families' heads (K, N) (stablelm's
-    5120 x 100,352, minitron's 4096 x 256,000, recurrentgemma's head_t
-    2560 x 256,000: 1.05e9 fp8 weights), and at minitron's training
-    shape, M 4096: fused_quant_gemm forward (e4m3, N 256,000) and dx
-    (e5m2 on the f32 gradient, K 256,000: 4.2 GB of input, past 2^31
-    bytes), mx_dw_gemm (the (4096, 256,000) f32 dW) and mx_quant on the
-    f32 gradient; each against its plain version (payloads bitwise, sums
-    within 1e-5 * max|ref|), timed (5 calls) beside its bound and the
-    library's product.  Returns the kernels line's "families" entries."""
+def _row1_small_m(torch, timer, gen, k, n, label) -> tuple[dict, float]:
+    """mx_gemm's M <= 32 tile at M 32, 16 and 4 over (K, N): each within
+    1e-5 * max|ref| of its plain version and its rows bitwise those of
+    the M 32 call, timed (5 calls) beside its bound and torch.matmul in
+    bf16.  Returns the M 4 row and the worst error."""
     from repro_torch.core.quant import mx_operand, quant_mx, quant_per_tensor
-    from repro_torch.kernels import dispatch, mx_bwd, mx_fused, mx_gemm
+    from repro_torch.kernels import mx_gemm
+
+    qw = quant_per_tensor(torch.randn(k, n, device="cuda",
+                                      generator=gen) / k ** 0.5).q
+    xq = quant_mx(_activations(torch, gen, max(SMALL_M), k))
+    top, worst, row = None, 0.0, None
+    for m in sorted(SMALL_M, reverse=True):
+        q, se = xq.q[:m].contiguous(), xq.sexp[:m].contiguous()
+        got = mx_gemm.mx_gemm(q, se, qw)
+        want = mx_gemm.mx_gemm_plain(q, se, qw)
+        err = float((got - want).abs().max())
+        scale = float(want.abs().max())
+        top = got if top is None else top
+        if not (err <= 1e-5 * scale and torch.isfinite(got).all()
+                and torch.equal(got.view(torch.int32),
+                                top[:m].view(torch.int32))):
+            raise AssertionError(f"mx_gemm {label} M={m} K={k} N={n}: max "
+                                 f"err {err} > 1e-5 * {scale}, or rows "
+                                 "differ across M")
+        worst = max(worst, err)
+        opnd = mx_operand(q, se)
+        t = timer.ms(lambda: mx_gemm.mx_gemm(q, se, qw), n=5)
+        wb = qw.to(torch.bfloat16)
+        tl = timer.ms(lambda: torch.matmul(opnd, wb), n=5)
+        del wb
+        b, by = bound_ms(m * k + m * k // 32 + k * n + 4 * m * n,
+                         2.0 * m * n * k)
+        print(f"mx_gemm {label} M={m:2d} K={k} N={n}: max_err {err:.3g} "
+              f"(max|ref| {scale:.3g}), {t:.4f} ms, library {tl:.4f} ms "
+              f"(torch.matmul bf16), bound {b:.4f} ms ({by}), "
+              f"{b / t:.1%} of the bound")
+        if m == 4:
+            row = dict(ms=t, library_ms=tl, bound_ms=b)
+        del got, want
+    del qw, xq, top
+    torch.cuda.empty_cache()
+    return row, worst
+
+
+def _training_gemms(torch, timer, gen, m, k, n, label) -> dict:
+    """A linear layer's training kernels at (M, K, N) against their plain
+    versions: fused_quant_gemm forward (e4m3) and dx (e5m2 on the f32
+    gradient against the transposed weights), mx_quant alone on that
+    gradient, and mx_dw_gemm on the forward's residual (payloads bitwise,
+    sums within 1e-5 * max|ref|), each timed (5 calls) beside its bound
+    and torch.matmul in bf16.  Returns the rows by kernel."""
+    from repro_torch.core.quant import mx_operand, quant_per_tensor
+    from repro_torch.kernels import dispatch, mx_bwd, mx_fused
     from repro_torch.kernels import mx_quant as mxq
 
-    gen = torch.Generator(device="cuda").manual_seed(27)
-    res = {k: {} for k in ("mx_gemm", "fused_quant_gemm_tiled",
-                           "mx_dw_gemm", "mx_quant")}
-    worst = 0.0
-    for k, n in FAMILY_HEAD_KN:
-        qw = quant_per_tensor(torch.randn(k, n, device="cuda",
-                                          generator=gen) / k ** 0.5).q
-        xq = quant_mx(_activations(torch, gen, max(SMALL_M), k))
-        top = None
-        for m in sorted(SMALL_M, reverse=True):
-            q, se = xq.q[:m].contiguous(), xq.sexp[:m].contiguous()
-            got = mx_gemm.mx_gemm(q, se, qw)
-            want = mx_gemm.mx_gemm_plain(q, se, qw)
-            err = float((got - want).abs().max())
-            scale = float(want.abs().max())
-            top = got if top is None else top
-            if not (err <= 1e-5 * scale and torch.isfinite(got).all()
-                    and torch.equal(got.view(torch.int32),
-                                    top[:m].view(torch.int32))):
-                raise AssertionError(f"mx_gemm head M={m} K={k} N={n}: "
-                                     f"max err {err} > 1e-5 * {scale}, or "
-                                     "rows differ across M")
-            worst = max(worst, err)
-            opnd, wb = mx_operand(q, se), None
-            t = timer.ms(lambda: mx_gemm.mx_gemm(q, se, qw), n=5)
-            wb = qw.to(torch.bfloat16)
-            tl = timer.ms(lambda: torch.matmul(opnd, wb), n=5)
-            del wb
-            b, by = bound_ms(m * k + m * k // 32 + k * n + 4 * m * n,
-                             2.0 * m * n * k)
-            print(f"mx_gemm head M={m:2d} K={k} N={n}: max_err {err:.3g} "
-                  f"(max|ref| {scale:.3g}), {t:.4f} ms, library {tl:.4f} ms "
-                  f"(torch.matmul bf16), bound {b:.4f} ms ({by}), "
-                  f"{b / t:.1%} of the bound")
-            if m == 4:
-                res["mx_gemm"][f"{k}x{n}"] = dict(ms=t, library_ms=tl,
-                                                  bound_ms=b)
-            del got, want
-        del qw, xq, top
-        torch.cuda.empty_cache()
-    res["mx_gemm"]["max_abs_err"] = worst
-    # minitron's head at its training shape
-    k, n = HEAD_TRAIN_KN
-    m = FAMILY_TRAIN_M
+    res = {}
     w = torch.randn(k, n, device="cuda", generator=gen) / k ** 0.5
     qw = quant_per_tensor(w).q
     del w
@@ -3887,7 +4056,7 @@ def phase_head_kernels(torch, timer) -> dict:
         scale = float(acc_p.abs().max())
         if q_mis or e_mis or not (err <= 1e-5 * scale
                                   and torch.isfinite(acc).all()):
-            raise AssertionError(f"fused_quant_gemm head {what} M={m} "
+            raise AssertionError(f"fused_quant_gemm {label} {what} M={m} "
                                  f"K={kk} N={nn}: q {q_mis} / sexp {e_mis} "
                                  f"mismatches, max err {err} (max|ref| "
                                  f"{scale})")
@@ -3900,26 +4069,26 @@ def phase_head_kernels(torch, timer) -> dict:
         b, by = bound_ms(xin.element_size() * m * kk + 4 + kk * nn
                          + 4 * m * nn + m * kk + m * kk // 32,
                          2.0 * m * nn * kk)
-        print(f"fused_quant_gemm head {what} {fmt} M={m} K={kk} N={nn}: "
+        print(f"fused_quant_gemm {label} {what} {fmt} M={m} K={kk} N={nn}: "
               f"max_err {err:.3g} (max|ref| {scale:.3g}), payloads bitwise, "
               f"{t:.4f} ms, library {tl:.4f} ms (torch.matmul bf16), bound "
               f"{b:.4f} ms ({by}), {b / t:.1%} of the bound")
-        res["fused_quant_gemm_tiled"][what] = dict(
+        res.setdefault("fused_quant_gemm_tiled", {})[what] = dict(
             m=m, k=kk, n=nn, max_abs_err=err, ms=t, library_ms=tl,
             bound_ms=b)
         if what == "dx":
-            # row 9 alone on the f32 gradient (K 256,000 along a row)
+            # row 9 alone on the f32 gradient
             q_, se_ = mxq.mx_quant(xin, s, fmt)
             qw_, sw_ = mxq.mx_quant_plain(xin, s, fmt)
             mis = int((q_.view(torch.uint8) != qw_.view(torch.uint8))
                       .sum()) + int((se_ != sw_).sum())
             if mis:
-                raise AssertionError(f"mx_quant head M={m} K={kk}: {mis} "
+                raise AssertionError(f"mx_quant {label} M={m} K={kk}: {mis} "
                                      "payload mismatches")
             del q_, se_, qw_, sw_
             t = timer.ms(lambda: mxq.mx_quant(xin, s, fmt), n=5)
             b, by = bound_ms(4 * m * kk + m * kk + m * kk // 32, 0.0)
-            print(f"mx_quant head M={m} K={kk} f32 -> {fmt}: payloads "
+            print(f"mx_quant {label} M={m} K={kk} f32 -> {fmt}: payloads "
                   f"bitwise, {t:.4f} ms, bound {b:.4f} ms ({by}), "
                   f"{b / t:.1%} of the bound")
             res["mx_quant"] = dict(m=m, k=kk, ms=t, bound_ms=b,
@@ -3936,7 +4105,7 @@ def phase_head_kernels(torch, timer) -> dict:
     err = float((acc - acc_p).abs().max())
     scale = float(acc_p.abs().max())
     if not (err <= 1e-5 * scale and torch.isfinite(acc).all()):
-        raise AssertionError(f"mx_dw_gemm head M={m} K={k} N={n}: max err "
+        raise AssertionError(f"mx_dw_gemm {label} M={m} K={k} N={n}: max err "
                              f"{err} > 1e-5 * {scale}")
     del acc, acc_p
     torch.cuda.empty_cache()
@@ -3945,13 +4114,42 @@ def phase_head_kernels(torch, timer) -> dict:
     tl = timer.ms(lambda: torch.matmul(opnd, gb), n=5)
     del opnd, gb
     b, by = bound_ms(m * k + m * k // 32 + m * n + 4 * k * n, 2.0 * m * n * k)
-    print(f"mx_dw_gemm head M={m} K={k} N={n}: max_err {err:.3g} (max|ref| "
+    print(f"mx_dw_gemm {label} M={m} K={k} N={n}: max_err {err:.3g} (max|ref| "
           f"{scale:.3g}), {t:.4f} ms, library {tl:.4f} ms (torch.matmul "
           f"bf16), bound {b:.4f} ms ({by}), {b / t:.1%} of the bound")
     res["mx_dw_gemm"] = dict(m=m, k=k, n=n, max_abs_err=err, ms=t,
                              library_ms=tl, bound_ms=b)
     del xq_fwd, gq, qw
     torch.cuda.empty_cache()
+    return res
+
+
+def phase_head_kernels(torch, timer) -> dict:
+    """Rows 1, 2, 5 and 9 at the families' new shapes: mx_gemm's M <= 32
+    tile at M 4/16/32 over the 256,000-wide heads (K, N) (stablelm's
+    5120 x 100,352, minitron's 4096 x 256,000, recurrentgemma's head_t
+    2560 x 256,000: 1.05e9 fp8 weights), over rwkv6-3b's decode (K, N)
+    (ddlerp_w1's N 160, decay_w1's 64, the time and channel mixes, the
+    2560 x 65,536 head) and musicgen-medium's head (1536 x 2048); and the
+    training kernels (``_training_gemms``: rows 2, 5 and 9) at
+    minitron's head, M 4096 (dx at K 256,000: 4.2 GB of input, past 2^31
+    bytes), and at rwkv6's ragged N 160 and 64 (M 4096).  Returns the
+    kernels line's "families" entries."""
+    gen = torch.Generator(device="cuda").manual_seed(27)
+    res = {"mx_gemm": {}}
+    worst = 0.0
+    for label, shapes in (("head", FAMILY_HEAD_KN), (RWKV, RWKV_DECODE_KN),
+                          (MUSICGEN, [MUSICGEN_HEAD_KN])):
+        for k, n in shapes:
+            row, err = _row1_small_m(torch, timer, gen, k, n, label)
+            res["mx_gemm"][f"{k}x{n}"] = row
+            worst = max(worst, err)
+    res["mx_gemm"]["max_abs_err"] = worst
+    for label, (k, n) in [("head", HEAD_TRAIN_KN)] + [
+            (RWKV, kn) for kn in RWKV_TRAIN_KN]:
+        for name, row in _training_gemms(torch, timer, gen, FAMILY_TRAIN_M,
+                                         k, n, label).items():
+            res.setdefault(name, {})[f"{k}x{n}"] = row
     return res
 
 
@@ -4058,13 +4256,15 @@ def phase_small_train_reference(torch, np):
     in moss, the smoke-size phi3.5-moe and deepseek-v2-lite-16b in
     moss on the grouped route (moe_decode_dense off, so their 128 tokens
     take the grouped kernels), and the smoke-size stablelm-12b,
-    minitron-8b and recurrentgemma-2b in moss: losses within 1e-2
-    relative and equal scale_t at every step (f32 sums in another order
-    and the rare fp8 rounding flip they cause)."""
+    minitron-8b, recurrentgemma-2b, rwkv6-3b, musicgen-medium and
+    phi-3-vision-4.2b in moss (the embeddings models on the CPU's
+    frontend-stub embeddings): losses within 1e-2 relative and equal
+    scale_t at every step (f32 sums in another order and the rare fp8
+    rounding flip they cause)."""
     from repro_torch.configs.registry import get_config
     from repro_torch.core.tree import tree_leaves, tree_map
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
-    from repro_torch.launch.train import quant_from_name
+    from repro_torch.launch.train import quant_from_name, stub_embeds
     from repro_torch.optim.adamw import OptState
     from repro_torch.train.steps import (TrainHParams, init_train_state,
                                          make_train_step)
@@ -4094,6 +4294,8 @@ def phase_small_train_reference(torch, np):
         step = make_train_step(cfg, hp)
         for i in range(3):
             batch = data.batch_for_step(i)
+            if cfg.input_mode == "embeddings":
+                batch["embeds"] = stub_embeds(cfg, batch["tokens"])
             cpu, mc = step(cpu, batch)
             card, mg = step(card, batch)
             a, b = float(mc["loss"]), float(mg["loss"])
@@ -4143,7 +4345,7 @@ def main() -> int:
     spec_launches = phase_engine_spec(torch, np, plain)
     print(f"phase engine spec: {time.monotonic() - t0:.1f} s")
     t0 = time.monotonic()
-    phase_engine_hatch(torch, np, plain, gaps)
+    phase_engine_hatch(torch, np)
     print(f"phase engine hatch: {time.monotonic() - t0:.1f} s")
     t0 = time.monotonic()
     phase_engine_prefix(torch, np)

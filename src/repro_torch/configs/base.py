@@ -1,7 +1,6 @@
 """Model configuration dataclass (counterpart of
 ``repro.configs.base.ModelConfig``): the reference's fields that the
-ported families (dense, moe, mla_moe, hybrid) read, or that the port
-refuses when set (``models.transformer.build_segments``)."""
+port's families (dense, moe, mla_moe, hybrid, ssm, audio, vlm) read."""
 
 from __future__ import annotations
 
@@ -54,6 +53,11 @@ class ModelConfig:
     # --- hybrid (recurrentgemma): the RG-LRU block ---
     lru_width: int = 0
     conv_width: int = 4
+
+    # --- ssm (rwkv6): the time mix's heads and LoRA ranks ---
+    rwkv_head_dim: int = 64
+    ddlerp_rank: int = 32
+    decay_rank: int = 64
 
     # --- io / misc ---
     input_mode: Literal["tokens", "embeddings"] = "tokens"

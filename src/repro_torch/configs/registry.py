@@ -1,4 +1,4 @@
-"""--arch id -> config module registry (the archs ported so far)."""
+"""--arch id -> config module registry (the reference's archs)."""
 
 from __future__ import annotations
 
@@ -16,20 +16,13 @@ ARCHS: dict[str, str] = {
     "stablelm-12b": "stablelm_12b",
     "minitron-8b": "minitron_8b",
     "recurrentgemma-2b": "recurrentgemma_2b",
-}
-
-# reference archs whose families or features the port does not have yet
-NOT_PORTED = {
-    "musicgen-medium": "queue 1 item 11 (embeddings input)",
-    "phi-3-vision-4.2b": "queue 1 item 11 (embeddings input, vision)",
-    "rwkv6-3b": "queue 1 item 11 (RWKV6, the chunked WKV recurrence)",
+    "rwkv6-3b": "rwkv6_3b",
+    "musicgen-medium": "musicgen_medium",
+    "phi-3-vision-4.2b": "phi3_vision_42b",
 }
 
 
 def get_config(arch: str, smoke: bool = False) -> ModelConfig:
-    if arch in NOT_PORTED:
-        raise NotImplementedError(
-            f"{arch} is not ported yet: ROADMAP {NOT_PORTED[arch]}")
     if arch not in ARCHS:
         raise KeyError(f"unknown arch {arch!r}; known: {sorted(ARCHS)}")
     mod = importlib.import_module(f"repro_torch.configs.{ARCHS[arch]}")

@@ -145,11 +145,11 @@ def _to_scales(amax: np.ndarray, cfg: QuantConfig, margin: float,
 
 def calibration_tokens(cfg, n: int = CALIBRATION_TOKENS) -> np.ndarray:
     """Deterministic calibration prompt, independent of engine geometry
-    (the reference's: same seed, same draw)."""
+    (the reference's: same seed, same draw): (1, n) tokens, or for an
+    embeddings-input model (1, n, d) f32 standard normal embeddings."""
     rng = np.random.default_rng(_CAL_SEED)
-    if cfg.input_mode != "tokens":
-        raise NotImplementedError(
-            "embedding-input models: ROADMAP queue 1 item 11")
+    if cfg.input_mode == "embeddings":
+        return rng.standard_normal((1, n, cfg.d_model)).astype(np.float32)
     return rng.integers(0, cfg.vocab, size=(1, n)).astype(np.int32)
 
 
@@ -191,7 +191,8 @@ def calibrate_act_scales(cfg, params, scales=None, *, tokens=None,
     qcfg = cfg.quant
     if not qcfg.quantized:
         return None
-    from repro_torch.models.layers import apply_norm, embed_tokens, lm_head
+    from repro_torch.models.layers import (apply_norm, embed_tokens, lm_head,
+                                           sinusoidal_embedding)
     from repro_torch.models.transformer import build_segments
     from repro_torch.train.steps import serve_quant_mask
 
@@ -200,11 +201,17 @@ def calibrate_act_scales(cfg, params, scales=None, *, tokens=None,
     if tokens is None:
         tokens = calibration_tokens(cfg)
     with REC.calibrating():
-        x = embed_tokens(cfg, wrapped["embed"],
-                         torch.as_tensor(tokens, dtype=torch.int64,
-                                         device=device))
+        if cfg.input_mode == "embeddings":
+            x = torch.as_tensor(tokens, device=device).to(torch.bfloat16)
+        else:
+            x = embed_tokens(cfg, wrapped["embed"],
+                             torch.as_tensor(tokens, dtype=torch.int64,
+                                             device=device))
         positions = torch.arange(x.shape[1], dtype=torch.int32,
                                  device=device)
+        if cfg.pos_embedding == "sinusoidal":
+            pe = sinusoidal_embedding(positions, cfg.d_model)
+            x = x + pe[None].to(x.dtype)
         for seg in build_segments(cfg):
             p_seg = wrapped[seg.name]
             for l in range(seg.n):

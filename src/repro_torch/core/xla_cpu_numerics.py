@@ -1,5 +1,6 @@
-"""The reference's CPU arithmetic for the norms, RoPE, the tanh GELU,
-the logit softcap and the RG-LRU gates.
+"""The reference's CPU arithmetic for the norms, RoPE (and musicgen's
+sinusoidal positions), the tanh GELU, the logit softcap, the RG-LRU
+gates and rwkv6's decay, gates and token-shift mixes.
 
 The reference runs on XLA's CPU backend, whose row sums, reciprocal
 square roots, sin/cos, tanh and exp differ from PyTorch's CPU kernels
@@ -7,8 +8,12 @@ in the last bits now and then (tanh in 59% of f32 inputs, by up to 5
 ulp, and the tanh GELU's ``1 + tanh`` turns that into a flipped bf16
 rounding in 3.5% of its outputs).  A flipped f32 bit can flip a bf16
 rounding, and a smoke model's training steps amplify one flipped bf16
-element past the train-step tests' limits.  ``models.layers`` and
-``models.rglru`` call these functions on CPU tensors only: on the card
+element past the train-step tests' limits.  ``models.layers``,
+``models.rglru`` and ``models.rwkv6`` call these functions on CPU
+tensors only (RoPE's rotation too: XLA contracts each of its products
+and sums into an FMA, and without that one query element in ~10^5
+rounded the other way, which moved phi-3-vision's smoke gradients by
+3.6%): on the card
 they run PyTorch's own arithmetic, which is held against the CPU by
 ``chip_smoke.py``'s card-vs-CPU checks (2e-2 * max|logit|) and by
 nothing tighter.
@@ -159,8 +164,7 @@ _EXP_P = (1.9875691500e-4, 1.3981999507e-3, 8.3334519073e-3,
           4.1665795894e-2, 1.6666665459e-1, 5.0000001201e-1)
 
 
-def exp(x: torch.Tensor) -> torch.Tensor:
-    """f32 exp as XLA's CPU backend computes it."""
+def _exp(x: torch.Tensor) -> torch.Tensor:
     xi = x.clamp(_f32(_EXP_LO), _f32(_EXP_HI))
     fx = torch.floor(_fma(xi, _f32(1.44269504088896341), 0.5))
     xr = _fma(fx, -_f32(0.693359375), xi.to(torch.float64))
@@ -177,9 +181,45 @@ def exp(x: torch.Tensor) -> torch.Tensor:
                        torch.full_like(out, float("inf")), out)
 
 
+class _Exp(torch.autograd.Function):
+    """XLA's exp, with JAX's derivative g * exp(x) (the polynomial's own
+    derivative is a coarser exp)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        y = _exp(x)
+        ctx.save_for_backward(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        (y,) = ctx.saved_tensors
+        return g * y
+
+
+def exp(x: torch.Tensor) -> torch.Tensor:
+    """f32 exp as XLA's CPU backend computes it."""
+    return _Exp.apply(x)
+
+
+class _Sigmoid(torch.autograd.Function):
+    """XLA's logistic, with JAX's derivative g * (y * (1 - y))."""
+
+    @staticmethod
+    def forward(ctx, x):
+        y = 1.0 / (1.0 + _exp(-x))
+        ctx.save_for_backward(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        (y,) = ctx.saved_tensors
+        return g * (y * (1.0 - y))
+
+
 def sigmoid(x: torch.Tensor) -> torch.Tensor:
     """``jax.nn.sigmoid`` (XLA's logistic, 1 / (1 + exp(-x)))."""
-    return 1.0 / (1.0 + exp(-x))
+    return _Sigmoid.apply(x)
 
 
 def sqrt(x: torch.Tensor) -> torch.Tensor:

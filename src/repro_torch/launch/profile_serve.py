@@ -9,18 +9,26 @@ prefill, as the engine serves MLA's latent cache; or with ``--arch
 h2o-danube-3-4b`` the windowed model on identity rows with the
 whole-prompt prefill, its prompts at or past the 4096-token window so
 that every decode step reads a full ring; ``--arch stablelm-12b`` or
-``minitron-8b`` at ``FAMILY_SERVE_LAYERS`` on floating pages, or
-``--arch recurrentgemma-2b`` at full depth on identity rows with the
-exact-length whole-prompt prefill),
+``minitron-8b`` at ``FAMILY_SERVE_LAYERS`` on floating pages,
+``--arch recurrentgemma-2b`` or ``rwkv6-3b`` at full depth on identity
+rows with the exact-length whole-prompt prefill; or ``--arch
+musicgen-medium`` at full depth and ``phi-3-vision-4.2b`` at
+``FAMILY_SERVE_LAYERS`` through the legacy ``Server``, which serves
+their token prompts through the embedding table where the engine
+refuses embeddings-input models),
 serves one untraced warm-up trace, then serves a second trace under
 ``torch.profiler`` with every model step inside a ``decode_step``,
 ``prefill_chunk``, ``prefill`` (whole-prompt) or, under
-``REPRO_SPEC_DECODE=1``, ``verify_step`` span.  From the profiler's Chrome trace it reports,
+``REPRO_SPEC_DECODE=1``, ``verify_step`` span, and rwkv6's WKV (the
+chunked scan and the one-token update, plain torch) inside a ``wkv``
+span of its own.  From the profiler's Chrome trace it reports,
 per kind of step: the host span of the step function, the card's busy
 time for the work launched in it (the union of its kernels' and copies'
 intervals), the launches, the card time by kernel, the port kernels'
 launches and the PyTorch ops issued (the ten most frequent, and
 ``WATCHED_OPS``); and for the whole traced run the card's idle share.
+A launch belongs to the innermost span it was issued in, so a decode
+step's numbers leave out its ``wkv`` span's (reported on their own).
 
   PYTHONPATH=src python -m repro_torch.launch.profile_serve \\
       --trace build/serve_trace.json
@@ -30,6 +38,8 @@ launches and the PyTorch ops issued (the ten most frequent, and
       --arch phi3.5-moe-42b-a6.6b --trace build/moe_serve_trace.json
   PYTHONPATH=src python -m repro_torch.launch.profile_serve \\
       --arch deepseek-v2-lite-16b --trace build/mla_serve_trace.json
+  PYTHONPATH=src python -m repro_torch.launch.profile_serve \\
+      --arch rwkv6-3b --trace build/rwkv_serve_trace.json
 
 The profiler adds host time to every launch, so the traced steps are
 slower than the warm-up's; both mean decode (and verify) steps are
@@ -59,8 +69,9 @@ GPU_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 MOE_SERVE_LAYERS = 4
 # stablelm-12b's and minitron-8b's serving depth (of 40 and 32): must
 # equal chip_smoke.py's FAMILY_SERVE_LAYERS
-FAMILY_SERVE_LAYERS = {"stablelm-12b": 8, "minitron-8b": 8}
-SPANS = ("decode_step", "prefill_chunk", "prefill", "verify_step")
+FAMILY_SERVE_LAYERS = {"stablelm-12b": 8, "minitron-8b": 8,
+                       "phi-3-vision-4.2b": 8}
+SPANS = ("decode_step", "prefill_chunk", "prefill", "verify_step", "wkv")
 # the port's own kernels (csrc/*.cu), by the name the trace gives them
 # (decode attention is one launch: its cluster holds the split over the
 # slots and the combine)
@@ -99,17 +110,34 @@ def summarize(trace: dict, kinds=SPANS) -> dict:
                  if e.get("cat") in ("cuda_runtime", "cuda_driver")
                  and "correlation" in e.get("args", {})}
     gpu = [e for e in ev if e.get("cat") in GPU_CATS]
+
+    # spans nest (a decode step holds its wkv spans): each span's
+    # enclosing one, so that a launch after an inner span has ended
+    # goes to the span around it
+    parent, open_ = [], []
+    for i, (s0, s1, _) in enumerate(spans):
+        while open_ and spans[open_[-1]][1] < s0:
+            open_.pop()
+        parent.append(open_[-1] if open_ else -1)
+        open_.append(i)
+
+    def innermost(ts) -> int:
+        i = bisect.bisect_right(starts, ts) - 1
+        while i >= 0 and ts > spans[i][1]:
+            i = parent[i]
+        return i
+
     per_span = collections.defaultdict(list)
     for g in gpu:
         ts = launch_ts.get(g.get("args", {}).get("correlation"))
-        i = bisect.bisect_right(starts, ts) - 1 if ts is not None else -1
-        if i >= 0 and ts <= spans[i][1]:
+        i = innermost(ts) if ts is not None else -1
+        if i >= 0:
             per_span[i].append(g)
     ops_in = collections.defaultdict(collections.Counter)
     for e in ev:
         if e.get("cat") == "cpu_op":
-            i = bisect.bisect_right(starts, e["ts"]) - 1
-            if i >= 0 and e["ts"] <= spans[i][1]:
+            i = innermost(e["ts"])
+            if i >= 0:
                 ops_in[i][e["name"]] += 1
     out = {}
     for kind in kinds:
@@ -167,13 +195,72 @@ def _ring_requests(cfg, n: int, max_new: int, seed: int) -> list[Request]:
             for i, k in enumerate(rng.integers(4096, 4201, size=n))]
 
 
+def span_wkv() -> None:
+    """Run rwkv6's WKV (``_wkv_chunked`` and ``_wkv_step``) inside a
+    ``wkv`` span from now on."""
+    from repro_torch.models import rwkv6
+
+    def spanned(fn):
+        def wkv(*a):
+            with torch.profiler.record_function("wkv"):
+                return fn(*a)
+        return wkv
+
+    rwkv6._wkv_chunked = spanned(rwkv6._wkv_chunked)
+    rwkv6._wkv_step = spanned(rwkv6._wkv_step)
+
+
+def _profile_server(cfg, params, trace_path: str) -> dict:
+    """The legacy Server's run of chip_smoke.py's embeddings models (4
+    slots, ``max_len`` 64, 8 requests of 16 new tokens): one untraced
+    warm-up trace, then a second under the profiler."""
+    import time
+
+    from repro_torch.launch.serve import Server
+
+    srv = Server(cfg, params, batch_slots=4, max_len=64, device="cuda")
+    step, prefill, times = srv.decode, srv.prefill, []
+
+    def spanned(*a):
+        with torch.profiler.record_function(SPANS[0]):
+            t0 = time.perf_counter()
+            out = step(*a)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            return out
+
+    def spanned_prefill(*a):
+        with torch.profiler.record_function(SPANS[2]):
+            return prefill(*a)
+
+    srv.decode, srv.prefill = spanned, spanned_prefill
+    srv.run(make_requests(cfg, 8, 48, 16, seed=0))
+    untraced = 1e3 * sum(times) / len(times)
+    del times[:]
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        srv.run(make_requests(cfg, 8, 48, 16, seed=1))
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(trace_path)
+    with open(trace_path) as f:
+        report = summarize(json.load(f))
+    report["mean_decode_step_ms"] = {
+        "untraced": untraced, "traced": 1e3 * sum(times) / len(times)}
+    if "decode_step" in report:
+        report["decode_card_idle_share_untraced"] = (
+            1.0 - report["decode_step"]["card_busy_ms"] / untraced)
+    return report
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="phi3-mini-3.8b",
                     choices=("phi3-mini-3.8b", "phi3.5-moe-42b-a6.6b",
                              "deepseek-v2-lite-16b", "h2o-danube-3-4b",
                              "stablelm-12b", "minitron-8b",
-                             "recurrentgemma-2b"))
+                             "recurrentgemma-2b", "rwkv6-3b",
+                             "musicgen-medium", "phi-3-vision-4.2b"))
     ap.add_argument("--trace", default="serve_trace.json",
                     help="where to write the Chrome trace")
     args = ap.parse_args(argv)
@@ -188,10 +275,22 @@ def main(argv=None):
     elif args.arch in FAMILY_SERVE_LAYERS:
         cfg = cfg.replace(n_layers=FAMILY_SERVE_LAYERS[args.arch])
     params = random_params(cfg, 0, "cuda")
+    if cfg.family == "ssm":
+        span_wkv()
+    if cfg.input_mode == "embeddings":
+        report = _profile_server(cfg, params, args.trace)
+        print(json.dumps(report, indent=1))
+        return report
     if cfg.family == "hybrid":
         # chip_smoke.py's recurrentgemma engine: identity rows over its
         # 2048-slot rings, the whole-prompt prefill at the exact length
         eng = Engine(cfg, params, 4, max_len=2176, device="cuda")
+        warm = make_requests(cfg, 8, 48, 16, seed=0)
+        reqs = make_requests(cfg, 8, 48, 16, seed=1)
+    elif cfg.family == "ssm":
+        # chip_smoke.py's rwkv6 engine: identity rows of 64 tokens, the
+        # whole-prompt prefill at the exact length
+        eng = Engine(cfg, params, 4, max_len=64, device="cuda")
         warm = make_requests(cfg, 8, 48, 16, seed=0)
         reqs = make_requests(cfg, 8, 48, 16, seed=1)
     elif args.arch != "h2o-danube-3-4b":

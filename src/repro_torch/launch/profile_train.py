@@ -5,9 +5,11 @@ olmo-7b (depth cut to 4 layers, batch 1 x 2048), with ``--arch
 phi3.5-moe-42b-a6.6b`` the MoE model (depth cut to 1 layer, batch
 2 x 4096: the grouped-expert kernels) or with ``--arch
 deepseek-v2-lite-16b`` the MLA MoE model (its dense layer and 2 MoE
-layers, batch 2 x 4096), or stablelm-12b, minitron-8b or
-recurrentgemma-2b at chip_smoke.py's depths (2, 1 and 5 layers, batch
-1 x 4096) -- in moss or ``--quant``, takes
+layers, batch 2 x 4096), or stablelm-12b, minitron-8b,
+recurrentgemma-2b, rwkv6-3b, musicgen-medium or phi-3-vision-4.2b at
+chip_smoke.py's depths (2, 1, 5, 4, 8 and 4 layers, batch 1 x 4096; the
+embeddings models on the training CLI's frontend stub) -- in moss or
+``--quant``, takes
 one untraced warm-up step and two timed untraced steps, then two steps
 under ``torch.profiler``, each inside a ``train_step`` span.  From the
 Chrome trace it reports per step the host span, the card's busy time
@@ -15,7 +17,10 @@ Chrome trace it reports per step the host span, the card's busy time
 card time by kernel and by port kernel (``moe_gmm_kernel``,
 ``moe_dw_gemm_kernel``, ...), and for the traced run the card's idle
 share; the untraced step's idle share is the traced card time over the
-untraced step (kernel durations do not depend on the host).
+untraced step (kernel durations do not depend on the host).  rwkv6's
+forward WKV (the chunked scan, in the forward and the remat recompute)
+runs in a ``wkv`` span of its own, reported beside the step (its
+backward runs in autograd's engine, outside any span: in the step's).
 
   PYTHONPATH=src python -m repro_torch.launch.profile_train \\
       --trace build/train_trace.json [--quant bf16|per_group|per_tensor]
@@ -23,6 +28,8 @@ untraced step (kernel durations do not depend on the host).
       --arch phi3.5-moe-42b-a6.6b --trace build/moe_trace.json
   PYTHONPATH=src python -m repro_torch.launch.profile_train \\
       --arch deepseek-v2-lite-16b --trace build/mla_trace.json
+  PYTHONPATH=src python -m repro_torch.launch.profile_train \\
+      --arch rwkv6-3b --trace build/rwkv_trace.json
 """
 
 from __future__ import annotations
@@ -35,8 +42,8 @@ import torch
 
 from repro_torch.configs.registry import get_config
 from repro_torch.data.pipeline import DataConfig, SyntheticLM
-from repro_torch.launch.profile_serve import summarize
-from repro_torch.launch.train import QUANTS, quant_from_name
+from repro_torch.launch.profile_serve import span_wkv, summarize
+from repro_torch.launch.train import QUANTS, quant_from_name, stub_embeds
 from repro_torch.train.steps import (
     TrainHParams,
     init_train_state,
@@ -51,7 +58,10 @@ CELLS = {"olmo-7b": (4, 1, 2048),               # TRAIN_LAYERS, TRAIN_M
          # FAMILY_TRAIN_LAYERS, FAMILY_TRAIN_M
          "stablelm-12b": (2, 1, 4096),
          "minitron-8b": (1, 1, 4096),
-         "recurrentgemma-2b": (5, 1, 4096)}
+         "recurrentgemma-2b": (5, 1, 4096),
+         "rwkv6-3b": (4, 1, 4096),
+         "musicgen-medium": (8, 1, 4096),
+         "phi-3-vision-4.2b": (4, 1, 4096)}
 
 
 def main(argv=None):
@@ -72,11 +82,20 @@ def main(argv=None):
                                   global_batch=batch))
     state = init_train_state(cfg, hp, seed=0, device="cuda")
     step = make_train_step(cfg, hp)
-    state, _ = step(state, data.batch_for_step(0))        # warm-up
+    if cfg.family == "ssm":
+        span_wkv()
+
+    def batch_for_step(i):
+        b = data.batch_for_step(i)
+        if cfg.input_mode == "embeddings":
+            b["embeds"] = stub_embeds(cfg, b["tokens"].cuda())
+        return b
+
+    state, _ = step(state, batch_for_step(0))             # warm-up
     torch.cuda.synchronize()
     t0 = time.monotonic()
     for i in (1, 2):
-        state, met = step(state, data.batch_for_step(i))
+        state, met = step(state, batch_for_step(i))
     torch.cuda.synchronize()
     untraced = (time.monotonic() - t0) / 2
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -84,12 +103,12 @@ def main(argv=None):
     with torch.profiler.profile(activities=acts) as prof:
         for i in (3, 4):
             with torch.profiler.record_function(SPAN):
-                state, met = step(state, data.batch_for_step(i))
+                state, met = step(state, batch_for_step(i))
                 float(met["loss"])
         torch.cuda.synchronize()
     prof.export_chrome_trace(args.trace)
     with open(args.trace) as f:
-        report = summarize(json.load(f), (SPAN,))
+        report = summarize(json.load(f), (SPAN, "wkv"))
     report["card"] = torch.cuda.get_device_name(0)
     report["cell"] = {"arch": args.arch, "quant": args.quant,
                       "layers": layers, "batch": batch, "seq": seq}

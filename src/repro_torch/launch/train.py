@@ -17,6 +17,13 @@ Usage:
       --arch deepseek-v2-lite-16b --smoke --device cpu --steps 3
   PYTHONPATH=src python -m repro_torch.launch.train \\
       --arch deepseek-v2-lite-16b --full --layers 3 --batch 2 --seq 4096
+  PYTHONPATH=src python -m repro_torch.launch.train --arch rwkv6-3b \\
+      --smoke --device cpu --steps 3
+  PYTHONPATH=src python -m repro_torch.launch.train \\
+      --arch musicgen-medium --smoke --device cpu --steps 3  # embeddings
+
+The embeddings-input models (musicgen-medium, phi-3-vision-4.2b) train on
+the frontend stub's embeddings of the synthetic tokens (``stub_embeds``).
 
 Checkpoints and meshes are ROADMAP queue 1 item 13: ``--ckpt-dir`` and
 ``--mesh`` raise ``NotImplementedError``.
@@ -55,6 +62,20 @@ def quant_from_name(name: str, interval: int = 500) -> QuantConfig:
                        rescale_interval=interval)
 
 
+def stub_embeds(cfg, tokens: torch.Tensor) -> torch.Tensor:
+    """The modality frontend's stub (precomputed frame or patch
+    embeddings): a fixed random (vocab, d) table times 0.02, looked up by
+    the tokens, in bf16.  The reference draws its table with
+    ``jax.random.normal(PRNGKey(1234))``, which the port cannot
+    reproduce without JAX: here a torch Generator seeded 1234 on the
+    tokens' device draws it, so the two packages' stub embeddings differ
+    (the parity tests carry embeddings across through numpy)."""
+    gen = torch.Generator(device=tokens.device).manual_seed(1234)
+    table = torch.randn((cfg.vocab, cfg.d_model), generator=gen,
+                        device=tokens.device) * 0.02
+    return table[tokens.long()].to(torch.bfloat16)
+
+
 def train(arch: str, *, smoke: bool = True, steps: int = 100,
           batch: int = 8, seq: int = 128, quant: str = "moss",
           lr: float = 3e-4, warmup: int = 20, seed: int = 0,
@@ -82,7 +103,10 @@ def train(arch: str, *, smoke: bool = True, steps: int = 100,
     t0 = time.monotonic()
     tokens_done = 0
     for step in range(steps):
-        state, metrics = step_fn(state, data.batch_for_step(step))
+        b = data.batch_for_step(step)
+        if cfg.input_mode == "embeddings":
+            b["embeds"] = stub_embeds(cfg, b["tokens"].to(device))
+        state, metrics = step_fn(state, b)
         tokens_done += batch * seq
         if (step + 1) % log_every == 0 or step + 1 == steps:
             loss = float(metrics["loss"])     # waits for the step

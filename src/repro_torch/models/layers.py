@@ -1,5 +1,6 @@
 """Shared model components (counterpart of ``repro.models.layers``):
-parameter definitions, norms, RoPE, the FFN, embedding and LM head.
+parameter definitions, norms, RoPE and the sinusoidal positions, the
+FFN, embedding and LM head.
 Every linear layer goes through ``core.linear.qlinear``.
 
 ``PDef`` is the single source of truth per parameter (shape, logical
@@ -129,13 +130,14 @@ def broadcast(x: torch.Tensor, n: int, dim: int) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _mean(xf: torch.Tensor) -> torch.Tensor:
+def _mean(xf: torch.Tensor, rows: int | None = None) -> torch.Tensor:
     """f32 mean over the last dim, keepdim; on the CPU in the
     reference's order (``core.xla_cpu_numerics``), on the card in a
-    serving step's fixed row order (``core.row_order``)."""
+    serving step's fixed row order (``core.row_order``; ``rows`` as
+    there)."""
     if xf.device.type == "cpu":
         return xla_cpu_numerics.mean(xf)
-    return row_order.mean(xf)
+    return row_order.mean(xf, rows)
 
 
 def _rsqrt(v: torch.Tensor) -> torch.Tensor:
@@ -205,8 +207,28 @@ def apply_rope(x, positions, theta: float = 1e4, pct: float = 1.0):
     sin, cos = _sin_cos(ang)
     cos, sin = cos[..., None, :], sin[..., None, :]
     x1, x2 = xr.to(torch.float32).chunk(2, dim=-1)
-    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    if x.device.type == "cpu":
+        # XLA contracts each product and sum into an FMA
+        fma = xla_cpu_numerics.fma
+        out = torch.cat([fma(x1, cos.expand_as(x1), -(x2 * sin)),
+                         fma(x2, cos.expand_as(x2), x1 * sin)], dim=-1)
+    else:
+        out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return torch.cat([out.to(x.dtype), xp], dim=-1)
+
+
+def sinusoidal_embedding(positions, d: int):
+    """MusicGen's sinusoidal position embedding: (..., S) int -> (..., S,
+    d) f32, the sines of ``d // 2`` frequencies then their cosines; on the
+    CPU with XLA's exp and the C library's sinf and cosf."""
+    half = d // 2
+    dev = positions.device
+    i = torch.arange(half, dtype=torch.float32, device=dev)
+    e = div_c(torch.tensor(-math.log(10_000.0), dtype=torch.float32,
+                           device=dev) * i, float(half))
+    freqs = xla_cpu_numerics.exp(e) if dev.type == "cpu" else torch.exp(e)
+    sin, cos = _sin_cos(positions[..., None].to(torch.float32) * freqs)
+    return torch.cat([sin, cos], dim=-1)
 
 
 # ---------------------------------------------------------------------------
@@ -226,6 +248,18 @@ def tanh(x: torch.Tensor) -> torch.Tensor:
     if x.device.type == "cpu":
         return xla_cpu_numerics.tanh(x)
     return torch.tanh(x)
+
+
+def exp(x: torch.Tensor) -> torch.Tensor:
+    if x.device.type == "cpu":
+        return xla_cpu_numerics.exp(x)
+    return torch.exp(x)
+
+
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    if x.device.type == "cpu":
+        return xla_cpu_numerics.sigmoid(x)
+    return torch.sigmoid(x)
 
 
 # ---------------------------------------------------------------------------

@@ -24,7 +24,7 @@ import torch
 from repro_torch.core import xla_cpu_numerics as xla
 from repro_torch.core.formats import QuantConfig
 from repro_torch.core.linear import QT, qlinear
-from .layers import PDef, gelu
+from .layers import PDef, exp, gelu, sigmoid
 
 _C = 8.0
 _CHUNK = 256
@@ -152,21 +152,9 @@ def _lru_scan(a, b, h0):
     return torch.cat(hs, dim=1)[:, :s], h
 
 
-def _sigmoid(x):
-    return xla.sigmoid(x) if x.device.type == "cpu" else torch.sigmoid(x)
-
-
 def _softplus(x):
     """``jax.nn.softplus``: max(x, 0) + log1p(exp(-|x|))."""
-    if x.device.type == "cpu":
-        e = xla.exp(-x.abs())
-    else:
-        e = torch.exp(-x.abs())
-    return torch.clamp_min(x, 0.0) + torch.log1p(e)
-
-
-def _exp(x):
-    return xla.exp(x) if x.device.type == "cpu" else torch.exp(x)
+    return torch.clamp_min(x, 0.0) + torch.log1p(exp(-x.abs()))
 
 
 def _sqrt(x):
@@ -188,12 +176,12 @@ def rglru_block(cfg, p, x, qcfg: QuantConfig,
         device=x.device))
     u, conv_state = _causal_conv(p, u, prev)
 
-    r = _sigmoid(qlinear(u, p["w_a"], qcfg).to(torch.float32)
+    r = sigmoid(qlinear(u, p["w_a"], qcfg).to(torch.float32)
                  + _raw(p["b_a"]).to(torch.float32))
-    i = _sigmoid(qlinear(u, p["w_i"], qcfg).to(torch.float32)
+    i = sigmoid(qlinear(u, p["w_i"], qcfg).to(torch.float32)
                  + _raw(p["b_i"]).to(torch.float32))
     log_a = -_C * _softplus(_raw(p["lambda_p"]).to(torch.float32)) * r
-    a = _exp(log_a)
+    a = exp(log_a)
     gated_in = _sqrt(torch.clamp_min(_muladd(-a, a, torch.ones_like(a)),
                                      1e-12)) * (i * u.to(torch.float32))
 

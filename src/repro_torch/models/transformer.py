@@ -1,18 +1,20 @@
-"""Model assembly (counterpart of ``repro.models.transformer``, the dense,
-MoE, MLA-MoE and hybrid families): embed -> segments of repeated blocks
--> final norm -> LM head, and the token cross-entropy.  deepseek's
+"""Model assembly (counterpart of ``repro.models.transformer``): embed
+(or take the embeddings of the audio and vision models) -> segments of
+repeated blocks -> final norm -> LM head, and the token cross-entropy.
+The dense, audio and vision families are ``blocks`` of attention and an
+FFN (musicgen adds sinusoidal positions to its input); deepseek's
 leading dense layers are a segment of their own (``dense0``) before the
 MoE ``blocks``; recurrentgemma's are ``griffin`` units of (recurrent,
 recurrent, local attention) and a ``tail_rec`` segment of the
-``n_layers % 3`` recurrent blocks left over.  A segment's cache is one
-node (``KVCache``, ``MLACache``, ``RGLRUState``) or a griffin unit's
-tuple of three; every node of a segment shares one ``idx``.  Params are
-stacked over layers like the
-reference's; the layer scan is a Python loop over them.  In ``train``
-mode the forward runs under autograd, each layer under
-``torch.utils.checkpoint`` when ``cfg.remat`` is set (the reference's
-``jax.checkpoint`` of the scan body); serving callers hold
-``torch.inference_mode`` themselves."""
+``n_layers % 3`` recurrent blocks left over; rwkv6's ``blocks`` are a
+time mix and a channel mix.  A segment's cache is one node
+(``KVCache``, ``MLACache``, ``RGLRUState``, ``RWKVState``) or a griffin
+unit's tuple of three; every node of a segment shares one ``idx``.
+Params are stacked over layers like the reference's; the layer scan is
+a Python loop over them.  In ``train`` mode the forward runs under
+autograd, each layer under ``torch.utils.checkpoint`` when
+``cfg.remat`` is set (the reference's ``jax.checkpoint`` of the scan
+body); serving callers hold ``torch.inference_mode`` themselves."""
 
 from __future__ import annotations
 
@@ -26,6 +28,7 @@ from . import attention as attn_mod
 from . import mla as mla_mod
 from . import moe as moe_mod
 from . import rglru as rglru_mod
+from . import rwkv6 as rwkv_mod
 from .attention import KVCache
 from .layers import (
     apply_ffn,
@@ -35,6 +38,7 @@ from .layers import (
     ffn_defs,
     lm_head,
     norm_defs,
+    sinusoidal_embedding,
     stack_defs,
 )
 
@@ -141,25 +145,36 @@ def _griffin_cache(cfg, batch, max_len, device):
             attn_mod.init_cache(cfg, batch, max_len, device))
 
 
-def _unsupported(cfg) -> list[str]:
-    """What of ``cfg`` the port cannot run yet: the embeddings input
-    (musicgen, phi-3-vision) and its sinusoidal positions, and RWKV6."""
-    checks = {
-        f"family {cfg.family!r}": cfg.family not in ("dense", "moe",
-                                                     "mla_moe", "hybrid"),
-        f"input_mode {cfg.input_mode!r}": cfg.input_mode != "tokens",
-        f"pos_embedding {cfg.pos_embedding!r}":
-            cfg.pos_embedding not in ("rope", "none"),
+def _rwkv_unit(cfg):
+    return {
+        "ln1": norm_defs(cfg, cfg.d_model),
+        "tm": rwkv_mod.timemix_defs(cfg),
+        "ln2": norm_defs(cfg, cfg.d_model),
+        "cm": rwkv_mod.chanmix_defs(cfg),
     }
-    return [name for name, bad in checks.items() if bad]
+
+
+def _rwkv_apply(cfg, qcfg, p, x, pos, cache, mode):
+    """rwkv6's block: the time mix, then the channel mix, each on its
+    normed input; without a cache (training, calibration) from a zeroed
+    state."""
+    st = cache if cache is not None else rwkv_mod.init_rwkv_state(
+        cfg, x.shape[0], device=x.device)
+    h, st = rwkv_mod.time_mix(cfg, p["tm"], apply_norm(cfg, p["ln1"], x),
+                              qcfg, st, mode)
+    x = x + h
+    h, st = rwkv_mod.channel_mix(cfg, p["cm"], apply_norm(cfg, p["ln2"], x),
+                                 qcfg, st, mode)
+    return x + h, st._replace(idx=st.idx + x.shape[1]), None
 
 
 def build_segments(cfg) -> list[Segment]:
-    bad = _unsupported(cfg)
-    if bad:
-        raise NotImplementedError(
-            f"{cfg.name}: {', '.join(bad)} not ported yet: ROADMAP queue 1 "
-            "item 11")
+    if cfg.family == "ssm":
+        return [Segment("blocks", cfg.n_layers, _rwkv_unit(cfg),
+                        _rwkv_apply, rwkv_mod.init_rwkv_state)]
+    if cfg.family not in ("dense", "audio", "vlm", "moe", "mla_moe",
+                          "hybrid"):
+        raise ValueError(f"{cfg.name}: family {cfg.family!r}")
     init = _attention(cfg)[2]
     if cfg.family == "mla_moe":
         # deepseek: the leading dense layers, then the MoE blocks
@@ -213,8 +228,8 @@ def map_nodes(c, fn):
 
 def cache_payloads(c) -> list[str]:
     """The payload fields of a cache node (``KVCache``, ``MLACache``,
-    ``RGLRUState``): every field but the ``idx`` and ``block_table``
-    the layers share."""
+    ``RGLRUState``, ``RWKVState``): every field but the ``idx`` and
+    ``block_table`` the layers share."""
     return [f for f in c._fields if f not in ("idx", "block_table")]
 
 
@@ -239,11 +254,11 @@ def with_idx(c, idx):
 def init_caches(cfg, batch: int, max_len: int, per_slot: bool = False,
                 device="cuda") -> dict:
     """Contiguous caches for every segment (``KVCache``, the MLA latent
-    ``MLACache``, the RG-LRU's ``RGLRUState``, or a griffin unit's
-    tuple of them), payloads stacked over the segment's layers: (L, B,
-    ...).  One ``idx`` is shared by the layers and the nodes of a
-    segment: a scalar 0, or with ``per_slot`` a (B,) vector of zeros
-    so that serving slots track their own depths."""
+    ``MLACache``, the RG-LRU's ``RGLRUState``, rwkv6's ``RWKVState``, or
+    a griffin unit's tuple of them), payloads stacked over the segment's
+    layers: (L, B, ...).  One ``idx`` is shared by the layers and the
+    nodes of a segment: a scalar 0, or with ``per_slot`` a (B,) vector of
+    zeros so that serving slots track their own depths."""
     caches = {}
     for seg in build_segments(cfg):
         one = seg.init_cache(cfg, batch, max_len, device)
@@ -257,10 +272,10 @@ def init_caches(cfg, batch: int, max_len: int, per_slot: bool = False,
 
 def _per_head_cache(cfg) -> bool:
     """Page pools, chunked prefill and verify steps take per-head
-    ``KVCache`` families; MLA's latent cache has no page structure and
-    takes the whole-prompt prefill on identity rows (the reference's
-    gates)."""
-    return cfg.family in ("dense", "moe")
+    ``KVCache`` families; MLA's latent cache and the recurrent states
+    have no page structure and take the whole-prompt prefill on identity
+    rows (the reference's gates)."""
+    return cfg.family in ("dense", "audio", "vlm", "moe")
 
 
 def paged_decode_supported(cfg, max_len: int, page_size: int) -> bool:
@@ -318,7 +333,8 @@ def _layer_cache(c, l: int):
 def _store_layer(view, new) -> None:
     """Copy a layer's new state into its views of the stacked cache
     where the layer returned new tensors (the RG-LRU's ``h`` and
-    ``conv``); attention writes its cache in place."""
+    ``conv``, rwkv6's ``x_tm``, ``x_cm`` and ``S``); attention writes its
+    cache in place."""
     for vn, nn in zip(cache_nodes(view), cache_nodes(new)):
         for f in cache_payloads(vn):
             a, b = getattr(vn, f), getattr(nn, f)
@@ -355,15 +371,23 @@ def forward(cfg, qcfg: QuantConfig, params, tokens: torch.Tensor,
     """Returns (logits f32, new_caches, aux_loss): ``aux_loss`` is the
     f32 sum of the MoE blocks' load-balance losses (0 for dense models).
 
-    tokens (B, S).  ``train`` runs without a cache, under autograd;
+    tokens (B, S) int, or for an embeddings-input model (musicgen,
+    phi-3-vision) also its embeddings (B, S, d), taken in bf16 in place
+    of the embedding's rows (the reference's ``{"embeds": ...}`` batch).
+    ``train`` runs without a cache, under autograd;
     ``prefill`` writes the prompt's K/V into fresh contiguous caches
     (``init_caches``) from position 0; ``decode`` and ``verify`` (S
     draft tokens per slot, attended through the decode kernel) read the
     depths from the caches' ``idx`` (a scalar or one per slot) for
     positions.  The caches are written in place and come back with
     ``idx`` advanced by S."""
-    b, s = tokens.shape
-    x = embed_tokens(cfg, params["embed"], tokens)
+    if tokens.dim() == 3:
+        if cfg.input_mode != "embeddings":
+            raise ValueError(f"{cfg.name} takes tokens, not embeddings")
+        x = tokens.to(torch.bfloat16)
+    else:
+        x = embed_tokens(cfg, params["embed"], tokens)
+    b, s = x.shape[:2]
     dev = x.device
     if mode in ("decode", "verify"):
         pos0 = _first_idx(caches)
@@ -374,6 +398,9 @@ def forward(cfg, qcfg: QuantConfig, params, tokens: torch.Tensor,
         positions = torch.arange(s, dtype=torch.int32, device=dev)
     else:
         raise ValueError(f"forward mode {mode!r}")
+    if cfg.pos_embedding == "sinusoidal":
+        pe = sinusoidal_embedding(positions, cfg.d_model)
+        x = x + (pe if positions.dim() > 1 else pe[None]).to(x.dtype)
     remat = cfg.remat and mode == "train" and torch.is_grad_enabled()
 
     aux_total = torch.zeros((), dtype=torch.float32, device=dev)

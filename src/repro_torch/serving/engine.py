@@ -31,13 +31,16 @@ hit still runs the last prompt token, whose logit is the first output).
 
 The v1 path (``REPRO_CHUNKED_PREFILL=0``, and what an arch chunks
 cannot serve takes without being asked: a windowed ring, MLA's latent
-cache, the hybrid's recurrent states) prefills each admitted prompt
-whole, right-padded to a 16-token bucket (the hybrid's at its exact
-length), in one (1, S) step, and admits on worst-case reservations; the
-row it is written into takes the prompt's caches and RG-LRU states.
-Placement: floating pages by default, identity rows
-(``REPRO_PAGED_PLACEMENT=identity``, a windowed ring, whose cache is C
-= window < max_len slots, MLA's latent cache and the hybrid).
+cache, the recurrent states of the hybrid and of rwkv6) prefills each
+admitted prompt whole, right-padded to a 16-token bucket (the recurrent
+families' at their exact length), in one (1, S) step, and admits on
+worst-case reservations; the row it is written into takes the prompt's
+caches and recurrent states.  Placement: floating pages by default,
+identity rows (``REPRO_PAGED_PLACEMENT=identity``, a windowed ring,
+whose cache is C = window < max_len slots, MLA's latent cache, the
+hybrid and rwkv6).  The embeddings-input models (musicgen,
+phi-3-vision) are refused, as the reference's engine refuses them: the
+legacy ``Server`` serves them from token prompts.
 
 Weights are pre-quantized to fp8 at build and the activation scales are
 calibrated at build (one forward over a fixed prompt), as in the
@@ -224,9 +227,10 @@ class Engine:
         self.cfg = cfg
         self.max_len = max_len
         self.num_slots = num_slots
-        # a recurrent state (RG-LRU) integrates every prefill token, so a
-        # padded prompt would corrupt it (attention caches mask the
-        # padding): the hybrid family prefills at its exact length
+        # a recurrent state (RG-LRU, rwkv6's WKV and shift states)
+        # integrates every prefill token, so a padded prompt would corrupt
+        # it (attention caches mask the padding): those families prefill
+        # at their exact length
         self.prompt_bucket = (1 if cfg.family in ("ssm", "hybrid")
                               else PROMPT_BUCKET)
         self.eos_id = eos_id

@@ -375,8 +375,9 @@ class PageAllocator:
 # slot row at dim 1; one idx (B,) serves every layer.  A one-row prefill
 # cache is (L, 1, ...) with a scalar idx, a staging row's idx is (1,).
 # A segment's cache is a KVCache (k, v and their scales), an MLACache
-# (c_kv, k_rope), an RGLRUState (h, conv) or a griffin unit's tuple of
-# them, whose nodes share one idx: every payload moves alike.
+# (c_kv, k_rope), an RGLRUState (h, conv), an RWKVState (x_tm, x_cm, S)
+# or a griffin unit's tuple of them, whose nodes share one idx: every
+# payload moves alike.
 # ---------------------------------------------------------------------------
 
 

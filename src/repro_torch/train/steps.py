@@ -133,11 +133,22 @@ def _split(batch: dict, n: int, i: int) -> dict:
             for k, v in batch.items()}
 
 
+def model_input(cfg, batch: dict) -> torch.Tensor:
+    """What ``forward`` takes from a batch: its ``embeds`` for an
+    embeddings-input model that has them, else its ``tokens``."""
+    if cfg.input_mode == "embeddings" and "embeds" in batch:
+        return batch["embeds"]
+    return batch["tokens"]
+
+
 def make_train_step(cfg, hp: TrainHParams, mesh=None):
     """The train step ``(state, batch) -> (state, metrics)``: microbatch
     accumulation, global-norm clip, AdamW on the cosine schedule, and
     the scale states advanced.  ``batch`` holds ``tokens`` and
-    ``labels`` (B, S) (and optionally ``mask``) on any device."""
+    ``labels`` (B, S) (and optionally ``mask``) on any device; an
+    embeddings-input model's batch may hold ``embeds`` (B, S, d), which
+    it takes in place of the tokens' embedding rows (the reference's
+    frontend stub, ``launch.train.stub_embeds``)."""
     if mesh is not None:
         raise NotImplementedError("mesh training: ROADMAP queue 1 item 13")
     defs = model_defs(cfg)
@@ -166,11 +177,14 @@ def make_train_step(cfg, hp: TrainHParams, mesh=None):
             mb = _split(batch, n_mb, i) if n_mb > 1 else batch
             qp = (wrap_qt(params, scales, mask) if auto
                   else wrap_qt_nojit(params, mask))
-            logits, _, a = forward(cfg, qcfg, qp, mb["tokens"],
+            logits, _, a = forward(cfg, qcfg, qp, model_input(cfg, mb),
                                    mode="train")
             l = ce_loss(cfg, logits, mb["labels"], mb.get("mask"))
             del logits
-            g = torch.autograd.grad(l + hp.aux_coef * a, flat)
+            # an embeddings-input step leaves the embedding unused: its
+            # gradient is zero, as the reference's
+            g = torch.autograd.grad(l + hp.aux_coef * a, flat,
+                                    materialize_grads=True)
             grads = list(g) if grads is None else \
                 [a + b for a, b in zip(grads, g)]
             del g
@@ -213,8 +227,8 @@ def make_eval_step(cfg):
     def eval_step(params, batch):
         dev = params["embed"]["embedding"].device
         qp = wrap_qt_nojit(params, mask)
-        logits, _, _ = forward(cfg, qcfg, qp, batch["tokens"].to(dev),
-                               mode="train")
+        logits, _, _ = forward(cfg, qcfg, qp,
+                               model_input(cfg, batch).to(dev), mode="train")
         m = batch.get("mask")
         return ce_loss(cfg, logits, batch["labels"].to(dev),
                        None if m is None else m.to(dev))
@@ -320,7 +334,8 @@ def _wrap_serve(params, mask, scales, act=None, path=()):
 
 
 def make_decode_step(cfg, scales=None, act_scales=None, rows: int = 0):
-    """The serving step: tokens (B, 1) decode one position per slot;
+    """The serving step: tokens (B, 1) decode one position per slot (an
+    embeddings-input model also takes embeddings (B, 1, d));
     tokens (1, C) chunk-prefill C prompt tokens of one slot.  The same
     callable serves both shapes, as in the reference.  The caches' pool
     tensors are updated in place; the returned caches carry the advanced

@@ -1,16 +1,22 @@
-"""Three more families of the port against the reference, on the CPU:
+"""Six more families of the port against the reference, on the CPU:
 stablelm-12b (LayerNorm, qk-norm, 25% partial rotary, d_head 32 in its
 smoke config), minitron-8b (squared ReLU, a non-gated FFN, 50% partial
-rotary) and recurrentgemma-2b (the hybrid: griffin units of two RG-LRU
+rotary), recurrentgemma-2b (the hybrid: griffin units of two RG-LRU
 blocks and one local-attention block, GeGLU, a tied embedding with a
-sqrt(d) scale, a logit softcap of 30; 6 layers in its smoke config), each
-on its ``SMOKE_CONFIG`` with the reference's weights from ``PRNGKey(0)``.
+sqrt(d) scale, a logit softcap of 30; 6 layers in its smoke config),
+rwkv6-3b (attention-free: the time mix's chunked WKV and the
+squared-ReLU channel mix), musicgen-medium (embeddings input,
+sinusoidal positions, LayerNorm, a GELU MLP) and phi-3-vision-4.2b
+(embeddings input, the phi3-mini backbone), each on its
+``SMOKE_CONFIG`` with the reference's weights from ``PRNGKey(0)``.  The
+embeddings models' inputs are made from a numpy seed and carried to
+both packages (``_model_input``, ``_stub``).
 
 The reference's side comes from the shared child of
 tests/test_torch_train.py (``archs_parts``, compiled with its
 ``REFERENCE_XLA_FLAGS``; the serving runs through the reference's own
 Engine and legacy Server under the child's ``ENGINE_LOCK``), the unit
-tests' values too.
+tests' values too (tests/test_torch_rwkv.py's among them).
 
 Limits, with their reasons (the values measured on a CPU are in each
 test):
@@ -21,10 +27,11 @@ test):
 - the whole forward: within 1e-2 * max|logit| (one bf16 rounding of a
   LayerNorm output, where the reference's rsqrt lands a bit off the
   correctly rounded value once in ~10^6 outputs, is carried through the
-  layers after it; every other case is bitwise);
+  layers after it; rwkv6's WKV sums in another order);
 - train steps: tests/test_torch_train.py's limits (``check_train_steps``);
 - serving: equal greedy streams, except past a reference tie
-  (tests/test_torch_serving.py's rule);
+  (tests/test_torch_serving.py's rule); both packages' engines refuse
+  the embeddings models;
 - the units (qk-norm, the tanh GELU, the sqrt(d) embedding scale, the
   softcap, the causal conv, the RG-LRU scan): bitwise, as the port
   follows the reference's CPU arithmetic (``core.xla_cpu_numerics``:
@@ -81,18 +88,45 @@ from test_torch_train import (
     shared_reference,
 )
 
-ARCHS = ("stablelm-12b", "minitron-8b", "recurrentgemma-2b")
+ARCHS = ("stablelm-12b", "minitron-8b", "recurrentgemma-2b", "rwkv6-3b",
+         "musicgen-medium", "phi-3-vision-4.2b")
 HYBRID = "recurrentgemma-2b"
+RWKV = "rwkv6-3b"
 TOKENS = np.random.default_rng(2).integers(0, 512, (2, 40)).astype(np.int32)
 # each family through the engine (floating pages and chunked prefill for
 # stablelm and minitron; identity rows and the exact-length whole-prompt
-# prefill for the hybrid) and the legacy Server
+# prefill for the hybrid and rwkv6; the embeddings models are refused)
+# and the legacy Server
 SERVE_RUNS = ("engine", "server")
 
 
 def _x(shape, seed, scale=1.0):
     x = np.random.default_rng(seed).standard_normal(shape) * scale
     return np.asarray(x, np.float32)
+
+
+def _embeddings(cfg) -> bool:
+    return cfg.input_mode == "embeddings"
+
+
+def _model_input(cfg) -> np.ndarray:
+    """The forward tests' input: TOKENS, or for an embeddings model f32
+    embeddings (2, 40, d) from a numpy seed, which both packages take in
+    bf16."""
+    return _x((*TOKENS.shape, cfg.d_model), 8) if _embeddings(cfg) else TOKENS
+
+
+def _stub(cfg, tokens) -> np.ndarray:
+    """The training frontend stub's embeddings of ``tokens``, made with
+    numpy (a (vocab, d) table from seed 1234, times 0.02), so that both
+    packages train on the same ones."""
+    return _x((cfg.vocab, cfg.d_model), 1234, 0.02)[tokens]
+
+
+def _serve_prompts(cfg) -> list:
+    """tests/test_torch_serving.py's prompts, within the vocabulary
+    (musicgen's is 128)."""
+    return [p % cfg.vocab for p in _prompts()]
 
 
 # --- the reference, in the shared child of tests/test_torch_train.py ---------
@@ -109,10 +143,12 @@ def _arch_reference(arch) -> dict:
     for mode in ("moss", "bf16"):
         cfg = jcfg.replace(quant=type(jcfg.quant)(mode=mode))
         mask = jquant_mask_tree(jtr.model_defs(cfg))
-        fwd = jax.jit(lambda p, t, cfg=cfg, mask=mask: jtr.forward(
-            cfg, cfg.quant, jwrap_qt_nojit(p, mask), {"tokens": t},
+        key = "embeds" if _embeddings(cfg) else "tokens"
+        fwd = jax.jit(lambda p, t, cfg=cfg, mask=mask, key=key: jtr.forward(
+            cfg, cfg.quant, jwrap_qt_nojit(p, mask), {key: t},
             mode="train")[0])
-        out["forward"][mode] = np.asarray(fwd(params, TOKENS), np.float32)
+        out["forward"][mode] = np.asarray(fwd(params, _model_input(cfg)),
+                                          np.float32)
     pq = jsteps.prequantize_params(jcfg, params)
     act = jcalibrate(jcfg, pq.qweights, pq.scales)
     out["build"] = {"qweights": jax.tree.map(np.asarray, pq.qweights),
@@ -124,9 +160,11 @@ def _arch_reference(arch) -> dict:
     with ENGINE_LOCK.shared():
         _share_steps()
         for name in SERVE_RUNS:
+            if name == "engine" and _embeddings(jcfg):
+                continue                 # the engine refuses these models
             run = {"server": True} if name == "server" else {}
             out["serve"][name] = _reference_serve(jcfg, params, run,
-                                                  _prompts())
+                                                  _serve_prompts(jcfg))
     return out
 
 
@@ -147,6 +185,8 @@ def _reference_train_step(arch) -> dict:
     data = JSyntheticLM(JDataConfig(vocab=jcfg0.vocab, seq_len=64,
                                     global_batch=2, seed=0))
     batch = jax.tree.map(np.asarray, data.batch_for_step(0))
+    if _embeddings(jcfg0):
+        batch["embeds"] = _stub(jcfg0, batch["tokens"])
     out = {}
     for mode in ("moss", "bf16"):
         jcfg = jcfg0.replace(quant=JQuantConfig(**recipe(mode),
@@ -165,14 +205,17 @@ def _reference_train_step(arch) -> dict:
 
 
 def archs_parts() -> dict:
-    """The reference's side of this module's tests, part by part (the
-    shared child of tests/test_torch_train.py runs each in a thread of
-    its own): the unit tests' values, and per family the smoke
-    parameters, the forward in moss and bf16, the pre-quantized tree
-    and its calibration, one train step in moss and in bf16, and the
-    and the engine's and the Server's streams (under the child's
+    """The reference's side of this module's tests and of
+    tests/test_torch_rwkv.py's, part by part (the shared child of
+    tests/test_torch_train.py runs each in a thread of its own): the
+    unit tests' values, and per family the smoke parameters, the
+    forward in moss and bf16, the pre-quantized tree and its
+    calibration, one train step in moss and in bf16, and the engine's
+    (for the token models) and the Server's streams (under the child's
     ``ENGINE_LOCK``)."""
-    return {"units": _units_reference,
+    from test_torch_rwkv import rwkv_units_reference
+
+    return {"units": _units_reference, "rwkv_units": rwkv_units_reference,
             **{arch: functools.partial(_arch_reference, arch)
                for arch in ARCHS}}
 
@@ -201,14 +244,17 @@ def test_config_and_defs_match_reference(arch):
     model's parameter tree the reference's leaves, shapes and
     quantization mask (griffin units, ``tail_rec`` where n_layers % 3,
     q/k norms, non-gated FFNs, no ``head`` for a tied embedding)."""
-    assert arch in registry.ARCHS and arch not in registry.NOT_PORTED
+    assert arch in registry.ARCHS
     for smoke in (False, True):
         j, t = jax_get_config(arch, smoke=smoke), get_config(arch,
                                                               smoke=smoke)
         for f in ("n_layers", "d_model", "n_heads", "n_kv", "d_ff", "vocab",
                   "head_dim", "attn_type", "window", "rope_pct", "qk_norm",
                   "logit_softcap", "act", "norm", "tie_embeddings",
-                  "embed_scale", "lru_width", "conv_width", "family"):
+                  "embed_scale", "lru_width", "conv_width", "family",
+                  "rwkv_head_dim", "ddlerp_rank", "decay_rank", "input_mode",
+                  "pos_embedding", "rope_theta", "norm_eps", "attn_chunk",
+                  "remat", "kv_cache_dtype"):
             assert getattr(j, f) == getattr(t, f), (arch, smoke, f)
     for n_layers in (None, 5):
         jcfg, tcfg = jax_get_config(arch, True), get_config(arch, True)
@@ -234,14 +280,16 @@ def test_config_and_defs_match_reference(arch):
         get_config(HYBRID).replace(n_layers=5))] == ["griffin", "tail_rec"]
 
 
-def test_still_refused_archs_name_what_is_missing():
-    for arch in ("rwkv6-3b", "musicgen-medium", "phi-3-vision-4.2b"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            get_config(arch)
-    for name in ("musicgen_medium", "rwkv6_3b"):
-        mod = __import__(f"repro.configs.{name}", fromlist=["CONFIG"])
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ttr.build_segments(mod.SMOKE_CONFIG)
+def test_port_has_every_reference_arch():
+    """The port's registry resolves every ``--arch`` id of the
+    reference's, each to a config of the same name, and knows no other."""
+    from repro.configs.registry import ARCHS as JARCHS
+
+    assert sorted(registry.ARCHS) == sorted(JARCHS)
+    for arch in JARCHS:
+        for smoke in (False, True):
+            assert get_config(arch, smoke).name == jax_get_config(
+                arch, smoke).name
 
 
 # --- the units ---------------------------------------------------------------
@@ -466,16 +514,19 @@ def test_rglru_block_prefill_then_decode_matches_reference(reference, mode):
 @pytest.mark.parametrize("mode", ["moss", "bf16"])
 @pytest.mark.parametrize("arch", ARCHS)
 def test_forward_matches_reference(reference, arch, mode):
-    """The smoke model's forward (2 x 40 tokens) on the reference's
-    weights, just-in-time weight scales: within 1e-2 * max|logit|
-    (measured: bitwise, except minitron in bf16, 4.2e-3: its second
-    layer's LayerNorm rounds 1 of 10,240 bf16 outputs the other way,
-    on an input equal in both packages)."""
+    """The smoke model's forward (2 x 40 tokens, or the embeddings
+    models' 2 x 40 embeddings) on the reference's weights, just-in-time
+    weight scales: within 1e-2 * max|logit| (measured: bitwise, except
+    minitron in bf16, 4.2e-3: its second layer's LayerNorm rounds 1 of
+    10,240 bf16 outputs the other way, on an input equal in both
+    packages, and musicgen in bf16, 2.6e-3; rwkv6 bitwise in both modes,
+    the WKV's f32 sums in another order hidden by its bf16 outputs)."""
     cfg = get_config(arch, smoke=True).replace(quant=QuantConfig(mode=mode))
     qp = wrap_qt_nojit(_params(reference, arch),
                        quant_mask_tree(ttr.model_defs(cfg)))
     with torch.no_grad():
-        got = ttr.forward(cfg, cfg.quant, qp, torch.tensor(TOKENS),
+        got = ttr.forward(cfg, cfg.quant, qp,
+                          torch.from_numpy(_model_input(cfg)),
                           mode="train")[0].numpy()
     want = reference[arch]["forward"][mode]
     assert got.shape == want.shape and np.isfinite(got).all()
@@ -527,13 +578,19 @@ def test_train_step_matches_reference(reference, arch, mode):
     stablelm moss 3.4e-6 / 4.7e-4, bf16 2.6e-3 / 1.4e-2; minitron moss
     3.1e-7 / 1.3e-4, bf16 2.1e-3 / 4.4e-3; recurrentgemma moss, bf16
     3.4e-7 / 6.3e-3 (the tied head's gradient flows into the embedding
-    through the transpose)."""
+    through the transpose); rwkv6 moss 2.9e-6 / 7.4e-6, bf16 7.4e-3 /
+    1.1e-2; musicgen moss 3.4e-7 / 4.3e-5, bf16 3.6e-3 / 4.5e-3;
+    phi-3-vision moss 2.6e-6 / 7.5e-6, bf16 1.7e-3 / 1.5e-3.  The
+    embeddings models take the same numpy stub embeddings in both
+    packages (their embedding's gradient is zero in both)."""
     from test_torch_train import TRAIN_HP, recipe
 
     before, batch, rs, rm = reference[arch]["train"][mode]
     cfg = get_config(arch, smoke=True).replace(
         quant=QuantConfig(**recipe(mode), rescale_interval=2))
     state = bridge.train_state_to_torch(before, device="cpu")
+    if cfg.input_mode == "embeddings":
+        assert batch["embeds"].shape == (*batch["tokens"].shape, cfg.d_model)
     ps, pm = tsteps.make_train_step(cfg, tsteps.TrainHParams(**TRAIN_HP))(
         state, {k: torch.from_numpy(np.array(v)) for k, v in batch.items()})
     check_train_steps([(before, rs, rm, bridge.train_state_to_numpy(ps),
@@ -549,20 +606,35 @@ def test_serving_streams_match_reference(reference, arch, name):
     recurrentgemma on identity rows with the whole-prompt prefill at the
     exact prompt length (its recurrent state would integrate padding),
     each RG-LRU state written into its slot at admission; and the
-    legacy Server.  Greedy streams equal to the reference's."""
+    legacy Server.  Greedy streams equal to the reference's.  rwkv6 takes
+    the hybrid's path (its time-mix and channel-mix states written into
+    the slot at admission); both packages' engines refuse musicgen and
+    phi-3-vision (embeddings input), whose Servers take token prompts
+    through the embedding table."""
     cfg = get_config(arch, smoke=True)
     params = _params(reference, arch)
     reqs = [Request(rid=i, prompt=p, max_new=MAX_NEW)
-            for i, p in enumerate(_prompts())]
+            for i, p in enumerate(_serve_prompts(cfg))]
+    if name == "engine" and _embeddings(cfg):
+        from repro.serving import Engine as JEngine
+
+        with pytest.raises(ValueError, match="input_mode"):
+            Engine(cfg, params, num_slots=SLOTS, max_len=MAX_LEN,
+                   device="cpu")
+        with pytest.raises(ValueError, match="input_mode"):
+            JEngine(jax_get_config(arch, smoke=True),
+                    reference[arch]["params"], num_slots=SLOTS,
+                    max_len=MAX_LEN)
+        return
     if name == "server":
         Server(cfg, params, batch_slots=SLOTS, max_len=MAX_LEN,
                device="cpu").run(list(reqs), log=None)
     else:
         eng = Engine(cfg, params, num_slots=SLOTS, max_len=MAX_LEN,
                      chunk_tokens=CHUNK, device="cpu")
-        hybrid = cfg.family == "hybrid"
-        assert eng.float_pages == eng.chunked == (not hybrid)
-        assert eng.prompt_bucket == (1 if hybrid else 16)
+        recurrent = cfg.family in ("hybrid", "ssm")
+        assert eng.float_pages == eng.chunked == (not recurrent)
+        assert eng.prompt_bucket == (1 if recurrent else 16)
         eng.run(reqs, log=None)
         assert not eng.kv.rows
     assert all(r.done and len(r.out) == MAX_NEW for r in reqs)

@@ -4,7 +4,8 @@ the MOSS GEMM through ``kernels.ops.moss_linear``, automatic scaling)
 ``examples/pretrain_moss_vs_bf16_torch.py`` (paper Fig. 5: bf16 and
 moss loss curves from one seed) and ``examples/serve_batched_torch.py``
 (the paged engine, then a wave sharing a system prompt through the
-prefix cache).  Each must run to its end with finite numbers; the GEMM's
+prefix cache) and ``examples/multiarch_smoke_torch.py`` (one moss step
+on an arch's smoke config).  Each must run to its end with finite numbers; the GEMM's
 error against the exact product is the reference example's (~0.037 on
 its input), held within 0.05, and the serving wave's prefix-cache
 counts are the reference example's."""
@@ -14,6 +15,7 @@ import math
 from pathlib import Path
 
 import numpy as np
+import pytest
 
 EXAMPLES = Path(__file__).resolve().parent.parent / "examples"
 
@@ -52,4 +54,18 @@ def test_serve_batched_twin_shares_the_system_prompt(capsys):
     assert s["requests"] == 16 and s["preemptions"] == 0
     assert "prefix hits 5/6" in out
     assert "import jax" not in (EXAMPLES / "serve_batched_torch.py"
+                                ).read_text()
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-3b", "musicgen-medium"])
+def test_multiarch_twin_trains_a_step(capsys, arch):
+    """``examples/multiarch_smoke_torch.py --arch <id> --steps 1`` on the
+    CPU: rwkv6 (attention-free) and musicgen (embeddings input through
+    the frontend stub) each take a finite moss step."""
+    losses = _load("multiarch_smoke_torch").main(
+        ["--device", "cpu", "--arch", arch, "--steps", "1"])
+    assert list(losses) == [arch] and len(losses[arch]) == 1
+    assert math.isfinite(losses[arch][0]), losses
+    assert f"{arch}" in capsys.readouterr().out
+    assert "import jax" not in (EXAMPLES / "multiarch_smoke_torch.py"
                                 ).read_text()

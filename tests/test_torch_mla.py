@@ -271,15 +271,19 @@ def test_mla_config_and_defs_match_reference():
 def test_mla_is_ported_and_takes_the_v1_serving_path():
     """The registry serves the arch; MLA's latent cache takes neither
     floating pages nor chunked prefill nor verify steps (the
-    reference's gates), and the refusal message names no MLA field."""
-    assert ARCH in registry.ARCHS and ARCH not in registry.NOT_PORTED
+    reference's gates); the segments do not depend on the input mode
+    (embeddings replace the embedding's rows before them), and the
+    refusal of a family the port does not know names no MLA field."""
+    assert ARCH in registry.ARCHS
     cfg = get_config(ARCH, smoke=True)
     assert [s.name for s in ttr.build_segments(cfg)] == ["dense0", "blocks"]
     assert not ttr.paged_decode_supported(cfg, 48, 16)
     assert not ttr.chunk_prefill_supported(cfg, 48)
     assert not ttr.spec_verify_supported(cfg, 48)
-    with pytest.raises(NotImplementedError) as e:
-        ttr.build_segments(cfg.replace(input_mode="embeddings"))
+    assert [s.name for s in ttr.build_segments(
+        cfg.replace(input_mode="embeddings"))] == ["dense0", "blocks"]
+    with pytest.raises(ValueError) as e:
+        ttr.build_segments(cfg.replace(family="unknown"))
     assert "n_shared" not in str(e.value) and \
         "first_dense" not in str(e.value)
 

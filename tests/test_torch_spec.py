@@ -455,7 +455,7 @@ def test_serving_steps_run_under_their_most_rows(monkeypatch, server):
 def test_row_order_off_the_card_is_plain_torch():
     """On the CPU the helpers are the plain torch calls inside a serving
     step's limit too (bitwise), so no CPU result moves; the fixed order
-    itself (``_halve``) is the row's sum to f32 rounding, and a row's
+    itself (``sum_last``) is the row's sum to f32 rounding, and a row's
     sum is the same alone and among others."""
     rng = np.random.default_rng(0)
     x = torch.tensor(rng.standard_normal((5, 96)), dtype=torch.float32)
@@ -469,11 +469,11 @@ def test_row_order_off_the_card_is_plain_torch():
                            torch.einsum("etd,te->td", ys, c))
     for d in (96, 3072, 6400, 7):
         x = torch.tensor(rng.standard_normal((5, d)), dtype=torch.float32)
-        got = row_order._halve(x)
+        got = row_order.sum_last(x)
         np.testing.assert_allclose(got.numpy(),
                                    x.double().sum(-1).numpy(), rtol=1e-5,
                                    atol=1e-5 * d ** 0.5)
-        assert torch.equal(row_order._halve(x[2:3]), got[2:3])
+        assert torch.equal(row_order.sum_last(x[2:3]), got[2:3])
 
 
 def test_accept_rate_ema_steers_draft_len():

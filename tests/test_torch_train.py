@@ -91,6 +91,15 @@ from repro_torch.optim import adamw as tadamw
 from repro_torch.optim import schedule as tschedule
 from repro_torch.train import steps as tsteps
 
+# The port's CPU work is many small tensor ops, which PyTorch's intra-op
+# threads slow down: a smoke-size quant_mx took 0.46 ms on one thread
+# and 6.5 ms on eight on an idle 8-core box, ~47 ms with the test run's
+# other processes beside it.  Every pytest-xdist worker imports this
+# module at collection (and the reference children run it), so each
+# process computes on one thread; the results are the same on 1 and 3
+# threads (test_train_steps_match_reference).
+torch.set_num_threads(1)
+
 ARCH = "olmo-7b"
 # the paper's other dense arch (RMSNorm where olmo-7b has LayerNorm)
 LLAMA2 = "llama2-7b"
