@@ -9,11 +9,12 @@ page-aligned prefix is stored once and served copy-on-write, and only
 each request's unshared suffix chunk-prefills.
 
   PYTHONPATH=src python examples/serve_batched_torch.py            # on the card
-  PYTHONPATH=src python examples/serve_batched_torch.py --device cpu
+  PYTHONPATH=src python examples/serve_batched_torch.py --device cpu \
+      --metrics-out build/metrics.json --trace-out build/trace.json
 
-The reference example's ``--metrics-out`` and ``--trace-out`` wait for
-the port's observability (ROADMAP queue 1 entry 8) and are left out.
-The weights come from a torch generator, so the generated tokens are
+``--metrics-out`` writes the metrics registry's snapshot as JSON at the
+end, ``--trace-out`` the engine's step spans as Chrome-trace JSON.  The
+weights come from a torch generator, so the generated tokens are
 not the reference example's; the prefix-cache counts are.
 """
 
@@ -28,6 +29,7 @@ import torch
 
 from repro_torch.configs.registry import get_config
 from repro_torch.core.runtime_flags import serve_prequant
+from repro_torch.models.attention import resolve_kv_cache_dtype
 from repro_torch.launch.serve import random_params
 from repro_torch.serving import Engine, Request
 
@@ -35,7 +37,18 @@ from repro_torch.serving import Engine, Request
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--metrics-out", default=None, metavar="PATH",
+                    help="write the metrics-registry snapshot as JSON at "
+                         "the end")
+    ap.add_argument("--trace-out", default=None, metavar="PATH",
+                    help="record the engine's step spans and write the "
+                         "Chrome-trace JSON at the end")
     args = ap.parse_args(argv)
+    tracer = None
+    if args.trace_out:
+        from repro_torch.obs.trace import get_tracer
+
+        tracer = get_tracer().enable(path=args.trace_out)
     dev = torch.device(args.device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA device: pass --device cpu")
@@ -60,7 +73,7 @@ def main(argv=None):
     prequant = engine.scales is not None and serve_prequant()
     print(f"weights: "
           f"{'pre-quantized fp8' if prequant else 'quantized in the step (REPRO_SERVE_PREQUANT=0)'}"
-          f" | kv cache: {cfg.kv_cache_dtype}"
+          f" | kv cache: {resolve_kv_cache_dtype(cfg)}"
           f" | page pool: {engine.kv.allocator.num_pages} pages x "
           f"{engine.kv.allocator.page_size} tokens")
     done = engine.run(requests)
@@ -102,6 +115,15 @@ def main(argv=None):
           f"skipped {s['prefill_tokens_skipped']} | pages shared "
           f"{s['pages_shared']} | CoW copies {s['cow_copies']} | "
           f"peak pool pages {s['peak_pool_pages']}")
+
+    if tracer is not None:
+        print(f"trace: {tracer.save()} ({len(tracer)} events)")
+    if args.metrics_out:
+        from repro_torch.obs.metrics import get_registry
+
+        with open(args.metrics_out, "w") as f:
+            f.write(get_registry().to_json(indent=2))
+        print(f"metrics: {args.metrics_out}")
     return s
 
 

@@ -28,7 +28,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .formats import TINY, QuantConfig, e8m0_encode, fp8_max
+from .formats import TINY, QuantConfig, e8m0_decode, e8m0_encode, fp8_max
 
 DEFAULT_MARGIN = 1.25
 CALIBRATION_TOKENS = 32
@@ -102,6 +102,41 @@ class _Recorder:
 
 
 REC = _Recorder()
+
+
+def split_act(a, n: int) -> list:
+    """A site's activation-scale state -> one per slice of its leading
+    stacked dim (a layer, or a MoE expert): a calibrated ``ActScale``
+    split with ``unbind``, a quant-health ``TaggedScale`` split keeping
+    its tag, a calibration tag or None as it is."""
+    if isinstance(a, ActScale):
+        subs = [None] * n if a.sub is None else list(a.sub.unbind(0))
+        return [ActScale(s, sub) for s, sub in zip(a.s.unbind(0), subs)]
+    if a is None or isinstance(a, str):
+        return [a] * n
+    from repro_torch.obs.quant_health import TaggedScale
+
+    if isinstance(a, TaggedScale):
+        return [TaggedScale(a.tag, s) for s in split_act(a.scale, n)]
+    raise TypeError(f"activation-scale state {type(a).__name__}")
+
+
+def effective_group_scales(a: ActScale, cfg: QuantConfig,
+                           k: int) -> tuple[torch.Tensor, int]:
+    """The per-quantization-group effective scale an ``ActScale`` slice
+    implies for a GEMM of inner dim ``k``: the quant-health tap's view
+    of the calibrated range (a group's values clip once their magnitude
+    exceeds ``scale_g · FP8_MAX``).  Returns ``(scales (K'/g,), g)``,
+    ``g`` the recipe's group width (``k`` itself for per_tensor: one
+    group) and ``K'`` ``k`` padded up to a multiple of ``g``, as the
+    delayed quantizers pad."""
+    if cfg.mode == "moss":
+        s1 = torch.clamp_min(a.s.to(torch.float32), TINY)
+        ss = e8m0_decode(a.sub.to(torch.int8))
+        return (ss * s1).reshape(-1), cfg.micro_group
+    if cfg.mode == "per_group":
+        return a.s.to(torch.float32).reshape(-1), cfg.group_size
+    return a.s.to(torch.float32).reshape(-1), k
 
 
 def path_tag(path) -> str:

@@ -10,7 +10,10 @@
               reduction-free delayed-scale serving forward
               ``_qmm_delayed``: moss through ``kernels.dispatch.
               mx_matmul``, per_group through ``dispatch.group_matmul``,
-              per_tensor through ``dispatch.pt_matmul``.
+              per_tensor through ``dispatch.pt_matmul``; with a
+              quant-health ``TaggedScale`` (``REPRO_QUANT_HEALTH=1``),
+              the site's statistics recorded first
+              (``repro_torch.obs.quant_health``), then the same forward.
 
 ``qmm`` is a ``torch.autograd.Function`` (the reference's custom VJP).
 Its forward saves only the fp8 residuals of x (``MxQ``, ``PerGroupQ``
@@ -65,8 +68,10 @@ from .quant import (
 class QT(NamedTuple):
     """A weight bundled with its fp8 scale ``s`` (None: bf16 mode or
     never-quantized) and the site's activation-scale state ``a``: None
-    (just-in-time), an ``ActScale`` (calibrated delayed scales) or a
-    site tag string (calibration: record, then run just-in-time)."""
+    (just-in-time), an ``ActScale`` (calibrated delayed scales), a
+    ``TaggedScale`` (an ``ActScale`` and its site tag: the quant-health
+    tap) or a site tag string (calibration: record, then run
+    just-in-time)."""
 
     w: torch.Tensor
     s: torch.Tensor | None = None
@@ -344,8 +349,16 @@ def qlinear(x: torch.Tensor, wt: QT, cfg: QuantConfig) -> torch.Tensor:
     if isinstance(a, ActScale):
         return _qmm_delayed(cfg, x, wt, a)
     if a is not None:
-        raise NotImplementedError(
-            "quant-health taps: ROADMAP queue 1 item 12")
+        # the quant-health tap (REPRO_QUANT_HEALTH=1 only: a TaggedScale
+        # exists nowhere else): record this site's statistics, then the
+        # delayed forward a bare ActScale takes
+        from repro_torch.obs.quant_health import QH, TaggedScale
+
+        if not isinstance(a, TaggedScale):
+            raise TypeError(f"qlinear: activation-scale state "
+                            f"{type(a).__name__}")
+        QH.record(a.tag, x, a.scale, cfg)
+        return _qmm_delayed(cfg, x, wt, a.scale)
     s = wt.s
     if s is None:
         if cfg.weight_scaling == "auto":

@@ -22,6 +22,7 @@ from .formats import (
     ftz,
     e8m0_decode,
     e8m0_encode,
+    fp8_dtype,
     fp8_max,
     is_fp8,
 )
@@ -203,6 +204,33 @@ def quant_mx_delayed(x: torch.Tensor, global_scale: torch.Tensor,
     denom = group_denominator(sexp, s)[..., None]
     q = _guarded_cast(xg, denom, fmt).reshape(x.shape)
     return MxQ(q=q, sexp=sexp, s=s)
+
+
+def quant_excursions(x_abs: torch.Tensor, scale: torch.Tensor,
+                     fmt: FP8Format = "e4m3"):
+    """Out-of-range accounting for a saturating fp8 cast of ``x_abs /
+    scale`` (the quant-health tap, ``repro_torch.obs.quant_health``):
+
+      saturated   elements whose magnitude exceeds ``scale · FP8_MAX``
+                  (the cast clamps them to ±FP8_MAX)
+      underflowed nonzero elements the cast rounds to exactly 0
+      nonzero     the underflow denominator
+
+    ``x_abs`` is |x| (any shape) and ``scale`` broadcasts against it; a
+    non-positive scale quantizes its group to 0, as the quantizers'
+    zero-denominator guard does.  Returns f32 count scalars (exact below
+    2^24 elements).  Round to nearest even sends ``v`` to 0 exactly when
+    ``v <= smallest_subnormal / 2``, so underflow is that compare, not a
+    cast.  Nothing here feeds the GEMM."""
+    fmax = fp8_max(fmt)
+    fi = torch.finfo(fp8_dtype(fmt))
+    tie = fi.smallest_normal * fi.eps / 2.0   # half the smallest subnormal
+    xf = x_abs.to(torch.float32)
+    pos = scale > 0
+    sat = ((xf > scale * fmax) & pos).to(torch.float32).sum()
+    nonzero = xf > 0
+    under = (nonzero & ((xf <= scale * tie) | ~pos)).to(torch.float32).sum()
+    return sat, under, nonzero.to(torch.float32).sum()
 
 
 def mx_operand(q: torch.Tensor, sexp: torch.Tensor) -> torch.Tensor:

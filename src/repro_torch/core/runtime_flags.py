@@ -14,10 +14,10 @@ Counterpart of ``repro.core.runtime_flags``.  Two things live here:
     they go through ``repro_torch.kernels.dispatch``.
 
 Serving and training flags
-    The reference reads ``REPRO_*`` environment variables.  The port
-    reads nine of them as the reference does: ``REPRO_SERVE_PAGED``
-    (the paged engine, or the legacy ``Server`` under 0),
-    ``REPRO_PAGED_PLACEMENT`` (float or identity pages),
+    The reference reads ``REPRO_*`` environment variables, and the port
+    reads them with the same names, defaults and errors:
+    ``REPRO_SERVE_PAGED`` (the paged engine, or the legacy ``Server``
+    under 0), ``REPRO_PAGED_PLACEMENT`` (float or identity pages),
     ``REPRO_CHUNKED_PREFILL`` (chunked, or the whole-prompt prefill
     under 0), ``REPRO_PREEMPTION`` (usage-based admission with
     preemption to host, or reservation admission under 0),
@@ -25,18 +25,15 @@ Serving and training flags
     ``REPRO_SPEC_DECODE`` (speculative verify steps under 1),
     ``REPRO_SERVE_PREQUANT`` (weights quantized in every step against
     the build-time scales under 0), ``REPRO_SERVE_DELAYED_ACT``
-    (just-in-time activation scales under 0) and ``REPRO_DECODE_ATTN``
-    (``einsum``: the decode kernels' plain versions, on the card too).
-    For ``REPRO_QUANT_HEALTH`` the port implements the reference's
-    default (no quant-health taps), and ``check_serving_env`` refuses
-    it set to another value, naming the ROADMAP entry that will bring
-    it.  The KV-cache dtype is the
-    config's ``kv_cache_dtype`` alone: ``REPRO_KV_CACHE``, the
-    reference's override of it, is refused whenever it is set, so that
-    it cannot be silently ignored.  The training CLI's one reference
-    switch, ``REPRO_MOE_EXPERTS`` (``grouped`` or ``vmapped``), is read
-    by ``moe_expert_path``, which refuses another value (the CLI reads
-    it before training starts).
+    (just-in-time activation scales under 0), ``REPRO_DECODE_ATTN``
+    (``einsum``: the decode kernels' plain versions, on the card too),
+    ``REPRO_KV_CACHE`` (``bf16`` or ``fp8``: every config's KV-cache
+    dtype, ``models.attention.resolve_kv_cache_dtype``), the
+    observability gates ``REPRO_QUANT_HEALTH`` /
+    ``REPRO_QUANT_HEALTH_EVERY`` (``repro_torch.obs.quant_health``) and
+    ``REPRO_TRACE`` (``repro_torch.obs.trace``), and the training CLI's
+    ``REPRO_MOE_EXPERTS`` (``grouped`` or ``vmapped``; the CLI reads it
+    before training starts).
 """
 
 from __future__ import annotations
@@ -44,12 +41,6 @@ from __future__ import annotations
 import os
 
 import torch
-
-# reference switch -> (value the port implements, ROADMAP entry that
-# brings the others)
-_SERVING_ENV = {
-    "REPRO_QUANT_HEALTH": ("0", "queue 1 item 12 (observability)"),
-}
 
 
 def serve_prequant() -> bool:
@@ -134,19 +125,51 @@ def spec_decode() -> bool:
     return os.environ.get("REPRO_SPEC_DECODE", "0").strip() == "1"
 
 
-def check_serving_env() -> None:
-    """Raise ``NotImplementedError`` when a reference serving switch is
-    set to a value this port does not implement (an unset or default
-    value is fine)."""
-    if os.environ.get("REPRO_KV_CACHE", "").strip():
-        raise NotImplementedError(
-            "REPRO_KV_CACHE is not read by the port: set the config's "
-            "kv_cache_dtype instead")
-    for name, (value, entry) in _SERVING_ENV.items():
-        got = os.environ.get(name, "").strip()
-        if got and got != value:
-            raise NotImplementedError(
-                f"{name}={got!r} is not ported yet: ROADMAP {entry}")
+# Observability (repro_torch.obs).  Both gates are off by default, and
+# off is free: the serving steps are built without telemetry.
+def quant_health() -> bool:
+    """Whether serving steps also return per-site fp8
+    quantization-health statistics (saturation, underflow, activation
+    scale drift: ``repro_torch.obs.quant_health``).  Opt-in:
+    ``REPRO_QUANT_HEALTH=1``."""
+    return os.environ.get("REPRO_QUANT_HEALTH", "0").strip() == "1"
+
+
+def quant_health_every() -> int:
+    """``REPRO_QUANT_HEALTH_EVERY``: the engine runs the
+    health-instrumented step variant once every this many calls of a
+    step shape plus one (default 16, at least 1; a value that is not an
+    integer gives 16)."""
+    env = os.environ.get("REPRO_QUANT_HEALTH_EVERY", "").strip()
+    try:
+        return max(1, int(env)) if env else 16
+    except ValueError:
+        return 16
+
+
+def trace_path() -> str | None:
+    """``REPRO_TRACE``: the Chrome-trace output path, or None (tracing
+    off).  Read once, by ``repro_torch.obs.trace.get_tracer``."""
+    env = os.environ.get("REPRO_TRACE", "").strip()
+    return env or None
+
+
+# KV-cache storage dtype (models.attention.resolve_kv_cache_dtype): the
+# configs default to "fp8"; REPRO_KV_CACHE overrides every config in
+# both directions
+KV_CACHE_DTYPES = ("bf16", "fp8")
+
+
+def kv_cache_override() -> str | None:
+    """``REPRO_KV_CACHE``, the override of the KV-cache storage dtype, or
+    None to take the config's."""
+    env = os.environ.get("REPRO_KV_CACHE", "").strip()
+    if not env:
+        return None
+    if env not in KV_CACHE_DTYPES:
+        raise ValueError(f"REPRO_KV_CACHE={env!r}: expected one of "
+                         f"{KV_CACHE_DTYPES}")
+    return env
 
 
 MOE_EXPERT_PATHS = ("grouped", "vmapped")

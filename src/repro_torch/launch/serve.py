@@ -19,6 +19,13 @@ Usage:
   REPRO_SERVE_PREQUANT=0 REPRO_SERVE_DELAYED_ACT=0 \\
   REPRO_DECODE_ATTN=einsum PYTHONPATH=src \\
       python -m repro_torch.launch.serve --smoke --device cpu   # switches
+  REPRO_QUANT_HEALTH=1 REPRO_KV_CACHE=bf16 PYTHONPATH=src \\
+      python -m repro_torch.launch.serve --smoke --device cpu \\
+      --metrics-out build/metrics.json --trace-out build/trace.json
+
+``--metrics-out`` writes the metrics registry's snapshot as JSON at the
+end, ``--trace-out`` records the engine's step spans and writes the
+Chrome-trace JSON (as ``REPRO_TRACE=PATH`` does).
 """
 
 from __future__ import annotations
@@ -30,11 +37,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.registry import get_config
-from repro_torch.core.runtime_flags import (
-    check_serving_env,
-    paged_placement,
-    serve_paged,
-)
+from repro_torch.core.runtime_flags import paged_placement, serve_paged
 from repro_torch.models.layers import init_tree
 from repro_torch.models.transformer import init_caches, model_defs
 from repro_torch.serving import Engine, Request, greedy_sample
@@ -60,7 +63,6 @@ class Server:
 
     def __init__(self, cfg, params, batch_slots: int, max_len: int,
                  device="cuda"):
-        check_serving_env()
         self.device = resolve_device(device)
         self.cfg = cfg
         self.B = batch_slots
@@ -70,16 +72,33 @@ class Server:
             self.params, self.scales = prepare_weights(cfg, params)
             self.act_scales = calibrate_serving(cfg, self.params,
                                                 self.scales)
-        self.prefill = make_prefill_step(cfg, max_len, scales=self.scales,
-                                         act_scales=self.act_scales)
-        # the engine's row order for its B rows (core.row_order), so
-        # that a request gives the engine's stream
-        self.decode = make_decode_step(cfg, scales=self.scales,
-                                       act_scales=self.act_scales,
-                                       rows=batch_slots)
+        self._build_steps()
         self.caches = init_caches(cfg, batch_slots, max_len, per_slot=True,
                                   device=self.device)
         self.slots: list[Request | None] = [None] * batch_slots
+
+    def _build_steps(self):
+        self.prefill = make_prefill_step(self.cfg, self.max_len,
+                                         scales=self.scales,
+                                         act_scales=self.act_scales)
+        # the engine's row order for its B rows (core.row_order), so
+        # that a request gives the engine's stream
+        self.decode = make_decode_step(self.cfg, scales=self.scales,
+                                       act_scales=self.act_scales,
+                                       rows=self.B)
+
+    def refresh_act_scales(self, tokens=None, margin=None):
+        """Calibrate the delayed activation scales again and rebuild the
+        steps (``Engine.refresh_act_scales``)."""
+        if self.act_scales is None:
+            return None
+        from repro_torch.core.actscale import calibrate_act_scales
+
+        kw = {} if margin is None else {"margin": margin}
+        self.act_scales = calibrate_act_scales(
+            self.cfg, self.params, self.scales, tokens=tokens, **kw)
+        self._build_steps()
+        return self.act_scales
 
     def _prefill_request(self, req: Request, slot: int):
         req.state = RequestState.RUNNING
@@ -178,8 +197,34 @@ def main(argv=None):
     ap.add_argument("--legacy", action="store_true",
                     help="the legacy contiguous-ring Server (same as "
                          "REPRO_SERVE_PAGED=0)")
+    ap.add_argument("--metrics-out", default=None, metavar="PATH",
+                    help="write the metrics-registry snapshot as JSON at "
+                         "the end")
+    ap.add_argument("--trace-out", default=None, metavar="PATH",
+                    help="record the engine's step spans and write the "
+                         "Chrome-trace JSON at the end (same as "
+                         "REPRO_TRACE=PATH)")
     args = ap.parse_args(argv)
+    tracer = None
+    if args.trace_out:
+        from repro_torch.obs.trace import get_tracer
 
+        tracer = get_tracer().enable(path=args.trace_out)
+    out = _serve(args)
+    if tracer is not None:
+        print(f"trace: {tracer.save()} ({len(tracer)} events)")
+    if args.metrics_out:
+        from repro_torch.obs.metrics import get_registry
+
+        with open(args.metrics_out, "w") as f:
+            f.write(get_registry().to_json(indent=2))
+        print(f"metrics: {args.metrics_out}")
+    return out
+
+
+def _serve(args):
+    """The engine (or the legacy Server) of ``args``, after serving its
+    requests."""
     cfg = get_config(args.arch, smoke=args.smoke)
     if args.layers is not None:
         cfg = cfg.replace(n_layers=args.layers)
@@ -205,8 +250,12 @@ def main(argv=None):
           f"{'chunked' if engine.chunked else 'whole-prompt'} prefill"
           f"{', speculative verify' if engine.spec else ''})")
     engine.run(reqs)
+    st = engine.stats()          # publishes the engine_* and sched_* rows
+    qh = st.get("quant_health")
+    if qh is not None:
+        print(f"quant health: {len(qh['sites'])} sites, "
+              f"refresh_recommended={qh['refresh_recommended']}")
     if engine.spec:
-        st = engine.stats()
         rate = st["spec_accept_rate"]
         print(f"speculative verify: {st['spec_verify_steps']} verify steps, "
               f"{st['decode_steps']} plain decode steps, accept rate "

@@ -25,6 +25,11 @@ Usage:
 The embeddings-input models (musicgen-medium, phi-3-vision-4.2b) train on
 the frontend stub's embeddings of the synthetic tokens (``stub_embeds``).
 
+``REPRO_TRACE=PATH`` records each step's ``train.data`` and
+``train.step`` spans (``repro_torch.obs.trace``) and writes them to PATH
+at exit; with tracing on, the step span waits for the step's work on the
+card before it ends.
+
 Checkpoints and meshes are ROADMAP queue 1 item 13: ``--ckpt-dir`` and
 ``--mesh`` raise ``NotImplementedError``.
 """
@@ -40,6 +45,7 @@ from repro_torch.configs.registry import get_config
 from repro_torch.core.formats import QuantConfig
 from repro_torch.core.runtime_flags import moe_expert_path
 from repro_torch.data.pipeline import DataConfig, SyntheticLM
+from repro_torch.obs.trace import span, trace_enabled
 from repro_torch.train.steps import (
     TrainHParams,
     init_train_state,
@@ -103,10 +109,16 @@ def train(arch: str, *, smoke: bool = True, steps: int = 100,
     t0 = time.monotonic()
     tokens_done = 0
     for step in range(steps):
-        b = data.batch_for_step(step)
-        if cfg.input_mode == "embeddings":
-            b["embeds"] = stub_embeds(cfg, b["tokens"].to(device))
-        state, metrics = step_fn(state, b)
+        with span("train.data", step=step):
+            b = data.batch_for_step(step)
+            if cfg.input_mode == "embeddings":
+                b["embeds"] = stub_embeds(cfg, b["tokens"].to(device))
+        with span("train.step", step=step):
+            state, metrics = step_fn(state, b)
+            # a span is host wall time: with tracing on it ends once the
+            # step's work (the loss) is done on the card
+            if trace_enabled() and device.type == "cuda":
+                torch.cuda.synchronize(device)
         tokens_done += batch * seq
         if (step + 1) % log_every == 0 or step + 1 == steps:
             loss = float(metrics["loss"])     # waits for the step

@@ -32,7 +32,8 @@ import torch
 from repro_torch.core.formats import E4M3_MAX, TINY, QuantConfig, cast_fp8
 from repro_torch.core.formats import div_c
 from repro_torch.core.linear import QT, dense_general
-from repro_torch.core.runtime_flags import decode_attn_path, einsum
+from repro_torch.core.runtime_flags import (decode_attn_path, einsum,
+                                            kv_cache_override)
 from repro_torch.kernels import dispatch
 from ._attn_core import NEG_INF, _window, chunked_attention
 from .layers import PDef, _mean, _rsqrt, apply_rope
@@ -109,12 +110,20 @@ def cache_len(cfg, max_len: int) -> int:
     return min(max_len, w) if w else max_len
 
 
+def resolve_kv_cache_dtype(cfg) -> str:
+    """The KV-cache storage dtype: ``REPRO_KV_CACHE`` when set, else
+    the config's (``"fp8"`` by default).  Read only where a cache or a
+    pool is made: an existing cache keeps its layout.  MLA's latent
+    cache and the recurrent states do not read it."""
+    return kv_cache_override() or cfg.kv_cache_dtype
+
+
 def init_cache(cfg, batch: int, max_len: int, device) -> KVCache:
     """A zeroed contiguous cache of ``cache_len`` slots with a scalar
     ``idx`` of 0 (``transformer.init_caches`` widens it per slot)."""
     shape = (batch, cfg.n_kv, cache_len(cfg, max_len), cfg.head_dim)
     idx = torch.zeros((), dtype=torch.int32, device=device)
-    if cfg.kv_cache_dtype == "fp8":
+    if resolve_kv_cache_dtype(cfg) == "fp8":
         z = lambda shp, dt: torch.zeros(shp, dtype=dt, device=device)
         return KVCache(z(shape, torch.float8_e4m3fn),
                        z(shape, torch.float8_e4m3fn),
@@ -129,7 +138,7 @@ def init_page_pool(cfg, num_pages: int, page_size: int, n_layers: int,
     """Zeroed (L, P, KV, T, Dh) payloads and (L, P, KV, T) scales (or
     None) for one segment's floating-page pool."""
     shape = (n_layers, num_pages, cfg.n_kv, page_size, cfg.head_dim)
-    if cfg.kv_cache_dtype == "fp8":
+    if resolve_kv_cache_dtype(cfg) == "fp8":
         z = lambda shp, dt: torch.zeros(shp, dtype=dt, device=device)
         return (z(shape, torch.float8_e4m3fn), z(shape, torch.float8_e4m3fn),
                 z(shape[:-1], torch.float32), z(shape[:-1], torch.float32))

@@ -38,9 +38,11 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import row_order
+from repro_torch.core.actscale import split_act
 from repro_torch.core.formats import QuantConfig
 from repro_torch.core.linear import QT, qlinear, qlinear_grouped
 from repro_torch.core.runtime_flags import moe_expert_path
+from repro_torch.obs.quant_health import QH
 from .layers import PDef, broadcast
 
 DENSE_MAX_TOKENS = 4096     # the dense combine's limit under moe_decode_dense
@@ -66,19 +68,6 @@ def _expert_ffn(cfg, w_up: QT, w_gate: QT, w_down: QT, x, qcfg):
     return qlinear(h, w_down, qcfg)
 
 
-def _expert_act(a, e: int) -> list:
-    """A site's activation-scale state for each of ``e`` experts: a
-    calibrated ``ActScale`` stacked over the experts (``s`` (E,),
-    ``sub`` (E, K/micro)) split per expert; a calibration tag or None
-    as it is."""
-    from repro_torch.core.actscale import ActScale
-
-    if not isinstance(a, ActScale):
-        return [a] * e
-    subs = [None] * e if a.sub is None else list(a.sub.unbind(0))
-    return [ActScale(s, sub) for s, sub in zip(a.s.unbind(0), subs)]
-
-
 def _experts(wt: QT) -> list[QT]:
     """A stacked (E, ...) weight -> one QT per expert, each with its own
     weight scale and activation scales (split once with ``unbind``, so
@@ -86,7 +75,7 @@ def _experts(wt: QT) -> list[QT]:
     e = wt.w.shape[0]
     ss = [None] * e if wt.s is None else list(wt.s.unbind(0))
     return [QT(w, s, a) for w, s, a in zip(wt.w.unbind(0), ss,
-                                           _expert_act(wt.a, e))]
+                                           split_act(wt.a, e))]
 
 
 def _experts_vmapped(cfg, p, xs, qcfg):
@@ -99,9 +88,13 @@ def _experts_vmapped(cfg, p, xs, qcfg):
     ups, gates, downs = (_experts(p[n]) for n in ("w_up", "w_gate",
                                                     "w_down"))
     ys = []
-    for i, (u, g, dn, x) in enumerate(zip(ups, gates, downs, xs)):
-        with REC.sub_index(i) if REC.recording else contextlib.nullcontext():
-            ys.append(_expert_ffn(cfg, u, g, dn, x, qcfg))
+    # quant-health records no expert site, as the reference's vmapped
+    # experts cannot (obs.quant_health)
+    with QH.unrecorded():
+        for i, (u, g, dn, x) in enumerate(zip(ups, gates, downs, xs)):
+            with (REC.sub_index(i) if REC.recording
+                  else contextlib.nullcontext()):
+                ys.append(_expert_ffn(cfg, u, g, dn, x, qcfg))
     return torch.stack(ys)
 
 

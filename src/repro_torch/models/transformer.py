@@ -23,7 +23,9 @@ from typing import Any, Callable, NamedTuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.core.actscale import split_act
 from repro_torch.core.formats import QuantConfig
+from repro_torch.obs.quant_health import QH
 from . import attention as attn_mod
 from . import mla as mla_mod
 from . import moe as moe_mod
@@ -354,12 +356,9 @@ def _layers(tree, n: int) -> list:
     from repro_torch.core.linear import QT
 
     if isinstance(tree, QT):
-        a = tree.a
-        aa = [None] * n if a is None else [
-            a._replace(s=s, sub=sub)
-            for s, sub in zip(_unbind(a.s, n), _unbind(a.sub, n))]
         return [QT(w, s, al) for w, s, al in
-                zip(_unbind(tree.w, n), _unbind(tree.s, n), aa)]
+                zip(_unbind(tree.w, n), _unbind(tree.s, n),
+                    split_act(tree.a, n))]
     if isinstance(tree, dict):
         per = {k: _layers(v, n) for k, v in tree.items()}
         return [{k: per[k][l] for k in tree} for l in range(n)]
@@ -408,6 +407,7 @@ def forward(cfg, qcfg: QuantConfig, params, tokens: torch.Tensor,
     for seg in build_segments(cfg):
         c_seg = caches.get(seg.name) if caches is not None else None
         new_c = None
+        health = []              # quant-health: each layer's site stats
         for l, p_l in enumerate(_layers(params[seg.name], seg.n)):
             c_l = None if c_seg is None else _layer_cache(c_seg, l)
             if remat:
@@ -421,6 +421,10 @@ def forward(cfg, qcfg: QuantConfig, params, tokens: torch.Tensor,
                 _store_layer(c_l, new_c)
             if aux is not None:
                 aux_total = aux_total + aux
+            if QH.tracing:
+                health.append(QH.drain_layer())
+        if health:
+            QH.stash_layers(health)
         new_caches[seg.name] = (None if c_seg is None
                                 else with_idx(c_seg, cache_idx(new_c)))
     x = apply_norm(cfg, params["final_norm"], x)

@@ -60,12 +60,22 @@ victim ``Scheduler.pick_victim`` names: its live pages are copied to the
 host bit for bit and freed, and it waits in a deque until retirement
 frees enough pages to swap it back in at its recorded depth.
 ``REPRO_PREEMPTION=0`` admits on worst-case reservations instead.
-Quant-health telemetry is not ported yet (``NotImplementedError``,
-ROADMAP queue 1 item 12).  Speculative decode needs the
-chunked path, an unwrapped cache (``spec_verify_supported``) and delayed
-activation scales (or bf16); elsewhere (a windowed ring, the v1
-prefill, ``REPRO_SERVE_DELAYED_ACT=0``) the flag is inert, as in the
-reference.
+Speculative decode needs the chunked path, an unwrapped cache
+(``spec_verify_supported``) and delayed activation scales (or bf16);
+elsewhere (a windowed ring, the v1 prefill,
+``REPRO_SERVE_DELAYED_ACT=0``) the flag is inert, as in the reference.
+``REPRO_KV_CACHE=bf16|fp8`` sets the pool's (or the rows') dtype for
+every config (``models.attention.resolve_kv_cache_dtype``).
+
+Observability (``repro_torch.obs``), as in the reference: ``step()``'s
+phases are trace spans (``REPRO_TRACE``), ``stats()`` publishes the
+engine's, the allocator's and the scheduler's numbers into the metrics
+registry, and with ``REPRO_QUANT_HEALTH=1`` (and delayed activation
+scales) the engine keeps a health-instrumented variant of each step and
+runs it on the first call of every (step, token shape) and then every
+``REPRO_QUANT_HEALTH_EVERY`` + 1-th call; its per-site statistics go to
+a ``HealthAggregator`` (``stats()["quant_health"]``), whose
+``refresh_recommended`` points at ``refresh_act_scales``.
 
 The engine runs on ``device="cuda"`` unless the caller asks for the CPU;
 there it runs the kernels' plain versions.
@@ -82,9 +92,10 @@ import torch
 
 from repro_torch.core.actscale import calibrate_act_scales
 from repro_torch.core.runtime_flags import (
-    check_serving_env,
     chunked_prefill,
     paged_placement,
+    quant_health,
+    quant_health_every,
     serve_delayed_act,
     serve_preemption,
     serve_prefix_cache,
@@ -105,6 +116,9 @@ from repro_torch.train.steps import (
     prequantize_params,
     serve_weight_scales,
 )
+
+from repro_torch.obs.metrics import get_registry
+from repro_torch.obs.trace import instant, span
 
 from .paged_cache import (
     PAGE_SIZE,
@@ -218,7 +232,6 @@ class Engine:
                  draft: DraftSource | None = None,
                  spec_k: int = 4,
                  device="cuda"):
-        check_serving_env()
         self.device = resolve_device(device)
         if cfg.input_mode != "tokens":
             raise ValueError(f"serving engine drives token models; "
@@ -239,8 +252,6 @@ class Engine:
             self.params, self.scales = prepare_weights(cfg, params)
             self.act_scales = calibrate_serving(cfg, self.params,
                                                 self.scales)
-        self.prefill = make_prefill_step(cfg, max_len, scales=self.scales,
-                                         act_scales=self.act_scales)
         self.float_pages = (paged_placement() == "float"
                             and paged_decode_supported(cfg, max_len,
                                                        page_size))
@@ -288,13 +299,8 @@ class Engine:
         # batch does not change (core.row_order), so a request's stream
         # does not depend on the requests beside it
         self.step_rows = num_slots * (self.spec_k if self.spec else 1)
-        self.decode = make_decode_step(cfg, scales=self.scales,
-                                       act_scales=self.act_scales,
-                                       rows=self.step_rows)
-        self.verify = (make_verify_step(cfg, scales=self.scales,
-                                        act_scales=self.act_scales,
-                                        rows=self.step_rows)
-                       if self.spec else None)
+        self.qh = None
+        self._build_steps()
         self._staging: _Staging | None = None
         self._preempted: deque[tuple[Request, dict]] = deque()
         self.prefill_calls = 0
@@ -311,6 +317,84 @@ class Engine:
         self.verify_seconds = 0.0
         self.sched = Scheduler(slo=slo)
         self.requests: dict[int, Request] = {}
+
+    def _build_steps(self):
+        """The serving steps over the current activation scales.
+        Quant-health is resolved here, at build: it needs the delayed
+        activation scales (the statistics measure drift against them),
+        and with it on the engine keeps both variants of each step and
+        runs the instrumented one on the calls ``_health_due`` picks."""
+        self.health = quant_health() and self.act_scales is not None
+        self.health_every = quant_health_every() if self.health else 0
+        # per (step kind, token shape): the first call of each samples
+        self._health_countdown: dict = {}
+        if self.health and self.qh is None:
+            from repro_torch.obs.quant_health import HealthAggregator
+
+            self.qh = HealthAggregator()
+        elif not self.health:
+            self.qh = None
+        kw = dict(scales=self.scales, act_scales=self.act_scales)
+        self.prefill = make_prefill_step(self.cfg, self.max_len, **kw)
+        self.decode = make_decode_step(self.cfg, rows=self.step_rows, **kw)
+        self.verify = (make_verify_step(self.cfg, rows=self.step_rows,
+                                        **kw) if self.spec else None)
+        if self.health:
+            self.prefill_h = make_prefill_step(self.cfg, self.max_len,
+                                               quant_health=True, **kw)
+            self.decode_h = make_decode_step(self.cfg, rows=self.step_rows,
+                                             quant_health=True, **kw)
+            self.verify_h = (make_verify_step(self.cfg, rows=self.step_rows,
+                                              quant_health=True, **kw)
+                             if self.spec else None)
+
+    # -- quant-health step-call shims ----------------------------------
+    # Health off: the plain steps.  Health on: the calls _health_due
+    # picks run the instrumented variant, whose third output goes to the
+    # aggregator.
+    def _health_due(self, kind: str, shape) -> bool:
+        if not self.health:
+            return False
+        key = (kind, tuple(shape))
+        cd = self._health_countdown.get(key)
+        if cd is None or cd <= 0:
+            self._health_countdown[key] = self.health_every
+            return True
+        self._health_countdown[key] = cd - 1
+        return False
+
+    def _run_prefill(self, params, toks, last):
+        if self._health_due("prefill", toks.shape):
+            logits, caches, tree = self.prefill_h(params, toks, last)
+            self.qh.ingest(tree)
+            return logits, caches
+        return self.prefill(params, toks, last)
+
+    def _run_decode(self, params, caches, toks):
+        if self._health_due("decode", toks.shape):
+            logits, caches, tree = self.decode_h(params, caches, toks)
+            self.qh.ingest(tree)
+            return logits, caches
+        return self.decode(params, caches, toks)
+
+    def _run_verify(self, params, caches, toks):
+        if self._health_due("verify", toks.shape):
+            logits, caches, tree = self.verify_h(params, caches, toks)
+            self.qh.ingest(tree)
+            return logits, caches
+        return self.verify(params, caches, toks)
+
+    def refresh_act_scales(self, tokens=None, margin=None):
+        """Calibrate the delayed activation scales again (on ``tokens``
+        when given, with ``margin`` when given) and rebuild the steps;
+        None, and nothing done, without delayed scales."""
+        if self.act_scales is None:
+            return None
+        kw = {} if margin is None else {"margin": margin}
+        self.act_scales = calibrate_act_scales(
+            self.cfg, self.params, self.scales, tokens=tokens, **kw)
+        self._build_steps()
+        return self.act_scales
 
     # -- admission -----------------------------------------------------
     def _total_tokens(self, req: Request) -> int:
@@ -365,19 +449,30 @@ class Engine:
     # -- the engine step -----------------------------------------------
     @torch.inference_mode()
     def step(self) -> None:
-        if not self.chunked:
-            self._retire_and_refill()
-            self._admit_new_rows()
-            self._decode_once()
-            return
-        self._retire()
-        self._swap_in_preempted()
-        self._chunk_phase()
-        self._retire()          # an attached request may finish at once
-        if self.spec:
-            self._verify_once()
-        else:
-            self._decode_once()
+        # the spans wrap host-side phases (obs.trace): REPRO_TRACE adds
+        # no device operation
+        with span("engine.step", rows=len(self.kv.rows)):
+            if not self.chunked:
+                with span("retire_refill"):
+                    self._retire_and_refill()
+                    self._admit_new_rows()
+                with span("decode", rows=len(self.kv.rows)):
+                    self._decode_once()
+                return
+            with span("retire"):
+                self._retire()
+            with span("swap_in", preempted=len(self._preempted)):
+                self._swap_in_preempted()
+            with span("chunk_phase"):
+                self._chunk_phase()
+            with span("retire"):
+                self._retire()  # an attached request may finish at once
+            if self.spec:
+                with span("verify", rows=len(self.kv.rows)):
+                    self._verify_once()
+            else:
+                with span("decode", rows=len(self.kv.rows)):
+                    self._decode_once()
 
     def _retire(self):
         row = 0
@@ -421,6 +516,7 @@ class Engine:
         victim.state = RequestState.PREEMPTED
         self._preempted.append((victim, bundle))
         self.preemptions += 1
+        instant("preempt", rid=victim.rid, depth=bundle["depth"])
         return True
 
     def _grow_or_preempt(self, grow) -> None:
@@ -504,14 +600,14 @@ class Engine:
                 lambda: self.kv.stage_ensure(req.rid, st.pos,
                                              st.pos + n_real))
             self.kv.stage_stamp(req.rid, st.pos)
-            logits, self.kv.caches = self.decode(self.params,
-                                                 self.kv.caches, toks)
+            logits, self.kv.caches = self._run_decode(
+                self.params, self.kv.caches, toks)
         else:
             # identity placement: the chunk runs on a detached one-row
             # cache; only the depth stamp moves between chunks
             for c in st.row_cache.values():
                 cache_idx(c).fill_(st.pos)
-            logits, _ = self.decode(self.params, st.row_cache, toks)
+            logits, _ = self._run_decode(self.params, st.row_cache, toks)
         self.chunk_prefill_steps += 1
         st.pos += n_real
         if st.pos < plen:
@@ -548,9 +644,9 @@ class Engine:
         toks = np.zeros((1, self._bucket_len(n)), np.int32)
         toks[0, :n] = req.prompt
         t0 = time.perf_counter()
-        logits, one = self.prefill(self.params,
-                                   torch.from_numpy(toks).to(self.device),
-                                   min(n, toks.shape[1]) - 1)
+        logits, one = self._run_prefill(
+            self.params, torch.from_numpy(toks).to(self.device),
+            min(n, toks.shape[1]) - 1)
         first = int(greedy_sample(logits)[0])
         self.prefill_seconds += time.perf_counter() - t0
         self.prefill_calls += 1
@@ -616,7 +712,7 @@ class Engine:
         for i, rid in enumerate(rows):
             feed[i, 0] = self.requests[rid].out[-1]
         t0 = time.perf_counter()
-        logits, self.kv.caches = self.decode(
+        logits, self.kv.caches = self._run_decode(
             self.params, self.kv.caches,
             torch.from_numpy(feed).to(self.device))
         self.kv.advance()
@@ -666,7 +762,7 @@ class Engine:
             self._grow_or_preempt(
                 lambda: self.kv.prepare_decode(write_tokens=k))
         t0 = time.perf_counter()
-        logits, self.kv.caches = self.verify(
+        logits, self.kv.caches = self._run_verify(
             self.params, self.kv.caches, torch.from_numpy(feed).to(
                 self.device))
         nxt = torch.argmax(logits, dim=-1).cpu().numpy()     # (B, k)
@@ -768,4 +864,39 @@ class Engine:
             "page_evictions": al.evictions,
             "peak_pool_pages": al.peak_used,
         })
+        if self.qh is not None:
+            s["quant_health"] = {
+                "refresh_recommended": self.qh.refresh_recommended,
+                "sites": self.qh.report(),
+            }
+        self._publish_metrics(s, al)
         return s
+
+    def _publish_metrics(self, s: dict, al) -> None:
+        """Mirror the engine's and the allocator's numbers into the
+        process-wide metrics registry (``obs.metrics``; the reference's
+        names): ``set_total`` adopts the running counters without
+        counting twice, so ``stats()`` may be called any number of
+        times."""
+        reg = get_registry()
+        for name in ("prefill_calls", "chunk_prefill_steps",
+                     "chunked_requests", "preemptions", "swap_ins",
+                     "prefix_hits", "prefill_tokens_skipped",
+                     "pages_shared", "cow_copies", "page_evictions"):
+            reg.counter(f"engine_{name}_total").set_total(float(s[name]))
+        reg.gauge("pages_total").set(float(al.num_pages))
+        reg.gauge("pages_in_use").set(float(al.num_pages - al.free_pages))
+        reg.gauge("pages_cached").set(float(al.cached_pages))
+        reg.gauge("pages_peak_used").set(float(al.peak_used))
+        reg.gauge("engine_resident_rows").set(float(len(self.kv.rows)))
+
+    def prune_finished(self) -> int:
+        """Drop finished requests from the engine's history (a
+        long-lived engine keeps every request for ``stats()``); returns
+        how many were dropped, whose numbers leave ``stats()`` with
+        them."""
+        done = [rid for rid, r in self.requests.items() if r.done]
+        for rid in done:
+            del self.requests[rid]
+        self.sched.all = [r for r in self.sched.all if not r.done]
+        return len(done)

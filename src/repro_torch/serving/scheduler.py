@@ -1,7 +1,5 @@
 """Request admission + slot lifecycle for the paged serving engine
-(a copy of ``repro.serving.scheduler``, less the metrics-registry
-mirror of ``repro.obs``, which waits for observability: ROADMAP queue 1
-entry 8).
+(a copy of ``repro.serving.scheduler``).
 
 Host-side and model-free by design: the scheduler owns the FIFO
 queue, request state transitions (QUEUED -> RUNNING [-> PREEMPTED ->
@@ -21,7 +19,9 @@ also sets the draft length of the next verify step from an accept-rate
 EMA (``draft_len``).  Everything tensor-shaped lives in
 ``engine``/``paged_cache``.  That split keeps refill order, retirement,
 backpressure and the SLO policies unit-testable without building a
-model.
+model.  The latencies and counts also go to the metrics registry
+(``repro_torch.obs.metrics``): the TTFT and TPOT histograms once a
+request finishes, the ``sched_*`` counters and gauges at ``summary()``.
 """
 
 from __future__ import annotations
@@ -155,7 +155,25 @@ class Scheduler:
         req.t_last = now
         if hit_stop(req, token):
             req.state = RequestState.FINISHED
+            self._observe_finished(req)
         return req.done
+
+    def _observe_finished(self, req: Request) -> None:
+        """The request's latency histogram observations, once, at
+        finish (so repeated ``summary()`` calls never count twice)."""
+        from repro_torch.obs.metrics import LATENCY_BUCKETS_S, get_registry
+
+        reg = get_registry()
+        if req.ttft is not None:
+            reg.histogram("sched_ttft_seconds",
+                          buckets=LATENCY_BUCKETS_S,
+                          help="per-request time to first token"
+                          ).observe(req.ttft)
+        if req.tpot is not None:
+            reg.histogram("sched_tpot_seconds",
+                          buckets=LATENCY_BUCKETS_S,
+                          help="per-request mean time per output token"
+                          ).observe(req.tpot)
 
     def on_verify(self, proposed: int, accepted: int) -> None:
         """Record one speculative verify step: ``proposed`` draft tokens
@@ -223,7 +241,9 @@ class Scheduler:
         scheduling is judged on tails, not averages.
 
         Undefined aggregates (no finished requests, no drafted tokens)
-        are ``None``, never NaN: the dict must stay valid JSON."""
+        are ``None``, never NaN: the dict must stay valid JSON, through
+        ``json.dump`` and the metrics registry's ``sched_*`` counters and
+        gauges (``_publish``)."""
         done = [r for r in self.all if r.done]
         toks = sum(len(r.out) for r in done)
         ttfts = [r.ttft for r in done if r.ttft is not None]
@@ -253,4 +273,23 @@ class Scheduler:
             "prefill_tokens_skipped": sum(r.prefill_skipped
                                           for r in done),
         }
+        self._publish(s)
         return s
+
+    def _publish(self, s: dict) -> None:
+        from repro_torch.obs.metrics import get_registry
+
+        reg = get_registry()
+        reg.counter("sched_requests_finished_total").set_total(
+            float(s["requests"]))
+        reg.counter("sched_tokens_generated_total").set_total(
+            float(s["tokens"]))
+        reg.counter("sched_spec_drafted_total").set_total(
+            float(s["spec_drafted"]))
+        reg.counter("sched_spec_accepted_total").set_total(
+            float(s["spec_accepted"]))
+        for key in ("tok_per_s", "mean_ttft_s", "mean_tpot_s",
+                    "p50_ttft_s", "p99_ttft_s", "p50_tpot_s",
+                    "p99_tpot_s", "spec_accept_rate"):
+            if s[key] is not None:
+                reg.gauge(f"sched_{key}").set(s[key])

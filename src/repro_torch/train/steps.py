@@ -333,7 +333,35 @@ def _wrap_serve(params, mask, scales, act=None, path=()):
     return out
 
 
-def make_decode_step(cfg, scales=None, act_scales=None, rows: int = 0):
+def _health_act(act_scales, quant_health: bool):
+    """The quant-health tap, resolved at build: with the flag on and
+    delayed activation scales present, each site's ``ActScale`` wrapped
+    in a ``TaggedScale`` (``repro_torch.obs.quant_health``) and True;
+    else ``act_scales`` untouched and False."""
+    if quant_health and act_scales:
+        from repro_torch.obs.quant_health import tag_act_scales
+
+        return tag_act_scales(act_scales), True
+    return act_scales, False
+
+
+def _forward_health(health: bool, cfg, qcfg, qp, tokens, caches, mode):
+    """``forward``, and with ``health`` in a quant-health capture
+    window: (logits, caches, the per-site statistics tree or None)."""
+    if not health:
+        logits, caches, _ = forward(cfg, qcfg, qp, tokens, caches,
+                                    mode=mode)
+        return logits, caches, None
+    from repro_torch.obs.quant_health import QH
+
+    with QH.capture() as cap:
+        logits, caches, _ = forward(cfg, qcfg, qp, tokens, caches,
+                                    mode=mode)
+    return logits, caches, cap.tree
+
+
+def make_decode_step(cfg, scales=None, act_scales=None, rows: int = 0,
+                     quant_health: bool = False):
     """The serving step: tokens (B, 1) decode one position per slot (an
     embeddings-input model also takes embeddings (B, 1, d));
     tokens (1, C) chunk-prefill C prompt tokens of one slot.  The same
@@ -341,22 +369,26 @@ def make_decode_step(cfg, scales=None, act_scales=None, rows: int = 0):
     tensors are updated in place; the returned caches carry the advanced
     ``idx``.  On the card a step of at most ``rows`` rows computes each
     row in an order that its batch does not change
-    (``core.row_order``)."""
+    (``core.row_order``).  ``quant_health=True`` (with delayed
+    activation scales) returns the per-site quantization-health tree as
+    a third output (``repro_torch.obs.quant_health``)."""
     mask = serve_quant_mask(cfg, scales)
     qcfg = cfg.quant
+    act, health = _health_act(act_scales, quant_health)
 
     @torch.inference_mode()
     def decode_step(params, caches, tokens):
-        qp = _wrap_serve(params, mask, scales, act_scales)
+        qp = _wrap_serve(params, mask, scales, act)
         with row_order.rows(rows):
-            logits, caches, _ = forward(cfg, qcfg, qp, tokens, caches,
-                                        mode="decode")
-        return logits, caches
+            logits, caches, tree = _forward_health(health, cfg, qcfg, qp,
+                                                   tokens, caches, "decode")
+        return (logits, caches, tree) if health else (logits, caches)
 
     return decode_step
 
 
-def make_verify_step(cfg, scales=None, act_scales=None, rows: int = 0):
+def make_verify_step(cfg, scales=None, act_scales=None, rows: int = 0,
+                     quant_health: bool = False):
     """The speculative verify step: tokens (B, k) = [last committed
     token, draft_1 .. draft_{k-1}] per slot.  All k positions are written
     to the cache and attended in one forward through the decode kernel's
@@ -365,26 +397,29 @@ def make_verify_step(cfg, scales=None, act_scales=None, rows: int = 0):
     give (with the same weights and delayed activation scales).  The
     caches' ``idx`` advances by k; the caller truncates the depths of
     rejected drafts.  ``rows`` as in ``make_decode_step``, counting
-    each slot's k positions."""
+    each slot's k positions; ``quant_health`` too."""
     mask = serve_quant_mask(cfg, scales)
     qcfg = cfg.quant
+    act, health = _health_act(act_scales, quant_health)
 
     @torch.inference_mode()
     def verify_step(params, caches, tokens):
-        qp = _wrap_serve(params, mask, scales, act_scales)
+        qp = _wrap_serve(params, mask, scales, act)
         with row_order.rows(rows):
-            logits, caches, _ = forward(cfg, qcfg, qp, tokens, caches,
-                                        mode="verify")
-        return logits, caches
+            logits, caches, tree = _forward_health(health, cfg, qcfg, qp,
+                                                   tokens, caches, "verify")
+        return (logits, caches, tree) if health else (logits, caches)
 
     return verify_step
 
 
-def make_prefill_step(cfg, max_len: int, scales=None, act_scales=None):
+def make_prefill_step(cfg, max_len: int, scales=None, act_scales=None,
+                      quant_health: bool = False):
     """The whole-prompt prefill: tokens (B, S) from position 0 into fresh
     contiguous caches of ``cache_len(cfg, max_len)`` slots with a
     scalar ``idx`` (a prompt of S >= C keeps its last C positions, p in
-    slot p % C).  Returns (logits (B, 1, V), caches).
+    slot p % C).  Returns (logits (B, 1, V), caches), and with
+    ``quant_health`` (as in ``make_decode_step``) the health tree third.
 
     The step's optional third argument ``last`` is the position whose
     logits come back (default the last): the engine right-pads prompts
@@ -392,15 +427,17 @@ def make_prefill_step(cfg, max_len: int, scales=None, act_scales=None):
     true prompt length - 1."""
     mask = serve_quant_mask(cfg, scales)
     qcfg = cfg.quant
+    act, health = _health_act(act_scales, quant_health)
 
     @torch.inference_mode()
     def prefill_step(params, tokens, last: int | None = None):
-        qp = _wrap_serve(params, mask, scales, act_scales)
+        qp = _wrap_serve(params, mask, scales, act)
         caches = init_caches(cfg, tokens.shape[0], max_len,
                              device=tokens.device)
-        logits, caches, _ = forward(cfg, qcfg, qp, tokens, caches,
-                                    mode="prefill")
+        logits, caches, tree = _forward_health(health, cfg, qcfg, qp,
+                                               tokens, caches, "prefill")
         pos = logits.shape[1] - 1 if last is None else last
-        return logits[:, pos:pos + 1], caches
+        logits = logits[:, pos:pos + 1]
+        return (logits, caches, tree) if health else (logits, caches)
 
     return prefill_step

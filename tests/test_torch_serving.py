@@ -109,11 +109,23 @@ RUNS = {
     # with their calibrated activation scales
     "per_group": dict(quant="per_group", ticks=True),
     "per_tensor": dict(quant="per_tensor", ticks=True),
+    # quant-health telemetry: the instrumented steps on the first call of
+    # each step shape and every third call after it
+    "health": dict(env={"REPRO_QUANT_HEALTH": "1",
+                        "REPRO_QUANT_HEALTH_EVERY": "2"}, ticks=True),
+    # REPRO_KV_CACHE: the config's fp8 cache overridden to bf16, on the
+    # default path and on the preempt run's pool (its scales None)
+    "kv-env-bf16": dict(env={"REPRO_KV_CACHE": "bf16"}),
+    "preempt-kv-bf16": dict(lens=[12] * 4, max_new=40, max_len=64,
+                            num_pages=6, ticks=True,
+                            env={"REPRO_KV_CACHE": "bf16"}),
 }
 # the reference switches the child resets between runs
 SWITCHES = ("REPRO_PAGED_PLACEMENT", "REPRO_CHUNKED_PREFILL",
             "REPRO_SERVE_PREQUANT", "REPRO_SERVE_DELAYED_ACT",
-            "REPRO_DECODE_ATTN", "REPRO_PREEMPTION", "REPRO_PREFIX_CACHE")
+            "REPRO_DECODE_ATTN", "REPRO_PREEMPTION", "REPRO_PREFIX_CACHE",
+            "REPRO_KV_CACHE", "REPRO_QUANT_HEALTH",
+            "REPRO_QUANT_HEALTH_EVERY")
 # the engine counters a ``ticks`` run holds equal to the reference's
 COUNTERS = ("preemptions", "swap_ins", "prefix_hits",
             "prefill_tokens_skipped", "pages_shared", "cow_copies",
@@ -342,11 +354,66 @@ def test_moe_serving_refuses_the_baselines(monkeypatch):
         Engine(cfg, params, num_slots=SLOTS, max_len=MAX_LEN, device="cpu")
 
 
-def test_engine_refuses_unported_reference_switch(monkeypatch):
+@pytest.mark.parametrize("name,values", [
+    ("REPRO_QUANT_HEALTH", ["", "1", "0", "yes", " 1 "]),
+    ("REPRO_QUANT_HEALTH_EVERY", ["", "4", "0", "-3", "x", "2.5"]),
+    ("REPRO_TRACE", ["", "  ", "t.json"]),
+    ("REPRO_KV_CACHE", ["", "bf16", "fp8", "int8", " bf16"]),
+])
+def test_obs_and_cache_switches_read_like_the_reference(monkeypatch, name,
+                                                        values):
+    """``REPRO_QUANT_HEALTH``, ``REPRO_QUANT_HEALTH_EVERY``,
+    ``REPRO_TRACE`` and ``REPRO_KV_CACHE`` with the reference's names,
+    defaults and errors: each value read by both packages' flag
+    functions gives the same result or the same exception."""
+    from repro.core import runtime_flags as jrf
+    from repro_torch.core import runtime_flags as rf
+
+    fn = {"REPRO_QUANT_HEALTH": "quant_health",
+          "REPRO_QUANT_HEALTH_EVERY": "quant_health_every",
+          "REPRO_TRACE": "trace_path",
+          "REPRO_KV_CACHE": "kv_cache_override"}[name]
+
+    def read(mod):
+        try:
+            return getattr(mod, fn)()
+        except ValueError as e:
+            return ("ValueError", str(e))
+
+    for value in values:
+        if value:
+            monkeypatch.setenv(name, value)
+        else:
+            monkeypatch.delenv(name, raising=False)
+        assert read(rf) == read(jrf), (name, value)
+    assert jrf.KV_CACHE_DTYPES == rf.KV_CACHE_DTYPES
+
+
+def test_engine_takes_the_obs_and_cache_switches(monkeypatch):
+    """The engine builds under every served value: quant-health on
+    (with delayed activation scales; inert without them, as in the
+    reference), a bf16 pool under ``REPRO_KV_CACHE=bf16`` (scales
+    None), an fp8 pool under ``fp8`` on a bf16 config; another cache
+    value and the ``REPRO_PAGED_PLACEMENT`` typo raise ``ValueError``."""
     monkeypatch.setenv("REPRO_QUANT_HEALTH", "1")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    eng = _port_engine()
+    assert eng.health and eng.health_every == 16 and eng.qh is not None
+    monkeypatch.setenv("REPRO_SERVE_DELAYED_ACT", "0")
+    eng = _port_engine()
+    assert not eng.health and eng.qh is None
+    monkeypatch.delenv("REPRO_SERVE_DELAYED_ACT")
+    monkeypatch.setenv("REPRO_KV_CACHE", "bf16")
+    pool = _port_engine().kv.caches["blocks"]
+    assert pool.k.dtype == torch.bfloat16 and pool.k_scale is None
+    monkeypatch.setenv("REPRO_KV_CACHE", "fp8")
+    eng = Engine(get_config(ARCH, smoke=True).replace(kv_cache_dtype="bf16"),
+                 _params(), num_slots=SLOTS, max_len=MAX_LEN, device="cpu")
+    pool = eng.kv.caches["blocks"]
+    assert pool.k.dtype == torch.float8_e4m3fn and pool.k_scale is not None
+    monkeypatch.setenv("REPRO_KV_CACHE", "int8")
+    with pytest.raises(ValueError, match="REPRO_KV_CACHE"):
         _port_engine()
-    monkeypatch.setenv("REPRO_QUANT_HEALTH", "0")
+    monkeypatch.delenv("REPRO_KV_CACHE")
     monkeypatch.setenv("REPRO_PAGED_PLACEMENT", "floating")
     with pytest.raises(ValueError, match="REPRO_PAGED_PLACEMENT"):
         _port_engine()
@@ -424,14 +491,6 @@ def test_serving_switches_read_like_the_reference(monkeypatch):
         "wq"].shape == (2,)
 
 
-def test_engine_refuses_kv_cache_env_override(monkeypatch):
-    # the pool dtype is the config's alone; the reference's override
-    # must not be silently ignored
-    monkeypatch.setenv("REPRO_KV_CACHE", "bf16")
-    with pytest.raises(NotImplementedError, match="kv_cache_dtype"):
-        _port_engine()
-
-
 def test_engine_streams_match_reference(reference):
     eng = _port_engine()
     reqs = [Request(rid=i, prompt=p, max_new=MAX_NEW)
@@ -475,6 +534,8 @@ def test_serving_paths_match_reference(reference, monkeypatch, name):
     else:
         slo = SLOTargets(**PINNED) if (run.get("pinned")
                                        or run.get("ticks")) else None
+        if run.get("ticks"):
+            registry, tracer = _port_obs(monkeypatch)
         eng = Engine(cfg, params, num_slots=SLOTS, chunk_tokens=CHUNK,
                      device="cpu", slo=slo, **_engine_kw(run))
         env = run.get("env", {})
@@ -493,6 +554,7 @@ def test_serving_paths_match_reference(reference, monkeypatch, name):
         if run.get("ticks"):
             st = eng.stats()
             assert {k: st[k] for k in COUNTERS} == want["counters"]
+            _assert_obs(registry, tracer, st, eng, want)
         if "quant" in run:
             # the calibrated activation scales, bit for bit
             assert sorted(eng.act_scales) == sorted(want["act_scales"])
@@ -520,6 +582,158 @@ def test_run_counters_show_their_paths(reference):
     assert c["reservation"]["preemptions"] == 0
     for name in ("per_group", "per_tensor"):
         assert c[name]["preemptions"] == c[name]["cow_copies"] == 0
+
+
+def _port_obs(monkeypatch):
+    """A fresh metrics registry and an enabled tracer in place of the
+    port's process-wide ones, for this test only."""
+    from repro_torch.obs import metrics, trace
+
+    monkeypatch.setattr(metrics, "_REGISTRY", metrics.Registry())
+    monkeypatch.setattr(trace, "_TRACER", trace.Tracer().enable())
+    return metrics.get_registry(), trace.get_tracer()
+
+
+def _obs_record(snapshot: dict, events: list) -> dict:
+    """A run's registry snapshot (histograms by observation count) and
+    its trace events (name, phase and args; no times), through JSON as
+    the child writes them."""
+    metrics = {name: {"kind": m["kind"], "help": m["help"], "series": {
+        k: v["count"] if m["kind"] == "histogram" else v
+        for k, v in m["series"].items()}} for name, m in snapshot.items()}
+    trace = [[e["name"], e["ph"], e.get("args")] for e in events]
+    return json.loads(json.dumps({"metrics": metrics, "trace": trace}))
+
+
+def _assert_obs(registry, tracer, st, eng, want):
+    """The engine's spans and published series equal the reference
+    engine's on the same run; with quant-health on, its report too:
+    per-site sampled steps equal, the rates exactly, drift_max and amax
+    within 1e-6 relative."""
+    got = _obs_record(registry.snapshot(), tracer.events())
+    assert got["trace"] == want["obs"]["trace"]
+    assert got["metrics"] == want["obs"]["metrics"]
+    assert any(t[0] == "engine.step" for t in got["trace"])
+    assert {"engine_prefix_hits_total", "sched_tokens_generated_total",
+            "pages_total"} <= set(got["metrics"])
+    if "quant_health" not in want:
+        assert "quant_health" not in st
+        return
+    qh, wq = st["quant_health"], want["quant_health"]
+    assert eng.qh.steps == want["health_steps"] > 0
+    assert qh["refresh_recommended"] == wq["refresh_recommended"]
+    assert sorted(qh["sites"]) == sorted(wq["sites"])
+    for tag, w in wq["sites"].items():
+        g = qh["sites"][tag]
+        assert g["steps"] == w["steps"] > 0, tag
+        assert g["saturation_rate"] == w["saturation_rate"], tag
+        assert g["underflow_rate"] == w["underflow_rate"], tag
+        for k in ("drift_max", "amax"):
+            assert abs(g[k] - w[k]) <= 1e-6 * abs(w[k]), (tag, k, g[k], w[k])
+
+
+def test_kv_cache_override_serves_the_bf16_config(reference):
+    """``REPRO_KV_CACHE=bf16`` is the config's ``kv_cache_dtype="bf16"``
+    (the reference's streams under the two are equal), and the
+    preempting bf16 pool swaps as the fp8 one does."""
+    assert (reference["kv-env-bf16"]["streams"]
+            == reference["bf16-chunked"]["streams"])
+    c = reference["preempt-kv-bf16"]["counters"]
+    assert c["preemptions"] > 0 and c["swap_ins"] == c["preemptions"]
+
+
+HEALTH_CASES = {"phi3-decode": (ARCH, "decode"),
+                "phi3-verify": (ARCH, "verify"),
+                "moe-decode": (MOE, "decode")}
+HEALTH_PROMPT_LEN, HEALTH_VERIFY_K = 8, 3
+
+
+def _health_feed(kind):
+    """The health steps' prompts (2, 8) and fed tokens (2, 1) or (2, 3)."""
+    rng = np.random.default_rng(9)
+    prompts = rng.integers(0, 512, (2, HEALTH_PROMPT_LEN)).astype(np.int32)
+    feed = rng.integers(0, 512, (2, HEALTH_VERIFY_K)).astype(np.int32)
+    return prompts, feed[:, :1] if kind == "decode" else feed
+
+
+@pytest.mark.parametrize("case", sorted(HEALTH_CASES))
+def test_health_steps_match_reference(reference, case):
+    """A decode (or verify) step built with ``quant_health=True`` on the
+    smoke phi3-mini (and a phi3.5-moe decode step), after a whole-prompt
+    prefill, with pre-quantized weights and calibrated activation
+    scales: its tree has the reference's sites (none of the MoE's
+    experts) and shapes ((layers,) a layer's site, scalar the head's),
+    the counts equal, amax and drift within 1e-6 relative; its logits
+    bitwise those of the health-off step on the same caches."""
+    from repro_torch.serving.engine import calibrate_serving, prepare_weights
+    from repro_torch.train.steps import (make_decode_step, make_prefill_step,
+                                         make_verify_step)
+
+    arch, kind = HEALTH_CASES[case]
+    cfg = get_config(arch, smoke=True)
+    w, sc = prepare_weights(cfg, _params(arch))
+    act = calibrate_serving(cfg, w, sc)
+    prompts, feed = (torch.from_numpy(t) for t in _health_feed(kind))
+    make = make_decode_step if kind == "decode" else make_verify_step
+    pre = make_prefill_step(cfg, MAX_LEN, scales=sc, act_scales=act)
+    out = {}
+    for health in (False, True):
+        _, caches = pre(w, prompts)
+        step = make(cfg, scales=sc, act_scales=act, quant_health=health)
+        out[health] = step(w, caches, feed)
+    assert len(out[False]) == 2 and len(out[True]) == 3
+    assert torch.equal(out[True][0], out[False][0])
+    tree, want = out[True][2], reference["health_steps"][case]
+    assert sorted(tree) == sorted(want)
+    assert not any("/moe/" in tag for tag in tree)
+    for tag, stats in want.items():
+        for k, v in stats.items():
+            v = np.asarray(v, np.float32)
+            g = tree[tag][k].numpy()
+            assert g.shape == v.shape, (tag, k)
+            if k in ("n", "sat", "underflow", "nonzero"):
+                assert np.array_equal(g, v), (tag, k, g, v)
+            else:
+                assert np.all(np.abs(g - v) <= 1e-6 * np.abs(v)), (tag, k)
+    assert tree["blocks/attn/wq"]["n"].shape == (cfg.n_layers,)
+
+
+def test_refresh_act_scales_match_reference(reference):
+    """``Engine.refresh_act_scales(tokens=...)`` and the legacy
+    ``Server``'s (with a margin) calibrate again on the given tokens:
+    the act scales bit for bit the reference's on the same tokens; the
+    steps are rebuilt over them.  ``prune_finished`` drops the finished
+    requests and returns their count."""
+    cfg = get_config(ARCH, smoke=True)
+    toks = _refresh_tokens()
+    eng = _port_engine()
+    old = eng.decode
+    got = {"engine": eng.refresh_act_scales(tokens=toks)}
+    assert eng.decode is not old
+    srv = Server(cfg, _params(), batch_slots=SLOTS, max_len=MAX_LEN,
+                 device="cpu")
+    got["server"] = srv.refresh_act_scales(tokens=toks, margin=1.5)
+    for who, want in reference["refresh"].items():
+        assert sorted(got[who]) == sorted(want), who
+        for tag, (s_bits, sub) in want.items():
+            a = got[who][tag]
+            assert bridge.bits(a.s).reshape(-1).tolist() == s_bits, (who, tag)
+            assert a.sub.reshape(-1).tolist() == sub, (who, tag)
+    reqs = [Request(rid=i, prompt=p, max_new=3)
+            for i, p in enumerate(_prompts()[:3])]
+    eng.run(reqs, log=None)
+    later = Request(rid=9, prompt=_prompts()[3], max_new=3)
+    eng.submit([later])
+    assert eng.stats()["requests"] == 3
+    assert eng.prune_finished() == 3
+    assert sorted(eng.requests) == [9] and eng.stats()["requests"] == 0
+    eng.run([], log=None)
+    assert later.done and eng.prune_finished() == 1 and not eng.requests
+
+
+def _refresh_tokens():
+    return np.random.default_rng(5).integers(0, 512, (1, 24)).astype(
+        np.int32)
 
 
 @pytest.mark.parametrize("name", sorted(SPEC_RUNS))
@@ -966,6 +1180,12 @@ def _reference_serve(cfg, params, run, prompts, slots=SLOTS):
     else:
         slo = JSLOTargets(**PINNED) if (run.get("pinned")
                                         or run.get("ticks")) else None
+        if run.get("ticks"):
+            from repro.obs.metrics import get_registry as jregistry
+            from repro.obs.trace import get_tracer as jtracer
+
+            jregistry().reset()
+            jtracer().enable().clear()
         eng = JEngine(cfg, params, num_slots=slots, chunk_tokens=CHUNK,
                       slo=slo, **_engine_kw(run))
 
@@ -990,6 +1210,12 @@ def _reference_serve(cfg, params, run, prompts, slots=SLOTS):
         if run.get("ticks"):
             st = eng.stats()
             out["counters"] = {k: st[k] for k in COUNTERS}
+            out["obs"] = _obs_record(jregistry().snapshot(),
+                                     jtracer().events())
+            jtracer().disable().clear()
+            if "quant_health" in st:
+                out["quant_health"] = st["quant_health"]
+                out["health_steps"] = eng.qh.steps
         if "quant" in run:
             out["act_scales"] = {
                 tag: [np.asarray(a.s, np.float32).view(np.int32)
@@ -1004,7 +1230,7 @@ def _reference_serve(cfg, params, run, prompts, slots=SLOTS):
 
 # the switches a reference step reads while it is traced
 TRACED_SWITCHES = ("REPRO_SERVE_PREQUANT", "REPRO_SERVE_DELAYED_ACT",
-                   "REPRO_DECODE_ATTN")
+                   "REPRO_DECODE_ATTN", "REPRO_KV_CACHE")
 
 
 def _share_steps():
@@ -1014,7 +1240,8 @@ def _share_steps():
     engines of one config share one jitted function per step and
     compile each input shape once, not once per engine.  Every run's
     weights come from ``SEED``, so their build-time scales, which the
-    steps close over, are equal within a key."""
+    steps close over, are equal within a key (the quant-health variant
+    of a step is a key of its own)."""
     import repro.launch.serve as jserve
     import repro.serving.engine as jengine
 
@@ -1025,8 +1252,8 @@ def _share_steps():
 
     def shared(name, make):
         def build(cfg, *args, **kw):
-            key = (name, cfg, args, tuple(os.environ.get(k)
-                                          for k in TRACED_SWITCHES))
+            key = (name, cfg, args, kw.get("quant_health", False),
+                   tuple(os.environ.get(k) for k in TRACED_SWITCHES))
             if key not in built:
                 built[key] = make(cfg, *args, **kw)
             return built[key]
@@ -1037,6 +1264,66 @@ def _share_steps():
                      "make_verify_step"):
             if hasattr(mod, name):
                 setattr(mod, name, shared(name, getattr(mod, name)))
+
+
+def _reference_health_steps() -> dict:
+    """``test_health_steps_match_reference``'s cases on the reference:
+    each step's health tree (lists of f32 values)."""
+    import jax.numpy as jnp
+
+    from repro.configs.registry import get_config as jax_get_config
+    from repro.models.layers import init_tree
+    from repro.models.transformer import model_defs
+    from repro.serving.engine import calibrate_serving, prepare_weights
+    from repro.train import steps as jsteps
+
+    out = {}
+    for case, (arch, kind) in sorted(HEALTH_CASES.items()):
+        cfg = jax_get_config(arch, smoke=True)
+        params = init_tree(model_defs(cfg), jax.random.PRNGKey(SEED))
+        w, sc, _ = prepare_weights(cfg, params)
+        act = calibrate_serving(cfg, w, sc)
+        prompts, feed = _health_feed(kind)
+        pre = jax.jit(jsteps.make_prefill_step(cfg, MAX_LEN, scales=sc,
+                                               act_scales=act))
+        make = (jsteps.make_decode_step if kind == "decode"
+                else jsteps.make_verify_step)
+        step = jax.jit(make(cfg, scales=sc, act_scales=act,
+                            quant_health=True))
+        _, caches = pre(w, {"tokens": jnp.asarray(prompts)})
+        _, _, tree = step(w, caches, jnp.asarray(feed))
+        out[case] = {tag: {k: np.asarray(v, np.float32).tolist()
+                           for k, v in st.items()}
+                     for tag, st in tree.items()}
+    return out
+
+
+def _reference_refresh() -> dict:
+    """The reference Engine's ``refresh_act_scales(tokens=...)`` and its
+    Server's (margin 1.5) on ``_refresh_tokens()``: f32 bit patterns of
+    each site's ``s`` and its ``sub`` exponents."""
+    import jax.numpy as jnp
+
+    from repro.configs.registry import get_config as jax_get_config
+    from repro.launch.serve import Server as JServer
+    from repro.models.layers import init_tree
+    from repro.models.transformer import model_defs
+    from repro.serving import Engine as JEngine
+
+    cfg = jax_get_config(ARCH, smoke=True)
+    params = init_tree(model_defs(cfg), jax.random.PRNGKey(SEED))
+    toks = jnp.asarray(_refresh_tokens())
+    acts = {"engine": JEngine(cfg, params, num_slots=SLOTS, max_len=MAX_LEN,
+                              chunk_tokens=CHUNK).refresh_act_scales(
+                                  tokens=toks),
+            "server": JServer(cfg, params, batch_slots=SLOTS,
+                              max_len=MAX_LEN).refresh_act_scales(
+                                  tokens=toks, margin=1.5)}
+    return {who: {tag: [np.asarray(a.s, np.float32).view(np.int32)
+                        .reshape(-1).tolist(),
+                        np.asarray(a.sub).reshape(-1).tolist()]
+                  for tag, a in act.items()}
+            for who, act in acts.items()}
 
 
 def _reference_child(out: str) -> None:
@@ -1068,6 +1355,10 @@ def _reference_child(out: str) -> None:
                            jax.random.PRNGKey(SEED))
         res[name] = _reference_spec_serve(cfg, params, run, _prompts(),
                                           res[run["truth"]]["streams"])
+    for k in SWITCHES:
+        os.environ.pop(k, None)
+    res["health_steps"] = _reference_health_steps()
+    res["refresh"] = _reference_refresh()
     with open(out, "w") as f:
         json.dump(res, f)
 
